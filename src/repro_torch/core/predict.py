@@ -1,0 +1,207 @@
+"""Rating prediction from selected neighbors (port of
+``repro.core.predict``).
+
+The mean-centred weighted-deviation predictor of the paper:
+
+    p(u, i) = r̄_u + Σ_{v ∈ N(u), v rated i} s_uv · (r_vi − r̄_v)
+              ───────────────────────────────────────────────────
+                        Σ_{v ∈ N(u), v rated i} s_uv
+
+falling back to r̄_u when no selected neighbor rated item i, clipped to
+[1, 5].  Forms: one-shot (``predict_from_neighbors``), item-tiled
+(``predict_from_neighbors_blocked``, optionally through the hand-written
+tile kernel), an explicit candidate list (``predict_items``), and the
+dense oracle (``predict_dense``).
+
+The k-reduction of :func:`_tile_predict` is an explicit loop k = 0..k−1
+that accumulates ``w[:, j] · dev_j`` — the order the CUDA tile kernel
+uses, so the plain and kernel paths agree bit for bit, and any tiling of
+the item axis reproduces the one-shot result bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.similarity import user_means
+
+_DEN_EPS = 1e-8
+
+
+def _int8_exact(ratings: torch.Tensor) -> bool:
+    """True iff every rating is an integer in [0, 127], i.e. an int8 copy
+    round-trips exactly (MovieLens-style 0..5 matrices qualify)."""
+    return bool(((ratings >= 0) & (ratings <= 127)
+                 & (ratings == torch.round(ratings))).all())
+
+
+def make_gather_source(ratings: torch.Tensor) -> torch.Tensor:
+    """Rating matrix as a gather operand: an int8 copy when that
+    round-trips exactly (the cast back to f32 is exact, so results are
+    unchanged bit for bit at 4× less gather traffic), the matrix itself
+    otherwise."""
+    return ratings.to(torch.int8) if _int8_exact(ratings) else ratings
+
+
+def patch_gather_source(src: torch.Tensor, ratings: torch.Tensor,
+                        touched: torch.Tensor) -> torch.Tensor:
+    """Refresh a cached :func:`make_gather_source` result for a row delta.
+
+    ``src`` is the operand of the *pre-delta* matrix, ``ratings`` the
+    post-delta matrix whose only changed rows are ``touched`` (padding ids
+    ≥ U are dropped).  Copy-on-write: the touched rows are scattered into a
+    fresh copy, so a concurrent reader holding the old operand stays valid.
+    A delta that breaks int8 exactness falls back to a full rebuild.
+    """
+    if src.dtype != torch.int8:
+        return ratings
+    touched = touched.to(ratings.device).long()
+    rows = touched[touched < ratings.shape[0]]
+    vals = ratings[rows]
+    if not _int8_exact(vals):
+        return make_gather_source(ratings)
+    out = src.clone()
+    out[rows] = vals.to(torch.int8)
+    return out
+
+
+def _tile_predict(w, nbr, nb_means, query_means):
+    """Per-tile predictor: (m, k) weights and neighbor means, (m, k, T)
+    gathered neighbor ratings (f32), (m,) query means → (m, T).
+
+    The k-reduction runs in order j = 0..k−1 with a separate multiply and
+    add per step — the order of the CUDA tile kernel."""
+    m, k, t = nbr.shape
+    num = torch.zeros((m, t), dtype=torch.float32, device=nbr.device)
+    den = torch.zeros((m, t), dtype=torch.float32, device=nbr.device)
+    for j in range(k):
+        r = nbr[:, j, :]
+        mask = (r > 0).float()
+        dev = (r - nb_means[:, j, None]) * mask
+        wj = w[:, j, None]
+        num = num + wj * dev
+        den = den + wj * mask
+    qm = query_means[:, None]
+    pred = qm + num / den.clamp_min(_DEN_EPS)
+    pred = torch.where(den > _DEN_EPS, pred, qm)
+    return pred.clamp(1.0, 5.0)
+
+
+def _neighbor_inputs(ratings, scores, idx, means, query_means):
+    """Common setup: safe gather ids, masked weights, neighbor means."""
+    if means is None:
+        means = user_means(ratings)
+    if query_means is None:
+        if scores.shape[0] != ratings.shape[0]:
+            raise ValueError("query_means is required when predicting for a "
+                             "subset of users")
+        query_means = means
+    safe_idx = torch.where(idx >= 0, idx, torch.zeros_like(idx))
+    w = torch.where((scores > 0.0) & (idx >= 0), scores,
+                    torch.zeros_like(scores))
+    return safe_idx, w, means[safe_idx.long()], query_means
+
+
+def predict_from_neighbors(ratings: torch.Tensor, scores: torch.Tensor,
+                           idx: torch.Tensor, *,
+                           means: torch.Tensor | None = None,
+                           query_means: torch.Tensor | None = None,
+                           ) -> torch.Tensor:
+    """One-shot gather form: (m, I) predictions for the m query users
+    (materialises the (m, k, I) neighbor-rating intermediate)."""
+    safe_idx, w, nb_means, query_means = _neighbor_inputs(
+        ratings, scores, idx, means, query_means)
+    return _tile_predict(w, ratings[safe_idx.long()], nb_means, query_means)
+
+
+def predict_from_neighbors_blocked(ratings: torch.Tensor,
+                                   scores: torch.Tensor, idx: torch.Tensor,
+                                   *, means: torch.Tensor | None = None,
+                                   query_means: torch.Tensor | None = None,
+                                   item_block: int = 512,
+                                   gather_src: torch.Tensor | None = None,
+                                   use_kernel: bool = False) -> torch.Tensor:
+    """Item-tiled form of :func:`predict_from_neighbors`: peak memory
+    O(m·k·item_block), bit-identical to the one-shot form.
+
+    With ``use_kernel`` each tile goes through
+    :func:`repro_torch.kernels.predict.fused_tile_predict`, which gathers
+    the neighbor rows inside the kernel (the (m, k, T) tile is never
+    materialised); on CPU tensors that wrapper runs its plain version.
+    """
+    safe_idx, w, nb_means, query_means = _neighbor_inputs(
+        ratings, scores, idx, means, query_means)
+    src = ratings if gather_src is None else gather_src
+    n_items = ratings.shape[1]
+    if use_kernel:
+        from repro_torch.kernels.predict import fused_tile_predict
+        ids32 = safe_idx.to(torch.int32).contiguous()
+        w = w.contiguous()
+        nb_means = nb_means.contiguous()
+        query_means = query_means.contiguous()
+    tiles = []
+    for lo in range(0, n_items, item_block):
+        hi = min(lo + item_block, n_items)
+        if use_kernel:
+            tiles.append(fused_tile_predict(src, ids32, w, nb_means,
+                                            query_means, lo, hi))
+        else:
+            nbr = src[:, lo:hi][safe_idx.long()].float()     # (m, k, T)
+            tiles.append(_tile_predict(w, nbr, nb_means, query_means))
+    return torch.cat(tiles, dim=1)
+
+
+def predict_items(ratings: torch.Tensor, scores: torch.Tensor,
+                  idx: torch.Tensor, item_ids: torch.Tensor, *,
+                  means: torch.Tensor | None = None,
+                  query_means: torch.Tensor | None = None,
+                  item_block: int = 512,
+                  gather_src: torch.Tensor | None = None) -> torch.Tensor:
+    """Predict only the (m, M) candidate items ``item_ids`` per user.
+    Out-of-range ids are gathered at a clipped position (the caller masks
+    those slots); a full ascending candidate list is bit-identical to the
+    blocked form."""
+    safe_idx, w, nb_means, query_means = _neighbor_inputs(
+        ratings, scores, idx, means, query_means)
+    src = ratings if gather_src is None else gather_src
+    n_items = ratings.shape[1]
+    rows = safe_idx.long()[:, :, None]
+    chunks = []
+    for lo in range(0, item_ids.shape[1], item_block):
+        ids = item_ids[:, lo:lo + item_block]
+        safe_items = ids.long().clamp(0, n_items - 1)[:, None, :]
+        nbr = src[rows, safe_items].float()                  # (m, k, T)
+        chunks.append(_tile_predict(w, nbr, nb_means, query_means))
+    return torch.cat(chunks, dim=1)
+
+
+def predict_dense(ratings: torch.Tensor, weight_matrix: torch.Tensor, *,
+                  means: torch.Tensor | None = None) -> torch.Tensor:
+    """Oracle: the same predictor via a dense (U, U) weight-matrix matmul."""
+    if means is None:
+        means = user_means(ratings)
+    mask = (ratings > 0).float()
+    dev = (ratings - means[:, None]) * mask
+    num = weight_matrix @ dev
+    den = weight_matrix @ mask
+    pred = means[:, None] + num / den.clamp_min(_DEN_EPS)
+    pred = torch.where(den > _DEN_EPS, pred, means[:, None])
+    return pred.clamp(1.0, 5.0)
+
+
+def recommend_topn(pred: torch.Tensor, seen_mask: torch.Tensor, n: int):
+    """Top-n unseen items per user: seen items score −inf; ties go to the
+    lower item id (a stable descending sort keeps index order within a
+    tie set)."""
+    masked = pred.masked_fill(seen_mask, float("-inf"))
+    vals, items = torch.sort(masked, dim=1, descending=True, stable=True)
+    return vals[:, :n], items[:, :n].to(torch.int32)
+
+
+def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int):
+    """``recommend_topn`` with sanitised ids: slots a user cannot fill
+    (fewer unseen items than ``n``) come back as item −1 with score −inf,
+    so an already-rated item is never returned."""
+    scores, items = recommend_topn(pred, seen_mask, n)
+    return scores, torch.where(scores == float("-inf"),
+                               torch.full_like(items, -1), items)

@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port (sources under ``csrc/``).
+
+Each kernel module holds the wrapper (launch on CUDA tensors, plain
+version on CPU tensors, a ``launches`` count) and its plain PyTorch
+version; ``ref.py`` holds the oracles under the reference's names and
+``_build.py`` compiles and loads the sources.  Importing builds nothing.
+"""

@@ -1,0 +1,101 @@
+"""Fused tile predictor: the hand-written CUDA kernel (``csrc/predict.cu``)
+and its plain PyTorch version.
+
+Port of the Pallas TPU kernel ``repro.kernels.predict.fused_tile_predict``
+(``_predict_kernel``).  The GPU form gathers inside the kernel: it reads
+the int8 (or f32) rating matrix by neighbor id over the item range
+``[lo, hi)``, so the (m, k, T) neighbor tile is never materialised.  It sits
+near the ridge point (see the note in the CUDA source).  The plain version is
+the same gather followed by ``repro_torch.core.predict._tile_predict``,
+whose k-reduction runs in the kernel's order — the two agree bit for bit.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises — it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.int8: 1}
+
+
+def tile_predict_plain(src: torch.Tensor, ids: torch.Tensor,
+                       w: torch.Tensor, nb_means: torch.Tensor,
+                       q_means: torch.Tensor, lo: int, hi: int
+                       ) -> torch.Tensor:
+    """Plain PyTorch version: gather the (m, k, T) tile, then the
+    ordered-k tile predictor."""
+    from repro_torch.core.predict import _tile_predict
+    nbr = src[:, lo:hi][ids.long()].float()
+    return _tile_predict(w, nbr, nb_means, q_means)
+
+
+def _lib():
+    lib = _build.load("predict")
+    fn = lib.repro_tile_predict
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_tile_predict(src: torch.Tensor, ids: torch.Tensor,
+                       w: torch.Tensor, nb_means: torch.Tensor,
+                       q_means: torch.Tensor, lo: int, hi: int
+                       ) -> torch.Tensor:
+    """(m, hi − lo) f32 predictions for items ``[lo, hi)``.
+
+    ``src``: (U, I) gather source, int8 or f32 (``make_gather_source``);
+    ``ids``: (m, k) int32 neighbor ids, already clipped into [0, U);
+    ``w``: (m, k) masked weights (invalid neighbors at 0); ``nb_means``:
+    (m, k) neighbor means; ``q_means``: (m,) query means.  CUDA tensors
+    launch the kernel on the current stream (output from ``torch.empty``,
+    no synchronisation) and add one to ``fused_tile_predict.launches``;
+    CPU tensors run the plain version.
+    """
+    if src.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"need (U, I) src and (m, k) ids, got "
+                         f"{tuple(src.shape)} and {tuple(ids.shape)}")
+    m, k = ids.shape
+    if w.shape != (m, k) or nb_means.shape != (m, k) \
+            or q_means.shape != (m,):
+        raise ValueError(f"w/nb_means must be {(m, k)} and q_means {(m,)}, "
+                         f"got {tuple(w.shape)}, {tuple(nb_means.shape)}, "
+                         f"{tuple(q_means.shape)}")
+    if not 0 <= lo < hi <= src.shape[1]:
+        raise ValueError(f"bad item range [{lo}, {hi}) for {src.shape[1]} "
+                         f"items")
+    tensors = (src, ids, w, nb_means, q_means)
+    if any(t.device != src.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if src.device.type == "cpu":
+        return tile_predict_plain(src, ids, w, nb_means, q_means, lo, hi)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    if src.dtype not in _DTYPES or ids.dtype != torch.int32 \
+            or any(t.dtype != torch.float32 for t in (w, nb_means, q_means)):
+        raise TypeError(f"need int8/f32 src, int32 ids and f32 weights and "
+                        f"means, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    out = torch.empty((m, hi - lo), dtype=torch.float32, device=src.device)
+    if m:
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib()(src.data_ptr(), _DTYPES[src.dtype],
+                            src.shape[0], src.shape[1], ids.data_ptr(),
+                            w.data_ptr(), nb_means.data_ptr(),
+                            q_means.data_ptr(), out.data_ptr(), m, k, lo, hi,
+                            stream)
+        _build.check(status, "fused_tile_predict")
+        fused_tile_predict.launches += 1
+    return out
+
+
+fused_tile_predict.launches = 0

@@ -1,0 +1,47 @@
+"""Shared parity helpers for the PyTorch port's tests (``test_torch_*``).
+
+Inputs are made with numpy from a seed and handed to both packages; the
+helpers compare a port result (torch tensor) with a reference result (jax
+or numpy array): bitwise where the contract is exact, within a stated
+absolute tolerance elsewhere.  Every comparison prints one
+``PARITY <name> max_abs_diff=<x> atol=<t>`` line (``pytest -s`` shows
+them), the source of the parity table in PERF.md.
+"""
+
+import numpy as np
+import torch
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def int_ratings(rng, u, d, density=0.4) -> np.ndarray:
+    """Integer ratings 1..5 at ``density``, 0 = unrated, float32."""
+    return (rng.integers(1, 6, (u, d))
+            * (rng.random((u, d)) < density)).astype(np.float32)
+
+
+def max_abs_diff(got, want) -> float:
+    g = to_np(got).astype(np.float64)
+    w = to_np(want).astype(np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if g.size == 0:
+        return 0.0
+    same_inf = np.isinf(g) & (g == w)
+    with np.errstate(invalid="ignore"):
+        return float(np.max(np.where(same_inf, 0.0, np.abs(g - w))))
+
+
+def assert_parity(name: str, got, want, atol: float = 0.0) -> float:
+    """Bitwise (``atol=0``) or ``atol``-close; prints the max diff."""
+    d = max_abs_diff(got, want)
+    print(f"PARITY {name} max_abs_diff={d!r} atol={atol!r}")
+    if atol == 0.0:
+        np.testing.assert_array_equal(to_np(got), to_np(want), err_msg=name)
+    else:
+        np.testing.assert_allclose(to_np(got), to_np(want), rtol=0,
+                                   atol=atol, err_msg=name)
+    return d

@@ -1,0 +1,212 @@
+"""Port parity: the exact ``CFEngine`` (both port backends, on the CPU)
+against the JAX reference engine on the ``ml_small`` split (384 × 300):
+neighbor ids identical and scores within 2e-5, recommend ids identical up
+to ties at the cut, incremental updates bitwise equal to a cold fit, the
+reference's ``state()`` carried into the port, and the held-out MAE."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_parity, to_np
+from repro.core import metrics as ref_metrics
+from repro.core.facade import CFEngine as RefEngine
+from repro_torch.core import metrics
+from repro_torch.core.facade import BACKENDS, CFEngine
+from repro_torch.core.similarity import SIMILARITY_MEASURES
+from repro_torch.state import from_reference_state
+
+K = 10
+
+
+@pytest.fixture(scope="module")
+def ref_engines(ml_small):
+    train = ml_small[0]
+    return {m: RefEngine(jnp.asarray(train), measure=m, k=K,
+                         block_size=128).fit()
+            for m in SIMILARITY_MEASURES}
+
+
+def _port(train, measure, backend, **kw):
+    return CFEngine(train, measure=measure, k=K, block_size=128,
+                    backend=backend, device="cpu", **kw).fit()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("measure", SIMILARITY_MEASURES)
+def test_neighbors_match_reference(ml_small, ref_engines, measure, backend):
+    eng = _port(ml_small[0], measure, backend)
+    s, i = eng.neighbors()
+    r_s, r_i = ref_engines[measure].neighbors()
+    assert_parity(f"engine.{backend}.{measure}.ids", i, r_i)
+    assert_parity(f"engine.{backend}.{measure}.scores", s, r_s, atol=2e-5)
+
+
+def test_backends_agree_bitwise(ml_small):
+    a = _port(ml_small[0], "pcc", "sequential")
+    b = _port(ml_small[0], "pcc", "kernel")
+    assert torch.equal(a.idx, b.idx) and torch.equal(a.scores, b.scores)
+    assert torch.equal(a.recommend(n=10)[1], b.recommend(n=10)[1])
+
+
+def _assert_recommend_tie_aware(name, got_i, want_i, pred):
+    """Ids identical, except where the two predictions at the cut are
+    within 1e-5 (a near-tie the two packages may round either way)."""
+    got_i, want_i, pred = to_np(got_i), to_np(want_i), to_np(pred)
+    bad = np.nonzero((got_i != want_i).any(axis=1))[0]
+    for u in bad:
+        j = int(np.argmax(got_i[u] != want_i[u]))
+        a, b = got_i[u, j], want_i[u, j]
+        assert a >= 0 and b >= 0, (name, u, got_i[u], want_i[u])
+        assert abs(pred[u, a] - pred[u, b]) <= 1e-5, (name, u, a, b)
+    print(f"PARITY {name} rows_differing_at_near_ties={len(bad)}")
+
+
+@pytest.mark.parametrize("measure", ["pcc", "cosine"])
+def test_recommend_matches_reference(ml_small, ref_engines, measure):
+    ref = ref_engines[measure]
+    _, want = ref.recommend(n=10)
+    for backend in BACKENDS:
+        eng = _port(ml_small[0], measure, backend)
+        _, got = eng.recommend(n=10)
+        _assert_recommend_tie_aware(f"recommend.{backend}.{measure}", got,
+                                    want, eng.predict())
+        sub = [5, 0, 383, 5]
+        _, got_sub = eng.recommend(sub, n=10)
+        assert torch.equal(got_sub, got[sub])
+        seen = eng.ratings > 0
+        for u in range(eng.n_users):
+            row = got[u][got[u] >= 0].long()
+            assert not seen[u, row].any()
+
+
+def test_predict_and_mae_match_reference(ml_small, ref_engines):
+    train, test, _ = ml_small
+    ref = ref_engines["pcc"]
+    eng = _port(train, "pcc", "kernel")
+    pred = eng.predict()
+    assert_parity("engine.predict", pred, ref.predict(), atol=2e-5)
+    got = float(metrics.mae(pred, torch.from_numpy(test)))
+    want = float(ref_metrics.mae(ref.predict(), jnp.asarray(test)))
+    print(f"PARITY engine.mae max_abs_diff={abs(got - want)!r} atol=1e-06")
+    assert abs(got - want) <= 1e-6
+    assert abs(float(metrics.rmse(pred, torch.from_numpy(test)))
+               - float(ref_metrics.rmse(ref.predict(), jnp.asarray(test)))
+               ) <= 1e-6
+    p = metrics.precision_recall_f1(pred, torch.from_numpy(test))
+    r = ref_metrics.precision_recall_f1(ref.predict(), jnp.asarray(test))
+    for key in ("tp", "fp", "fn", "tn"):
+        assert float(p[key]) == float(r[key])
+    for key in ("precision", "recall", "f1"):
+        assert abs(float(p[key]) - float(r[key])) <= 1e-6
+
+
+def _delta(rng, u, d, n_users_touched, per_user=4):
+    us = rng.choice(u, n_users_touched, replace=False)
+    uids = np.repeat(us, per_user).astype(np.int32)
+    iids = rng.integers(0, d, uids.size).astype(np.int32)
+    vals = rng.integers(0, 6, uids.size).astype(np.float32)   # 0 = delete
+    return uids, iids, vals
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("measure", SIMILARITY_MEASURES)
+def test_update_equals_cold_fit_bitwise(ml_small, measure, backend):
+    train = ml_small[0]
+    u, d = train.shape
+    rng = np.random.default_rng(11)
+    eng = _port(train, measure, backend)
+    want = train.copy()
+    for _ in range(3):                      # repeated updates stay exact
+        uids, iids, vals = _delta(rng, u, d, n_users_touched=3)
+        stats = eng.update_ratings(uids, iids, vals, oracle_check=True)
+        assert stats.oracle_ok
+        assert stats.n_touched == len(np.unique(uids))
+        assert stats.n_affected + stats.n_merged == u
+        for uu, ii, vv in zip(uids, iids, vals):
+            want[uu, ii] = vv
+    assert np.array_equal(to_np(eng.ratings), want)
+    cold = _port(want, measure, backend)
+    assert torch.equal(cold.idx, eng.idx)
+    assert torch.equal(cold.scores, eng.scores)
+    assert torch.equal(cold.means, eng.means)
+    assert eng.ratings_version == 3
+
+
+def test_update_duplicates_last_wins_and_matches_reference(ml_small):
+    train = ml_small[0]
+    ref = RefEngine(jnp.asarray(train), measure="pcc", k=K,
+                    block_size=128).fit()
+    eng = _port(train, "pcc", "sequential")
+    uids = np.array([7, 7, 7, 40, 40], np.int32)
+    iids = np.array([3, 3, 9, 1, 1], np.int32)
+    vals = np.array([5.0, 2.0, 0.0, 4.0, 1.0], np.float32)
+    st = eng.update_ratings(uids, iids, vals, oracle_check=True)
+    ref.update_ratings(uids, iids, vals)
+    assert st.n_deltas == 3                        # (7,3) (7,9) (40,1)
+    r = to_np(eng.ratings)
+    assert r[7, 3] == 2.0 and r[7, 9] == 0.0 and r[40, 1] == 1.0
+    assert_parity("update.ratings", eng.ratings, ref.ratings)
+    assert_parity("update.ids", eng.idx, ref.idx)
+    assert_parity("update.scores", eng.scores, ref.scores, atol=2e-5)
+    assert_parity("update.means", eng.means, ref.means)
+    empty = eng.update_ratings([], [], [])
+    assert empty.n_deltas == 0
+    with pytest.raises(ValueError):
+        eng.update_ratings([10_000], [0], [1.0])
+    with pytest.raises(ValueError):
+        eng.update_ratings([0], [0, 1], [1.0])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_reference_state_carries_into_port(ml_small, ref_engines, backend):
+    ref = ref_engines["pcc"]
+    tree = ref.state()
+    carried = from_reference_state(tree, "cpu")
+    assert carried["version"] == ref.ratings_version
+    eng = CFEngine(np.zeros((1, 1), np.float32), measure="pcc", k=K,
+                   backend=backend, device="cpu").load_state(tree)
+    _, want = ref.recommend(n=10)
+    _, got = eng.recommend(n=10)
+    _assert_recommend_tie_aware(f"state.recommend.{backend}", got, want,
+                                eng.predict())
+    eng2 = CFEngine(np.zeros((1, 1), np.float32), measure="pcc", k=K,
+                    backend=backend, device="cpu").load_state(carried)
+    assert torch.equal(eng2.recommend(n=10)[1], got)
+    # the port's own state round-trips and keeps the reference layout
+    own = eng.state()
+    assert set(own) == set(tree) == set(eng.state_template())
+    for key in ("ratings", "scores", "idx", "means", "cnt", "tot"):
+        assert own[key].dtype == np.asarray(tree[key]).dtype, key
+        assert np.array_equal(own[key], np.asarray(tree[key])), key
+
+
+def test_state_with_index_is_refused(ml_small, ref_engines):
+    tree = dict(ref_engines["pcc"].state())
+    tree["index"] = {"centroids": np.zeros((2, 2))}
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        from_reference_state(tree, "cpu")
+
+
+def test_missing_card_raises_and_unported_options(monkeypatch):
+    r = np.ones((4, 3), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CFEngine(r)
+    for bad in ("sharded", "ring", "pallas"):
+        with pytest.raises(NotImplementedError):
+            CFEngine(r, backend=bad, device="cpu")
+    with pytest.raises(NotImplementedError):
+        CFEngine(r, neighbor_mode="approx", device="cpu")
+    with pytest.raises(NotImplementedError):
+        CFEngine(r, recommend_mode="approx", device="cpu")
+    with pytest.raises(ValueError):
+        CFEngine(r, backend="threads", device="cpu")
+    with pytest.raises(ValueError):
+        CFEngine(r, measure="euclid", device="cpu")
+    eng = CFEngine(r, k=2, device="cpu").fit()
+    with pytest.raises(NotImplementedError):
+        eng.recommend(mode="approx")
+    with pytest.raises(ValueError):
+        eng.recommend(n_probe=4)

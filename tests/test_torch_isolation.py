@@ -1,0 +1,58 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro`` (an
+AST scan), every kernel wrapper carries a launch count, and each CUDA
+source names the TPU kernel it replaces and its bound."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "__import__" and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    assert path.exists(), path
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for want in ("core/facade.py", "kernels/similarity.py",
+                 "kernels/predict.py", "serving/engine.py",
+                 "launch/serve.py", "state.py", "device.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("name,replaces", [
+    ("similarity", "repro/kernels/similarity.py"),
+    ("predict", "repro/kernels/predict.py"),
+])
+def test_kernel_sources_and_wrappers(name, replaces):
+    import importlib
+    src = (PORT / "csrc" / f"{name}.cu").read_text()
+    assert replaces in src and "Bound." in src
+    assert 'extern "C"' in src and "cudaGetLastError" in src
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    wrapper = (mod.fused_similarity if name == "similarity"
+               else mod.fused_tile_predict)
+    assert isinstance(wrapper.launches, int)
