@@ -17,12 +17,30 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    are zeroed just before and read just after, and must be > 0.  Then the
    sequential backend (plain torch) must give the same neighbor and item
    ids, and a small input must agree between the CPU path and the card;
-4. each kernel's time against its plain version, a library yardstick
-   and its bound, at the main path's shapes (CUDA events);
-5. ``torch.profiler``: where the device time of a steady fit and of
-   recommend(all users) goes, and the device's busy share.
+4. the approximate index's kernels (centroid distances, scan / select
+   top-M, co-rated rerank) against their plain versions on the card, at
+   ragged shapes (ids equal, values within 1e-6, 0 expected);
+5. the approx path at 6040 × 3952, pcc, k = 40, default ``IndexConfig``:
+   ``CFEngine(neighbor_mode="approx", backend="kernel")`` fit →
+   ``recall_vs_exact`` → a cluster-restricted query (n_probe 4, 1024
+   users) → ``update_ratings`` (oracle-checked) → a ``BatchingServer``
+   answering 256 requests, with the launch counts zeroed before and read
+   after (kernels 3-6 must be > 0); then the same engine with
+   ``IndexConfig(use_kernel=False)`` (the plain versions, on the card) must
+   give equal spill ids and distances, centroids, shortlists, neighbor ids
+   and scores, and two fits must give identical centroids;
+6. the scale phase at U = 32768 (``BENCH_index.json``'s
+   ``index_cosine_U32768`` row: cosine, k = 20, raw features,
+   project_dim 512, rerank_frac 0.02, seed 0): index fit and full query
+   against the exact kernel-backend top-k; recall@20 ≥ 0.94;
+7. each kernel's time against its plain version, a library yardstick
+   and its bound, at the main paths' shapes (CUDA events);
+8. ``torch.profiler``: where the device time of a steady exact fit, of
+   recommend(all users) and of an approx query goes, and the device's
+   busy share.
 
-Then one ``{"kernels": [...]}`` line with times, bounds and launch counts.
+Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
+for all six kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -45,7 +63,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM bandwidth and f32 on the CUDA
-# cores — both kernels run f32 arithmetic outside the tensor cores
+# cores — every kernel runs f32 arithmetic outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 TOL = 1e-6
@@ -62,9 +80,14 @@ def check(cond: bool, what: str) -> None:
 
 
 def max_diff(a, b) -> float:
+    """Max |a − b|, with equal entries (equal infinities too) at 0."""
     if isinstance(a, tuple):
         return max(max_diff(x, y) for x, y in zip(a, b))
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    a, b = a.float(), b.float()
+    return float(torch.where(a == b, torch.zeros_like(a),
+                             (a - b).abs()).max())
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -259,8 +282,272 @@ def phase_small_cross_check(dev):
     return e
 
 
+def index_wrappers():
+    """The approximate index's kernel wrappers, by kernel name."""
+    from repro_torch.kernels.cluster import fused_centroid_distances
+    from repro_torch.kernels.rerank import fused_rerank_scores
+    from repro_torch.kernels.select import fused_scan_topm, select_topm
+    return {"cluster": fused_centroid_distances, "scan": fused_scan_topm,
+            "select": select_topm, "rerank": fused_rerank_scores}
+
+
+def unit_rows(rng, n, d, dev):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(dev)
+
+
+def check_topm(name, got, want, err, key):
+    """Ids equal, values within TOL; returns the max value diff."""
+    check(torch.equal(got[1], want[1]), f"{name} ids equal")
+    e = max_diff(got[0], want[0])
+    err[key] = max(err[key], e)
+    check(e <= TOL, f"{name} values diff {e}")
+    log(f"  {name} ids equal, max_abs_diff={e!r}")
+
+
+def phase_index_kernels(dev, rng, train_dev):
+    """Phase 4: kernels 3-6 against their plain versions on the card."""
+    from repro_torch.kernels.cluster import (centroid_distances_plain,
+                                             fused_centroid_distances)
+    from repro_torch.kernels.rerank import (fused_rerank_scores,
+                                            rerank_scores_plain)
+    from repro_torch.kernels.select import (fused_scan_topm,
+                                            scan_topm_plain, select_topm,
+                                            select_topm_twin)
+    err = {"cluster": 0.0, "scan": 0.0, "select": 0.0, "rerank": 0.0}
+    for (m, d), n in (((257, 256), 78), ((1, 17), 33), ((6040, 256), 78)):
+        x, c = unit_rows(rng, m, d, dev), unit_rows(rng, n, d, dev)
+        full = fused_centroid_distances(x, c)
+        e = max_diff(full, centroid_distances_plain(x, c))
+        err["cluster"] = max(err["cluster"], e)
+        check(e == 0.0, f"centroid distances ({m},{d})x({n},{d}) diff {e}")
+        rows = torch.arange(0, m, 3, device=dev)[:16]
+        check(torch.equal(fused_centroid_distances(x[rows].contiguous(), c),
+                          full[rows]),
+              f"centroid distances batch invariance ({m},{d})")
+        log(f"  centroid_distances ({m},{d})x({n},{d}) max_abs_diff={e!r}; "
+            f"row subset bitwise equal to the full call")
+    # kernels 4/5: the reference Pallas kernel's failing shape, duplicated
+    # pool rows (exact ties across merge blocks), m > N
+    for q_n, n, p, m, dup in ((130, 257, 33, 17, 1), (21, 240, 12, 25, 8),
+                              (9, 40, 8, 999, 1), (2048, 6040, 256, 906, 1)):
+        q = unit_rows(rng, q_n, p, dev)
+        prox = unit_rows(rng, n // dup, p, dev).repeat_interleave(dup, 0)
+        prox = prox.contiguous()
+        q_ids = torch.arange(q_n, dtype=torch.int32, device=dev)
+        q_ids[::7] = n                               # padding queries
+        check_topm(f"scan_topm Q={q_n} N={n} P={p} m={m} dup={dup}",
+                   fused_scan_topm(q, prox, q_ids, m=m),
+                   scan_topm_plain(q, prox, q_ids, min(m, n)), err, "scan")
+    for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64)):
+        sc = torch.from_numpy(
+            rng.integers(-40, 41, (q_n, n)).astype(np.float32) / 8).to(dev)
+        sc[torch.rand(sc.shape, device=dev) < 0.1] = float("-inf")
+        sc[1] = float("-inf")                        # an all -inf row
+        none = torch.full((q_n,), -1, dtype=torch.int32, device=dev)
+        got = select_topm(sc, none, m=m)
+        check(bool((got[1][1] == n).all()), "all -inf row carries sentinel")
+        check_topm(f"select_topm Q={q_n} N={n} m={m} (ties, -inf rows)",
+                   got, select_topm_twin(sc, none, m=m), err, "select")
+    q = train_dev[:37].contiguous()
+    cand = train_dev[100:231].contiguous()
+    norms = torch.sqrt((cand.double() ** 2).sum(1)).float()
+    counts = (cand > 0).sum(1).float()
+    for measure in ("jaccard", "cosine", "pcc", "pcc_sig"):
+        for dtype in (torch.float32, torch.int8):
+            for beta in (50.0, 7.3):
+                c = cand.to(dtype)
+                e = max_diff(fused_rerank_scores(q, c, norms, counts,
+                                                 measure=measure, beta=beta),
+                             rerank_scores_plain(q, c, norms, counts,
+                                                 measure=measure, beta=beta))
+                err["rerank"] = max(err["rerank"], e)
+                check(e <= TOL, f"rerank {measure} {dtype} beta {beta} "
+                                f"diff {e}")
+        log(f"  rerank_scores {measure:8s} (37,3952)x(131,3952) f32+int8, "
+            f"beta 50/7.3 max_abs_diff={err['rerank']!r}")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_approx(dev, train):
+    """Phase 5: the approx-neighbour path through the public entry points,
+    then the same engine on the plain versions."""
+    import dataclasses
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.index import ClusteredIndex, IndexConfig
+    from repro_torch.index import clustered as tcl
+    from repro_torch.kernels.predict import fused_tile_predict
+    from repro_torch.kernels.similarity import fused_similarity
+    from repro_torch.serving.engine import BatchingServer
+
+    wrappers = index_wrappers()
+    out = {}
+    for fn in (fused_similarity, fused_tile_predict, *wrappers.values()):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                   neighbor_mode="approx", device=dev).fit()
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    ix = eng.index
+    fitted = {"idx": eng.idx.clone(), "scores": eng.scores.clone(),
+              "state": {k: np.array(v) for k, v in ix.state().items()}}
+    lq = ix.last_query
+    out["query"] = {"rerank_fraction": lq.rerank_fraction,
+                    "seconds_shortlist": lq.seconds_shortlist,
+                    "seconds_rerank": lq.seconds_rerank,
+                    "seconds_total": lq.seconds_total,
+                    "scan_mode": lq.scan_mode, "n_reranked": lq.n_reranked}
+    out["config"] = {"n_clusters": ix.n_clusters, "n_probe": ix.n_probe,
+                     "spill": ix.spill_ids.shape[1],
+                     "project_dim": ix.proxies.shape[1],
+                     "max_rerank": ix._max_rerank(40)}
+    check(tuple(eng.idx.shape) == (train.shape[0], 40), "approx cache shape")
+    ok = eng.idx >= 0
+    check(bool(torch.isfinite(eng.scores[ok]).all()), "finite scores")
+    check(lq.scan_mode == "kernel", f"scan mode {lq.scan_mode}")
+
+    t0 = time.perf_counter()
+    out["recall"] = eng.recall_vs_exact(sample=1024)
+    out["recall_s"] = time.perf_counter() - t0
+    check(0.0 < out["recall"] <= 1.0, f"recall {out['recall']}")
+
+    cfg_c = dataclasses.replace(ix.cfg, shortlist_scan_mode="cluster")
+    users = np.arange(1024)
+    ix_c = ClusteredIndex(cfg_c).load_state(fitted["state"], device=dev)
+    t0 = time.perf_counter()
+    s_c, i_c = ix_c.query(eng.ratings, eng.means, users, k=40,
+                          measure="pcc", n_probe=4)
+    torch.cuda.synchronize()
+    lq_c = ix_c.last_query
+    out["cluster_query"] = {"seconds": time.perf_counter() - t0,
+                            "scan_mode": lq_c.scan_mode,
+                            "rerank_fraction": lq_c.rerank_fraction}
+    check(lq_c.scan_mode == "cluster", "cluster-restricted scan ran")
+
+    rng = np.random.default_rng(5)
+    uids = np.repeat(rng.choice(train.shape[0], 16, replace=False), 4)
+    iids = rng.integers(0, train.shape[1], uids.size)
+    vals = rng.integers(0, 6, uids.size).astype(np.float32)
+    t0 = time.perf_counter()
+    st = eng.update_ratings(uids.astype(np.int32), iids.astype(np.int32),
+                            vals, oracle_check=True)
+    out["update_s"] = time.perf_counter() - t0
+    check(st.oracle_ok is True, "approx update_ratings oracle")
+    out["refold"] = dataclasses.asdict(ix.last_refold)
+
+    server = BatchingServer(eng, max_batch=32, topn=10, device=dev)
+    server.start()
+    req = np.random.default_rng(1).integers(0, train.shape[0], 256)
+    t0 = time.perf_counter()
+    futs = [server.submit(int(u)) for u in req]
+    res = [f.result(timeout=300) for f in futs]
+    wall = time.perf_counter() - t0
+    server.stop()
+    _, want = eng.recommend(req, n=10)
+    want = want.cpu().numpy()
+    for r, u, w in zip(res, req, want):
+        check(r.user == int(u) and np.array_equal(r.items, w),
+              f"approx served answer for user {u} equals engine.recommend")
+    stats = server.stats()
+    out.update(serve_req_per_s=256 / wall, p50_ms=stats["latency_p50_ms"],
+               p99_ms=stats["latency_p99_ms"])
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    for name, n in out["launches"].items():
+        check(n > 0, f"{name} kernel launched on the approx path")
+
+    # the same engine on the plain versions (use_kernel=False), on the card
+    t0 = time.perf_counter()
+    plain = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                     neighbor_mode="approx", device=dev,
+                     index_cfg=dataclasses.replace(ix.cfg, use_kernel=False)
+                     ).fit()
+    torch.cuda.synchronize()
+    out["plain_fit_s"] = time.perf_counter() - t0
+    pst = plain.index.state()
+    for key in ("spill_ids", "spill_dist", "centroids", "proxies", "counts"):
+        check(np.array_equal(pst[key], fitted["state"][key]),
+              f"kernel vs plain index: {key} equal")
+    check(torch.equal(plain.idx, fitted["idx"]), "kernel vs plain ids")
+    check(torch.equal(plain.scores, fitted["scores"]),
+          "kernel vs plain scores")
+    n = train.shape[0]
+    q_ids = torch.arange(2048, dtype=torch.int32, device=dev)
+    m = min(ix._max_rerank(40), n)
+    prox = torch.from_numpy(fitted["state"]["proxies"]).to(dev)
+    sk = tcl._fused_scan_pool(prox, q_ids, m=m, use_kernel=True)
+    sp = tcl._fused_scan_pool(prox, q_ids, m=m, use_kernel=False)
+    check(torch.equal(sk[1], sp[1]), "kernel vs plain shortlists (block 0)")
+    ix_cp = ClusteredIndex(dataclasses.replace(cfg_c, use_kernel=False)
+                           ).load_state(fitted["state"], device=dev)
+    s_cp, i_cp = ix_cp.query(plain.ratings, plain.means, users, k=40,
+                             measure="pcc", n_probe=4)
+    check(torch.equal(i_cp, i_c) and torch.equal(s_cp, s_c),
+          "kernel vs plain cluster-restricted query")
+    twice = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                     neighbor_mode="approx", device=dev).fit()
+    check(torch.equal(twice.index.centroids,
+                      torch.from_numpy(fitted["state"]["centroids"]).to(dev)),
+          "two k-means fits give identical centroids")
+    check(torch.equal(twice.idx, fitted["idx"]), "two fits: same neighbors")
+    torch.cuda.synchronize()
+    return out, eng
+
+
+def phase_scale(dev):
+    """Phase 6: the index at U = 32768 (BENCH_index.json's
+    index_cosine_U32768 row) against the exact kernel-backend top-k."""
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.core.similarity import user_stats
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.index import ClusteredIndex, IndexConfig
+    out = {}
+    t0 = time.perf_counter()
+    train, _, _ = load_ml1m_synthetic(n_users=32768, n_items=3952, seed=0)
+    out["data_s"] = time.perf_counter() - t0
+    out["ratings"] = int((train > 0).sum())
+    r = torch.from_numpy(train).to(dev)
+    del train
+    means = user_stats(r)[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ix = ClusteredIndex(IndexConfig(seed=0, features="raw",
+                                    rerank_frac=0.02, project_dim=512))
+    t0 = time.perf_counter()
+    ix.fit(r, means)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, got_i = ix.query(r, means, k=20, measure="cosine")
+    torch.cuda.synchronize()
+    out["query_s"] = time.perf_counter() - t0
+    lq = ix.last_query
+    out["query"] = {"rerank_fraction": lq.rerank_fraction,
+                    "seconds_shortlist": lq.seconds_shortlist,
+                    "seconds_rerank": lq.seconds_rerank,
+                    "scan_mode": lq.scan_mode}
+    out["n_clusters"], out["n_probe"] = ix.n_clusters, ix.n_probe
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    exact = CFEngine(r, measure="cosine", k=20, backend="kernel",
+                     device=dev).fit()
+    torch.cuda.synchronize()
+    out["exact_s"] = time.perf_counter() - t0
+    ex = exact.idx
+    hits = (ex[:, :, None] == got_i[:, None, :]).any(-1) & (ex >= 0)
+    out["recall"] = float(hits.sum()) / max(int((ex >= 0).sum()), 1)
+    check(out["recall"] >= 0.94, f"recall@20 {out['recall']} < 0.94")
+    check(bool(torch.isfinite(exact.scores).all()), "finite exact scores")
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_timings(dev, eng, err, launches):
-    """Phase 4: kernel vs plain vs library at the main path's shapes."""
+    """Phase 7 (exact kernels): kernel vs plain vs library at the exact
+    main path's shapes."""
     from repro_torch.core import predict as pr
     from repro_torch.kernels.predict import (fused_tile_predict,
                                              tile_predict_plain)
@@ -327,14 +614,145 @@ def phase_timings(dev, eng, err, launches):
     ]
 
 
-def phase_profile(eng) -> None:
-    """Phase 5: where the device time of a steady fit and of
-    recommend(all users) goes (device-side events only: kernels and
-    copies, so no operator's time is counted twice)."""
+def phase_index_timings(dev, eng, err, launches):
+    """Phase 7 (index kernels): kernel vs plain vs library at the approx
+    path's shapes — one 2048-query block at 6040 users for the scan and
+    the rerank, the cluster query's first 256-query block for the
+    select."""
+    from repro_torch.index import clustered as tcl
+    from repro_torch.kernels.cluster import (centroid_distances_plain,
+                                             fused_centroid_distances)
+    from repro_torch.kernels.ref import proxy_scores_ref
+    from repro_torch.kernels.rerank import (fused_rerank_scores,
+                                            rerank_scores_plain)
+    from repro_torch.kernels.select import (fused_scan_topm,
+                                            scan_topm_plain, select_topm,
+                                            select_topm_twin)
+    ix = eng.index
+    ratings = eng.ratings
+    n, d_items = ratings.shape
+    rows = []
+
+    def row(name, source, replaces, key, ms, plain_ms, lib_ms, e, n_bytes,
+            n_ops, shape):
+        bound, by = bound_ms(n_bytes, n_ops)
+        err[key] = max(err[key], e)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[key],
+                     "max_abs_err": err[key], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms, "shape": shape})
+
+    # kernel 3: every proxy row against the centroids (spill / refold)
+    x, c = ix.proxies, ix.centroids
+    m, p = x.shape
+    nc = c.shape[0]
+    e = max_diff(fused_centroid_distances(x, c),
+                 centroid_distances_plain(x, c))
+    check(e == 0.0, f"centroid distances at timing shape diff {e}")
+    row("fused_centroid_distances", "src/repro_torch/csrc/cluster.cu",
+        "src/repro/kernels/cluster.py:73", "cluster",
+        time_ms(lambda: fused_centroid_distances(x, c), reps=50),
+        time_ms(lambda: centroid_distances_plain(x, c), reps=5),
+        time_ms(lambda: torch.cdist(x, c).square(), reps=50), e,
+        ((m + nc) * p + m * nc) * 4.0,
+        2.0 * m * nc * p + 2.0 * (m + nc) * p + 3.0 * m * nc,
+        f"({m},{p})x({nc},{p})")
+
+    # kernel 4: one 2048-query block of the full-pool scan
+    q_n = min(2048, n)
+    mm = min(ix._max_rerank(eng.k), n)
+    q = x[:q_n].contiguous()
+    q_ids = torch.arange(q_n, dtype=torch.int32, device=dev)
+    got = fused_scan_topm(q, x, q_ids, m=mm)
+    want = scan_topm_plain(q, x, q_ids, mm)
+    check(torch.equal(got[1], want[1]), "scan ids at timing shape")
+    e = max_diff(got[0], want[0])
+    check(e <= TOL, f"scan values at timing shape diff {e}")
+    row("fused_scan_topm", "src/repro_torch/csrc/select.cu",
+        "src/repro/kernels/select.py:120", "scan",
+        time_ms(lambda: fused_scan_topm(q, x, q_ids, m=mm)),
+        time_ms(lambda: scan_topm_plain(q, x, q_ids, mm), reps=3),
+        time_ms(lambda: torch.topk(torch.matmul(q, x.T), mm)), e,
+        (q_n + n) * p * 4.0 + q_n * 4.0 + q_n * mm * 8.0,
+        2.0 * q_n * n * p, f"Q={q_n} N={n} P={p} m={mm}")
+    shorts = got[1]
+
+    # kernel 5: the cluster-restricted select of the cluster query's first
+    # block (n_probe 4, 256 queries)
+    ids = torch.arange(256, device=dev)
+    probe = tcl._probe_clusters(x, c, ids, n_probe=4,
+                                use_kernel=True).cpu().numpy()
+    cand = np.sort(ix._cluster_candidates(np.unique(probe)))
+    cand_pad = np.full((tcl._bucket(len(cand)),), n, np.int64)
+    cand_pad[:len(cand)] = cand
+    cand_pad = torch.from_numpy(cand_pad).to(dev)
+    sp = proxy_scores_ref(x[ids], x[cand_pad.clamp_max(n - 1)])
+    sp = sp.masked_fill((cand_pad[None, :] >= n)
+                        | (cand_pad[None, :] == ids[:, None]),
+                        float("-inf")).contiguous()
+    none = torch.full((256,), -1, dtype=torch.int32, device=dev)
+    ms = min(mm, sp.shape[1])
+    got5 = select_topm(sp, none, m=ms)
+    want5 = select_topm_twin(sp, none, m=ms)
+    check(torch.equal(got5[1], want5[1]), "select ids at timing shape")
+    e = max_diff(got5[0], want5[0])
+    big_l = sp.shape[1]
+    row("select_topm", "src/repro_torch/csrc/select.cu",
+        "src/repro/kernels/select.py:164", "select",
+        time_ms(lambda: select_topm(sp, none, m=ms), reps=20),
+        time_ms(lambda: select_topm_twin(sp, none, m=ms), reps=5),
+        time_ms(lambda: torch.topk(sp, ms), reps=20), e,
+        256 * big_l * 4.0 + 256 * 4.0 + 256 * ms * 8.0, 256.0 * big_l,
+        f"Q=256 L={big_l} ({len(cand)} candidates) m={ms}")
+
+    # kernel 6: the union-Gram rerank of the same 2048-query block, pcc
+    u = torch.unique(shorts.long())
+    ku = tcl._bucket(min(q_n * shorts.shape[1], n) + 1)
+    u_real = int((u < n).sum())
+    u = torch.cat([u, u.new_full((ku - u.numel(),), n)]).clamp_max(n - 1)
+    src = ix._gather_source(ratings)
+    norms, counts = tcl._user_norms_counts(ratings)
+    qr = ratings[:q_n].contiguous()
+    cr = src[u].contiguous()
+    cn, cc = norms[u].contiguous(), counts[u].contiguous()
+    e = max_diff(fused_rerank_scores(qr, cr, cn, cc, measure="pcc"),
+                 rerank_scores_plain(qr, cr, cn, cc, measure="pcc"))
+    check(e == 0.0, f"rerank at timing shape diff {e}")
+    crf = cr.float()
+    mq, mc = (qr > 0).float(), (crf > 0).float()
+    ops = [(mq, mc.T), (qr, crf.T), (qr, mc.T), (mq, crf.T),
+           (qr * qr, mc.T), (mq, (crf * crf).T)]
+    ops = [(a.contiguous(), b.contiguous()) for a, b in ops]
+    row("fused_rerank_scores", "src/repro_torch/csrc/rerank.cu",
+        "src/repro/kernels/rerank.py:134", "rerank",
+        time_ms(lambda: fused_rerank_scores(qr, cr, cn, cc, measure="pcc"),
+                reps=5),
+        time_ms(lambda: rerank_scores_plain(qr, cr, cn, cc, measure="pcc"),
+                reps=5),
+        time_ms(lambda: [torch.matmul(a, b) for a, b in ops], reps=5), e,
+        q_n * d_items * 4.0 + ku * d_items * cr.element_size()
+        + ku * 8.0 + q_n * ku * 4.0,
+        6 * 2.0 * q_n * ku * d_items,
+        f"G={q_n} Kc={ku} ({u_real} distinct candidates) J={d_items} pcc "
+        f"{str(cr.dtype).split('.')[-1]} candidates")
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_profile(eng, eng_approx) -> None:
+    """Phase 8: where the device time of a steady exact fit, of
+    recommend(all users) and of an approx query (all users) goes
+    (device-side events only: kernels and copies, so no operator's time
+    is counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    approx_query = (lambda: eng_approx.index.query(
+        eng_approx.ratings, eng_approx.means, k=eng_approx.k,
+        measure=eng_approx.measure))
     for name, fn in (("fit", eng.fit),
-                     ("recommend", lambda: eng.recommend(n=10))):
+                     ("recommend", lambda: eng.recommend(n=10)),
+                     ("approx query", approx_query)):
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -412,14 +830,56 @@ def main() -> int:
     log(f"    small input (384x300): CPU plain path == card kernels "
         f"(ids equal, score diff {small_e!r})")
 
-    log("[4] kernel timings at the main path's shapes (CUDA events)")
+    log("[4] index kernels vs plain versions on the card")
+    ierr = phase_index_kernels(dev, np.random.default_rng(1), train_dev)
+    log(f"    ok: max_abs_diff {ierr} (tolerance {TOL})")
+
+    log("[5] approx path: CFEngine(neighbor_mode='approx', kernel) fit -> "
+        "recall -> cluster query -> update -> serve")
+    torch.cuda.reset_peak_memory_stats()
+    ap, eng_ap = phase_approx(dev, train)
+    q = ap["query"]
+    log(f"    index {ap['config']}")
+    log(f"    fit+query {ap['fit_s']:.3f}s (plain versions on the card "
+        f"{ap['plain_fit_s']:.3f}s); last_query: scan {q['scan_mode']}, "
+        f"rerank_fraction {q['rerank_fraction']!r}, shortlist "
+        f"{q['seconds_shortlist']:.4f}s, rerank {q['seconds_rerank']:.4f}s, "
+        f"total {q['seconds_total']:.4f}s")
+    log(f"    recall_vs_exact(sample=1024) {ap['recall']!r} "
+        f"({ap['recall_s']:.3f}s)")
+    log(f"    cluster-restricted query (n_probe 4, 1024 users): "
+        f"{ap['cluster_query']}")
+    log(f"    update(16 users, oracle) {ap['update_s']:.3f}s, refold "
+        f"{ap['refold']}")
+    log(f"    serving: 256 requests, {ap['serve_req_per_s']:.1f} req/s, "
+        f"p50 {ap['p50_ms']:.2f} ms, p99 {ap['p99_ms']:.2f} ms")
+    log(f"    launches on the approx path: {ap['launches']}")
+    log("    kernel == plain versions (spill ids/dist, centroids, proxies, "
+        "shortlists, neighbor ids and scores, cluster query) and two fits "
+        "identical")
+    log(f"    peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    log("[6] scale: index vs exact at U=32768 (cosine, k=20, raw, "
+        "project_dim 512, rerank_frac 0.02)")
+    sc = phase_scale(dev)
+    log(f"    data {sc['data_s']:.1f}s ({sc['ratings']} ratings), C="
+        f"{sc['n_clusters']} n_probe={sc['n_probe']}; index fit "
+        f"{sc['fit_s']:.3f}s, query {sc['query_s']:.3f}s {sc['query']}; "
+        f"exact kernel top-k {sc['exact_s']:.3f}s")
+    log(f"    recall@20 {sc['recall']!r} (floor 0.94); peak device memory "
+        f"{sc['peak_gib']:.2f} GiB (index fit + query)")
+
+    log("[7] kernel timings at the main paths' shapes (CUDA events)")
     kernels = phase_timings(dev, eng, err, main_out["launches"])
+    kernels += phase_index_timings(dev, eng_ap, ierr, ap["launches"])
     for k in kernels:
         log(f"    {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
-    log("[5] torch.profiler: device time of a steady fit / recommend")
-    phase_profile(eng)
+    log("[8] torch.profiler: device time of a steady fit / recommend / "
+        "approx query")
+    phase_profile(eng, eng_ap)
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in (

@@ -4,8 +4,9 @@ The JAX package ``repro`` stays the reference; this package mirrors its
 module layout and public names so each counterpart is easy to find, and
 never imports ``jax`` or ``repro``.  Ported so far: the exact CF main path
 (``core`` similarity → streaming top-k → tile prediction → top-n unseen,
-the ``CFEngine`` facade in exact mode, the supervised ``BatchingServer``)
-with its two hand-written CUDA kernels under ``csrc/``.
+the ``CFEngine`` facade, the supervised ``BatchingServer``) and the
+approximate user index (``index``: ``CFEngine(neighbor_mode="approx")``),
+with six hand-written CUDA kernels under ``csrc/``.
 """
 
 from repro_torch.device import resolve_device

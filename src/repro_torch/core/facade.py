@@ -1,4 +1,5 @@
-"""CF engine facade, exact mode (port of ``repro.core.facade``).
+"""CF engine facade (port of ``repro.core.facade``): exact and
+approximate-neighbor modes.
 
 ``CFEngine`` owns the rating matrix and the fitted neighbor state — cached
 ``(U, k)`` scores/ids, per-user rating statistics, and means — and fits
@@ -23,8 +24,19 @@ survives (the ``_repair_rows`` certificate), and recompute the rest with
 cold ``fit`` (``oracle_check=True`` asserts it).  Like the reference's
 ``pallas`` backend, the ``kernel`` backend refits in full on update.
 
-The sharded/ring backends and the approximate neighbor and recommend
-modes are later slices of the port and raise ``NotImplementedError``.
+``neighbor_mode="approx"`` swaps the all-pairs fit for the clustered
+candidate-generation index (:mod:`repro_torch.index`): probe the nearest
+user clusters, shortlist by projected proxy scores, exactly rerank the
+shortlist — with true similarity scores in the cache and the CUDA
+centroid-distance, scan/select and rerank kernels on the path (their
+plain versions with ``IndexConfig(use_kernel=False)``).  An update refolds
+the index first, then repairs the cache with the same certificate and
+re-queries the index for touched and uncertified rows; ``oracle_check``
+asserts the index invariant and exact means.  ``recall_vs_exact`` holds
+the cache against the exact engine.
+
+The sharded/ring backends and the approximate recommend mode are later
+slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +65,6 @@ _NOT_PORTED = {
     "sharded": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
     "ring": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
     "pallas": "the 'kernel' backend (the CUDA port of the Pallas kernel)",
-    "neighbor_mode": "ROADMAP Queue 1 item 7 (index/clustered.py)",
     "recommend_mode": "ROADMAP Queue 1 item 8 (index/item_index.py)",
 }
 
@@ -167,6 +178,14 @@ class CFEngine:
     ----------
     ratings : (U, I) dense rating matrix (numpy or tensor), 0 = unrated.
     backend : ``"sequential"`` or ``"kernel"`` (see the module docstring).
+    neighbor_mode : ``"exact"`` (default) or ``"approx"`` — fit a
+        :class:`repro_torch.index.ClusteredIndex` and fill the neighbor
+        cache through its two-stage query.  With ``index_cfg`` at
+        ``n_probe = n_clusters`` and ``rerank_frac = 0`` the approx cache
+        is bit-identical to the exact one.
+    index_cfg : optional :class:`repro_torch.index.IndexConfig`; default
+        auto (mean-centered features for pcc / pcc_sig, raw rows for
+        cosine / jaccard).
     device : ``"cuda"`` (default) or ``"cpu"``; a missing card raises.
     pcc_sig_beta : the ``pcc_sig`` shrink horizon (None → 50).
     """
@@ -202,7 +221,8 @@ class CFEngine:
 
     def __init__(self, ratings, *, measure: str = "pcc", k: int = 40,
                  backend: str = "kernel", block_size: int = 1024,
-                 neighbor_mode: str = "exact", recommend_mode: str = "exact",
+                 neighbor_mode: str = "exact", index_cfg=None,
+                 recommend_mode: str = "exact",
                  pcc_sig_beta: Optional[float] = None, device="cuda"):
         if measure not in sim.SIMILARITY_MEASURES:
             raise ValueError(f"unknown measure {measure!r}; want one of "
@@ -219,7 +239,7 @@ class CFEngine:
             if val not in NEIGHBOR_MODES:
                 raise ValueError(f"unknown {opt} {val!r}; want one of "
                                  f"{NEIGHBOR_MODES}")
-            if val == "approx":
+            if opt == "recommend_mode" and val == "approx":
                 raise NotImplementedError(
                     f"{opt}='approx' is not ported yet: see "
                     f"{_NOT_PORTED[opt]}")
@@ -235,6 +255,14 @@ class CFEngine:
         self.neighbor_mode = neighbor_mode
         self.recommend_mode = recommend_mode
         self.pcc_sig_beta = sim.resolve_beta(pcc_sig_beta)
+        self.index = None
+        if neighbor_mode == "approx":
+            from repro_torch.index import ClusteredIndex, IndexConfig
+            if index_cfg is None:
+                index_cfg = IndexConfig(
+                    features="centered" if measure in ("pcc", "pcc_sig")
+                    else "raw")
+            self.index = ClusteredIndex(index_cfg)
 
         self.scores: Optional[torch.Tensor] = None   # (U, k) f32
         self.idx: Optional[torch.Tensor] = None      # (U, k) int32
@@ -277,10 +305,17 @@ class CFEngine:
     def fit(self) -> "CFEngine":
         """Compute and cache the exact top-k neighbors."""
         with obs.span("engine.fit", backend=self.backend,
+                      neighbor_mode=self.neighbor_mode,
                       n_users=self.n_users, n_items=self.n_items) as sp:
             self._cnt, self._tot, self.means = sim.user_stats(self.ratings)
-            with obs.span("fit.topk", backend=self.backend):
-                self.scores, self.idx = self._topk(self.ratings)
+            if self.neighbor_mode == "approx":
+                self.index.fit(self.ratings, self.means)
+                self.scores, self.idx = self.index.query(
+                    self.ratings, self.means, k=self.k,
+                    measure=self.measure, beta=self.pcc_sig_beta)
+            else:
+                with obs.span("fit.topk", backend=self.backend):
+                    self.scores, self.idx = self._topk(self.ratings)
             self._publish()
         self.fit_seconds = sp.duration
         reg = obs.registry()
@@ -340,7 +375,9 @@ class CFEngine:
         ``values`` of 0 delete ratings; duplicate (user, item) cells in one
         batch resolve last-wins.  With ``oracle_check`` the refreshed cache
         is verified bit for bit against a cold recompute (``RuntimeError``
-        on any mismatch).
+        on any mismatch).  In approx mode the index is refolded first and
+        touched / uncertified rows re-query it; ``oracle_check`` then
+        asserts the index invariant and exact means instead.
         """
         if not self.fitted:
             raise RuntimeError("call fit() before update_ratings()")
@@ -390,8 +427,11 @@ class CFEngine:
                 gather_cache[1], self.ratings, pad_touch_t))
         else:
             self._gather_cache = None
+        if self.neighbor_mode == "approx":
+            self.index.refold(self.ratings, self.means, touched,
+                              version=self.ratings_version)
 
-        if self.backend == "kernel":
+        if self.backend == "kernel" and self.neighbor_mode == "exact":
             # as the reference's pallas backend: exactness means a full
             # refit, the operation the kernel exists to make cheap
             self.scores, self.idx = self._topk(self.ratings)
@@ -411,7 +451,8 @@ class CFEngine:
         # 3. cheap path: drop stale entries, merge, certify
         merged_s, merged_i, safe = _repair_rows(
             self.scores, self.idx, cross_s, cross_i, pad_touch_t, k=self.k)
-        # 4. full recompute for touched and uncertified rows
+        # 4. recompute touched and uncertified rows: exact top-k in exact
+        #    mode, a fresh index query (fit's candidate policy) in approx
         need = ~safe.cpu().numpy()
         need[touched] = True
         affected = np.nonzero(need)[0]
@@ -421,10 +462,22 @@ class CFEngine:
             rows = np.full((a_pad,), self.n_users, np.int64)
             rows[:len(affected)] = affected
             rows_t = torch.as_tensor(rows, device=dev)
-            new_s, new_i = _rows_topk(self.ratings, rows_t, k=self.k,
-                                      measure=self.measure,
-                                      block_size=self.block_size,
-                                      beta=self.pcc_sig_beta)
+            if self.neighbor_mode == "approx":
+                q_s, q_i = self.index.query(self.ratings, self.means,
+                                            affected, k=self.k,
+                                            measure=self.measure,
+                                            beta=self.pcc_sig_beta)
+                new_s = torch.full((a_pad, self.k), nb.NEG_INF,
+                                   dtype=torch.float32, device=dev)
+                new_i = torch.full((a_pad, self.k), -1, dtype=torch.int32,
+                                   device=dev)
+                new_s[:len(affected)] = q_s
+                new_i[:len(affected)] = q_i
+            else:
+                new_s, new_i = _rows_topk(self.ratings, rows_t, k=self.k,
+                                          measure=self.measure,
+                                          block_size=self.block_size,
+                                          beta=self.pcc_sig_beta)
             merged_s, merged_i = _scatter_rows(merged_s, merged_i, rows_t,
                                                new_s, new_i)
         self.scores = merged_s
@@ -439,7 +492,17 @@ class CFEngine:
         return self._obs_update(stats)
 
     def _check_oracle(self) -> bool:
-        """Assert cache == cold full recompute, bit for bit."""
+        """Exact mode: assert cache == cold full recompute, bit for bit.
+        Approx mode: the cache is defined by the index's candidate policy,
+        so assert the index invariant (assignments and proxies equal a
+        cold reassignment) plus exact means."""
+        if self.neighbor_mode == "approx":
+            ok = self.index.check_consistent(self.ratings, self.means)
+            _, _, ref_m = sim.user_stats(self.ratings)
+            if not torch.equal(ref_m, self.means):
+                raise RuntimeError("incremental means diverged from a "
+                                   "full recompute")
+            return ok
         ref_s, ref_i = self._topk(self.ratings)
         _, _, ref_m = sim.user_stats(self.ratings)
         errs = [name for name, a, b in (("scores", ref_s, self.scores),
@@ -450,6 +513,37 @@ class CFEngine:
             raise RuntimeError(f"incremental update diverged from full "
                                f"recompute: {', '.join(errs)}")
         return True
+
+    # -- diagnostics -------------------------------------------------------
+    def recall_vs_exact(self, sample: int = 1024, seed: int = 0) -> float:
+        """Mean recall@k of the cached neighbors against the exact engine:
+        ``sample`` users (seeded, without replacement), their exact top-k
+        rows recomputed, the mean fraction of exact neighbor ids present in
+        the cache.  1.0 in exact mode by construction."""
+        if not self.fitted:
+            raise RuntimeError("call fit() first")
+        rng = np.random.default_rng(seed)
+        n = min(sample, self.n_users)
+        users = np.sort(rng.choice(self.n_users, n, replace=False))
+        u_pad = _bucket(len(users), self.n_users)
+        rows = np.full((u_pad,), -1, np.int64)
+        rows[:len(users)] = users
+        _, ref_i = _rows_topk(self.ratings,
+                              torch.as_tensor(rows, device=self.device),
+                              k=self.k, measure=self.measure,
+                              block_size=self.block_size,
+                              beta=self.pcc_sig_beta)
+        ref_i = ref_i.cpu().numpy()[:len(users)]
+        got_i = self.idx.cpu().numpy()[users]
+        hits = 0
+        total = 0
+        for row in range(len(users)):
+            exact = set(int(j) for j in ref_i[row] if j >= 0)
+            if not exact:
+                continue
+            hits += len(exact & set(int(j) for j in got_i[row]))
+            total += len(exact)
+        return hits / max(total, 1)
 
     # -- inference ---------------------------------------------------------
     def snapshot(self) -> tuple:
@@ -466,7 +560,8 @@ class CFEngine:
     # -- persistence -------------------------------------------------------
     def state(self) -> dict:
         """Engine state as host (numpy) arrays, in the reference's tree
-        layout (empty ``index`` / ``item_index`` in exact mode)."""
+        layout (``index`` holds the clustered index's state in approx mode;
+        ``item_index`` stays empty — the item index is not ported)."""
         if not self.fitted:
             raise RuntimeError("call fit() first")
         return {
@@ -477,7 +572,9 @@ class CFEngine:
             "cnt": self._cnt.cpu().numpy().copy(),
             "tot": self._tot.cpu().numpy().copy(),
             "meta": np.asarray([self.ratings_version], np.int64),
-            "index": {},
+            "index": ({key: np.array(val) for key, val in
+                       self.index.state().items()}
+                      if self.index is not None else {}),
             "item_index": {},
         }
 
@@ -485,7 +582,8 @@ class CFEngine:
         """Structure-only tree mirroring :meth:`state`."""
         out = {k: 0 for k in ("ratings", "scores", "idx", "means",
                               "cnt", "tot", "meta")}
-        out["index"] = {}
+        out["index"] = (type(self.index).state_template()
+                        if self.index is not None else {})
         out["item_index"] = {}
         return out
 
@@ -504,6 +602,8 @@ class CFEngine:
         self._tot = tree["tot"].to(self.device)
         self.ratings_version = int(tree["version"])
         self._gather_cache = None
+        if self.index is not None and tree.get("index"):
+            self.index.load_state(tree["index"], device=self.device)
         self.scores = tree["scores"].to(self.device)
         self._publish()
         obs.registry().gauge("engine.ratings_version").set(

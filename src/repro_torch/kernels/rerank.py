@@ -1,0 +1,105 @@
+"""Fused co-rated Gram rerank: the hand-written CUDA kernel
+(``csrc/rerank.cu``) and its plain PyTorch version.
+
+Port of the Pallas TPU kernel ``repro.kernels.rerank.fused_rerank_scores``
+(``_rerank_kernel``): the exact rerank of the clustered index scores a
+block of query rows against the union of their shortlisted candidates,
+gathered once, with the candidates' full-row norms and rated counts
+passed in (cosine: one Gram product; jaccard: one; pcc / pcc_sig: six).
+Every product carries a query-side factor, so full-width candidate rows
+give exactly the co-rated sums of the paper's per-pair loop.
+
+On integer ratings every Gram sum is an exact f32 integer in any order,
+and kernel and plain version keep the reference's epilogue order with
+IEEE square roots and divisions, so the kernel, the plain version
+(``ref.rerank_scores_ref``, which stands in for the reference's
+``rerank_scores_xla`` twin) and the reference's oracle agree bit for bit.
+The reference's host BLAS twin ``rerank_scores_host`` belongs to the
+staged query mode, which is not ported.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises — it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import similarity as sim
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import rerank_scores_ref
+
+MEASURES = ("jaccard", "cosine", "pcc", "pcc_sig")
+_CODES = {"jaccard": 0, "cosine": 1, "pcc": 2, "pcc_sig": 3}
+_DTYPES = {torch.float32: 0, torch.int8: 1}
+
+rerank_scores_plain = rerank_scores_ref
+
+
+def _lib():
+    lib = _build.load("rerank")
+    fn = lib.repro_rerank_scores
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_rerank_scores(q_vals: torch.Tensor, cand_rows: torch.Tensor,
+                        cand_norms: torch.Tensor, cand_counts: torch.Tensor,
+                        *, measure: str = "cosine",
+                        beta: float = sim.PCC_SIG_BETA) -> torch.Tensor:
+    """Exact similarity of a query group against a candidate union.
+
+    ``q_vals``: (G, J) f32 query rows (0 = unrated); ``cand_rows``: (Kc, J)
+    candidate rows, int8 or f32; ``cand_norms`` / ``cand_counts``: (Kc,)
+    f32 full-row L2 norms and rated counts.  Returns (G, Kc) f32 scores;
+    self / padding masking is the caller's.  CUDA tensors launch the
+    kernel on the current stream and add one to
+    ``fused_rerank_scores.launches``; CPU tensors run the plain version.
+    """
+    if measure not in _CODES:
+        raise ValueError(f"unknown measure {measure!r}; want one of "
+                         f"{MEASURES}")
+    beta = sim.resolve_beta(beta)
+    if q_vals.dim() != 2 or cand_rows.dim() != 2 \
+            or q_vals.shape[1] != cand_rows.shape[1]:
+        raise ValueError(f"need (G, J) × (Kc, J), got {tuple(q_vals.shape)}"
+                         f" × {tuple(cand_rows.shape)}")
+    g, j = q_vals.shape
+    kc = cand_rows.shape[0]
+    if cand_norms.shape != (kc,) or cand_counts.shape != (kc,):
+        raise ValueError(f"cand_norms / cand_counts must be ({kc},)")
+    tensors = (q_vals, cand_rows, cand_norms, cand_counts)
+    if any(t.device != q_vals.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if q_vals.device.type == "cpu":
+        return rerank_scores_plain(q_vals, cand_rows, cand_norms,
+                                   cand_counts, measure=measure, beta=beta)
+    if q_vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_vals.device}")
+    if q_vals.dtype != torch.float32 or cand_rows.dtype not in _DTYPES \
+            or cand_norms.dtype != torch.float32 \
+            or cand_counts.dtype != torch.float32:
+        raise TypeError(f"need f32 queries, norms and counts and int8/f32 "
+                        f"candidates, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    out = torch.empty((g, kc), dtype=torch.float32, device=q_vals.device)
+    if g and kc:
+        with torch.cuda.device(q_vals.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib()(q_vals.data_ptr(), cand_rows.data_ptr(),
+                            cand_norms.data_ptr(), cand_counts.data_ptr(),
+                            out.data_ptr(), g, kc, j,
+                            _DTYPES[cand_rows.dtype], _CODES[measure], beta,
+                            stream)
+        _build.check(status, "fused_rerank_scores")
+        fused_rerank_scores.launches += 1
+    return out
+
+
+fused_rerank_scores.launches = 0

@@ -1,0 +1,189 @@
+"""Canonical top-M selection for the shortlist scan: the hand-written CUDA
+kernels (``csrc/select.cu``) and their plain PyTorch versions.
+
+Ports of two Pallas TPU kernels of ``repro.kernels.select`` that share one
+running merge:
+
+* :func:`fused_scan_topm` (``fused_scan_topm`` / ``_scan_kernel``) — proxy
+  scores of a query block against the whole pool, self-pair knocked out,
+  canonical top-``m`` per query, without writing the (Q, N) scores;
+* :func:`select_topm` (``select_topm`` / ``_select_kernel``) — the same
+  selection over precomputed (Q, N) scores.
+
+Selection policy, pinned by ``ref.select_topm_ref``: descending score,
+ties to the lower candidate id, every ``-inf`` slot carrying the sentinel
+id ``N``.  Proxy scores are dot products summed in one fixed order
+(``ref.proxy_scores_ref``) in the kernel and the plain version alike, so
+the two give the same bits.  The CUDA kernel is held to the oracle, not
+to the Pallas kernel (which misses its own oracle at Q=130, N=257,
+P=33, m=17).
+
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises — it never falls back.  The index's other
+canonical selections (smallest-``k`` distances, the rerank's final sort)
+live here too, as stable sorts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import scan_topm_ref, select_topm_ref
+
+scan_topm_plain = scan_topm_ref
+
+
+def _m_pad(m: int) -> int:
+    """The running buffer's width: ``m`` rounded up to 128 (at least 128),
+    as the TPU kernel pads its lanes."""
+    return max(128, -(-m // 128) * 128)
+
+
+def scan_topm_twin(q: torch.Tensor, proxies: torch.Tensor,
+                   q_ids: torch.Tensor, *, m: int, approx: bool = False):
+    """Plain twin of the reference's ``scan_topm_xla``: the exact path
+    only.  ``approx=True`` (the TPU's ``approx_max_k``, recall < 1) has no
+    counterpart in the port."""
+    if approx:
+        raise NotImplementedError(
+            "approx=True (approx_max_k) is not ported: the port's scan is "
+            "exact only")
+    return scan_topm_plain(q, proxies, q_ids, min(m, proxies.shape[0]))
+
+
+def _lib(name):
+    lib = _build.load("select")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, p]
+                       if name == "repro_scan_topm"
+                       else [p, p, p, p, i, i, i, i, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_ids(q_ids: torch.Tensor, n_q: int, device) -> None:
+    if q_ids.shape != (n_q,) or q_ids.device != device:
+        raise ValueError(f"q_ids must be ({n_q},) on {device}, got "
+                         f"{tuple(q_ids.shape)} on {q_ids.device}")
+
+
+def fused_scan_topm(q: torch.Tensor, proxies: torch.Tensor,
+                    q_ids: torch.Tensor, *, m: int):
+    """(Q, P) query proxies × (N, P) pool proxies → canonical top-``m``
+    per query: ``(values (Q, m) f32, ids (Q, m) int32)``, ``m`` clamped
+    to N.
+
+    ``q_ids``: (Q,) global ids for the self-pair knockout (out-of-range,
+    e.g. -1 or N, for padding queries).  Knocked-out slots come back as
+    ``-inf`` with id ``N``.  CUDA tensors launch the kernel on the current
+    stream and add one to ``fused_scan_topm.launches``; CPU tensors run
+    the plain version.
+    """
+    if q.dim() != 2 or proxies.dim() != 2 or q.shape[1] != proxies.shape[1]:
+        raise ValueError(f"need (Q, P) × (N, P), got {tuple(q.shape)} × "
+                         f"{tuple(proxies.shape)}")
+    n_q, p = q.shape
+    n = proxies.shape[0]
+    if n == 0 or m < 1:
+        raise ValueError(f"need a non-empty pool and m ≥ 1 (N={n}, m={m})")
+    m = min(m, n)
+    if proxies.device != q.device:
+        raise ValueError(f"q on {q.device} but proxies on {proxies.device}")
+    _check_ids(q_ids, n_q, q.device)
+    if q.device.type == "cpu":
+        return scan_topm_plain(q, proxies, q_ids, m)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype != torch.float32 or proxies.dtype != torch.float32 \
+            or q_ids.dtype != torch.int32:
+        raise TypeError(f"need f32 proxies and int32 q_ids, got {q.dtype}, "
+                        f"{proxies.dtype}, {q_ids.dtype}")
+    if not (q.is_contiguous() and proxies.is_contiguous()
+            and q_ids.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    out_v = torch.empty((n_q, m), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((n_q, m), dtype=torch.int32, device=q.device)
+    if n_q:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib("repro_scan_topm")(
+                q.data_ptr(), proxies.data_ptr(), q_ids.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), n_q, n, p, m, _m_pad(m),
+                stream)
+        _build.check(status, "fused_scan_topm")
+        fused_scan_topm.launches += 1
+    return out_v, out_i
+
+
+fused_scan_topm.launches = 0
+
+
+def select_topm(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
+    """Canonical top-``m`` over precomputed (Q, N) f32 scores: ``(values,
+    int32 ids)``, same contract as :func:`fused_scan_topm`; pass
+    out-of-range ``q_ids`` (e.g. -1) when the scores already carry their
+    knockouts.  CUDA tensors launch the kernel and add one to
+    ``select_topm.launches``; CPU tensors run the plain version."""
+    if scores.dim() != 2:
+        raise ValueError(f"need (Q, N) scores, got {tuple(scores.shape)}")
+    n_q, n = scores.shape
+    if n == 0 or m < 1:
+        raise ValueError(f"need N ≥ 1 and m ≥ 1 (N={n}, m={m})")
+    m = min(m, n)
+    _check_ids(q_ids, n_q, scores.device)
+    if scores.device.type == "cpu":
+        return select_topm_twin(scores, q_ids, m=m)
+    if scores.device.type != "cuda":
+        raise ValueError(f"unsupported device {scores.device}")
+    if scores.dtype != torch.float32 or q_ids.dtype != torch.int32:
+        raise TypeError(f"need f32 scores and int32 q_ids, got "
+                        f"{scores.dtype}, {q_ids.dtype}")
+    if not (scores.is_contiguous() and q_ids.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    out_v = torch.empty((n_q, m), dtype=torch.float32, device=scores.device)
+    out_i = torch.empty((n_q, m), dtype=torch.int32, device=scores.device)
+    if n_q:
+        with torch.cuda.device(scores.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib("repro_select_topm")(
+                scores.data_ptr(), q_ids.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(), n_q, n, m, _m_pad(m), stream)
+        _build.check(status, "select_topm")
+        select_topm.launches += 1
+    return out_v, out_i
+
+
+select_topm.launches = 0
+
+
+def select_topm_twin(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
+    """Plain version of :func:`select_topm` on any device."""
+    col = torch.arange(scores.shape[1], device=scores.device)[None, :]
+    knock = col == q_ids.long()[:, None]
+    return select_topm_ref(scores.masked_fill(knock, float("-inf")),
+                           min(m, scores.shape[1]))
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """Canonical smallest-``k`` per row of a distance matrix: ``(values,
+    int32 column ids)``, ties to the lower column id (a stable ascending
+    sort) — the reference's ``lax.top_k(-d, k)`` on spill and probe
+    distances."""
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return torch.gather(d, 1, order), order.to(torch.int32)
+
+
+def topk_canonical(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Best ``k`` of each row under ``(-score, id)``: a stable sort by id,
+    then a stable sort by descending score (``lax.sort`` with two keys)."""
+    order = torch.sort(ids, dim=1, stable=True).indices
+    scores = torch.gather(scores, 1, order)
+    ids = torch.gather(ids, 1, order)
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
+    return torch.gather(scores, 1, order), torch.gather(ids, 1, order)
+

@@ -14,7 +14,9 @@ from repro.core import metrics as ref_metrics
 from repro.core.facade import CFEngine as RefEngine
 from repro_torch.core import metrics
 from repro_torch.core.facade import BACKENDS, CFEngine
-from repro_torch.core.similarity import SIMILARITY_MEASURES
+from repro_torch.core.similarity import (SIMILARITY_MEASURES,
+                                         pairwise_similarity)
+from repro_torch.index import IndexConfig
 from repro_torch.state import from_reference_state
 
 K = 10
@@ -183,9 +185,14 @@ def test_reference_state_carries_into_port(ml_small, ref_engines, backend):
 
 
 def test_state_with_index_is_refused(ml_small, ref_engines):
+    """Item-index state is not ported; an index subtree must be whole."""
+    tree = dict(ref_engines["pcc"].state())
+    tree["item_index"] = {"centroids": np.zeros((2, 2))}
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        from_reference_state(tree, "cpu")
     tree = dict(ref_engines["pcc"].state())
     tree["index"] = {"centroids": np.zeros((2, 2))}
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="lacks"):
         from_reference_state(tree, "cpu")
 
 
@@ -197,8 +204,9 @@ def test_missing_card_raises_and_unported_options(monkeypatch):
     for bad in ("sharded", "ring", "pallas"):
         with pytest.raises(NotImplementedError):
             CFEngine(r, backend=bad, device="cpu")
-    with pytest.raises(NotImplementedError):
-        CFEngine(r, neighbor_mode="approx", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        CFEngine(r, neighbor_mode="approx", device="cpu",
+                 index_cfg=IndexConfig(query_mode="staged"))
     with pytest.raises(NotImplementedError):
         CFEngine(r, recommend_mode="approx", device="cpu")
     with pytest.raises(ValueError):
@@ -210,3 +218,110 @@ def test_missing_card_raises_and_unported_options(monkeypatch):
         eng.recommend(mode="approx")
     with pytest.raises(ValueError):
         eng.recommend(n_probe=4)
+
+
+# -- approx neighbor mode (the clustered index) -------------------------------
+
+def _ref_approx(train, measure, cfg):
+    from repro.index import IndexConfig as RefConfig
+    return RefEngine(jnp.asarray(train), measure=measure, k=K,
+                     block_size=128, neighbor_mode="approx",
+                     index_cfg=RefConfig(**cfg)).fit()
+
+
+_APPROX = dict(n_clusters=16, seed=0, project_dim=32, rerank_frac=0.2,
+               use_kernel=False, query_mode="fused")
+
+
+@pytest.mark.parametrize("measure", ["pcc", "cosine"])
+def test_approx_carried_state_matches_reference(ml_small, measure):
+    """The reference's approx engine state, carried into the port: the
+    same cache, the same recall against the exact engine, and the port's
+    own re-query of the carried index gives the same neighbors."""
+    train = ml_small[0]
+    cfg = dict(_APPROX, features="centered" if measure == "pcc" else "raw")
+    ref = _ref_approx(train, measure, cfg)
+    eng = CFEngine(np.zeros((1, 1), np.float32), measure=measure, k=K,
+                   block_size=128, neighbor_mode="approx",
+                   index_cfg=IndexConfig(**cfg),
+                   device="cpu").load_state(ref.state())
+    assert_parity(f"approx.carried.{measure}.cache_ids", eng.idx, ref.idx)
+    got, want = eng.recall_vs_exact(sample=128), ref.recall_vs_exact(
+        sample=128)
+    print(f"PARITY approx.recall_vs_exact.{measure} port={got!r} "
+          f"reference={want!r}")
+    assert got == want
+    s, i = eng.index.query(eng.ratings, eng.means, k=K, measure=measure)
+    assert_parity(f"approx.carried.{measure}.requery_ids", i, ref.idx)
+    assert_parity(f"approx.carried.{measure}.requery_scores", s, ref.scores,
+                  atol=2e-5)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("measure", ["pcc", "jaccard"])
+def test_approx_update_passes_oracle(ml_small, measure, backend):
+    train = ml_small[0]
+    u, d = train.shape
+    eng = _port(train, measure, backend, neighbor_mode="approx",
+                index_cfg=IndexConfig(n_clusters=16, project_dim=32))
+    assert eng.index.last_query.query_mode == "fused"
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        uids, iids, vals = _delta(rng, u, d, n_users_touched=4)
+        st = eng.update_ratings(uids, iids, vals, oracle_check=True)
+        assert st.oracle_ok and st.n_affected + st.n_merged == u
+        assert eng.index.last_refold.n_touched == len(np.unique(uids))
+    full = pairwise_similarity(eng.ratings, eng.ratings, measure=measure)
+    rows = torch.arange(u)[:, None].expand_as(eng.idx)
+    ok = eng.idx >= 0
+    assert torch.equal(eng.scores[ok], full[rows[ok], eng.idx[ok].long()])
+    assert 0.0 < eng.recall_vs_exact(sample=64) <= 1.0
+
+
+def test_approx_degenerate_matches_exact_fit():
+    rng = np.random.default_rng(0)
+    r = (rng.integers(1, 6, (64, 48)) * (rng.random((64, 48)) < 0.4)
+         ).astype(np.float32)
+    cfg = IndexConfig(n_clusters=8, n_probe=8, rerank_frac=0.0)
+    ex = CFEngine(r, measure="cosine", k=6, block_size=16, device="cpu").fit()
+    ap = CFEngine(r, measure="cosine", k=6, neighbor_mode="approx",
+                  index_cfg=cfg, device="cpu").fit()
+    assert torch.equal(ex.scores, ap.scores) and torch.equal(ex.idx, ap.idx)
+    assert ex.recall_vs_exact(sample=32) == 1.0
+    assert ap.recall_vs_exact(sample=32) == 1.0
+
+
+def test_approx_new_user_onboarding():
+    """A cold user gaining ratings enters real clusters and gets real
+    neighbors through the index path (the reference's
+    test_new_user_onboarding_approx)."""
+    rng = np.random.default_rng(0)
+    r = (rng.integers(1, 6, (64, 32)) * (rng.random((64, 32)) < 0.4)
+         ).astype(np.float32)
+    r[5] = 0.0
+    eng = CFEngine(r, measure="cosine", k=5, neighbor_mode="approx",
+                   index_cfg=IndexConfig(n_clusters=8, seed=0,
+                                         features="raw"),
+                   device="cpu").fit()
+    iids = rng.choice(32, 10, replace=False).astype(np.int32)
+    vals = rng.integers(1, 6, 10).astype(np.float32)
+    st = eng.update_ratings(np.full(10, 5, np.int32), iids, vals,
+                            oracle_check=True)
+    assert st.oracle_ok
+    assert int(eng.idx[5].max()) >= 0
+    assert eng.index.check_consistent(eng.ratings, eng.means)
+
+
+def test_approx_state_round_trip(ml_small):
+    eng = _port(ml_small[0], "cosine", "kernel", neighbor_mode="approx",
+                index_cfg=IndexConfig(n_clusters=12, project_dim=24))
+    tree = eng.state()
+    assert set(tree["index"]) == set(eng.state_template()["index"])
+    back = CFEngine(np.zeros((1, 1), np.float32), measure="cosine", k=K,
+                    neighbor_mode="approx",
+                    index_cfg=IndexConfig(n_clusters=12, project_dim=24),
+                    device="cpu").load_state(tree)
+    assert torch.equal(back.idx, eng.idx)
+    assert back.index.check_consistent(back.ratings, back.means)
+    s, i = back.index.query(back.ratings, back.means, k=K, measure="cosine")
+    assert torch.equal(i, eng.idx) and torch.equal(s, eng.scores)

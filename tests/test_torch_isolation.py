@@ -39,20 +39,28 @@ def test_scan_covers_the_package():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("core/facade.py", "kernels/similarity.py",
                  "kernels/predict.py", "serving/engine.py",
-                 "launch/serve.py", "state.py", "device.py"):
+                 "launch/serve.py", "state.py", "device.py",
+                 "index/clustered.py", "index/kmeans.py",
+                 "kernels/cluster.py", "kernels/select.py",
+                 "kernels/rerank.py"):
         assert want in names
 
 
-@pytest.mark.parametrize("name,replaces", [
-    ("similarity", "repro/kernels/similarity.py"),
-    ("predict", "repro/kernels/predict.py"),
+@pytest.mark.parametrize("name,replaces,wrappers", [
+    ("similarity", "repro/kernels/similarity.py", ["fused_similarity"]),
+    ("predict", "repro/kernels/predict.py", ["fused_tile_predict"]),
+    ("cluster", "repro/kernels/cluster.py", ["fused_centroid_distances"]),
+    ("select", "repro/kernels/select.py", ["fused_scan_topm",
+                                           "select_topm"]),
+    ("rerank", "repro/kernels/rerank.py", ["fused_rerank_scores"]),
 ])
-def test_kernel_sources_and_wrappers(name, replaces):
+def test_kernel_sources_and_wrappers(name, replaces, wrappers):
     import importlib
+    from repro_torch.kernels import _build
     src = (PORT / "csrc" / f"{name}.cu").read_text()
     assert replaces in src and "Bound." in src
     assert 'extern "C"' in src and "cudaGetLastError" in src
+    assert name in _build.KERNELS
     mod = importlib.import_module(f"repro_torch.kernels.{name}")
-    wrapper = (mod.fused_similarity if name == "similarity"
-               else mod.fused_tile_predict)
-    assert isinstance(wrapper.launches, int)
+    for wrapper in wrappers:
+        assert isinstance(getattr(mod, wrapper).launches, int)

@@ -97,3 +97,109 @@ def test_engine_backends_agree_on_card(cuda):
     assert st.oracle_ok
     with pytest.raises(ValueError, match="engine lives on"):
         BatchingServer(cpu, device="cuda")
+
+
+# -- the approximate index's kernels (centroid distances, scan/select
+#    top-M, co-rated rerank) against their plain versions -------------------
+
+def _unit(rng, n, d, cuda):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("m,n,d", [(257, 78, 256), (1, 33, 17),
+                                   (6040, 78, 256), (70, 5, 1)])
+def test_centroid_kernel_matches_plain(cuda, m, n, d):
+    from repro_torch.kernels.cluster import (centroid_distances_plain,
+                                             fused_centroid_distances)
+    rng = np.random.default_rng(m + n + d)
+    x, c = _unit(rng, m, d, cuda), _unit(rng, n, d, cuda)
+    before = fused_centroid_distances.launches
+    got = fused_centroid_distances(x, c)
+    assert fused_centroid_distances.launches == before + 1
+    want = centroid_distances_plain(x, c)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.centroid.{m}x{n}x{d}", got, want)
+    rows = torch.tensor([0, m - 1, m // 2], device=cuda)
+    assert torch.equal(fused_centroid_distances(x[rows].contiguous(), c),
+                       got[rows])
+
+
+@pytest.mark.parametrize("q_n,n,p,m,dup", [
+    (130, 257, 33, 17, 1), (37, 300, 24, 17, 1), (21, 240, 12, 25, 8),
+    (9, 40, 8, 999, 1), (300, 6040, 256, 906, 1), (64, 4000, 512, 656, 1),
+])
+def test_scan_kernel_matches_plain(cuda, q_n, n, p, m, dup):
+    from repro_torch.kernels.select import fused_scan_topm, scan_topm_plain
+    rng = np.random.default_rng(q_n + n + p)
+    q = _unit(rng, q_n, p, cuda)
+    prox = _unit(rng, n // dup, p, cuda).repeat_interleave(dup, 0)
+    prox = prox.contiguous()
+    q_ids = torch.arange(q_n, dtype=torch.int32, device=cuda)
+    q_ids[::4] = n
+    before = fused_scan_topm.launches
+    got_v, got_i = fused_scan_topm(q, prox, q_ids, m=m)
+    assert fused_scan_topm.launches == before + 1
+    want_v, want_i = scan_topm_plain(q, prox, q_ids, min(m, n))
+    torch.cuda.synchronize()
+    name = f"cuda.scan.{q_n}x{n}x{p}.m{m}.dup{dup}"
+    assert_parity(name + ".ids", got_i, want_i)
+    assert_parity(name + ".vals", got_v, want_v, atol=1e-6)
+
+
+@pytest.mark.parametrize("q_n,n,m", [(19, 140, 23), (256, 3000, 906),
+                                     (40, 513, 128), (7, 30, 64)])
+def test_select_kernel_matches_plain(cuda, q_n, n, m):
+    from repro_torch.kernels.select import select_topm, select_topm_twin
+    rng = np.random.default_rng(n)
+    s = rng.integers(-40, 41, (q_n, n)).astype(np.float32) / 8
+    s[rng.random(s.shape) < 0.1] = -np.inf
+    s[2] = -np.inf                                   # an all -inf row
+    s = torch.from_numpy(s).to(cuda)
+    q_ids = torch.full((q_n,), -1, dtype=torch.int32, device=cuda)
+    q_ids[1] = 5
+    got_v, got_i = select_topm(s, q_ids, m=m)
+    want_v, want_i = select_topm_twin(s, q_ids, m=m)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.select.{q_n}x{n}.m{m}.ids", got_i, want_i)
+    assert_parity(f"cuda.select.{q_n}x{n}.m{m}.vals", got_v, want_v)
+    assert bool((got_i[2] == n).all())
+
+
+@pytest.mark.parametrize("measure", ["jaccard", "cosine", "pcc", "pcc_sig"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("beta", [50.0, 7.3])
+def test_rerank_kernel_matches_plain(cuda, measure, dtype, beta):
+    from repro_torch.kernels.rerank import (fused_rerank_scores,
+                                            rerank_scores_plain)
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(int_ratings(rng, 70, 300)).to(cuda)
+    c = torch.from_numpy(int_ratings(rng, 130, 300)).to(cuda)
+    norms = torch.sqrt((c.double() ** 2).sum(1)).float()
+    counts = (c > 0).sum(1).float()
+    got = fused_rerank_scores(q, c.to(dtype), norms, counts,
+                              measure=measure, beta=beta)
+    want = rerank_scores_plain(q, c.to(dtype), norms, counts,
+                               measure=measure, beta=beta)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.rerank.{measure}.{dtype}.{beta}", got, want)
+
+
+def test_approx_engine_kernel_equals_plain_on_card(cuda):
+    from repro_torch.index import IndexConfig
+    rng = np.random.default_rng(5)
+    r = int_ratings(rng, 400, 300)
+    engines = [CFEngine(r, k=10, neighbor_mode="approx", device="cuda",
+                        index_cfg=IndexConfig(n_clusters=16, project_dim=32,
+                                              use_kernel=flag)).fit()
+               for flag in (None, False)]
+    ker, plain = engines
+    assert ker.index.last_query.scan_mode == "kernel"
+    assert torch.equal(ker.idx, plain.idx)
+    assert torch.equal(ker.scores, plain.scores)
+    assert torch.equal(ker.index.centroids, plain.index.centroids)
+    assert np.array_equal(ker.index.spill_dist, plain.index.spill_dist)
+    st = ker.update_ratings([4, 4, 9], [1, 2, 3], [5.0, 0.0, 2.0],
+                            oracle_check=True)
+    assert st.oracle_ok
