@@ -33,14 +33,35 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    ``index_cosine_U32768`` row: cosine, k = 20, raw features,
    project_dim 512, rerank_frac 0.02, seed 0): index fit and full query
    against the exact kernel-backend top-k; recall@20 ≥ 0.94;
-7. each kernel's time against its plain version, a library yardstick
-   and its bound, at the main paths' shapes (CUDA events);
-8. ``torch.profiler``: where the device time of a steady exact fit, of
-   recommend(all users) and of an approx query goes, and the device's
-   busy share.
+7. the support kernel (the item index's segmented SpMM) against its
+   plain version on the card, at ragged shapes (b = 1, widths not a
+   multiple of 512 or of 4, all-masked rows, k = 1) and at the full
+   6040-user chunk (max abs diff 0.0 required), and the identity that
+   makes the approx recommend exact: on integer ratings the support score
+   equals the tile-predict kernel's exact prediction bit for bit;
+8. the approx-recommend path at 6040 × 3952, pcc, k = 40, exact
+   kernel-backend neighbors, default ``ItemIndexConfig``:
+   ``CFEngine(recommend_mode="approx")`` fit → ``recommend(all, n=10)``
+   (bitwise equal to the exact recommend at shortlist 512 and 64) →
+   ``recommend_recall_vs_exact`` (1.0) → ``update_ratings``
+   (oracle-checked, item index included) → a ``BatchingServer`` with a
+   ``DegradationLadder(staged_when_degraded=False)`` answering 256
+   requests (none returns a rated item), with the launch counts zeroed
+   before and read after (kernels 3, 5 and 7 must be > 0); then the item
+   index on the plain versions (``use_kernel=False``) must fit and
+   recommend bitwise the same;
+9. ``BENCH_recommend.json``'s ``recommend_cosine_U32768`` row on phase
+   6's matrix (cosine, k = 40, approx neighbors at rerank_frac 0.03 and
+   project_dim 384, shortlist 64, seed 0): recall@10 of approx against
+   exact recommend must be 1.0, the reference's figure;
+10. each kernel's time against its plain version, a library yardstick
+    and its bound, at the main paths' shapes (CUDA events);
+11. ``torch.profiler``: where the device time of a steady exact fit, of
+    recommend(all users), of an approx query and of an approx
+    recommend(all users) goes, and the device's busy share.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
-for all six kernels.
+for all seven kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -291,6 +312,15 @@ def index_wrappers():
             "select": select_topm, "rerank": fused_rerank_scores}
 
 
+def all_wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.predict import fused_tile_predict
+    from repro_torch.kernels.similarity import fused_similarity
+    from repro_torch.kernels.support import fused_support_scores
+    return {"similarity": fused_similarity, "predict": fused_tile_predict,
+            **index_wrappers(), "support": fused_support_scores}
+
+
 def unit_rows(rng, n, d, dev):
     x = rng.normal(size=(n, d)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
@@ -511,6 +541,7 @@ def phase_scale(dev):
     out["ratings"] = int((train > 0).sum())
     r = torch.from_numpy(train).to(dev)
     del train
+    out["matrix"] = r
     means = user_stats(r)[2]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -545,8 +576,279 @@ def phase_scale(dev):
     return out
 
 
+def support_args(rng, b, k, u, i, dev, masked=False):
+    """Random support-scorer operands: (U, I) deviation and mask tables,
+    (b, k) clipped ids and masked weights, (b,) query means."""
+    d = (rng.normal(size=(u, i)).astype(np.float32)
+         * (rng.random((u, i)) < 0.3))
+    m = (d != 0).astype(np.float32)
+    ids = rng.integers(0, u, (b, k)).astype(np.int32)
+    w = (rng.random((b, k)) * (rng.random((b, k)) < 0.8)).astype(np.float32)
+    if masked:
+        w[1::2] = 0.0                               # all-masked rows
+    qm = rng.uniform(2, 4, b).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (d, m, ids, w, qm))
+
+
+def chunk_operands(eng):
+    """The support scorer's operands for every user of an engine, as the
+    item index builds them: the padded (U, I') tables and the masked
+    weights / clipped ids of the neighbor cache."""
+    from repro_torch.index.item_index import _dense_tables
+    from repro_torch.kernels.support import BT
+    ratings, scores, idx, means = eng.snapshot()
+    n_items = ratings.shape[1]
+    tbl = _dense_tables(ratings, means, n_items + (-n_items) % BT)
+    safe = torch.where(idx >= 0, idx, 0).to(torch.int32).contiguous()
+    w = torch.where((scores > 0) & (idx >= 0), scores,
+                    torch.zeros_like(scores)).contiguous()
+    return tbl, safe, w, means.contiguous()
+
+
+def phase_support_kernel(dev, rng, eng):
+    """Phase 7: the support kernel against its plain version on the card,
+    and the support score against the tile-predict kernel (identity)."""
+    from repro_torch.core import predict as pr
+    from repro_torch.kernels.support import (fused_support_scores,
+                                             support_scores_plain)
+    err = 0.0
+    for b, k, u, i, masked in ((1, 40, 300, 3952, False),
+                               (5, 7, 40, 130, True), (1, 1, 17, 7, False),
+                               (33, 40, 300, 1024, True),
+                               (257, 40, 6040, 4096, False),
+                               (2, 12, 50, 513, False)):
+        args = support_args(rng, b, k, u, i, dev, masked)
+        got = fused_support_scores(*args)
+        e = max_diff(got, support_scores_plain(*args))
+        err = max(err, e)
+        check(e == 0.0, f"support ({b},{k},{u},{i}) masked={masked} diff {e}")
+        if masked:
+            check(torch.equal(got[1::2], args[4][1::2, None].clamp(1, 5)
+                              .expand_as(got[1::2])),
+                  "all-masked rows fall back to the query mean")
+        log(f"  support_scores b={b} k={k} U={u} I'={i} "
+            f"{'masked rows ' if masked else ''}max_abs_diff={e!r}")
+    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
+    got = fused_support_scores(dev_t, msk_t, safe, w, means)
+    e = max_diff(got, support_scores_plain(dev_t, msk_t, safe, w, means))
+    err = max(err, e)
+    check(e == 0.0, f"support at the 6040-user chunk diff {e}")
+    ratings, scores, idx, _ = eng.snapshot()
+    exact = pr.predict_from_neighbors_blocked(
+        ratings, scores, idx, means=means, item_block=512,
+        gather_src=pr.make_gather_source(ratings), use_kernel=True)
+    n_items = ratings.shape[1]
+    check(torch.equal(got[:, :n_items], exact),
+          "support kernel == tile-predict kernel (exact prediction)")
+    log(f"  support_scores at the {tuple(ratings.shape)} chunk (I'="
+        f"{dev_t.shape[1]}, k={safe.shape[1]}) max_abs_diff={e!r}; equal "
+        f"bit for bit to predict_from_neighbors_blocked(use_kernel=True)")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_recommend(dev, train):
+    """Phase 8: the approx-recommend path through the public entry
+    points, then the item index on the plain versions."""
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.index import ItemClusteredIndex, ItemIndexConfig
+    from repro_torch.serving.engine import BatchingServer, DegradationLadder
+    wrappers = all_wrappers()
+    out = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                   recommend_mode="approx", device=dev).fit()
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    ix = eng.item_index
+    out["config"] = {"n_clusters": ix.n_clusters, "n_probe": ix.n_probe,
+                     "project_dim": ix.proxies.shape[1],
+                     "shortlist": ix.cfg.shortlist,
+                     "scorer": ix._shortlist_mode()}
+    t0 = time.perf_counter()
+    s_ap, i_ap = eng.recommend(n=10)
+    torch.cuda.synchronize()
+    out["approx_s"] = time.perf_counter() - t0
+    out["rerank_fraction"] = ix.last_recommend.rerank_fraction
+    t0 = time.perf_counter()
+    s_ex, i_ex = eng.recommend(n=10, mode="exact")
+    torch.cuda.synchronize()
+    out["exact_s"] = time.perf_counter() - t0
+    check(torch.equal(i_ap, i_ex) and torch.equal(s_ap, s_ex),
+          "approx recommend (shortlist 512) == exact, bitwise")
+    t0 = time.perf_counter()
+    s64, i64 = eng.recommend(n=10, shortlist=64)
+    torch.cuda.synchronize()
+    out["approx64_s"] = time.perf_counter() - t0
+    check(torch.equal(i64, i_ex) and torch.equal(s64, s_ex),
+          "approx recommend (shortlist 64) == exact, bitwise")
+    t0 = time.perf_counter()
+    out["recall"] = eng.recommend_recall_vs_exact(sample=256)
+    out["recall_s"] = time.perf_counter() - t0
+    check(out["recall"] == 1.0, f"recommend recall {out['recall']}")
+
+    rng = np.random.default_rng(5)
+    uids = np.repeat(rng.choice(train.shape[0], 16, replace=False), 4)
+    iids = rng.integers(0, train.shape[1], uids.size)
+    vals = rng.integers(0, 6, uids.size).astype(np.float32)
+    t0 = time.perf_counter()
+    st = eng.update_ratings(uids.astype(np.int32), iids.astype(np.int32),
+                            vals, oracle_check=True)
+    out["update_s"] = time.perf_counter() - t0
+    check(st.oracle_ok is True, "approx-recommend update_ratings oracle")
+    lr = ix.last_refold
+    out["refold"] = {"n_touched": lr.n_touched,
+                     "n_reassigned": lr.n_reassigned,
+                     "n_full_rows": lr.n_full_rows,
+                     "caches_patched": lr.caches_patched,
+                     "profile_refold": lr.profile_refold}
+    check(lr.caches_patched == 2, "gather source and scorer tables patched")
+    s_ap, i_ap = eng.recommend(n=10)
+    s_ex, i_ex = eng.recommend(n=10, mode="exact")
+    check(torch.equal(i_ap, i_ex) and torch.equal(s_ap, s_ex),
+          "approx == exact after the update, bitwise")
+
+    server = BatchingServer(
+        eng, max_batch=32, topn=10, device=dev,
+        ladder=DegradationLadder(staged_when_degraded=False))
+    server.start()
+    req = np.random.default_rng(2).integers(0, train.shape[0], 256)
+    t0 = time.perf_counter()
+    futs = [server.submit(int(u)) for u in req]
+    res = [f.result(timeout=300) for f in futs]
+    wall = time.perf_counter() - t0
+    server.stop()
+    _, want = eng.recommend(req, n=10)
+    want = want.cpu().numpy()
+    seen = (eng.ratings > 0).cpu().numpy()
+    for r, u, w in zip(res, req, want):
+        check(r.user == int(u) and np.array_equal(r.items, w),
+              f"approx-recommend served answer for user {u} equals "
+              f"engine.recommend")
+        check(not seen[u, r.items[r.items >= 0]].any(),
+              f"served answer for user {u} holds no rated item")
+    stats = server.stats()
+    out.update(serve_req_per_s=256 / wall, p50_ms=stats["latency_p50_ms"],
+               p99_ms=stats["latency_p99_ms"], health=stats["health"])
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    for name in ("cluster", "select", "support"):
+        check(out["launches"][name] > 0,
+              f"{name} kernel launched on the approx-recommend path")
+
+    # the item index on the plain versions (use_kernel=False), on the card
+    t0 = time.perf_counter()
+    plain = CFEngine(eng.ratings, measure="pcc", k=40, backend="kernel",
+                     recommend_mode="approx", device=dev,
+                     item_index_cfg=ItemIndexConfig(use_kernel=False)).fit()
+    torch.cuda.synchronize()
+    out["plain_fit_s"] = time.perf_counter() - t0
+    cold = ItemClusteredIndex(ItemIndexConfig()).fit(eng.ratings, eng.means)
+    pst, cst = plain.item_index.state(), cold.state()
+    for key in ("proxies", "centroids", "spill_ids", "spill_dist", "counts",
+                "profiles", "has_pos"):
+        check(np.array_equal(pst[key], cst[key]),
+              f"kernel vs plain item index: {key} equal")
+    t0 = time.perf_counter()
+    s_p, i_p = plain.recommend(n=10)
+    torch.cuda.synchronize()
+    out["plain_approx_s"] = time.perf_counter() - t0
+    check(torch.equal(i_p, i_ex) and torch.equal(s_p, s_ex),
+          "plain item index recommend == exact, bitwise")
+    check(torch.equal(plain.recommend(n=10, shortlist=64)[1], i_ex),
+          "plain item index recommend (shortlist 64) == exact")
+    torch.cuda.synchronize()
+    return out, eng
+
+
+def phase_recommend_scale(dev, r):
+    """Phase 9: BENCH_recommend.json's recommend_cosine_U32768 row on the
+    scale phase's matrix: approx against exact recommend, recall@10."""
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.index import IndexConfig, ItemIndexConfig
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = CFEngine(r, measure="cosine", k=40, backend="kernel",
+                   neighbor_mode="approx",
+                   index_cfg=IndexConfig(seed=0, features="raw",
+                                         rerank_frac=0.03, project_dim=384),
+                   recommend_mode="approx",
+                   item_index_cfg=ItemIndexConfig(seed=0, shortlist=64),
+                   device=dev).fit()
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.item_index.fit(eng.ratings, eng.means)      # its share of the fit
+    torch.cuda.synchronize()
+    out["item_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_ex, i_ex = eng.recommend(n=10, mode="exact")
+    torch.cuda.synchronize()
+    out["exact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_ap, i_ap = eng.recommend(n=10)
+    torch.cuda.synchronize()
+    out["approx_s"] = time.perf_counter() - t0
+    out["rerank_fraction"] = eng.item_index.last_recommend.rerank_fraction
+    ex, ap = i_ex.cpu().numpy(), i_ap.cpu().numpy()
+    hits = total = 0
+    for row in range(ex.shape[0]):
+        ref = set(int(j) for j in ex[row] if j >= 0)
+        hits += len(ref & set(int(j) for j in ap[row]))
+        total += len(ref)
+    out["recall"] = hits / max(total, 1)
+    out["bitwise"] = bool(torch.equal(i_ap, i_ex)
+                          and torch.equal(s_ap, s_ex))
+    out["n_item_clusters"] = eng.item_index.n_clusters
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(out["recall"] == 1.0, f"recall@10 {out['recall']} at U=32768")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_support_timings(dev, eng, err, launches):
+    """Phase 10 (kernel 7): kernel vs plain vs torch.sparse.mm at one
+    6040-user chunk of the approx-recommend path."""
+    from repro_torch.kernels.support import (fused_support_scores,
+                                             support_scores_plain)
+    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
+    b, k = safe.shape
+    u, width = dev_t.shape
+    args = (dev_t, msk_t, safe, w, means)
+    e = max_diff(fused_support_scores(*args), support_scores_plain(*args))
+    check(e == 0.0, f"support at timing shape diff {e}")
+    ms = time_ms(lambda: fused_support_scores(*args), reps=10)
+    plain_ms = time_ms(lambda: support_scores_plain(*args), reps=3)
+    # the library yardstick: the (b, U) CSR weight matrix against the
+    # stacked (U, 2I') [dev | msk] table — the same SpMM, no epilogue
+    crow = torch.arange(0, b * k + 1, k, dtype=torch.int64, device=dev)
+    wmat = torch.sparse_csr_tensor(crow, safe.reshape(-1).long(),
+                                   w.reshape(-1), size=(b, u))
+    stacked = torch.cat([dev_t, msk_t], dim=1).contiguous()
+    lib_ms = time_ms(lambda: torch.sparse.mm(wmat, stacked), reps=10)
+    del stacked
+    rows_read = int(torch.unique(safe).numel())
+    n_bytes = 2.0 * rows_read * width * 4 + b * k * 8.0 + b * 4.0 \
+        + b * width * 4.0
+    n_ops = 4.0 * b * k * width + 5.0 * b * width
+    bound, by = bound_ms(n_bytes, n_ops)
+    torch.cuda.synchronize()
+    return [{"name": "fused_support_scores", "route": "cuda",
+             "source": "src/repro_torch/csrc/support.cu",
+             "replaces": "src/repro/kernels/support.py:68",
+             "launches": launches["support"], "max_abs_err": max(err, e),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms,
+             "shape": f"b={b} k={k} U={u} I'={width} ({rows_read} distinct "
+                      f"neighbor rows)"}]
+
+
 def phase_timings(dev, eng, err, launches):
-    """Phase 7 (exact kernels): kernel vs plain vs library at the exact
+    """Phase 10 (exact kernels): kernel vs plain vs library at the exact
     main path's shapes."""
     from repro_torch.core import predict as pr
     from repro_torch.kernels.predict import (fused_tile_predict,
@@ -615,7 +917,7 @@ def phase_timings(dev, eng, err, launches):
 
 
 def phase_index_timings(dev, eng, err, launches):
-    """Phase 7 (index kernels): kernel vs plain vs library at the approx
+    """Phase 10 (index kernels): kernel vs plain vs library at the approx
     path's shapes — one 2048-query block at 6040 users for the scan and
     the rerank, the cluster query's first 256-query block for the
     select."""
@@ -740,11 +1042,11 @@ def phase_index_timings(dev, eng, err, launches):
     return rows
 
 
-def phase_profile(eng, eng_approx) -> None:
-    """Phase 8: where the device time of a steady exact fit, of
-    recommend(all users) and of an approx query (all users) goes
-    (device-side events only: kernels and copies, so no operator's time
-    is counted twice)."""
+def phase_profile(eng, eng_approx, eng_rec) -> None:
+    """Phase 11: where the device time of a steady exact fit, of
+    recommend(all users), of an approx query (all users) and of an approx
+    recommend (all users) goes (device-side events only: kernels and
+    copies, so no operator's time is counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     approx_query = (lambda: eng_approx.index.query(
@@ -752,7 +1054,8 @@ def phase_profile(eng, eng_approx) -> None:
         measure=eng_approx.measure))
     for name, fn in (("fit", eng.fit),
                      ("recommend", lambda: eng.recommend(n=10)),
-                     ("approx query", approx_query)):
+                     ("approx query", approx_query),
+                     ("approx recommend", lambda: eng_rec.recommend(n=10))):
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -870,16 +1173,58 @@ def main() -> int:
     log(f"    recall@20 {sc['recall']!r} (floor 0.94); peak device memory "
         f"{sc['peak_gib']:.2f} GiB (index fit + query)")
 
-    log("[7] kernel timings at the main paths' shapes (CUDA events)")
+    log("[7] support kernel vs plain version on the card; support score "
+        "== exact prediction")
+    serr = phase_support_kernel(dev, np.random.default_rng(2), eng)
+    log(f"    ok: max_abs_diff support={serr!r} (0.0 required)")
+
+    log("[8] approx recommend: CFEngine(recommend_mode='approx') fit -> "
+        "recommend -> recall -> update -> serve")
+    torch.cuda.reset_peak_memory_stats()
+    rc, eng_rec = phase_recommend(dev, train)
+    log(f"    item index {rc['config']}")
+    log(f"    fit (exact neighbors + item index) {rc['fit_s']:.3f}s (item "
+        f"index on the plain versions: engine fit {rc['plain_fit_s']:.3f}s)")
+    log(f"    recommend(all, n=10): approx {rc['approx_s']:.4f}s (rerank "
+        f"fraction {rc['rerank_fraction']!r}), shortlist 64 "
+        f"{rc['approx64_s']:.4f}s, exact {rc['exact_s']:.4f}s, plain "
+        f"versions {rc['plain_approx_s']:.4f}s; approx == exact bitwise "
+        f"at shortlist 512 and 64")
+    log(f"    recommend_recall_vs_exact(sample=256) {rc['recall']!r} "
+        f"({rc['recall_s']:.3f}s)")
+    log(f"    update(16 users, oracle incl. item index) "
+        f"{rc['update_s']:.3f}s, item refold {rc['refold']}")
+    log(f"    serving: 256 requests, {rc['serve_req_per_s']:.1f} req/s, p50 "
+        f"{rc['p50_ms']:.2f} ms, p99 {rc['p99_ms']:.2f} ms, health "
+        f"{rc['health']}; no served item was already rated")
+    log(f"    launches on the approx-recommend path: {rc['launches']}")
+    log(f"    peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    log("[9] recommend at U=32768 (BENCH_recommend.json "
+        "recommend_cosine_U32768: cosine, k=40, approx neighbors, "
+        "shortlist 64)")
+    rs = phase_recommend_scale(dev, sc.pop("matrix"))
+    log(f"    engine fit {rs['fit_s']:.3f}s (item index alone "
+        f"{rs['item_fit_s']:.3f}s, C={rs['n_item_clusters']}); "
+        f"recommend(all, n=10) exact {rs['exact_s']:.3f}s, approx "
+        f"{rs['approx_s']:.3f}s (rerank fraction "
+        f"{rs['rerank_fraction']!r})")
+    log(f"    recall@10 {rs['recall']!r} (the reference's 1.0); approx == "
+        f"exact bitwise: {rs['bitwise']}; peak device memory "
+        f"{rs['peak_gib']:.2f} GiB")
+
+    log("[10] kernel timings at the main paths' shapes (CUDA events)")
     kernels = phase_timings(dev, eng, err, main_out["launches"])
     kernels += phase_index_timings(dev, eng_ap, ierr, ap["launches"])
+    kernels += phase_support_timings(dev, eng_rec, serr, rc["launches"])
     for k in kernels:
         log(f"    {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
-    log("[8] torch.profiler: device time of a steady fit / recommend / "
-        "approx query")
-    phase_profile(eng, eng_ap)
+    log("[11] torch.profiler: device time of a steady fit / recommend / "
+        "approx query / approx recommend")
+    phase_profile(eng, eng_ap, eng_rec)
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in (

@@ -35,8 +35,18 @@ re-queries the index for touched and uncertified rows; ``oracle_check``
 asserts the index invariant and exact means.  ``recall_vs_exact`` holds
 the cache against the exact engine.
 
-The sharded/ring backends and the approximate recommend mode are later
-slices of the port and raise ``NotImplementedError``.
+``recommend_mode="approx"`` fits the item index
+(:class:`repro_torch.index.ItemClusteredIndex`) beside the neighbor cache
+and recommends in two stages: the CUDA support kernel scores every item
+with the exact predictor's num/den form, the CUDA select kernel keeps the
+canonical top ``shortlist`` unseen items, and those are reranked with the
+exact prediction — so with the kernel scorer the result equals the exact
+recommend bit for bit.  An update refolds the item index too, and
+``oracle_check`` asserts its invariant; ``recommend_recall_vs_exact``
+holds approx against exact recommendations.
+
+The sharded/ring backends are a later slice of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,7 +75,6 @@ _NOT_PORTED = {
     "sharded": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
     "ring": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
     "pallas": "the 'kernel' backend (the CUDA port of the Pallas kernel)",
-    "recommend_mode": "ROADMAP Queue 1 item 8 (index/item_index.py)",
 }
 
 # exact-recommend streaming: users per block and items per predict tile —
@@ -186,6 +195,12 @@ class CFEngine:
     index_cfg : optional :class:`repro_torch.index.IndexConfig`; default
         auto (mean-centered features for pcc / pcc_sig, raw rows for
         cosine / jaccard).
+    recommend_mode : ``"exact"`` (default) or ``"approx"`` — fit a
+        :class:`repro_torch.index.ItemClusteredIndex` and recommend through
+        its two-stage path by default (``recommend(mode=...)`` overrides
+        per call).
+    item_index_cfg : optional :class:`repro_torch.index.ItemIndexConfig`
+        (default: the reference's defaults).
     device : ``"cuda"`` (default) or ``"cpu"``; a missing card raises.
     pcc_sig_beta : the ``pcc_sig`` shrink horizon (None → 50).
     """
@@ -222,7 +237,7 @@ class CFEngine:
     def __init__(self, ratings, *, measure: str = "pcc", k: int = 40,
                  backend: str = "kernel", block_size: int = 1024,
                  neighbor_mode: str = "exact", index_cfg=None,
-                 recommend_mode: str = "exact",
+                 recommend_mode: str = "exact", item_index_cfg=None,
                  pcc_sig_beta: Optional[float] = None, device="cuda"):
         if measure not in sim.SIMILARITY_MEASURES:
             raise ValueError(f"unknown measure {measure!r}; want one of "
@@ -239,10 +254,6 @@ class CFEngine:
             if val not in NEIGHBOR_MODES:
                 raise ValueError(f"unknown {opt} {val!r}; want one of "
                                  f"{NEIGHBOR_MODES}")
-            if opt == "recommend_mode" and val == "approx":
-                raise NotImplementedError(
-                    f"{opt}='approx' is not ported yet: see "
-                    f"{_NOT_PORTED[opt]}")
         self.device = resolve_device(device)
         self.ratings = torch.as_tensor(
             ratings if isinstance(ratings, torch.Tensor)
@@ -263,6 +274,12 @@ class CFEngine:
                     features="centered" if measure in ("pcc", "pcc_sig")
                     else "raw")
             self.index = ClusteredIndex(index_cfg)
+        self.item_index = None
+        if recommend_mode == "approx":
+            from repro_torch.index import ItemClusteredIndex, ItemIndexConfig
+            self.item_index = ItemClusteredIndex(
+                item_index_cfg if item_index_cfg is not None
+                else ItemIndexConfig())
 
         self.scores: Optional[torch.Tensor] = None   # (U, k) f32
         self.idx: Optional[torch.Tensor] = None      # (U, k) int32
@@ -316,6 +333,8 @@ class CFEngine:
             else:
                 with obs.span("fit.topk", backend=self.backend):
                     self.scores, self.idx = self._topk(self.ratings)
+            if self.item_index is not None:
+                self.item_index.fit(self.ratings, self.means)
             self._publish()
         self.fit_seconds = sp.duration
         reg = obs.registry()
@@ -430,6 +449,10 @@ class CFEngine:
         if self.neighbor_mode == "approx":
             self.index.refold(self.ratings, self.means, touched,
                               version=self.ratings_version)
+        if self.item_index is not None:
+            self.item_index.refold(self.ratings, self.means, touched,
+                                   np.unique(item_ids),
+                                   version=self.ratings_version)
 
         if self.backend == "kernel" and self.neighbor_mode == "exact":
             # as the reference's pallas backend: exactness means a full
@@ -495,7 +518,10 @@ class CFEngine:
         """Exact mode: assert cache == cold full recompute, bit for bit.
         Approx mode: the cache is defined by the index's candidate policy,
         so assert the index invariant (assignments and proxies equal a
-        cold reassignment) plus exact means."""
+        cold reassignment) plus exact means.  A fitted item index is
+        consistency-checked in either mode."""
+        if self.item_index is not None:
+            self.item_index.check_consistent(self.ratings, self.means)
         if self.neighbor_mode == "approx":
             ok = self.index.check_consistent(self.ratings, self.means)
             _, _, ref_m = sim.user_stats(self.ratings)
@@ -560,8 +586,8 @@ class CFEngine:
     # -- persistence -------------------------------------------------------
     def state(self) -> dict:
         """Engine state as host (numpy) arrays, in the reference's tree
-        layout (``index`` holds the clustered index's state in approx mode;
-        ``item_index`` stays empty — the item index is not ported)."""
+        layout (``index`` / ``item_index`` hold the clustered indexes'
+        states when they are fitted, else they are empty)."""
         if not self.fitted:
             raise RuntimeError("call fit() first")
         return {
@@ -575,7 +601,9 @@ class CFEngine:
             "index": ({key: np.array(val) for key, val in
                        self.index.state().items()}
                       if self.index is not None else {}),
-            "item_index": {},
+            "item_index": ({key: np.array(val) for key, val in
+                            self.item_index.state().items()}
+                           if self.item_index is not None else {}),
         }
 
     def state_template(self) -> dict:
@@ -584,7 +612,8 @@ class CFEngine:
                               "cnt", "tot", "meta")}
         out["index"] = (type(self.index).state_template()
                         if self.index is not None else {})
-        out["item_index"] = {}
+        out["item_index"] = (type(self.item_index).state_template()
+                             if self.item_index is not None else {})
         return out
 
     def load_state(self, tree: dict) -> "CFEngine":
@@ -604,6 +633,9 @@ class CFEngine:
         self._gather_cache = None
         if self.index is not None and tree.get("index"):
             self.index.load_state(tree["index"], device=self.device)
+        if self.item_index is not None and tree.get("item_index"):
+            self.item_index.load_state(tree["item_index"],
+                                       device=self.device)
         self.scores = tree["scores"].to(self.device)
         self._publish()
         obs.registry().gauge("engine.ratings_version").set(
@@ -656,28 +688,33 @@ class CFEngine:
         """Top-n unseen items ``(scores, item ids)`` for ``user_ids``
         (default: all users), on the engine's device.
 
-        Streams user blocks × item tiles (peak memory O(UB·k·IB)).  Slots a
-        user cannot fill come back as item -1 with score -inf; rated items
-        are never returned.  ``mode="approx"`` and the approx candidate
-        budgets (``n_probe``, ``shortlist``) belong to the item index,
-        which is not ported yet.
+        ``mode`` overrides the engine's ``recommend_mode`` per call
+        (``"approx"`` needs a fitted item index); ``n_probe`` and
+        ``shortlist`` are the approx path's per-call candidate budgets (the
+        serving ladder's knobs) and raise on the exact path.  The exact
+        path streams user blocks × item tiles (peak memory O(UB·k·IB)); the
+        approx path runs the item index's two-stage pipeline and returns
+        exact predicted ratings.  Slots a user cannot fill come back as
+        item -1 with score -inf; rated items are never returned.  Both
+        read the published snapshot (the item index's cluster state only
+        shapes the candidate set, never the returned scores).
         """
         if not self.fitted:
             raise RuntimeError("call fit() first")
         mode = mode or self.recommend_mode
         if mode not in RECOMMEND_MODES:
             raise ValueError(f"unknown recommend mode {mode!r}")
+        ratings, scores, idx, means = self.snapshot()
+        uids = (np.arange(self.n_users, dtype=np.int64) if user_ids is None
+                else self._user_ids(user_ids))
         if mode == "approx":
-            raise NotImplementedError(
-                f"recommend(mode='approx') is not ported yet: see "
-                f"{_NOT_PORTED['recommend_mode']}")
+            return self._recommend_approx(ratings, scores, idx, means, uids,
+                                          n=n, n_probe=n_probe,
+                                          shortlist=shortlist)
         if n_probe is not None or shortlist is not None:
             raise ValueError(
                 "n_probe/shortlist are approx-mode candidate budgets; the "
                 "exact path scores every item and cannot honor them")
-        ratings, scores, idx, means = self.snapshot()
-        uids = (np.arange(self.n_users, dtype=np.int64) if user_ids is None
-                else self._user_ids(user_ids))
         src = self._gather_source(ratings)
         ub = min(USER_BLOCK, _bucket(len(uids), self.n_users))
         out_s, out_i = [], []
@@ -693,4 +730,55 @@ class CFEngine:
                 use_kernel=self.use_kernel)
             out_s.append(s[:len(ids)])
             out_i.append(i[:len(ids)])
+        if not out_s:
+            return (torch.zeros((0, n), dtype=torch.float32,
+                                device=self.device),
+                    torch.full((0, n), -1, dtype=torch.int32,
+                               device=self.device))
         return torch.cat(out_s), torch.cat(out_i)
+
+    def _recommend_approx(self, ratings, scores, idx, means, uids, *, n,
+                          n_probe, shortlist):
+        """The item index's two-stage recommend for ``uids``.  Past 4096
+        users with a fitted user index the queries run in taste-cluster
+        order (users of one cluster share neighbors, so the support
+        scorer re-reads the same table rows while they are cache-resident)
+        and are scattered back to the caller's order."""
+        if self.item_index is None or not self.item_index.fitted:
+            raise RuntimeError(
+                "recommend(mode='approx') needs a fitted item index — "
+                "construct with recommend_mode='approx' and fit()")
+        kw = dict(n=n, n_probe=n_probe, shortlist=shortlist)
+        if self.index is not None and self.index.fitted and len(uids) > 4096:
+            perm = np.argsort(self.index.assign[uids], kind="stable")
+            s, i = self.item_index.recommend(ratings, means, scores, idx,
+                                             uids[perm], **kw)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+            inv_t = torch.as_tensor(inv, device=s.device)
+            return s[inv_t], i[inv_t]
+        return self.item_index.recommend(ratings, means, scores, idx, uids,
+                                         **kw)
+
+    def recommend_recall_vs_exact(self, sample: int = 256, n: int = 10,
+                                  seed: int = 0) -> float:
+        """Mean recall@n of approx recommendations against the exact
+        blocked path on a seeded user sample (the recommend analogue of
+        ``recall_vs_exact``).  1.0 whenever the shortlist holds the exact
+        top-n — always with the kernel scorer and ``shortlist ≥ n``."""
+        if not self.fitted:
+            raise RuntimeError("call fit() first")
+        rng = np.random.default_rng(seed)
+        n_s = min(sample, self.n_users)
+        users = np.sort(rng.choice(self.n_users, n_s, replace=False))
+        ref_i = self.recommend(users, n, mode="exact")[1].cpu().numpy()
+        got_i = self.recommend(users, n, mode="approx")[1].cpu().numpy()
+        hits = 0
+        total = 0
+        for row in range(n_s):
+            ref = set(int(j) for j in ref_i[row] if j >= 0)
+            if not ref:
+                continue
+            hits += len(ref & set(int(j) for j in got_i[row]))
+            total += len(ref)
+        return hits / max(total, 1)

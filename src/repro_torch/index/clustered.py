@@ -165,7 +165,7 @@ class RefoldStats:
     caches_patched: int = 0        # derived per-ratings caches refreshed
                                    # by the delta (vs rebuilt on next use)
     refit: bool = False            # crossed the drift threshold: cold refit
-    profile_refold: bool = False   # item index only (not ported)
+    profile_refold: bool = False   # item index: profiles re-folded cold
 
 
 def _featurize(ratings, means, *, features, spherical=True):
@@ -336,10 +336,15 @@ def _fused_rerank_block(r_gather, ratings, norms, counts, q_ids, shorts, *,
 
 
 class _SpillClusterCore:
-    """Axis-agnostic core of the reference's user- and item-side indexes
-    (only the user side is ported): k-means fit + spill assignment, the
-    exact certificate-based refold of assignments and the centroid-mass
-    ledger, the auto-refit drift guard, and checkpointable state.
+    """Axis-agnostic core of the user-side :class:`ClusteredIndex` and the
+    item-side :class:`repro_torch.index.item_index.ItemClusteredIndex`:
+    k-means fit + spill assignment, the exact certificate-based refold of
+    assignments and the centroid-mass ledger, the auto-refit drift guard,
+    the ratings version chain with its per-ratings caches, and
+    checkpointable state.  Subclasses hook their own per-ratings caches
+    into the version chain (``_patch_extra_row_caches`` /
+    ``_drop_extra_row_caches``) and their own state
+    (``_extra_state`` / ``_load_extra_state``).
 
     Proxies and centroids live on the device; spill lists, distances and
     the mass ledger are host (numpy) arrays, as in the reference.
@@ -400,10 +405,12 @@ class _SpillClusterCore:
         return src
 
     def _patch_row_caches(self, ratings, touched: np.ndarray,
-                          version: Optional[int]) -> int:
+                          version: Optional[int], means=None) -> int:
         """Advance the ratings version chain and delta-patch the gather
-        cache for a row delta (``touched``: sorted unique changed rows);
-        a broken chain drops it.  Returns the number of caches patched."""
+        cache and the subclass's caches for a user-row delta (``touched``:
+        sorted unique changed user rows; ``means``: the post-delta user
+        means, for caches derived from them); a broken chain drops them
+        all.  Returns the number of caches patched."""
         old = self._ratings_key
         chain_ok = (old is not None and ratings is not old
                     and (version is None
@@ -411,15 +418,30 @@ class _SpillClusterCore:
         self._ratings_key = ratings
         self._ratings_version = (version if version is not None
                                  else self._ratings_version + 1)
+        if not chain_ok:
+            self._gather_cache = None
+            self._drop_extra_row_caches()
+            return 0
+        patched = 0
         cache = self._gather_cache
-        if chain_ok and cache is not None and cache[0] is old:
+        if cache is not None and cache[0] is old:
             rows = torch.as_tensor(touched, device=ratings.device)
             self._gather_cache = (ratings, pred_mod.patch_gather_source(
                 cache[1], ratings, rows))
-            return 1
-        if ratings is not old or not chain_ok:
+            patched += 1
+        else:
             self._gather_cache = None
+        return patched + self._patch_extra_row_caches(ratings, means,
+                                                      touched, old)
+
+    def _patch_extra_row_caches(self, ratings, means, touched: np.ndarray,
+                                old) -> int:
+        """Subclass hook: delta-patch the per-ratings caches the core does
+        not own; returns how many were patched."""
         return 0
+
+    def _drop_extra_row_caches(self) -> None:
+        """Subclass hook: drop those caches on a broken chain."""
 
     # -- resolution --------------------------------------------------------
     @property
@@ -631,6 +653,7 @@ class _SpillClusterCore:
             "spill_dist": self.spill_dist,
             "spill_ids": self.spill_ids,
             "sums": self._sums,
+            **self._extra_state(),
         }
 
     @classmethod
@@ -665,7 +688,15 @@ class _SpillClusterCore:
         self._counts = np.array(tree["counts"], np.int64)
         self.kmeans_stats = None
         self._rebuild_members()
+        self._load_extra_state(tree)
         return self
+
+    def _extra_state(self) -> dict:
+        """Subclass hook: extra host arrays for :meth:`state`."""
+        return {}
+
+    def _load_extra_state(self, tree: dict) -> None:
+        """Subclass hook: restore what :meth:`_extra_state` saved."""
 
 
 class ClusteredIndex(_SpillClusterCore):

@@ -34,6 +34,24 @@ def tile_predict_ref(nbr: torch.Tensor, w: torch.Tensor,
     return core_pred._tile_predict(w, nbr.float(), nb_means, q_means)
 
 
+def support_scores_ref(dev: torch.Tensor, msk: torch.Tensor,
+                       nb_idx: torch.Tensor, nb_w: torch.Tensor,
+                       q_means: torch.Tensor) -> torch.Tensor:
+    """(U, I) deviation/mask tables, (b, k) masked neighbor weights and
+    clipped ids → (b, I) clipped predictions: the gathered (b, k, I) rows
+    reduced by ``einsum`` (the reference's oracle form, any order).
+    Oracle for ``repro_torch.kernels.support.fused_support_scores``."""
+    ids = nb_idx.long()
+    w = nb_w.float()
+    num = torch.einsum("bk,bki->bi", w, dev.float()[ids])
+    den = torch.einsum("bk,bki->bi", w, msk.float()[ids])
+    eps = torch.full((), _EPS, dtype=torch.float32, device=dev.device)
+    qm = q_means.float()[:, None]
+    pred = qm + num / torch.maximum(den, eps)
+    pred = torch.where(den > _EPS, pred, qm)
+    return pred.clamp(1.0, 5.0)
+
+
 def rerank_scores_ref(q_vals: torch.Tensor, cand_rows: torch.Tensor,
                       cand_norms: torch.Tensor, cand_counts: torch.Tensor,
                       measure: str = "cosine",

@@ -5,10 +5,13 @@ recommendations on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --backend sequential
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --users 256 --items 128            # the plain CPU path
+    PYTHONPATH=src python -m repro_torch.launch.serve --recommend-mode approx
 
 ``--backend kernel`` (default) fits with the CUDA similarity kernel and
-serves through the CUDA tile-predict kernel; ``--device`` defaults to
-``cuda`` and a missing card is an error.  ``--stats-interval`` logs a
+serves through the CUDA tile-predict kernel; ``--recommend-mode approx``
+serves through the two-stage item index (the CUDA support and select
+kernels, then the exact rerank).  ``--device`` defaults to ``cuda`` and a
+missing card is an error.  ``--stats-interval`` logs a
 periodic ``stats()`` line, ``--metrics-dump PATH`` writes the final
 registry snapshot.  ``--deadline-ms`` / ``--max-queue`` exercise the
 request lifecycle, ``--ladder`` the degradation state machine, and
@@ -63,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--backend", choices=BACKENDS, default="kernel")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--measure", default="pcc", choices=SIMILARITY_MEASURES)
+    ap.add_argument("--recommend-mode", choices=("exact", "approx"),
+                    default="exact",
+                    help="approx serves through the two-stage item index")
     ap.add_argument("--stats-interval", type=float, default=0.0,
                     help="seconds between periodic stats() log lines "
                          "(0 disables)")
@@ -87,9 +93,12 @@ def main(argv=None):
     train, _, _ = load_ml1m_synthetic(n_users=args.users,
                                       n_items=args.items)
     engine = CFEngine(train, measure=args.measure, k=40, block_size=256,
-                      backend=args.backend, device=args.device).fit()
+                      backend=args.backend,
+                      recommend_mode=args.recommend_mode,
+                      device=args.device).fit()
     print(f"fit {engine.n_users}x{engine.n_items} backend={args.backend} "
-          f"device={engine.device} in {engine.fit_seconds:.3f}s")
+          f"recommend_mode={args.recommend_mode} device={engine.device} "
+          f"in {engine.fit_seconds:.3f}s")
     server = BatchingServer(
         engine, max_batch=args.max_batch, topn=args.topn,
         registry=obs.registry(), max_queue=args.max_queue,

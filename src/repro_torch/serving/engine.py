@@ -1,5 +1,5 @@
 """Batched serving tier for recommendation requests, supervised (port of
-``repro.serving.engine`` for an exact-mode ``CFEngine``).
+``repro.serving.engine`` for the ``CFEngine`` facade).
 
 Requests enqueue individually; a background batcher drains up to
 ``max_batch`` (or waits ``max_wait_ms``), pads user indices into a fixed
@@ -9,7 +9,10 @@ each batch reads the engine's atomically published snapshot, so an
 ``update_ratings`` between batches is picked up by the very next batch.
 An engine built with ``backend="kernel"`` serves every item tile through
 the CUDA tile-predict kernel, exactly as its ``recommend`` does, so a
-served answer equals ``engine.recommend`` for that user.
+served answer equals ``engine.recommend`` for that user.  An engine built
+with ``recommend_mode="approx"`` is served through ``engine.recommend``
+itself: the item index's two-stage path (support kernel → select kernel →
+exact rerank), updates landing between batches.
 
 **Failure model.**  Every batch runs isolated: an exception resolves that
 batch's futures with the error (``serve.failures``) and the batcher
@@ -30,8 +33,14 @@ cancels the queue — either way nothing is stranded — and later
 **Degradation ladder.**  With a :class:`DegradationLadder` the server runs
 the HEALTHY → DEGRADED → SHEDDING state machine on its windowed p99 /
 queue depth and on ``StragglerWatchdog`` escalation; in SHEDDING, bulk
-traffic is refused at admission.  (The reference also steps an approx
-engine's candidate budgets down; the approx engine is a later slice.)
+traffic is refused at admission.  Under degradation an approx-recommend
+engine runs each request class at its own candidate budget
+(``DegradationLadder.budget``: ``n_probe`` and ``shortlist`` shrink
+multiplicatively per level, bulk one level worse than interactive).  The
+reference's other degraded step — forcing the user index's staged query
+mode (``staged_when_degraded``) — needs that unported mode: a ladder
+asking for it in front of an approx-recommend engine with a user index
+raises ``NotImplementedError`` at construction.
 
 Telemetry goes through a :class:`repro_torch.obs.MetricsRegistry`:
 per-request latency splits into queue wait and compute wait, each a
@@ -47,7 +56,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,9 +109,14 @@ class DegradationLadder:
     steps up, a window past ``shed_p99_ms`` or ``max_queue_depth`` jumps
     straight to SHEDDING — while recovery is hysteretic: ``hold_windows``
     consecutive windows under ``recover_p99_ms`` step down one level.
-    The instance is owned by one server and mutated only on its batcher
-    thread.  (The reference's per-level candidate budgets for an approx
-    engine come with the approx slice.)
+
+    Quality budgets are multiplicative per level: at level ``L`` an
+    approx-recommend engine runs ``n_probe ≈ base·n_probe_frac**L`` and
+    ``shortlist ≈ base·shortlist_frac**L`` (floored at 1 / top-n), and
+    ``bulk`` requests are served one level worse than ``interactive``.
+    ``staged_when_degraded`` is the reference's user-index staged-mode
+    switch (not ported: see the module docstring).  The instance is owned
+    by one server and mutated only on its batcher thread.
     """
     degrade_p99_ms: float = 50.0
     shed_p99_ms: float = 200.0
@@ -110,7 +124,22 @@ class DegradationLadder:
     max_queue_depth: float = 64.0
     window: int = 8                 # batches per health evaluation
     hold_windows: int = 2           # calm windows per step *down*
+    n_probe_frac: float = 0.5
+    shortlist_frac: float = 0.5
+    staged_when_degraded: bool = True
     calm_windows: int = 0
+
+    def budget(self, level: int, base_n_probe: int, base_shortlist: int,
+               n_min: int) -> Optional[dict]:
+        """Per-call candidate budgets for a request served at ``level``
+        (None = config defaults, i.e. HEALTHY)."""
+        if level <= HEALTHY:
+            return None
+        return {
+            "n_probe": max(1, int(base_n_probe * self.n_probe_frac ** level)),
+            "shortlist": max(n_min, int(base_shortlist
+                                        * self.shortlist_frac ** level)),
+        }
 
     def next_level(self, level: int, *, p99_ms: float, queue_depth: float,
                    straggler: bool) -> Tuple[int, str]:
@@ -174,6 +203,23 @@ class BatchingServer:
         self._n_users = int(cf_model.n_users)
         self._gather = cf_model._gather_source
         self._use_kernel = bool(cf_model.use_kernel)
+        # two-stage serving: candidate items from the item index, exact
+        # rerank, through engine.recommend (the batcher is the only
+        # recommend caller, so it sees each update whole)
+        self._approx_engine = None
+        self._base_n_probe = 0
+        self._base_shortlist = 0
+        if getattr(cf_model, "recommend_mode", "exact") == "approx":
+            if ladder is not None and ladder.staged_when_degraded \
+                    and getattr(cf_model, "index", None) is not None:
+                raise NotImplementedError(
+                    "DegradationLadder(staged_when_degraded=True) switches "
+                    "the user index to its staged query mode, which is not "
+                    "ported (ROADMAP Queue 1 item 7); pass "
+                    "staged_when_degraded=False")
+            self._approx_engine = cf_model
+            self._base_n_probe = int(cf_model.item_index.n_probe)
+            self._base_shortlist = int(cf_model.item_index.cfg.shortlist)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.topn = topn
@@ -227,7 +273,10 @@ class BatchingServer:
         # warm the predictor (and build/load the kernels) at the batch shape
         self._run_padded(np.zeros((self.max_batch,), np.int64))
 
-    def _run_padded(self, users: np.ndarray):
+    def _run_padded(self, users: np.ndarray, budget: Optional[dict] = None):
+        if self._approx_engine is not None:
+            return self._approx_engine.recommend(users, n=self.topn,
+                                                 **(budget or {}))
         ratings, scores, idx, means = self._snapshot()
         users_t = torch.as_tensor(users, device=ratings.device)
         return _predict_users(users_t, ratings, scores, idx, means,
@@ -436,26 +485,51 @@ class BatchingServer:
         self._h_fill.observe(len(live) / self.max_batch)
         with obs.span("serve.batch", batch_size=len(live), batch_seq=seq):
             t_launch = time.perf_counter()
-            users = np.zeros((self.max_batch,), np.int64)
-            for j, r in enumerate(live):
-                users[j] = r[0]
-            with obs.span("serve.predict", batch_size=len(live)):
-                scores, items = self._run_padded(users)
-                scores = scores.cpu().numpy()    # host copy = device fence
-                items = items.cpu().numpy()
-            now = time.perf_counter()
-            for j, (u, t0, _dl, _cls, fut) in enumerate(live):
-                # per-request latency split: queue wait (enqueue → batch
-                # launch) + compute wait (launch → resolved)
-                self._h_queue.observe(max(t_launch - t0, 0.0))
-                self._h_compute.observe(now - t_launch)
-                lat = (now - t0) * 1e3
-                self._h_latency.observe(lat / 1e3)
-                fut.set_result(Recommendation(
-                    user=u, items=items[j], scores=scores[j],
-                    latency_ms=lat))
+            for budget, cls, sub in self._plan(live):
+                users = np.zeros((self.max_batch,), np.int64)
+                for j, r in enumerate(sub):
+                    users[j] = r[0]
+                with obs.span("serve.predict", batch_size=len(sub),
+                              request_class=cls, degraded=bool(budget)):
+                    scores, items = self._run_padded(users, budget)
+                    scores = scores.cpu().numpy()  # host copy = device fence
+                    items = items.cpu().numpy()
+                now = time.perf_counter()
+                for j, (u, t0, _dl, _cls, fut) in enumerate(sub):
+                    # per-request latency split: queue wait (enqueue →
+                    # batch launch) + compute wait (launch → resolved)
+                    self._h_queue.observe(max(t_launch - t0, 0.0))
+                    self._h_compute.observe(now - t_launch)
+                    lat = (now - t0) * 1e3
+                    self._h_latency.observe(lat / 1e3)
+                    fut.set_result(Recommendation(
+                        user=u, items=items[j], scores=scores[j],
+                        latency_ms=lat))
             compute_s = time.perf_counter() - t_launch
         self._after_batch(seq, compute_s)
+
+    def _plan(self, live: list) -> List[tuple]:
+        """Split the batch into (budget, class, requests) groups: one
+        full-batch group while HEALTHY (or without a ladder or an
+        approx-recommend engine); under degradation each request class
+        runs at its own candidate budget — bulk one level worse than
+        interactive."""
+        if self._ladder is None or self._approx_engine is None:
+            return [(None, "interactive", live)]
+        with self._state_lock:
+            level = self._health
+        if level == HEALTHY:
+            return [(None, "interactive", live)]
+        groups: dict = {}
+        for r in live:
+            groups.setdefault(r[3], []).append(r)
+        out = []
+        for cls in sorted(groups):
+            eff = level if cls == "interactive" else min(level + 1, SHEDDING)
+            out.append((self._ladder.budget(eff, self._base_n_probe,
+                                            self._base_shortlist, self.topn),
+                        cls, groups[cls]))
+        return out
 
     def _after_batch(self, seq: int, compute_s: float) -> None:
         """Feed the watchdog and, every ``ladder.window`` batches (or

@@ -8,7 +8,10 @@ device; ``repro_torch.core.facade.CFEngine.load_state`` accepts either
 form.  This is how a model fitted by the reference is served by the port.
 An approx-mode tree also carries the reference ``ClusteredIndex.state()``
 subtree under ``"index"`` (basis, centroids, counts, meta, proxies,
-spill_dist, spill_ids, sums), which passes through as host arrays.
+spill_dist, spill_ids, sums) and, with ``recommend_mode="approx"``, the
+``ItemClusteredIndex.state()`` subtree under ``"item_index"`` (the same
+keys plus has_pos, item_meta, profiles); both pass through as host
+arrays, and a subtree that lacks a key raises.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ _DTYPES = {"ratings": torch.float32, "scores": torch.float32,
            "tot": torch.float32}
 INDEX_KEYS = ("basis", "centroids", "counts", "meta", "proxies",
               "spill_dist", "spill_ids", "sums")
+ITEM_INDEX_KEYS = INDEX_KEYS + ("has_pos", "item_meta", "profiles")
 
 
 def _host(val) -> np.ndarray:
@@ -33,19 +37,21 @@ def _host(val) -> np.ndarray:
     return np.array(val)
 
 
+def _subtree(tree: dict, name: str, keys) -> Dict[str, np.ndarray]:
+    """``tree[name]`` as host arrays (empty when absent or empty); a
+    partial subtree raises."""
+    sub = tree.get(name) or {}
+    missing = [key for key in keys if sub and key not in sub]
+    if missing:
+        raise ValueError(f"state[{name!r}] lacks {missing}")
+    return {key: _host(sub[key]) for key in keys if sub}
+
+
 def from_reference_state(tree: dict, device="cuda") -> Dict[str, object]:
     """Reference ``CFEngine.state()`` tree → the port's tensors on
     ``device`` (plus ``"version"``, the ratings version as an int, and
-    ``"index"``, the clustered index's subtree as host arrays — empty in
-    exact mode).
-
-    Item-index state (``recommend_mode="approx"``) is not ported yet; a
-    tree that carries it raises ``NotImplementedError``.
-    """
-    if tree.get("item_index"):
-        raise NotImplementedError(
-            "item-index state is not ported yet (ROADMAP Queue 1 item 8); "
-            "carry an engine without recommend_mode='approx'")
+    ``"index"`` / ``"item_index"``, the clustered indexes' subtrees as
+    host arrays — empty when the engine has no such index)."""
     dev = resolve_device(device)
     out: Dict[str, object] = {}
     for key, dtype in _DTYPES.items():
@@ -59,12 +65,8 @@ def from_reference_state(tree: dict, device="cuda") -> Dict[str, object]:
     if isinstance(meta, torch.Tensor):
         meta = meta.cpu().numpy()
     out["version"] = int(np.asarray(meta).reshape(-1)[0])
-    index = tree.get("index") or {}
-    missing = [key for key in INDEX_KEYS if index and key not in index]
-    if missing:
-        raise ValueError(f"state['index'] lacks {missing}")
-    out["index"] = {key: _host(index[key]) for key in INDEX_KEYS
-                    if index}
+    out["index"] = _subtree(tree, "index", INDEX_KEYS)
+    out["item_index"] = _subtree(tree, "item_index", ITEM_INDEX_KEYS)
     u = out["ratings"].shape[0]
     k = out["scores"].shape[1]
     want = {"scores": (u, k), "idx": (u, k), "means": (u,), "cnt": (u,),

@@ -185,15 +185,35 @@ def test_reference_state_carries_into_port(ml_small, ref_engines, backend):
 
 
 def test_state_with_index_is_refused(ml_small, ref_engines):
-    """Item-index state is not ported; an index subtree must be whole."""
+    """An index or item-index subtree must be whole; a whole item-index
+    subtree (the reference's ``recommend_mode="approx"`` engine) carries
+    across as host arrays and serves the port's approx recommend."""
     tree = dict(ref_engines["pcc"].state())
     tree["item_index"] = {"centroids": np.zeros((2, 2))}
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="lacks"):
         from_reference_state(tree, "cpu")
     tree = dict(ref_engines["pcc"].state())
     tree["index"] = {"centroids": np.zeros((2, 2))}
     with pytest.raises(ValueError, match="lacks"):
         from_reference_state(tree, "cpu")
+    from repro.index import ItemIndexConfig as RefItemConfig
+    from repro_torch.index import ItemIndexConfig
+    cfg = dict(n_clusters=8, seed=0, shortlist=16)
+    ref = RefEngine(jnp.asarray(ml_small[0]), measure="pcc", k=K,
+                    block_size=128, recommend_mode="approx",
+                    item_index_cfg=RefItemConfig(**cfg)).fit()
+    tree = ref.state()
+    carried = from_reference_state(tree, "cpu")
+    assert set(carried["item_index"]) == set(tree["item_index"])
+    for key, val in tree["item_index"].items():
+        assert np.array_equal(carried["item_index"][key], np.asarray(val))
+    eng = CFEngine(np.zeros((1, 1), np.float32), measure="pcc", k=K,
+                   recommend_mode="approx", device="cpu",
+                   item_index_cfg=ItemIndexConfig(**cfg)).load_state(tree)
+    s, i = eng.recommend(n=10)
+    assert torch.equal(i, eng.recommend(n=10, mode="exact")[1])
+    _assert_recommend_tie_aware("state.item_index.recommend", i,
+                                ref.recommend(n=10)[1], eng.predict())
 
 
 def test_missing_card_raises_and_unported_options(monkeypatch):
@@ -207,14 +227,18 @@ def test_missing_card_raises_and_unported_options(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 7"):
         CFEngine(r, neighbor_mode="approx", device="cpu",
                  index_cfg=IndexConfig(query_mode="staged"))
-    with pytest.raises(NotImplementedError):
-        CFEngine(r, recommend_mode="approx", device="cpu")
+    from repro_torch.index import ItemIndexConfig
+    with pytest.raises(NotImplementedError, match="item 8"):
+        CFEngine(r, recommend_mode="approx", device="cpu",
+                 item_index_cfg=ItemIndexConfig(shortlist_mode="support"))
+    assert CFEngine(r, recommend_mode="approx", device="cpu"
+                    ).item_index is not None
     with pytest.raises(ValueError):
         CFEngine(r, backend="threads", device="cpu")
     with pytest.raises(ValueError):
         CFEngine(r, measure="euclid", device="cpu")
     eng = CFEngine(r, k=2, device="cpu").fit()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="item index"):
         eng.recommend(mode="approx")
     with pytest.raises(ValueError):
         eng.recommend(n_probe=4)

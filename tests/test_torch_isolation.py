@@ -42,7 +42,8 @@ def test_scan_covers_the_package():
                  "launch/serve.py", "state.py", "device.py",
                  "index/clustered.py", "index/kmeans.py",
                  "kernels/cluster.py", "kernels/select.py",
-                 "kernels/rerank.py"):
+                 "kernels/rerank.py", "index/item_index.py",
+                 "kernels/support.py"):
         assert want in names
 
 
@@ -53,6 +54,7 @@ def test_scan_covers_the_package():
     ("select", "repro/kernels/select.py", ["fused_scan_topm",
                                            "select_topm"]),
     ("rerank", "repro/kernels/rerank.py", ["fused_rerank_scores"]),
+    ("support", "repro/kernels/support.py", ["fused_support_scores"]),
 ])
 def test_kernel_sources_and_wrappers(name, replaces, wrappers):
     import importlib

@@ -203,3 +203,94 @@ def test_approx_engine_kernel_equals_plain_on_card(cuda):
     st = ker.update_ratings([4, 4, 9], [1, 2, 3], [5.0, 0.0, 2.0],
                             oracle_check=True)
     assert st.oracle_ok
+
+
+# -- the item index's support scorer (segmented SpMM) ------------------------
+
+def _support_inputs(rng, b, k, u, i, cuda, masked=False):
+    dev = (rng.normal(size=(u, i)).astype(np.float32)
+           * (rng.random((u, i)) < 0.3))
+    msk = (dev != 0).astype(np.float32)
+    idx = rng.integers(0, u, (b, k)).astype(np.int32)
+    w = (rng.random((b, k)) * (rng.random((b, k)) < 0.8)).astype(np.float32)
+    if masked:
+        w[:] = 0.0
+    qm = rng.uniform(2, 4, b).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(cuda) for x in (dev, msk, idx, w, qm))
+
+
+@pytest.mark.parametrize("b,k,u,i,masked", [
+    (5, 7, 40, 130, False), (1, 1, 17, 7, False), (9, 3, 25, 64, False),
+    (3, 4, 20, 48, True), (33, 40, 300, 1024, False),
+    (257, 40, 6040, 4096, False), (2, 12, 50, 513, False)])
+def test_support_kernel_matches_plain(cuda, b, k, u, i, masked):
+    from repro_torch.kernels.support import (fused_support_scores,
+                                             support_scores_plain)
+    rng = np.random.default_rng(b + k + u + i)
+    args = _support_inputs(rng, b, k, u, i, cuda, masked)
+    before = fused_support_scores.launches
+    got = fused_support_scores(*args)
+    assert fused_support_scores.launches == before + 1
+    want = support_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.support.{b}x{k}x{u}x{i}", got, want)
+    if masked:
+        assert torch.equal(got, args[4][:, None].clamp(1, 5).expand_as(got))
+
+
+def test_support_kernel_equals_tile_predict(cuda):
+    """The support score is the exact prediction: the same ordered k-loop
+    on the same rounded r − r̄ values as the tile-predict kernel."""
+    from repro_torch.index.item_index import _dense_tables
+    from repro_torch.kernels.support import BT, fused_support_scores
+    rng = np.random.default_rng(4)
+    r = torch.from_numpy(int_ratings(rng, 300, 700)).to(cuda)
+    eng = CFEngine(r, k=12, block_size=128, device="cuda").fit()
+    scores, idx, means = eng.scores, eng.idx, eng.means
+    dev, msk = _dense_tables(r, means, 700 + (-700) % BT)
+    safe = torch.where(idx >= 0, idx, 0).to(torch.int32).contiguous()
+    w = torch.where((scores > 0) & (idx >= 0), scores,
+                    torch.zeros_like(scores)).contiguous()
+    got = fused_support_scores(dev, msk, safe, w, means)[:, :700]
+    want = pr.predict_from_neighbors_blocked(
+        r, scores, idx, means=means, item_block=512,
+        gather_src=pr.make_gather_source(r), use_kernel=True)
+    torch.cuda.synchronize()
+    assert_parity("cuda.support.identity_tile_predict", got, want)
+
+
+def test_support_kernel_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.support import fused_support_scores
+    rng = np.random.default_rng(0)
+    dev, msk, idx, w, qm = _support_inputs(rng, 3, 4, 20, 48, cuda)
+    with pytest.raises(TypeError):
+        fused_support_scores(dev, msk, idx.long(), w, qm)
+    with pytest.raises(ValueError):
+        fused_support_scores(dev, msk[:, :40], idx, w, qm)
+    with pytest.raises(ValueError):
+        fused_support_scores(dev, msk, idx, w.cpu(), qm)
+    with pytest.raises(ValueError):
+        fused_support_scores(dev.T.contiguous().T, msk, idx, w, qm)
+
+
+def test_approx_recommend_equals_exact_on_card(cuda):
+    from repro_torch.index import ItemIndexConfig
+    rng = np.random.default_rng(6)
+    r = int_ratings(rng, 400, 700)
+    engines = [CFEngine(r, k=10, recommend_mode="approx", device="cuda",
+                        item_index_cfg=ItemIndexConfig(use_kernel=flag)
+                        ).fit() for flag in (None, False)]
+    ker, plain = engines
+    s_ex, i_ex = ker.recommend(n=10, mode="exact")
+    for shortlist in (512, 64, 10):
+        s_k, i_k = ker.recommend(n=10, shortlist=shortlist)
+        s_p, i_p = plain.recommend(n=10, shortlist=shortlist)
+        assert torch.equal(s_k, s_ex) and torch.equal(i_k, i_ex)
+        assert torch.equal(s_p, s_ex) and torch.equal(i_p, i_ex)
+    assert ker.recommend_recall_vs_exact(sample=64) == 1.0
+    st = ker.update_ratings([4, 4, 9], [1, 2, 3], [5.0, 0.0, 2.0],
+                            oracle_check=True)
+    assert st.oracle_ok and ker.item_index.last_refold.caches_patched >= 1
+    s_ex, i_ex = ker.recommend(n=10, mode="exact")
+    s_k, i_k = ker.recommend(n=10)
+    assert torch.equal(s_k, s_ex) and torch.equal(i_k, i_ex)

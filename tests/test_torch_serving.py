@@ -265,3 +265,115 @@ def test_fault_tolerance_and_metrics_match_reference():
     snap = r.snapshot()["histograms"]["h"]
     assert metrics.delta_quantile(None, snap, 0.99) == \
         ref_metrics.delta_quantile(None, snap, 0.99)
+
+
+# -- an approx-recommend engine (the item index) behind the server -----------
+
+def _approx_engine(seed=0, u=64, d=48, **kw):
+    from repro_torch.index import ItemIndexConfig
+    r = int_ratings(np.random.default_rng(seed), u, d, density=0.5)
+    return CFEngine(r, measure="cosine", k=5, block_size=16, device="cpu",
+                    recommend_mode="approx",
+                    item_index_cfg=ItemIndexConfig(n_clusters=6,
+                                                   shortlist=8), **kw).fit()
+
+
+def test_served_approx_answers_equal_engine_recommend():
+    eng = _approx_engine()
+    server = _server(eng, topn=5)
+    server.start()
+    users = [0, 7, 31, 47, 63, 7]
+    futs = [server.submit(u) for u in users]
+    res = [f.result(timeout=30) for f in futs]
+    server.stop()
+    want_s, want_i = eng.recommend(users, n=5)
+    seen = eng.ratings.numpy() > 0
+    for r, u, w in zip(res, users, want_i):
+        assert r.user == u
+        np.testing.assert_array_equal(r.items, w.numpy())
+        assert not seen[u, r.items[r.items >= 0]].any()
+    # the kernel scorer's shortlist holds the exact top-n
+    assert torch.equal(want_i, eng.recommend(users, n=5, mode="exact")[1])
+    assert server.stats()["n_failures"] == 0
+
+
+def test_ladder_budgets_match_reference():
+    from repro.serving.engine import DegradationLadder as RefLadder
+    for fracs in ((0.5, 0.5), (0.25, 0.75)):
+        a = DegradationLadder(n_probe_frac=fracs[0], shortlist_frac=fracs[1])
+        b = RefLadder(n_probe_frac=fracs[0], shortlist_frac=fracs[1])
+        for level in range(3):
+            for base in ((4, 8, 5), (39, 512, 10), (1, 3, 10)):
+                assert a.budget(level, *base) == b.budget(level, *base)
+    assert DegradationLadder().budget(0, 8, 64, 10) is None
+
+
+def test_degraded_server_plans_per_class_budgets():
+    eng = _approx_engine()
+    ladder = DegradationLadder(staged_when_degraded=False, window=10**6)
+    server = _server(eng, topn=5, ladder=ladder)
+    assert (server._base_n_probe, server._base_shortlist) == (3, 8)
+    server._health = 1                                    # DEGRADED
+    live = [(3, 0.0, None, "interactive", None),
+            (9, 0.0, None, "bulk", None)]
+    plan = server._plan(live)
+    assert [(cls, budget) for budget, cls, _ in plan] == [
+        ("bulk", ladder.budget(2, 3, 8, 5)),
+        ("interactive", ladder.budget(1, 3, 8, 5))]
+    server.start()
+    rec = server.submit(3).result(timeout=30)
+    server.stop()
+    _, want = eng.recommend([3], n=5, **ladder.budget(1, 3, 8, 5))
+    np.testing.assert_array_equal(rec.items, want[0].numpy())
+    # healthy, or no approx engine: one full-batch group at the defaults
+    server._health = 0
+    assert server._plan(live) == [(None, "interactive", live)]
+    exact = _server(_engine(), ladder=ladder)
+    exact._health = 1
+    assert exact._plan(live) == [(None, "interactive", live)]
+
+
+def test_staged_override_is_refused():
+    """The reference's degraded step forces the user index's staged query
+    mode, which is not ported: a ladder asking for it in front of an
+    approx-recommend engine with a user index raises at construction."""
+    from repro_torch.index import IndexConfig
+    eng = _approx_engine(neighbor_mode="approx",
+                         index_cfg=IndexConfig(n_clusters=4, project_dim=8))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        _server(eng, ladder=DegradationLadder())
+    server = _server(eng, topn=5,
+                     ladder=DegradationLadder(staged_when_degraded=False))
+    server.start()
+    assert server.submit(2).result(timeout=30).user == 2
+    server.stop()
+    # no user index: nothing to switch, the default ladder is accepted
+    _server(_approx_engine(), ladder=DegradationLadder())
+
+
+def test_approx_serving_is_race_clean_under_updates():
+    """The batcher serves an approx-recommend engine while the main thread
+    applies rating updates (refolding the item index); engine, server and
+    item index are traced, and every unguarded shared attribute must be
+    covered by an annotated single-writer contract."""
+    rng = np.random.default_rng(2)
+    eng = _approx_engine(seed=2)
+    server = _server(eng, topn=5)
+    tracer = RaceTracer()
+    with tracer.trace(eng, "engine"), tracer.trace(server, "server"), \
+            tracer.trace(eng.item_index, "item_index"):
+        server.start()
+        futures = []
+        for i, u in enumerate(rng.integers(0, 64, 40)):
+            futures.append(server.submit(int(u)))
+            if i % 5 == 4:
+                eng.update_ratings([int(rng.integers(0, 64))],
+                                   [int(rng.integers(0, 48))], [4.0])
+            server.stats()
+        done = [f.result(timeout=30) for f in futures]
+        time.sleep(0.02)
+        server.stop()
+    assert len(done) == 40
+    assert all(r.items.shape == (5,) for r in done)
+    tracer.assert_clean()
+    assert eng.item_index.check_consistent(eng.ratings, eng.means)
