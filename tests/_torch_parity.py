@@ -9,6 +9,7 @@ them), the source of the parity table in PERF.md.
 """
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -45,3 +46,16 @@ def assert_parity(name: str, got, want, atol: float = 0.0) -> float:
         np.testing.assert_allclose(to_np(got), to_np(want), rtol=0,
                                    atol=atol, err_msg=name)
     return d
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_single_thread():
+    """Run a test module's torch work on one intra-op thread.  The suite
+    runs several pytest workers at once, and torch's default of one
+    thread per core then oversubscribes the CPU: six concurrent runs of
+    ``test_torch_item_index.py`` took 3.6× longer with the default.
+    Import it into a module to turn it on there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_parity, to_np
+from _torch_parity import torch_single_thread  # noqa: F401
 from repro.core import metrics as ref_metrics
 from repro.core.facade import CFEngine as RefEngine
 from repro_torch.core import metrics

@@ -28,6 +28,7 @@ import torch
 import repro.index.item_index as jii
 import repro_torch.index.item_index as tii
 from _torch_parity import assert_parity, int_ratings, to_np
+from _torch_parity import torch_single_thread  # noqa: F401
 from repro.core import similarity as jsim
 from repro.core.facade import CFEngine as RefEngine
 from repro.index import ItemClusteredIndex as JaxItemIndex
@@ -166,22 +167,23 @@ def test_carried_state_proxy_scorer(ml_small, monkeypatch, n_probe):
 # -- exactness within the port ------------------------------------------------
 
 @pytest.mark.parametrize("measure", ["pcc", "cosine", "jaccard"])
-def test_kernel_scorer_equals_exact_recommend(ml_small, measure):
-    eng = CFEngine(ml_small[0], measure=measure, k=K, block_size=128,
+def test_kernel_scorer_equals_exact_recommend(measure):
+    r = int_ratings(np.random.default_rng(10), 200, 150, 0.3)
+    eng = CFEngine(r, measure=measure, k=K, block_size=64,
                    recommend_mode="approx", device="cpu",
                    item_index_cfg=ItemIndexConfig(seed=0)).fit()
     e_s, e_i = eng.recommend(n=K, mode="exact")
-    for shortlist in (K, 24, 299):
+    for shortlist in (K, 24, 149):
         s, i = eng.recommend(n=K, shortlist=shortlist)
         assert_parity(f"item_index.kernel_vs_exact.{measure}.s{shortlist}"
                       ".ids", i, e_i)
         assert_parity(f"item_index.kernel_vs_exact.{measure}.s{shortlist}"
                       ".scores", s, e_s)
-    sub = [5, 0, 383, 5]
+    sub = [5, 0, 199, 5]
     s, i = eng.recommend(sub, n=K, shortlist=24)
     assert torch.equal(i, e_i[sub]) and torch.equal(s, e_s[sub])
     # the plain versions everywhere (use_kernel=False) give the same bits
-    plain = CFEngine(ml_small[0], measure=measure, k=K, block_size=128,
+    plain = CFEngine(r, measure=measure, k=K, block_size=64,
                      recommend_mode="approx", device="cpu",
                      item_index_cfg=ItemIndexConfig(seed=0,
                                                     use_kernel=False)).fit()

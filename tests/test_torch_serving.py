@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import int_ratings
+from _torch_parity import torch_single_thread  # noqa: F401
 from repro.analysis.races import RaceTracer
 from repro_torch import obs
 from repro_torch.core.facade import BACKENDS, CFEngine

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_parity, int_ratings
+from _torch_parity import torch_single_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro.kernels.support import fused_support_scores as pallas_support
 from repro_torch.core import predict as pr
