@@ -54,14 +54,32 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    6's matrix (cosine, k = 40, approx neighbors at rerank_frac 0.03 and
    project_dim 384, shortlist 64, seed 0): recall@10 of approx against
    exact recommend must be 1.0, the reference's figure;
-10. each kernel's time against its plain version, a library yardstick
-    and its bound, at the main paths' shapes (CUDA events);
-11. ``torch.profiler``: where the device time of a steady exact fit, of
-    recommend(all users), of an approx query and of an approx
-    recommend(all users) goes, and the device's busy share.
+10. the flash-attention kernel against its plain version on the card:
+    Sq ≠ Skv, ragged tails, groups 1/4/8, d = 64 / 128 and d = 192 with
+    dv = 128, causal and not, decode (Sq = 1) and a 5-query chunk with a
+    ragged per-row kv_len (keys past it hold NaN and must not be read),
+    fully masked rows (Sq > Skv, causal: exactly 0), f32 (atol 1e-5) and
+    bf16 (against the plain f32 result rounded to bf16, atol 2e-2);
+11. LM serving: Llama-3.2-1B at full width (16 layers, d 2048, 32/8
+    heads, vocab 128256, bf16), weights from a seeded generator on the
+    card; ``build_step`` prefill on 4 prompts × 2048 tokens (``lm_batch``
+    seed 0, max_len 2080) and 16 greedy decode steps with the flash
+    kernel's launch count zeroed before and read after (> 0 in prefill
+    and in decode), ``cache["len"]`` 2064, the layer-0 q / k / v of the
+    prefill through kernel and plain version; then the same model with
+    the attention on the plain version, teacher-forced on the same
+    tokens: logits compared at every step, argmax equal on every row
+    whose plain top-2 margin exceeds 0.05;
+12. each kernel's time against its plain version, a library yardstick
+    and its bound, at the main paths' shapes (CUDA events), the flash
+    kernel at its prefill and its decode launch;
+13. ``torch.profiler``: where the device time of a steady exact fit, of
+    recommend(all users), of an approx query, of an approx
+    recommend(all users), of the LM prefill and of one LM decode step
+    goes, and the device's busy share.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
-for all seven kernels.
+for all eight kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -83,11 +101,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM published peaks (dense): HBM bandwidth and f32 on the CUDA
-# cores — every kernel runs f32 arithmetic outside the tensor cores
+# H100 SXM published peaks (dense): HBM bandwidth, f32 on the CUDA cores
+# (the CF kernels' f32 inputs) and bf16 on the tensor cores (the LM's
+# bf16 attention inputs)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 TOL = 1e-6
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 DEVICE = "cuda"
 
 
@@ -125,9 +146,9 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_F32_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -314,11 +335,13 @@ def index_wrappers():
 
 def all_wrappers():
     """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.predict import fused_tile_predict
     from repro_torch.kernels.similarity import fused_similarity
     from repro_torch.kernels.support import fused_support_scores
     return {"similarity": fused_similarity, "predict": fused_tile_predict,
-            **index_wrappers(), "support": fused_support_scores}
+            **index_wrappers(), "support": fused_support_scores,
+            "flash_attention": flash_attention}
 
 
 def unit_rows(rng, n, d, dev):
@@ -811,7 +834,7 @@ def phase_recommend_scale(dev, r):
 
 
 def phase_support_timings(dev, eng, err, launches):
-    """Phase 10 (kernel 7): kernel vs plain vs torch.sparse.mm at one
+    """Phase 12 (kernel 7): kernel vs plain vs torch.sparse.mm at one
     6040-user chunk of the approx-recommend path."""
     from repro_torch.kernels.support import (fused_support_scores,
                                              support_scores_plain)
@@ -848,7 +871,7 @@ def phase_support_timings(dev, eng, err, launches):
 
 
 def phase_timings(dev, eng, err, launches):
-    """Phase 10 (exact kernels): kernel vs plain vs library at the exact
+    """Phase 12 (exact kernels): kernel vs plain vs library at the exact
     main path's shapes."""
     from repro_torch.core import predict as pr
     from repro_torch.kernels.predict import (fused_tile_predict,
@@ -917,7 +940,7 @@ def phase_timings(dev, eng, err, launches):
 
 
 def phase_index_timings(dev, eng, err, launches):
-    """Phase 10 (index kernels): kernel vs plain vs library at the approx
+    """Phase 12 (index kernels): kernel vs plain vs library at the approx
     path's shapes — one 2048-query block at 6040 users for the scan and
     the rerank, the cluster query's first 256-query block for the
     select."""
@@ -1042,20 +1065,280 @@ def phase_index_timings(dev, eng, err, launches):
     return rows
 
 
-def phase_profile(eng, eng_approx, eng_rec) -> None:
-    """Phase 11: where the device time of a steady exact fit, of
-    recommend(all users), of an approx query (all users) and of an approx
-    recommend (all users) goes (device-side events only: kernels and
-    copies, so no operator's time is counted twice)."""
+def flash_close(name, got, q, k, v, **kw):
+    """The flash kernel's output against its plain version on the same
+    inputs: f32 within 1e-5; bf16 against the plain f32 result rounded to
+    bf16, within 2e-2.  Returns the max abs diff."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    e = max_diff(got, want.to(q.dtype))
+    check(got.dtype == q.dtype, f"{name} output dtype")
+    check(e <= FLASH_TOL[q.dtype], f"{name} diff {e}")
+    return e
+
+
+def phase_flash_kernel(dev):
+    """Phase 10: the flash-attention kernel against its plain version on
+    the card — Sq ≠ Skv, ragged tails, groups 1/4/8, d = 64 / 128 / 192
+    (dv 128), causal and not, decode with a ragged per-row kv_len (keys
+    past it hold NaN), fully masked rows (Sq > Skv), f32 and bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(2, 2, 1, 77, 77, 64, 64), (1, 2, 4, 50, 130, 128, 128),
+              (2, 1, 8, 33, 200, 64, 64), (1, 2, 4, 40, 100, 192, 128),
+              (1, 1, 2, 20, 8, 64, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hkv, g, sq, skv, d, dv in shapes:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, hkv * g, sq, d), (b, hkv, skv, d),
+                                     (b, hkv, skv, dv)))
+            for causal in (True, False):
+                name = (f"flash {str(dtype)[6:]} b={b} hkv={hkv} g={g} "
+                        f"sq={sq} skv={skv} d={d} dv={dv} causal={causal}")
+                got = flash_attention(q, k, v, causal=causal)
+                e = flash_close(name, got, q, k, v, causal=causal)
+                err[dtype] = max(err[dtype], e)
+                if causal and sq > skv:
+                    check(bool((got[:, :, :sq - skv] == 0).all()),
+                          f"{name}: fully masked rows are 0")
+        b, hkv, g, skv, d = 4, 8, 4, 300, 64
+        for sq, lens in ((1, [1, 77, 300, 150]), (5, [5, 64, 200, 9])):
+            q = torch.randn((b, hkv * g, sq, d), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            for row, n in enumerate(lens):
+                k[row, :, n:] = float("nan")
+                v[row, :, n:] = float("nan")
+            got = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+            check(bool(torch.isfinite(got).all()),
+                  f"flash kv_len {lens}: no key past kv_len is read")
+            e = flash_close(f"flash kv_len sq={sq}", got, q, k, v,
+                            causal=True, kv_len=kv_len)
+            err[dtype] = max(err[dtype], e)
+        log(f"  {str(dtype)[6:]}: {len(shapes) * 2 + 2} cases, "
+            f"max_abs_diff={err[dtype]!r} (tolerance {FLASH_TOL[dtype]})")
+    torch.cuda.synchronize()
+    return err
+
+
+def lm_margin_agree(kern, plain, margin=0.05):
+    """argmax agreement on every row whose plain top-2 margin exceeds
+    ``margin``; returns (rows checked, rows agreeing)."""
+    top = plain.max(-1)
+    rest = plain.scatter(-1, top.indices[:, None], float("-inf")).max(-1)
+    rows = (top.values - rest.values) > margin
+    same = kern.argmax(-1) == top.indices
+    return int(rows.sum()), int((same & rows).sum())
+
+
+def phase_lm(dev):
+    """Phase 11: Llama-3.2-1B at full width (16 layers, d 2048, 32/8
+    heads, vocab 128256, bf16), weights from a seeded generator on the
+    card: ``build_step`` prefill on 4 prompts × 2048 tokens (``lm_batch``
+    seed 0, max_len 2080) and 16 greedy decode steps, with the flash
+    kernel's launch count zeroed before and read after; then the same
+    model with the attention on the plain version, teacher-forced on the
+    same tokens, logits compared at every step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tx
+
+    arch = get_arch("llama3_2_1b")
+    cfg = arch.config
+    b, s, max_len, steps = 4, 2048, 2080, 16
+    prefill = build_step(arch, dataclasses.replace(
+        arch.cell("prefill_32k"), name="prefill_2k",
+        dims={"batch": b, "seq": s}))
+    decode = build_step(arch, dataclasses.replace(
+        arch.cell("decode_32k"), name="decode_2k",
+        dims={"batch": b, "seq": max_len}))
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = cm.count_params(model)
+    check(out["params"] == cfg.param_count(), "parameter count")
+    toks = torch.from_numpy(lm_batch(b, s, cfg.vocab, seed=0)["tokens"]
+                            ).to(dev)
+    # warm-up on a short prompt (library handles, kernel load); not counted
+    warm, wc = prefill.fn(model, {"tokens": toks[:, :64]}, max_len=80)
+    decode.fn(model, {"tokens": warm.argmax(-1, keepdim=True).int(),
+                      "cache": wc})
+    torch.cuda.synchronize()
+
+    for fn in all_wrappers().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill.fn(model, {"tokens": toks}, max_len=max_len)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    pre_launches = flash_attention.launches
+    kern_logits = [logits.clone()]
+    fed = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(nxt)
+        logits, cache = decode.fn(model, {"tokens": nxt, "cache": cache})
+        kern_logits.append(logits.clone())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out["launches"] = {"prefill": pre_launches,
+                       "decode": flash_attention.launches - pre_launches}
+    check(out["launches"]["prefill"] > 0, "flash kernel launched in prefill")
+    check(out["launches"]["decode"] > 0, "flash kernel launched in decode")
+    out["decode_ms_per_token"] = decode_s / steps * 1e3
+    out["tokens_per_s"] = b * steps / decode_s
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(cache["len"].tolist() == [s + steps] * b,
+          f"cache len {cache['len'].tolist()} == {s + steps}")
+    for lg in kern_logits:
+        check(tuple(lg.shape) == (b, cfg.vocab) and
+              bool(torch.isfinite(lg).all()), "finite logits (B, V)")
+
+    # the layer-0 q / k / v of this prefill, kernel vs plain
+    with torch.inference_mode():
+        p0 = model._layers[0]
+        h = cm.rmsnorm(p0["ln1"], model._embed[toks.long()])
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        q, k, v = model._gqa_qkv(p0["attn"], h, pos)
+        out["layer0_err"] = flash_close(
+            "flash at layer 0 of the prefill", flash_attention(q, k, v), q,
+            k, v, causal=True)
+    out["qkv"] = (q, k, v)
+    out["cache"] = cache
+
+    model.use_kernel = False
+    with torch.inference_mode():
+        plain, pc = prefill.fn(model, {"tokens": toks}, max_len=max_len)
+        diffs, checked, agree = [], 0, 0
+        for step in range(steps + 1):
+            if step:
+                plain, pc = decode.fn(model, {"tokens": fed[step - 1],
+                                              "cache": pc})
+            diffs.append(max_diff(kern_logits[step], plain))
+            n, a = lm_margin_agree(kern_logits[step], plain)
+            checked, agree = checked + n, agree + a
+    model.use_kernel = True
+    out["max_logit_diff"] = max(diffs)
+    out["logit_diffs"] = diffs
+    out["argmax"] = (agree, checked)
+    check(agree == checked, f"argmax agrees on rows with margin > 0.05: "
+                            f"{agree} of {checked}")
+    check(checked > 0, "some rows have a top-2 margin above 0.05")
+    check(pc["len"].tolist() == [s + steps] * b, "plain cache len")
+    out["model"], out["toks"], out["plain_cache"] = model, toks, pc
+    out["steps"] = (prefill, decode)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_flash_timings(lm, err):
+    """Phase 12 (flash attention): the prefill launch (4 × 32 × 2048 × 64,
+    causal, bf16: the layer-0 q / k / v of phase 11) and a decode launch
+    (Sq = 1 against phase 11's layer-0 cache at kv_len 2049).  Library
+    yardstick: ``scaled_dot_product_attention`` (never called by the
+    port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    def lib_ms(q, k, v, causal):
+        """One ``scaled_dot_product_attention`` call, K/V repeated before
+        the timed call where this PyTorch has no ``enable_gqa``."""
+        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+        g = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=causal))
+
+    q, k, v = lm["qkv"]
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    with torch.inference_mode():
+        ms = time_ms(lambda: flash_attention(q, k, v), reps=10)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), reps=3)
+        library = lib_ms(q, k, v, True)
+        pairs = s * (s + 1) / 2
+        n_bytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2.0
+        bound, by = bound_ms(n_bytes, 4.0 * b * hq * pairs * d,
+                             PEAK_BF16_OPS_PER_S)
+
+        kv_n = s + 1
+        qd = q[:, :, -1:].contiguous()
+        kc, vc = lm["cache"]["k"][0], lm["cache"]["v"][0]
+        kv_len = torch.full((b,), kv_n, dtype=torch.int32, device=q.device)
+        got = flash_attention(qd, kc, vc, kv_len=kv_len)
+        d_err = flash_close("flash decode launch", got, qd, kc, vc,
+                            causal=True, kv_len=kv_len)
+        dec = {"ms": time_ms(lambda: flash_attention(qd, kc, vc,
+                                                     kv_len=kv_len), reps=50),
+               "plain_ms": time_ms(lambda: flash_attention_plain(
+                   qd, kc, vc, kv_len=kv_len), reps=10),
+               "library_ms": lib_ms(qd, kc[:, :, :kv_n].contiguous(),
+                                    vc[:, :, :kv_n].contiguous(), False),
+               "max_abs_err": d_err}
+        dec["bound_ms"], dec["bound_by"] = bound_ms(
+            (2 * b * hkv * kv_n * d + 2 * b * hq * d) * 2.0,
+            4.0 * b * hq * kv_n * d, PEAK_BF16_OPS_PER_S)
+    torch.cuda.synchronize()
+    launches = lm["launches"]["prefill"] + lm["launches"]["decode"]
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:84",
+           "launches": launches,
+           "max_abs_err": max(lm["layer0_err"], err), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": library,
+           "shape": f"prefill B={b} Hq={hq} Hkv={hkv} S={s} d={d} bf16 "
+                    f"causal"}
+    return row, dec
+
+
+def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
+    """Phase 13: where the device time of a steady exact fit, of
+    recommend(all users), of an approx query (all users), of an approx
+    recommend (all users), of the LM prefill (4 × 2048) and of one LM
+    decode step (4 rows at ~2065 cached positions) goes (device-side
+    events only: kernels and copies, so no operator's time is counted
+    twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     approx_query = (lambda: eng_approx.index.query(
         eng_approx.ratings, eng_approx.means, k=eng_approx.k,
         measure=eng_approx.measure))
+    prefill, decode = lm["steps"]
+    model, toks = lm["model"], lm["toks"]
+    state = {"cache": lm["plain_cache"]}
+
+    def lm_prefill():
+        prefill.fn(model, {"tokens": toks}, max_len=toks.shape[1] + 32)
+
+    def lm_decode():
+        nxt = toks[:, -1:].contiguous()
+        state["cache"] = decode.fn(model, {"tokens": nxt,
+                                           "cache": state["cache"]})[1]
+
     for name, fn in (("fit", eng.fit),
                      ("recommend", lambda: eng.recommend(n=10)),
                      ("approx query", approx_query),
-                     ("approx recommend", lambda: eng_rec.recommend(n=10))):
+                     ("approx recommend", lambda: eng_rec.recommend(n=10)),
+                     ("LM prefill", lm_prefill),
+                     ("LM decode step", lm_decode)):
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1214,17 +1497,47 @@ def main() -> int:
         f"exact bitwise: {rs['bitwise']}; peak device memory "
         f"{rs['peak_gib']:.2f} GiB")
 
-    log("[10] kernel timings at the main paths' shapes (CUDA events)")
+    log("[10] flash-attention kernel vs plain version on the card")
+    ferr = phase_flash_kernel(dev)
+
+    log("[11] LM serving: Llama-3.2-1B at full width, build_step prefill "
+        "(4 x 2048, max_len 2080) -> 16 greedy decode steps")
+    lm = phase_lm(dev)
+    log(f"    {lm['params']} parameters, init on the card "
+        f"{lm['init_s']:.2f}s")
+    log(f"    prefill {lm['prefill_s']:.4f}s "
+        f"({4 * 2048 / lm['prefill_s']:.1f} prompt tokens/s); decode "
+        f"{lm['decode_ms_per_token']:.3f} ms/step (4 rows), "
+        f"{lm['tokens_per_s']:.1f} generated tokens/s; peak device memory "
+        f"{lm['peak_gib']:.2f} GiB; cache len 2064")
+    log(f"    flash launches on the LM path: {lm['launches']}")
+    log(f"    layer-0 prefill q/k/v: kernel vs plain max_abs_diff "
+        f"{lm['layer0_err']!r} (bf16, tolerance 2e-2)")
+    log(f"    kernel vs plain attention, teacher-forced: max |logit diff| "
+        f"{lm['max_logit_diff']!r} (per step "
+        f"{[round(x, 5) for x in lm['logit_diffs']]}); argmax agrees on "
+        f"{lm['argmax'][0]} of {lm['argmax'][1]} rows with top-2 margin "
+        f"> 0.05")
+
+    log("[12] kernel timings at the main paths' shapes (CUDA events)")
     kernels = phase_timings(dev, eng, err, main_out["launches"])
     kernels += phase_index_timings(dev, eng_ap, ierr, ap["launches"])
     kernels += phase_support_timings(dev, eng_rec, serr, rc["launches"])
+    flash_row, flash_dec = phase_flash_timings(lm, ferr[torch.bfloat16])
+    kernels.append(flash_row)
     for k in kernels:
         log(f"    {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
-    log("[11] torch.profiler: device time of a steady fit / recommend / "
-        "approx query / approx recommend")
-    phase_profile(eng, eng_ap, eng_rec)
+    log(f"    flash_attention decode launch (Sq=1, kv_len 2049, B=4, "
+        f"Hq=32, Hkv=8, d=64, bf16): {flash_dec['ms']:.4f} ms (plain "
+        f"{flash_dec['plain_ms']:.4f}, library "
+        f"{flash_dec['library_ms']:.4f}, bound {flash_dec['bound_ms']:.4f} "
+        f"ms by {flash_dec['bound_by']}), max_abs_diff "
+        f"{flash_dec['max_abs_err']!r}")
+    log("[13] torch.profiler: device time of a steady fit / recommend / "
+        "approx query / approx recommend / LM prefill / LM decode step")
+    phase_profile(eng, eng_ap, eng_rec, lm)
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in (

@@ -1,0 +1,7 @@
+"""Per-architecture configs of the port (the reference's published
+numbers) and the shape registry."""
+
+from repro_torch.configs.registry import (ArchSpec, ShapeCell, TensorSpec,
+                                          get_arch, input_specs)
+
+__all__ = ["ArchSpec", "ShapeCell", "TensorSpec", "get_arch", "input_specs"]

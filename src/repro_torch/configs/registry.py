@@ -1,0 +1,112 @@
+"""Architecture registry of the port (counterpart of
+``repro.configs.registry``): ``ShapeCell`` and ``ArchSpec`` with the
+reference's fields, the LM shape set, and ``input_specs`` as shapes.
+
+Only the dense LM configs are ported (``llama3_2_1b``, ``codeqwen1_5_7b``,
+``qwen1_5_110b``); the other families and the MoE / MLA LMs raise
+``NotImplementedError`` naming their ROADMAP item.  ``input_specs`` gives
+``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
+``jax.ShapeDtypeStruct``s: nothing is allocated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    step: str                 # train | prefill | decode | serve | retrieval
+    dims: Dict[str, int]
+    skip: Optional[str] = None    # reason, if this cell is not runnable
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    kind: str                 # lm | gnn | recsys | cf
+    config: Any
+    optimizer: str
+    shapes: Tuple[ShapeCell, ...]
+    smoke_config: Callable[[], Any]
+    model: str = ""           # recsys model module name
+
+    def cell(self, name: str) -> ShapeCell:
+        for c in self.shapes:
+            if c.name == name:
+                return c
+        raise KeyError(f"{self.name} has no shape {name!r}")
+
+
+def lm_shapes(full_attention: bool = True) -> Tuple[ShapeCell, ...]:
+    """The LM shape set (reference ``registry.py:55``)."""
+    skip = ("pure full-attention arch: 524288-token decode is out of scope "
+            "per assignment (no sub-quadratic attention variant); see "
+            "DESIGN.md §4" if full_attention else None)
+    return (
+        ShapeCell("train_4k", "train", {"batch": 256, "seq": 4096}),
+        ShapeCell("prefill_32k", "prefill", {"batch": 32, "seq": 32768}),
+        ShapeCell("decode_32k", "decode", {"batch": 128, "seq": 32768}),
+        ShapeCell("long_500k", "decode", {"batch": 1, "seq": 524288},
+                  skip=skip),
+    )
+
+
+def input_specs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
+    """Model inputs of ``cell`` as ``TensorSpec``s (the LM family)."""
+    if arch.kind != "lm":
+        raise NotImplementedError(
+            f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
+            f"11: side workloads)")
+    return _lm_inputs(arch.config, cell)
+
+
+def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    b, s = cell.dims["batch"], cell.dims["seq"]
+    i32 = torch.int32
+    if cell.step == "train":
+        return {"tokens": TensorSpec((b, s), i32),
+                "labels": TensorSpec((b, s), i32)}
+    if cell.step == "prefill":
+        return {"tokens": TensorSpec((b, s), i32)}
+    if cell.step == "decode":
+        kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.dh)
+        return {"tokens": TensorSpec((b, 1), i32),
+                "cache": {"k": TensorSpec(kv, cfg.dtype),
+                          "v": TensorSpec(kv, cfg.dtype),
+                          "len": TensorSpec((b,), i32)}}
+    raise ValueError(cell.step)
+
+
+_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b")
+_WAITING = {
+    "qwen3_moe_30b_a3b": "MoE (ROADMAP Queue 1 item 11)",
+    "deepseek_v2_236b": "MoE + MLA (ROADMAP Queue 1 item 11)",
+    "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
+    "dlrm_mlperf": "the recsys models (ROADMAP Queue 1 item 11)",
+    "fm": "the recsys models (ROADMAP Queue 1 item 11)",
+    "xdeepfm": "the recsys models (ROADMAP Queue 1 item 11)",
+    "bert4rec": "the recsys models (ROADMAP Queue 1 item 11)",
+    "cf_movielens": "the CF config (ROADMAP Queue 1 item 10; the engine "
+                    "itself is repro_torch.core.facade.CFEngine)",
+}
+
+
+def get_arch(name: str) -> ArchSpec:
+    key = name.replace("-", "_").replace(".", "_")
+    if key in _WAITING:
+        raise NotImplementedError(f"{name}: not ported yet — {_WAITING[key]}")
+    if key not in _PORTED:
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{key}").ARCH
+

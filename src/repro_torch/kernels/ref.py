@@ -155,3 +155,35 @@ def centroid_distances_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         cc = cc + cd * cd
         dot = dot + xd[:, None] * cd[None, :]
     return ((xx[:, None] - 2.0 * dot) + cc[None, :]).clamp_min(0.0)
+
+
+# -- attention ----------------------------------------------------------------
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale: float | None = None,
+                  kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Naive attention oracle.  q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d);
+    v: (B, Hkv, Skv, dv).  GQA: the kv heads are repeated Hq/Hkv times.
+    The causal mask aligns queries to the end of the keys; with ``kv_len``
+    (B,) keys at positions ≥ ``kv_len[b]`` are masked and row b's queries
+    align to ``kv_len[b] − Sq``.  As the reference oracle, a fully masked
+    row comes out NaN (the kernels give 0 there).  Oracle for
+    ``repro_torch.kernels.flash_attention.flash_attention``."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    group = hq // hkv
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    kv_req = (torch.full((b,), skv, device=q.device) if kv_len is None
+              else kv_len.long())
+    kpos = torch.arange(skv, device=q.device)
+    mask = (kpos[None, :] < kv_req[:, None])[:, None, :]        # (B, 1, Skv)
+    if causal:
+        qpos = (kv_req - sq)[:, None] + torch.arange(sq, device=q.device)
+        mask = mask & (qpos[:, :, None] >= kpos[None, None, :])
+    logits = logits.masked_fill(~mask[:, None], float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)

@@ -12,6 +12,11 @@ spill_dist, spill_ids, sums) and, with ``recommend_mode="approx"``, the
 ``ItemClusteredIndex.state()`` subtree under ``"item_index"`` (the same
 keys plus has_pos, item_meta, profiles); both pass through as host
 arrays, and a subtree that lacks a key raises.
+
+:func:`transformer_from_reference` does the same for the LM family: the
+reference's ``repro.models.transformer.init_params`` tree (host arrays)
+becomes the port's ``Transformer`` module on a device, so both packages
+compute on the same weights.
 """
 
 from __future__ import annotations
@@ -76,3 +81,24 @@ def from_reference_state(tree: dict, device="cuda") -> Dict[str, object]:
             raise ValueError(f"state[{key!r}] has shape "
                              f"{tuple(out[key].shape)}, want {shape}")
     return out
+
+
+def _tensor_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {key: _tensor_tree(val, dev) for key, val in tree.items()}
+    arr = _host(tree)
+    if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)       # bf16 host arrays (ml_dtypes)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def transformer_from_reference(cfg, params: dict, device="cuda",
+                               use_kernel: bool = True):
+    """Reference transformer parameter tree (nested dict of host or jax
+    arrays, f32, layers stacked on axis 0) → the port's ``Transformer``
+    on ``device`` with the same parameter names and values.  Only the
+    dense GQA tree exists in the port; a MoE / MLA ``cfg`` raises
+    ``NotImplementedError``."""
+    from repro_torch.models.transformer import Transformer
+    dev = resolve_device(device)
+    return Transformer(cfg, _tensor_tree(params, dev), use_kernel=use_kernel)

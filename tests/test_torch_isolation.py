@@ -43,7 +43,11 @@ def test_scan_covers_the_package():
                  "index/clustered.py", "index/kmeans.py",
                  "kernels/cluster.py", "kernels/select.py",
                  "kernels/rerank.py", "index/item_index.py",
-                 "kernels/support.py"):
+                 "kernels/support.py", "kernels/flash_attention.py",
+                 "models/common.py", "models/transformer.py",
+                 "configs/registry.py", "configs/llama3_2_1b.py",
+                 "configs/codeqwen1_5_7b.py", "configs/qwen1_5_110b.py",
+                 "launch/steps.py", "data/batches.py"):
         assert want in names
 
 
@@ -55,6 +59,8 @@ def test_scan_covers_the_package():
                                            "select_topm"]),
     ("rerank", "repro/kernels/rerank.py", ["fused_rerank_scores"]),
     ("support", "repro/kernels/support.py", ["fused_support_scores"]),
+    ("flash_attention", "repro/kernels/flash_attention.py",
+     ["flash_attention"]),
 ])
 def test_kernel_sources_and_wrappers(name, replaces, wrappers):
     import importlib

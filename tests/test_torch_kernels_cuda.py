@@ -294,3 +294,112 @@ def test_approx_recommend_equals_exact_on_card(cuda):
     s_ex, i_ex = ker.recommend(n=10, mode="exact")
     s_k, i_k = ker.recommend(n=10)
     assert torch.equal(s_k, s_ex) and torch.equal(i_k, i_ex)
+
+
+# -- the flash-attention kernel (LM serving) against its plain version ------
+
+def _attn_inputs(seed, b, hq, hkv, sq, skv, d, dv, dtype, cuda):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, hq, sq, d, generator=g)
+    k = torch.randn(b, hkv, skv, d, generator=g)
+    v = torch.randn(b, hkv, skv, dv, generator=g)
+    return [x.to(cuda, dtype) for x in (q, k, v)]
+
+
+def _attn_close(name, got, q, k, v, **kw):
+    """f32: atol 1e-5 against the plain version; bf16: against the plain
+    f32 result on the same (bf16) inputs, rounded to bf16, atol 2e-2."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    tol = 1e-5 if q.dtype == torch.float32 else 2e-2
+    assert got.dtype == q.dtype
+    assert_parity(name, got.float(), want.to(q.dtype).float(), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv", [
+    (2, 2, 1, 77, 77, 64, 64),        # ragged tails, Sq == Skv
+    (1, 2, 4, 50, 130, 128, 128),     # Sq != Skv
+    (2, 1, 8, 33, 200, 64, 64),       # group 8
+    (1, 2, 4, 40, 100, 192, 128),     # dv != d
+    (1, 1, 2, 20, 8, 64, 64),         # Sq > Skv: fully masked rows
+    (4, 8, 4, 1, 300, 64, 64),        # decode shape
+])
+def test_flash_kernel_matches_plain(cuda, dtype, b, hkv, group, sq, skv, d,
+                                    dv):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(sq + skv + d, b, hkv * group, hkv, sq, skv, d, dv,
+                           dtype, cuda)
+    for causal in (True, False):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        assert flash_attention.launches == before + 1
+        torch.cuda.synchronize()
+        _attn_close(f"cuda.flash.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}."
+                    f"{str(dtype)[6:]}.causal={causal}", got, q, k, v,
+                    causal=causal)
+        if causal and sq > skv:
+            masked = got[:, :, :sq - skv]
+            assert torch.equal(masked, torch.zeros_like(masked))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_kv_len(cuda, dtype):
+    """Decode (Sq = 1) and a prefill chunk against ragged caches; keys past
+    kv_len hold NaN and must not be read."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    for sq, kv in ((1, [1, 77, 300, 150]), (5, [5, 64, 200, 9])):
+        q, k, v = _attn_inputs(sq, 4, 32, 8, sq, 300, 64, 64, dtype, cuda)
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=cuda)
+        for row, n in enumerate(kv):
+            k[row, :, n:] = float("nan")
+            v[row, :, n:] = float("nan")
+        got = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        _attn_close(f"cuda.flash.kv_len.sq{sq}.{str(dtype)[6:]}", got, q, k,
+                    v, causal=True, kv_len=kv_len)
+
+
+def test_flash_kernel_strided_inputs_and_rejects(cuda):
+    """(B, S, H, d) projections viewed as (B, H, S, d) — the model's layout —
+    need no copy; unsupported inputs raise."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 37, 8, 64, generator=g).to(cuda, torch.bfloat16)
+    kv = torch.randn(2, 37, 2, 64, generator=g).to(cuda, torch.bfloat16)
+    qt, kt = q.transpose(1, 2), kv.transpose(1, 2)
+    got = flash_attention(qt, kt, kt)
+    _attn_close("cuda.flash.strided", got, qt.contiguous(), kt.contiguous(),
+                kt.contiguous(), causal=True)
+    with pytest.raises(TypeError):
+        flash_attention(qt, kt.float(), kt)
+    with pytest.raises(ValueError):
+        flash_attention(qt, kt, kt.cpu())
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 1, 4, 300, device=cuda),
+                        torch.zeros(1, 1, 4, 300, device=cuda),
+                        torch.zeros(1, 1, 4, 300, device=cuda))
+
+
+def test_llama_smoke_serving_on_card(cuda):
+    """The smoke Llama config in f32 on the card (kernel) equals the same
+    model on the CPU (plain) within 1e-4, prefill and 3 decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tx
+    cfg = get_arch("llama3_2_1b").smoke_config()
+    params = tx.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    cpu = tx.Transformer(cfg, params)
+    gpu = tx.Transformer(cfg, tx._map(lambda t: t.to(cuda), params))
+    toks = torch.randint(0, cfg.vocab, (3, 21), dtype=torch.int32)
+    before = flash_attention.launches
+    lc, cc = cpu.prefill(toks, max_len=25)
+    lg, cg = gpu.prefill(toks.to(cuda), max_len=25)
+    assert_parity("cuda.llama_smoke.prefill", lg.cpu(), lc, 1e-4)
+    for step in range(3):
+        nxt = lc.argmax(-1, keepdim=True).to(torch.int32)
+        lc, cc = cpu.decode_step(nxt, cc)
+        lg, cg = gpu.decode_step(nxt.to(cuda), cg)
+        assert_parity(f"cuda.llama_smoke.decode{step}", lg.cpu(), lc, 1e-4)
+    assert flash_attention.launches == before + 4 * cfg.n_layers
