@@ -59,20 +59,23 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     dv = 128, causal and not, decode (Sq = 1) and a 5-query chunk with a
     ragged per-row kv_len (keys past it hold NaN and must not be read),
     fully masked rows (Sq > Skv, causal: exactly 0), f32 (atol 1e-5) and
-    bf16 (against the plain f32 result rounded to bf16, atol 2e-2);
+    bf16 (against the plain f32 result rounded to bf16: atol 2e-2 and,
+    elementwise, one bf16 unit in the last place plus 1e-5);
 11. LM serving: Llama-3.2-1B at full width (16 layers, d 2048, 32/8
     heads, vocab 128256, bf16), weights from a seeded generator on the
     card; ``build_step`` prefill on 4 prompts × 2048 tokens (``lm_batch``
     seed 0, max_len 2080) and 16 greedy decode steps with the flash
     kernel's launch count zeroed before and read after (> 0 in prefill
     and in decode), ``cache["len"]`` 2064, the layer-0 q / k / v of the
-    prefill through kernel and plain version; then the same model with
+    prefill through kernel and plain version, as they are (bf16) and as
+    f32 copies (atol 1e-5); then the same model with
     the attention on the plain version, teacher-forced on the same
     tokens: logits compared at every step, argmax equal on every row
     whose plain top-2 margin exceeds 0.05;
 12. each kernel's time against its plain version, a library yardstick
     and its bound, at the main paths' shapes (CUDA events), the flash
-    kernel at its prefill and its decode launch;
+    kernel at its prefill and its decode launch (that launch's inputs
+    also as f32 copies against the plain version, atol 1e-5);
 13. ``torch.profiler``: where the device time of a steady exact fit, of
     recommend(all users), of an approx query, of an approx
     recommend(all users), of the LM prefill and of one LM decode step
@@ -109,6 +112,7 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 TOL = 1e-6
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BF16_ULP = 2.0 ** -7   # a bf16 x's unit in the last place is ≤ |x|·2⁻⁷
 DEVICE = "cuda"
 
 
@@ -1068,12 +1072,22 @@ def phase_index_timings(dev, eng, err, launches):
 def flash_close(name, got, q, k, v, **kw):
     """The flash kernel's output against its plain version on the same
     inputs: f32 within 1e-5; bf16 against the plain f32 result rounded to
-    bf16, within 2e-2.  Returns the max abs diff."""
+    bf16, within 2e-2 and, elementwise, within one bf16 unit in the last
+    place (≤ |x|·2⁻⁷) plus 1e-5: the kernel accumulates in f32 too, so the
+    two f32 results round to the same or to adjacent bf16 values.  Returns
+    the max abs diff."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
-    e = max_diff(got, want.to(q.dtype))
+    want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                 **kw).to(q.dtype)
+    e = max_diff(got, want)
     check(got.dtype == q.dtype, f"{name} output dtype")
     check(e <= FLASH_TOL[q.dtype], f"{name} diff {e}")
+    if q.dtype == torch.bfloat16 and got.numel():
+        g, w = got.float(), want.float()
+        over = (g - w).abs() - (BF16_ULP * torch.maximum(g.abs(), w.abs())
+                                + 1e-5)
+        over = float(torch.where(g == w, torch.zeros_like(g), over).max())
+        check(over <= 0, f"{name}: {over} past one bf16 ulp + 1e-5")
     return e
 
 
@@ -1216,6 +1230,11 @@ def phase_lm(dev):
         out["layer0_err"] = flash_close(
             "flash at layer 0 of the prefill", flash_attention(q, k, v), q,
             k, v, causal=True)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        out["layer0_err_f32"] = flash_close(
+            "flash at layer 0 of the prefill, f32 copies",
+            flash_attention(qf, kf, vf), qf, kf, vf, causal=True)
+        del qf, kf, vf
     out["qkv"] = (q, k, v)
     out["cache"] = cache
 
@@ -1285,13 +1304,19 @@ def phase_flash_timings(lm, err):
         got = flash_attention(qd, kc, vc, kv_len=kv_len)
         d_err = flash_close("flash decode launch", got, qd, kc, vc,
                             causal=True, kv_len=kv_len)
+        qf, kf, vf = (t.float() for t in (qd, kc, vc))
+        d_err_f32 = flash_close(
+            "flash decode launch, f32 copies",
+            flash_attention(qf, kf, vf, kv_len=kv_len), qf, kf, vf,
+            causal=True, kv_len=kv_len)
+        del qf, kf, vf
         dec = {"ms": time_ms(lambda: flash_attention(qd, kc, vc,
                                                      kv_len=kv_len), reps=50),
                "plain_ms": time_ms(lambda: flash_attention_plain(
                    qd, kc, vc, kv_len=kv_len), reps=10),
                "library_ms": lib_ms(qd, kc[:, :, :kv_n].contiguous(),
                                     vc[:, :, :kv_n].contiguous(), False),
-               "max_abs_err": d_err}
+               "max_abs_err": d_err, "max_abs_err_f32": d_err_f32}
         dec["bound_ms"], dec["bound_by"] = bound_ms(
             (2 * b * hkv * kv_n * d + 2 * b * hq * d) * 2.0,
             4.0 * b * hq * kv_n * d, PEAK_BF16_OPS_PER_S)
@@ -1512,7 +1537,8 @@ def main() -> int:
         f"{lm['peak_gib']:.2f} GiB; cache len 2064")
     log(f"    flash launches on the LM path: {lm['launches']}")
     log(f"    layer-0 prefill q/k/v: kernel vs plain max_abs_diff "
-        f"{lm['layer0_err']!r} (bf16, tolerance 2e-2)")
+        f"{lm['layer0_err']!r} (bf16, tolerance 2e-2 and one bf16 ulp + "
+        f"1e-5), {lm['layer0_err_f32']!r} (f32 copies, tolerance 1e-5)")
     log(f"    kernel vs plain attention, teacher-forced: max |logit diff| "
         f"{lm['max_logit_diff']!r} (per step "
         f"{[round(x, 5) for x in lm['logit_diffs']]}); argmax agrees on "
@@ -1534,7 +1560,8 @@ def main() -> int:
         f"{flash_dec['plain_ms']:.4f}, library "
         f"{flash_dec['library_ms']:.4f}, bound {flash_dec['bound_ms']:.4f} "
         f"ms by {flash_dec['bound_by']}), max_abs_diff "
-        f"{flash_dec['max_abs_err']!r}")
+        f"{flash_dec['max_abs_err']!r} (bf16), "
+        f"{flash_dec['max_abs_err_f32']!r} (f32 copies)")
     log("[13] torch.profiler: device time of a steady fit / recommend / "
         "approx query / approx recommend / LM prefill / LM decode step")
     phase_profile(eng, eng_ap, eng_rec, lm)

@@ -46,7 +46,7 @@
 // kernel does them as f32 FMAs on the CUDA cores (67 TFLOP/s peak), so it
 // cannot come within 15× of that bound; mma/wgmma QKᵀ and PV with p in
 // bf16 are the next design.  A decode launch (Sq = 1, kv_len ≈ 2049) must
-// read 2·B·Hkv·L·d·2 B ≈ 8.4 MB of cache (2.5 µs at 3.35 TB/s): bound by
+// read 2·B·Hkv·L·d·2 B ≈ 16.8 MB of cache (5.0 µs at 3.35 TB/s): bound by
 // bytes, and with one block per (b, kv head) — 32 blocks on 132 SMs — by
 // the latency of each block's serial tile loop; split-K over the cache is
 // the next design there.

@@ -53,12 +53,14 @@ def _check(q, k, v, kv_len):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, scale: float | None = None,
                           kv_len: torch.Tensor | None = None,
+                          block_q: int | None = None,
                           block_kv: int = PLAIN_BLOCK_KV) -> torch.Tensor:
     """Plain PyTorch version: the online softmax of ``chunked_attention``
-    over KV blocks of ``block_kv`` keys, f32 throughout, with the TPU
-    kernel's guards (``NEG_INF`` = finfo(f32).min, p and alpha at 0 where
-    their operand is ``NEG_INF``, division by max(l, 1e-30)); keys and
-    values at or past ``kv_len[b]`` take no part, whatever they hold."""
+    over KV blocks of ``block_kv`` keys for query chunks of ``block_q``
+    rows (None: all rows at once), f32 throughout, with the TPU kernel's
+    guards (``NEG_INF`` = finfo(f32).min, p and alpha at 0 where their
+    operand is ``NEG_INF``, division by max(l, 1e-30)); keys and values at
+    or past ``kv_len[b]`` take no part, whatever they hold."""
     _check(q, k, v, kv_len)
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -73,29 +75,35 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_req = kv_len.long()
     kv_end = kv_req.clamp(0, skv)
     qpos = (kv_req - sq)[:, None] + torch.arange(sq, device=dev)  # (B, Sq)
-    m = torch.full((b, hkv, g, sq, 1), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32, device=dev)
-    for k0 in range(0, skv, block_kv):
-        kc = k[:, :, k0:k0 + block_kv].float()
-        vc = v[:, :, k0:k0 + block_kv].float()
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
-        kpos = k0 + torch.arange(kc.shape[2], device=dev)
-        present = kpos[None, :] < kv_end[:, None]              # (B, bk)
-        # values past kv_end are never read, as in the kernel
-        vc = torch.where(present[:, None, :, None], vc, 0.0)
-        valid = present[:, None, :]                            # (B, 1, bk)
-        if causal:
-            valid = valid & (qpos[:, :, None] >= kpos[None, None, :])
-        s = torch.where(valid[:, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(torch.where(s == NEG_INF, NEG_INF, s - m_new))
-        alpha = torch.exp(torch.where(m == NEG_INF, NEG_INF, m - m_new))
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
-        m = m_new
-    out = acc / l.clamp_min(1e-30)
+    bq = block_q or max(sq, 1)
+    out = []
+    for q0 in range(0, sq, bq):
+        qc, pc = qf[:, :, :, q0:q0 + bq], qpos[:, q0:q0 + bq]
+        m = torch.full(qc.shape[:-1] + (1,), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qc.shape[:-1] + (dv,), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, skv, block_kv):
+            kc = k[:, :, k0:k0 + block_kv].float()
+            vc = v[:, :, k0:k0 + block_kv].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+            kpos = k0 + torch.arange(kc.shape[2], device=dev)
+            present = kpos[None, :] < kv_end[:, None]            # (B, bk)
+            # values past kv_end are never read, as in the kernel
+            vc = torch.where(present[:, None, :, None], vc, 0.0)
+            valid = present[:, None, :]                          # (B, 1, bk)
+            if causal:
+                valid = valid & (pc[:, :, None] >= kpos[None, None, :])
+            s = torch.where(valid[:, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(torch.where(s == NEG_INF, NEG_INF, s - m_new))
+            alpha = torch.exp(torch.where(m == NEG_INF, NEG_INF, m - m_new))
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+            m = m_new
+        out.append(acc / l.clamp_min(1e-30))
+    out = torch.cat(out, 3) if out else qf.new_zeros((b, hkv, g, 0, dv))
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 

@@ -64,11 +64,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, scale: float | None = None,
+                      chunk_q: int = 1024, chunk_kv: int = 1024,
                       use_kernel: bool = True) -> torch.Tensor:
     """q: (B, Hq, Sq, d); k/v: (B, Hkv, Skv, d|dv) → (B, Hq, Sq, dv),
-    queries aligned to the end of the keys (reference ``common.py:126``)."""
-    fn = flash_attention if use_kernel else flash_attention_plain
-    return fn(q, k, v, causal=causal, scale=scale)
+    queries aligned to the end of the keys (reference ``common.py:126``).
+    ``chunk_q`` / ``chunk_kv`` are the plain version's query chunk and KV
+    block, as they are the reference's XLA path's; the kernel tiles on its
+    own, as the reference's Pallas kernel does."""
+    if use_kernel:
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 block_q=chunk_q, block_kv=chunk_kv)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

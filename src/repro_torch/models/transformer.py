@@ -18,11 +18,11 @@ Attention runs through ``models.common.chunked_attention`` /
 ``decode_attention``, i.e. the flash-attention kernel on the card (its
 plain version on the CPU, or everywhere with ``use_kernel=False``).
 Serving (``prefill``, ``decode_step``) runs under
-``torch.inference_mode()``.  ``decode_step`` writes each row's new key and
-value into the cache in place (the reference returns an updated copy):
-the position written is the row's own ``len``, which the old cache masks,
-so the old cache still means what it meant.  MoE and MLA configs raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+``torch.inference_mode()``.  ``decode_step`` returns an updated copy of
+the cache and leaves the one it was given as it was, as the reference
+does (its decode step donates nothing), so two decodes from one cache
+branch.  MoE and MLA configs raise ``NotImplementedError`` (ROADMAP Queue
+1 item 11).
 """
 
 from __future__ import annotations
@@ -40,8 +40,15 @@ from repro_torch.models import common as cm
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's ``TransformerConfig`` (same fields; ``dtype`` is a
-    torch dtype).  ``moe`` / ``mla`` / the training fields are carried for
-    parity of the config; the port serves the dense GQA path only."""
+    torch dtype).  The port serves the dense GQA path only: ``moe`` /
+    ``mla`` raise.  ``attn_chunk_q`` / ``attn_chunk_kv`` are the plain
+    attention's query chunk and KV block (``models.common.
+    chunked_attention``).  The rest are read by no serving step, here or
+    in the reference: ``first_k_dense`` counts dense layers before MoE
+    ones; ``gather_weights_at_use`` gathers sharded weights (world size 1
+    has none); ``microbatch``, ``remat``, ``remat_policy`` and
+    ``xent_chunk`` shape the training step, which ``launch.steps.
+    build_step`` refuses (ROADMAP Queue 1 item 11)."""
     name: str
     n_layers: int
     d_model: int
@@ -274,6 +281,8 @@ class Transformer(nn.Module):
         b, s, _ = x.shape
         q, k, v = self._gqa_qkv(p, x, positions)
         out = cm.chunked_attention(q, k, v, causal=True,
+                                   chunk_q=min(self.cfg.attn_chunk_q, s),
+                                   chunk_kv=min(self.cfg.attn_chunk_kv, s),
                                    use_kernel=self.use_kernel)
         out = out.transpose(1, 2).reshape(b, s, -1)
         return cm.dense(p["wo"], out), {"k": k, "v": v}
@@ -346,18 +355,19 @@ class Transformer(nn.Module):
     def decode_step(self, tokens: torch.Tensor,
                     cache: Dict[str, torch.Tensor]):
         """One token for every sequence: tokens (B, 1) → (logits (B, V) f32,
-        cache with ``len`` advanced) (reference ``transformer.py:776``)."""
+        a new cache holding the tokens' k / v with ``len`` advanced)
+        (reference ``transformer.py:776``).  ``cache`` is left as it was."""
         tokens = torch.as_tensor(tokens, device=self.device)
         cache_len = cache["len"]
+        new_cache = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                     "len": cache_len + 1}
         x = self._embed[tokens.long()]
         for i, p in enumerate(self._layers):
             att = self._gqa_decode_layer(p["attn"], cm.rmsnorm(p["ln1"], x),
-                                         cache["k"][i], cache["v"][i],
-                                         cache_len)
+                                         new_cache["k"][i],
+                                         new_cache["v"][i], cache_len)
             x = x + att
             x = x + _dense_ffn(p["ffn"], cm.rmsnorm(p["ln2"], x))
         x = cm.rmsnorm({"scale": self.final_norm.scale}, x)
         logits = x[:, 0].float() @ self.output_weights()
-        new_cache = dict(cache)
-        new_cache["len"] = cache_len + 1
         return logits, new_cache

@@ -73,14 +73,14 @@ def test_plain_flash_matches_reference(b, hkv, group, sq, skv, d, bq, bk,
     assert_parity(f"{name}.pallas", got,
                   pallas_flash(jq, jk, jv, causal=causal, bq=bq, bk=bk,
                                interpret=True), F32_TOL)
-    assert_parity(f"{name}.chunked", tcm.chunked_attention(tq, tk, tv,
-                                                           causal=causal),
+    assert_parity(f"{name}.chunked", tcm.chunked_attention(
+        tq, tk, tv, causal=causal, chunk_q=8, chunk_kv=8, use_kernel=False),
                   jcm.chunked_attention(jq, jk, jv, causal=causal,
                                         chunk_q=8, chunk_kv=8), F32_TOL)
-    # the plain version's own KV blocking does not change the result
+    # the plain version's own query and KV blocking do not change the result
     assert_parity(f"{name}.block_kv", got,
                   flash_attention_plain(tq, tk, tv, causal=causal,
-                                        block_kv=7), F32_TOL)
+                                        block_q=5, block_kv=7), F32_TOL)
 
 
 def test_fully_masked_rows_are_zero():

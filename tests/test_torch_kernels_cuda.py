@@ -308,12 +308,19 @@ def _attn_inputs(seed, b, hq, hkv, sq, skv, d, dv, dtype, cuda):
 
 def _attn_close(name, got, q, k, v, **kw):
     """f32: atol 1e-5 against the plain version; bf16: against the plain
-    f32 result on the same (bf16) inputs, rounded to bf16, atol 2e-2."""
+    f32 result on the same (bf16) inputs, rounded to bf16, atol 2e-2 and,
+    elementwise, one bf16 unit in the last place (≤ |x|·2⁻⁷) plus 1e-5:
+    both accumulate in f32, so they round to the same or adjacent bf16."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    want = want.to(q.dtype).float()
     tol = 1e-5 if q.dtype == torch.float32 else 2e-2
     assert got.dtype == q.dtype
-    assert_parity(name, got.float(), want.to(q.dtype).float(), tol)
+    assert_parity(name, got.float(), want, tol)
+    if q.dtype == torch.bfloat16:
+        g = got.float()
+        ulp = 2.0 ** -7 * torch.maximum(g.abs(), want.abs()) + 1e-5
+        assert bool(((g - want).abs() <= ulp).all()), f"{name}: > 1 bf16 ulp"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -359,6 +366,22 @@ def test_flash_kernel_ragged_kv_len(cuda, dtype):
         assert torch.isfinite(got).all()
         _attn_close(f"cuda.flash.kv_len.sq{sq}.{str(dtype)[6:]}", got, q, k,
                     v, causal=True, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_llama_serving_shapes(cuda, dtype):
+    """Llama-3.2-1B's prefill launch (B 4, Hq 32, Hkv 8, S 2048, d 64,
+    causal: up to 32 KV tiles a row) and its decode launch (Sq = 1 against
+    2049 of 2080 cached keys), unit-variance scores as at layer 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(7, 4, 32, 8, 2048, 2048, 64, 64, dtype, cuda)
+    _attn_close(f"cuda.flash.llama_prefill.{str(dtype)[6:]}",
+                flash_attention(q, k, v), q, k, v, causal=True)
+    q, k, v = _attn_inputs(8, 4, 32, 8, 1, 2080, 64, 64, dtype, cuda)
+    kv_len = torch.full((4,), 2049, dtype=torch.int32, device=cuda)
+    _attn_close(f"cuda.flash.llama_decode.{str(dtype)[6:]}",
+                flash_attention(q, k, v, kv_len=kv_len), q, k, v,
+                causal=True, kv_len=kv_len)
 
 
 def test_flash_kernel_strided_inputs_and_rejects(cuda):

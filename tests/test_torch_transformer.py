@@ -117,6 +117,31 @@ def test_decode_into_a_full_cache_matches_reference():
     assert_parity("full_cache.cache.k", tc["k"], jc["k"], TOL)
 
 
+def test_two_decodes_from_one_cache_branch_as_in_reference():
+    """decode_step leaves its input cache as it was: two different tokens
+    decoded from one cache give two caches (and logits) that each equal
+    the reference's, and the input cache still equals the prefill's."""
+    name = "llama3_2_1b"
+    jcfg, tcfg = _reference_cfg(name), get_arch(name).smoke_config()
+    params = _perturbed_reference(jcfg, seed=5)
+    model = transformer_from_reference(tcfg, params, device="cpu")
+    toks = lm_batch(2, 6, tcfg.vocab, seed=5)["tokens"]
+    jl, jc = jtx.prefill(jcfg, params, jnp.asarray(toks), max_len=9)
+    tl, tc = model.prefill(torch.from_numpy(toks), max_len=9)
+    before = {key: val.clone() for key, val in tc.items()}
+    for branch, nxt in enumerate(([[3], [7]], [[11], [2]])):
+        nxt = np.array(nxt, np.int32)
+        jbl, jbc = jtx.decode_step(jcfg, params, jnp.asarray(nxt), jc)
+        tbl, tbc = model.decode_step(torch.from_numpy(nxt), tc)
+        assert_parity(f"branch{branch}.logits", tbl, jbl, TOL)
+        for key in ("k", "v"):
+            assert_parity(f"branch{branch}.cache.{key}", tbc[key], jbc[key],
+                          TOL)
+        assert_parity(f"branch{branch}.len", tbc["len"], jbc["len"])
+        for key, val in before.items():
+            assert torch.equal(tc[key], val), f"input cache {key} changed"
+
+
 def test_ragged_cache_insert_writes_each_rows_own_position():
     cache = torch.zeros(3, 2, 5, 4)
     new = torch.arange(24, dtype=torch.float32).reshape(3, 2, 1, 4) + 1
