@@ -79,10 +79,45 @@ per source, in parallel).  Phases, each ended by a device synchronize:
 13. ``torch.profiler``: where the device time of a steady exact fit, of
     recommend(all users), of an approx query, of an approx
     recommend(all users), of the LM prefill and of one LM decode step
-    goes, and the device's busy share.
+    goes, and the device's busy share;
+
+then the CF engines and the LM are dropped, and the recsys CTR slice
+runs:
+
+14. the embedding-bag kernel against its plain version on the card:
+    B = L = 1 at D = 1 / 10 / 128, all-padding bags (mean exactly 0), −1
+    spread through the bags, f32 and bf16 tables, sum and mean, int32 and
+    int64 ids, one launch on a bf16 table of 2.18e9 elements (max abs
+    diff 0.0 required);
+15. DLRM-MLPerf at its published widths (26 fields, embed 128, bottom
+    13-512-256-128, top 1024-1024-512-256-1), every field capped at 20 M
+    rows (104,064,204 rows, 13.32 B parameters, 49.6 GiB f32 on the card;
+    the cut is logged as ``reduced``), weights from a seeded generator on
+    the card and scaled in place: ``build_step`` serve_p99 (512 rows, 60
+    timed steps: p50 / p99 ms), serve_bulk (262,144 rows: rows/s) and
+    retrieval_cand cut to 262,144 candidates; retrieval == forward on the
+    substituted batch (1e-5); serve_p99's sharded-field ids as L = 1 bags
+    through ``ops.embedding_bag`` == the step's lookups bit for bit; 2048
+    multi-hot bags × L = 100 over the fused table (zipf ids, ~10 %
+    padding), sum and mean, through ``ops.embedding_bag``, == plain; the
+    launch counts zeroed before the steps, kernel 9's read after the bags
+    (> 0);
+16. kernel 9's time at the multi-hot launch (the launch alone, the
+    plain version and ``F.embedding_bag`` as the library yardstick, with
+    the L2 cache flushed before each call; the launch and the library
+    with a warm L2; the wrapper with its id check; the bound) and
+    ``torch.profiler`` over one DLRM serve_p99 and one serve_bulk step;
+    then the DLRM is dropped;
+17. FM and xDeepFM at their full configs (Criteo-39 vocabularies, embed
+    10, CIN 200-200-200, DNN 400-400): serve_p99, serve_bulk (xDeepFM cut
+    to 16,384 rows, logged) and retrieval_cand (1,048,576 candidates;
+    xDeepFM in 128 chunks of 8192); FM's factorised retrieval == its
+    forward on the substituted batch (1e-5);
+18. the three models' smoke configs on a small input, the CPU path
+    against the card (1e-5).
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
-for all eight kernels.
+for all nine kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -91,6 +126,7 @@ card it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -148,6 +184,26 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms_cold(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` with the 50 MB L2 cache flushed before
+    each call (a 512 MB buffer rewritten just before the start event, so
+    the device is still busy when ``fn`` is enqueued)."""
+    flush = torch.empty(2**27, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -339,13 +395,15 @@ def index_wrappers():
 
 def all_wrappers():
     """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.predict import fused_tile_predict
     from repro_torch.kernels.similarity import fused_similarity
     from repro_torch.kernels.support import fused_support_scores
     return {"similarity": fused_similarity, "predict": fused_tile_predict,
             **index_wrappers(), "support": fused_support_scores,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "embedding_bag": embedding_bag}
 
 
 def unit_rows(rng, n, d, dev):
@@ -1341,8 +1399,6 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
     decode step (4 rows at ~2065 cached positions) goes (device-side
     events only: kernels and copies, so no operator's time is counted
     twice)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     approx_query = (lambda: eng_approx.index.query(
         eng_approx.ratings, eng_approx.means, k=eng_approx.k,
         measure=eng_approx.measure))
@@ -1358,12 +1414,21 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
         state["cache"] = decode.fn(model, {"tokens": nxt,
                                            "cache": state["cache"]})[1]
 
-    for name, fn in (("fit", eng.fit),
-                     ("recommend", lambda: eng.recommend(n=10)),
-                     ("approx query", approx_query),
-                     ("approx recommend", lambda: eng_rec.recommend(n=10)),
-                     ("LM prefill", lm_prefill),
-                     ("LM decode step", lm_decode)):
+    profile_each((("fit", eng.fit),
+                  ("recommend", lambda: eng.recommend(n=10)),
+                  ("approx query", approx_query),
+                  ("approx recommend", lambda: eng_rec.recommend(n=10)),
+                  ("LM prefill", lm_prefill),
+                  ("LM decode step", lm_decode)))
+
+
+def profile_each(named) -> None:
+    """For each (name, fn): one warm call, then one call under
+    ``torch.profiler``; logs wall ms, device-busy ms and share, and the
+    six largest device-time entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn in named:
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1381,6 +1446,403 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
         for ms, n, key in rows[:6]:
             log(f"      {ms:9.3f} ms  x{n:<4d} {key[:72]}")
+
+
+# -- the recsys CTR slice (DLRM-MLPerf, FM, xDeepFM) and kernel 9 -----------
+
+DLRM_ROW_CAP = 20_000_000       # rows per DLRM field kept on one 80 GB card
+DLRM_RET_N = 262_144            # DLRM retrieval candidates (cut from 2^20)
+XDEEPFM_BULK_ROWS = 16_384      # xDeepFM serve_bulk rows (cut from 262144)
+BAG_SHAPE = (2048, 100)         # multi-hot bags × L (MLPerf DLRM-DCNv2's
+                                # largest Criteo multi-hot bag)
+BAG_BIG_ROWS = 17_000_000       # × 128 bf16: a table of 2.18e9 elements
+
+
+def bag_close(name, table, ids, combiner):
+    """Kernel 9 through its wrapper against its plain version on the same
+    inputs: bitwise (max abs diff 0.0).  Returns (kernel output, diff)."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    got = embedding_bag(table, ids, combiner=combiner)
+    want = embedding_bag_plain(table, ids, combiner=combiner)
+    e = max_diff(got, want)
+    check(got.dtype == table.dtype and got.shape == want.shape,
+          f"{name} dtype / shape")
+    check(e == 0.0, f"{name} diff {e} (0.0 required)")
+    return got, e
+
+
+def phase_bag_kernel(dev):
+    """Phase 14: kernel 9 (embedding bag) against its plain version on the
+    card — B = L = 1 at D = 1 / 10 / 128, all-padding bags (mean exactly
+    0), −1 spread through the bags, f32 and bf16 tables, sum and mean,
+    int32 and int64 ids, one launch on a bf16 table of more than 2^31
+    elements (64-bit offsets)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err, cases = 0.0, 0
+    shapes = [(50, 1, 1, 1), (50, 10, 1, 1), (300, 128, 1, 1),
+              (1000, 1, 37, 9), (1000, 10, 37, 9), (5000, 128, 513, 100),
+              (777, 12, 5, 33), (64, 300, 7, 40)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for v, d, b, l in shapes:
+            table = torch.randn((v, d), generator=gen, device=dev).to(dtype)
+            ids = torch.randint(0, v, (b, l), generator=gen, device=dev,
+                                dtype=torch.int32)
+            pad = torch.rand((b, l), generator=gen, device=dev) < 0.3
+            ids = torch.where(pad, torch.full_like(ids, -1), ids)
+            if b > 2:
+                ids[2] = -1                             # all-padding bag
+            for combiner in ("sum", "mean"):
+                for id_t in (ids, ids.long()):
+                    got, e = bag_close(
+                        f"bag {str(dtype)[6:]} V={v} D={d} B={b} L={l} "
+                        f"{combiner} {str(id_t.dtype)[6:]}", table, id_t,
+                        combiner)
+                    err, cases = max(err, e), cases + 1
+                    if b > 2:
+                        check(bool((got[2] == 0).all()),
+                              "all-padding bag is exactly 0")
+    big_rows, d = BAG_BIG_ROWS, 128
+    table = torch.empty((big_rows, d), dtype=torch.bfloat16, device=dev)
+    table.normal_(generator=gen)
+    past = min(2**31 // d, big_rows - 1)          # rows past 2^31 elements
+    ids = torch.randint(past, big_rows, (256, 20), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ids[:, 0] = big_rows - 1
+    ids[:, 7] = -1
+    for combiner in ("sum", "mean"):
+        _, e = bag_close(f"bag bf16 table {big_rows}x{d} ({table.numel()} "
+                         f"elements) {combiner}", table, ids, combiner)
+        err, cases = max(err, e), cases + 1
+    del table
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return err, cases
+
+
+def serve_latencies(step, model, batch, n, warm=3):
+    """Host-clock ms of ``n`` calls of ``step`` (each ended by a device
+    synchronize) after ``warm`` untimed ones; returns (ms array, output)."""
+    for _ in range(warm):
+        step.fn(model, batch)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = step.fn(model, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return np.array(lat), out
+
+
+def recsys_inputs(cfg, batch, seed):
+    """``recsys_batch`` without labels (host numpy: what a caller sends)."""
+    from repro_torch.data.batches import recsys_batch
+    out = recsys_batch(batch, cfg.field_sizes, getattr(cfg, "n_dense", 0),
+                       seed=seed)
+    out.pop("labels")
+    return out
+
+
+def substituted(ctx, cand, field):
+    """The context broadcast to every candidate with ``field`` set."""
+    out = {k: np.repeat(v, len(cand), axis=0) for k, v in ctx.items()}
+    out["sparse"][:, field] = cand
+    return out
+
+
+def multi_hot_ids(layout, shape, seed):
+    """(B, L) fused-table ids of the sharded fields: each slot a sharded
+    field drawn uniformly and an id in it drawn as ``recsys_batch`` draws
+    one (zipf(1.2) − 1 clipped to the field), about 10 % padding (−1)."""
+    rng = np.random.default_rng(seed)
+    fields = np.array(layout.sharded_fields)
+    pick = fields[rng.integers(0, len(fields), shape)]
+    sizes = np.array(layout.field_sizes)[pick]
+    offs = np.array([layout._field_offset(int(f)) for f in fields])
+    off = offs[np.searchsorted(fields, pick)]
+    ids = np.minimum(rng.zipf(1.2, shape) - 1, sizes - 1) + off
+    ids[rng.random(shape) < 0.1] = -1
+    return ids.astype(np.int32)
+
+
+def phase_dlrm(dev):
+    """Phase 15: DLRM-MLPerf at its published widths (26 fields, embed 128,
+    bottom 13-512-256-128, top 1024-1024-512-256-1), every field capped at
+    ``DLRM_ROW_CAP`` rows, random weights from a seeded generator on the
+    card: ``build_step`` serve_p99 (512 rows, ≥ 50 timed steps),
+    serve_bulk (262,144 rows) and retrieval_cand cut to 262,144
+    candidates; retrieval == forward on the substituted batch; the
+    serve_p99 lookups of the sharded fields as L = 1 bags through
+    ``ops.embedding_bag`` equal the step's gathered rows bit for bit; the
+    multi-hot bags over the fused table through ``ops.embedding_bag``
+    (== the plain version), with every launch count zeroed before the
+    steps and kernel 9's read after the bags (> 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import candidates
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import dlrm
+    from repro_torch.models import embedding as emb
+
+    arch = get_arch("dlrm_mlperf")
+    full = arch.config
+    cfg = dataclasses.replace(full, field_sizes=tuple(
+        min(s, DLRM_ROW_CAP) for s in full.field_sizes))
+    arch = dataclasses.replace(arch, config=cfg)
+    out = {"reduced": [f"field {i}: {s} -> {DLRM_ROW_CAP} rows"
+                       for i, s in enumerate(full.field_sizes)
+                       if s > DLRM_ROW_CAP],
+           "full_params": full.param_count()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = dlrm.DLRM(cfg, dlrm.init_params(cfg, gen))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = cm.count_params(model)
+    out["rows"] = cfg.layout().sharded_rows + cfg.layout().replicated_rows
+    check(out["params"] == cfg.param_count(), "DLRM parameter count")
+    out["table_gib"] = out["params"] * 4 / 2**30
+
+    serve = build_step(arch, arch.cell("serve_p99"))
+    bulk_cell = arch.cell("serve_bulk")
+    bulk = build_step(arch, bulk_cell)
+    ret_n = DLRM_RET_N
+    ret = build_step(arch, dataclasses.replace(
+        arch.cell("retrieval_cand"), name="retrieval_262k",
+        dims={"batch": 1, "n_candidates": ret_n}))
+    b_p99 = recsys_inputs(cfg, serve.example_args["sparse"].shape[0], 0)
+    b_bulk = recsys_inputs(cfg, bulk_cell.dims["batch"], 1)
+    ctx = recsys_inputs(cfg, 1, 2)
+    cand = candidates(ret_n, cfg.field_sizes[cfg.candidate_field], seed=3)
+
+    for fn in all_wrappers().values():
+        fn.launches = 0
+    lat, logits = serve_latencies(serve, model, b_p99, 60)
+    out["p99_lat"] = lat
+    check(tuple(logits.shape) == (len(b_p99["sparse"]),)
+          and bool(torch.isfinite(logits).all()),
+          "serve_p99 logits finite (B,)")
+    lat, logits = serve_latencies(bulk, model, b_bulk, 5, warm=1)
+    out["bulk_ms"], out["bulk_rows"] = lat, bulk_cell.dims["batch"]
+    check(tuple(logits.shape) == (bulk_cell.dims["batch"],)
+          and bool(torch.isfinite(logits).all()), "serve_bulk logits finite")
+    lat, scores = serve_latencies(ret, model, {**ctx, "candidates": cand}, 3,
+                                  warm=1)
+    out["ret_ms"], out["ret_n"] = lat, ret_n
+    check(tuple(scores.shape) == (ret_n,) and bool(torch.isfinite(scores).all()),
+          "retrieval scores finite (N,)")
+    out["ret_vs_fwd"] = max_diff(scores, model(substituted(
+        ctx, cand, cfg.candidate_field)))
+    check(out["ret_vs_fwd"] <= 1e-5,
+          f"retrieval == forward on the substituted batch ({out['ret_vs_fwd']})")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # kernel 9 on this path: L = 1 bags of the serve_p99 lookups, then the
+    # multi-hot bags over the fused table
+    layout = cfg.layout()
+    tables = model.tree()["tables"]
+    sparse = torch.from_numpy(b_p99["sparse"]).to(dev)
+    sf = list(layout.sharded_fields)
+    with torch.inference_mode():
+        rows = emb.sharded_lookup(layout, tables, sparse)[:, sf]
+        ids = layout.global_ids(sparse[:, sf], sf).reshape(-1, 1)
+        bags = ops.embedding_bag(tables["sharded"], ids.contiguous())
+    check(torch.equal(bags.reshape(rows.shape), rows),
+          "L = 1 bags through ops.embedding_bag == the serve step's lookups")
+    out["l1_bags"] = tuple(ids.shape)
+    mh = torch.from_numpy(multi_hot_ids(layout, BAG_SHAPE, 4)).to(dev)
+    out["bag_err"] = 0.0
+    for combiner in ("sum", "mean"):
+        with torch.inference_mode():
+            got = ops.embedding_bag(tables["sharded"], mh, combiner=combiner)
+            want = embedding_bag_plain(tables["sharded"], mh,
+                                       combiner=combiner)
+        e = max_diff(got, want)
+        check(e == 0.0, f"multi-hot bags {BAG_SHAPE} {combiner}: kernel vs "
+                        f"plain diff {e} (0.0 required)")
+        out["bag_err"] = max(out["bag_err"], e)
+    out["launches"] = embedding_bag.launches
+    check(out["launches"] > 0, "embedding-bag kernel launched on the path")
+    out["model"], out["multi_hot"] = model, mh
+    out["steps"] = (serve, bulk, b_p99, b_bulk)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_fm_xdeepfm(dev):
+    """Phase 17: FM and xDeepFM at their full published configs (Criteo-39
+    vocabularies, 3.94 M rows; embed 10; xDeepFM CIN 200-200-200, DNN
+    400-400), random weights from a seeded generator on the card:
+    serve_p99 (≥ 50 timed steps), serve_bulk (FM 262,144 rows; xDeepFM
+    cut to 16,384) and retrieval_cand (1,048,576 candidates; xDeepFM in
+    128 chunks of 8192); FM's factorised retrieval == its forward on the
+    substituted batch within 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import candidates
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import fm, xdeepfm
+
+    res = {}
+    for name, mod, cls in (("fm", fm, fm.FM),
+                           ("xdeepfm", xdeepfm, xdeepfm.XDeepFM)):
+        arch = get_arch(name)
+        cfg = arch.config
+        out = {"reduced": []}
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cls(cfg, mod.init_params(cfg, gen))
+        out["params"] = cm.count_params(model)
+        check(out["params"] == cfg.param_count(), f"{name} parameter count")
+        serve = build_step(arch, arch.cell("serve_p99"))
+        bulk_cell = arch.cell("serve_bulk")
+        if name == "xdeepfm":
+            rows = XDEEPFM_BULK_ROWS
+            out["reduced"].append(
+                f"serve_bulk {bulk_cell.dims['batch']} -> {rows} rows (the "
+                f"CIN outer product at 262144 rows is 81.8 GB in f32)")
+            bulk_cell = dataclasses.replace(bulk_cell, name="serve_16k",
+                                            dims={"batch": rows})
+        bulk = build_step(arch, bulk_cell)
+        ret_cell = arch.cell("retrieval_cand")
+        ret = build_step(arch, ret_cell)
+        n = ret_cell.dims["n_candidates"]
+        b_p99 = recsys_inputs(cfg, serve.example_args["sparse"].shape[0], 0)
+        b_bulk = recsys_inputs(cfg, bulk_cell.dims["batch"], 1)
+        ctx = recsys_inputs(cfg, 1, 2)
+        cand = candidates(n, cfg.field_sizes[cfg.candidate_field], seed=3)
+        lat, logits = serve_latencies(serve, model, b_p99, 60)
+        out["p99_lat"] = lat
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (len(b_p99["sparse"]),),
+              f"{name} serve_p99 logits finite (B,)")
+        lat, logits = serve_latencies(bulk, model, b_bulk, 5, warm=1)
+        out["bulk_ms"], out["bulk_rows"] = lat, bulk_cell.dims["batch"]
+        check(bool(torch.isfinite(logits).all()), f"{name} serve_bulk finite")
+        lat, scores = serve_latencies(ret, model, {**ctx, "candidates": cand},
+                                      3, warm=1)
+        out["ret_ms"], out["ret_n"] = lat, n
+        check(tuple(scores.shape) == (n,) and bool(torch.isfinite(scores)
+                                                   .all()),
+              f"{name} retrieval scores finite ({n},)")
+        if name == "fm":
+            out["ret_vs_fwd"] = max_diff(scores, model(substituted(
+                ctx, cand, cfg.candidate_field)))
+            check(out["ret_vs_fwd"] <= 1e-5,
+                  f"FM factorised retrieval == forward ({out['ret_vs_fwd']})")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = out
+        del model
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_recsys_small(dev):
+    """Phase 18: the three smoke configs on a small input, the CPU path
+    against the card (same weights, made on the CPU): forward on 64 rows
+    and retrieval of 128 candidates within 1e-5."""
+    import importlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import candidates
+    from repro_torch.state import recsys_from_reference
+    worst = 0.0
+    for name in ("dlrm_mlperf", "fm", "xdeepfm"):
+        arch = get_arch(name)
+        cfg = arch.smoke_config()
+        mod = importlib.import_module(f"repro_torch.models.{arch.model}")
+        params = mod.init_params(cfg, torch.Generator().manual_seed(5),
+                                 device="cpu")
+        cpu = recsys_from_reference(cfg, params, device="cpu")
+        gpu = recsys_from_reference(cfg, params, device=dev)
+        batch = recsys_inputs(cfg, 64, 6)
+        ctx = {k: v[:1] for k, v in batch.items()}
+        ctx["candidates"] = candidates(
+            128, cfg.field_sizes[cfg.candidate_field], seed=7)
+        for what, a, b in (("forward", cpu(batch), gpu(batch)),
+                           ("retrieval", cpu.retrieval_score(ctx),
+                            gpu.retrieval_score(ctx))):
+            e = max_diff(a, b.cpu())
+            check(bool(torch.isfinite(a).all()), f"{name} {what} finite")
+            check(e <= 1e-5, f"{name} {what} CPU vs card diff {e}")
+            worst = max(worst, e)
+    return worst
+
+
+def phase_bag_timings(dl, err):
+    """Phase 16 (kernel 9): the multi-hot launch of phase 15 (2048 bags ×
+    L = 100 over the fused 104 M × 128 f32 table), sum: the launch alone,
+    the plain version and the library yardstick ``F.embedding_bag`` with
+    the validity mask as ``per_sample_weights`` on clamped ids (never
+    called by the port), each with the L2 cache flushed before every call
+    (a serving caller finds the rows cold; CUDA events), and the launch
+    and library with a warm L2, and the wrapper with its id check."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain,
+                                                   launch)
+    table = dl["model"].tree()["tables"]["sharded"]
+    ids = dl["multi_hot"]
+    b, l = ids.shape
+    d = table.shape[1]
+    n_bad = torch.zeros((1,), dtype=torch.int32, device=ids.device)
+    valid = ids >= 0
+    safe = ids.clamp_min(0)
+    weights = valid.to(table.dtype)
+    with torch.inference_mode():
+        before = embedding_bag.launches
+        ms = time_ms_cold(lambda: launch(table, ids, n_bad), reps=50)
+        warm_ms = time_ms(lambda: launch(table, ids, n_bad), reps=50)
+        wrapper_ms = time_ms(lambda: embedding_bag(table, ids), reps=20)
+        embedding_bag.launches = before
+        plain_ms = time_ms_cold(lambda: embedding_bag_plain(table, ids),
+                                reps=5)
+
+        def library_call():
+            return F.embedding_bag(safe, table, mode="sum",
+                                   per_sample_weights=weights)
+        library = time_ms_cold(library_call, reps=50)
+        library_warm = time_ms(library_call, reps=50)
+        lib_err = max_diff(library_call(), embedding_bag_plain(table, ids))
+    check(int(n_bad.item()) == 0, "no id past the table in the timing runs")
+    distinct = int(torch.unique(ids[valid]).numel())
+    n_valid = int(valid.sum())
+    bound, by = bound_ms(distinct * d * 4.0 + b * l * 4.0 + b * d * 4.0,
+                         float(n_valid * d))
+    torch.cuda.synchronize()
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:49",
+            "launches": dl["launches"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library, "wrapper_ms": wrapper_ms,
+            "warm_ms": warm_ms, "library_warm_ms": library_warm,
+            "library_diff": lib_err,
+            "shape": f"B={b} L={l} ({n_valid} valid, {distinct} distinct "
+                     f"rows) over {tuple(table.shape)} f32, sum"}
+
+
+def log_serving(name, out) -> None:
+    p99 = out["p99_lat"]
+    bulk = out["bulk_ms"]
+    rows = out["bulk_rows"]
+    log(f"    {name} serve_p99 (512 rows, {len(p99)} steps): p50 "
+        f"{np.percentile(p99, 50):.3f} ms, p99 {np.percentile(p99, 99):.3f} "
+        f"ms; serve_bulk ({rows} rows): {np.median(bulk):.2f} ms, "
+        f"{rows / np.median(bulk) * 1e3:.0f} rows/s; retrieval "
+        f"({out['ret_n']} candidates): "
+        f"{np.median(out['ret_ms']):.2f} ms")
 
 
 def main() -> int:
@@ -1565,6 +2027,70 @@ def main() -> int:
     log("[13] torch.profiler: device time of a steady fit / recommend / "
         "approx query / approx recommend / LM prefill / LM decode step")
     phase_profile(eng, eng_ap, eng_rec, lm)
+    # the CF engines and the LM leave the card to the DLRM tables
+    del eng, eng_ap, eng_rec, lm, train_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[14] embedding-bag kernel vs plain version on the card")
+    berr, bcases = phase_bag_kernel(dev)
+    log(f"    ok: {bcases} cases, max_abs_diff={berr!r} (0.0 required)")
+
+    log(f"[15] DLRM-MLPerf at published widths (fields capped at "
+        f"{DLRM_ROW_CAP} rows): build_step serve_p99 / serve_bulk / "
+        f"retrieval")
+    dl = phase_dlrm(dev)
+    log(f"    reduced: {dl['reduced']}; {dl['rows']} table rows, "
+        f"{dl['params']} parameters ({dl['table_gib']:.2f} GiB f32; the "
+        f"uncut model {dl['full_params']}), init on the card "
+        f"{dl['init_s']:.2f}s")
+    log_serving("DLRM", dl)
+    log(f"    retrieval == forward on the substituted batch: max_abs_diff "
+        f"{dl['ret_vs_fwd']!r}; peak device memory {dl['peak_gib']:.2f} GiB")
+    log(f"    {dl['l1_bags'][0]} L = 1 bags (serve_p99's sharded-field ids) "
+        f"through ops.embedding_bag == the step's lookups bit for bit; "
+        f"multi-hot {BAG_SHAPE} sum / mean: kernel == plain "
+        f"(max_abs_diff {dl['bag_err']!r}); embedding_bag launches "
+        f"{dl['launches']}")
+
+    log("[16] embedding-bag timing (CUDA events) and DLRM profile")
+    bag_row = phase_bag_timings(dl, max(berr, dl["bag_err"]))
+    kernels.append(bag_row)
+    log(f"    {bag_row['name']}: {bag_row['ms']:.4f} ms with a cold L2 "
+        f"(warm {bag_row['warm_ms']:.4f}; the wrapper with its id check, "
+        f"warm, {bag_row['wrapper_ms']:.4f}), plain "
+        f"{bag_row['plain_ms']:.4f}, library {bag_row['library_ms']:.4f} "
+        f"(warm {bag_row['library_warm_ms']:.4f}; diff "
+        f"{bag_row['library_diff']!r}), bound {bag_row['bound_ms']:.4f} ms "
+        f"by {bag_row['bound_by']} at {bag_row['shape']}")
+    serve, bulk, b_p99, b_bulk = dl["steps"]
+    profile_each((("DLRM serve_p99 step", lambda: serve.fn(dl["model"],
+                                                           b_p99)),
+                  ("DLRM serve_bulk step", lambda: bulk.fn(dl["model"],
+                                                           b_bulk))))
+    # FM and xDeepFM get the card to themselves
+    del dl, serve, bulk, b_p99, b_bulk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[17] FM and xDeepFM at full config: serve_p99 / serve_bulk / "
+        "retrieval_cand")
+    fx = phase_fm_xdeepfm(dev)
+    for name, out in fx.items():
+        log(f"    {name}: {out['params']} parameters; reduced: "
+            f"{out['reduced'] or 'none'}")
+        log_serving(name, out)
+        if "ret_vs_fwd" in out:
+            log(f"    {name}: factorised retrieval == forward on the "
+                f"substituted batch, max_abs_diff {out['ret_vs_fwd']!r} "
+                f"(tolerance 1e-5)")
+        log(f"    {name}: peak device memory {out['peak_gib']:.2f} GiB")
+
+    log("[18] recsys smoke configs: CPU path vs card")
+    rs_e = phase_recsys_small(dev)
+    log(f"    forward and retrieval, 3 models: max_abs_diff {rs_e!r} "
+        f"(tolerance 1e-5)")
+
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in (

@@ -7,9 +7,11 @@ never imports ``jax`` or ``repro``.  Ported so far: the exact CF main path
 the ``CFEngine`` facade, the supervised ``BatchingServer``), the
 approximate user index and the two-stage item index (``index``:
 ``CFEngine(neighbor_mode="approx")`` / ``recommend_mode="approx"``), and
-the LM family's prefill → decode serving path for dense GQA configs
+the LM family's prefill → decode serving path for dense GQA configs and
+the recsys CTR models' serving and retrieval steps (DLRM, FM, xDeepFM)
 (``models``, ``configs``, ``launch.steps``), with hand-written CUDA
-kernels under ``csrc/``.
+kernels under ``csrc/`` and their dispatching entry points in
+``kernels.ops``.
 """
 
 from repro_torch.device import resolve_device

@@ -1,9 +1,11 @@
 """Architecture registry of the port (counterpart of
 ``repro.configs.registry``): ``ShapeCell`` and ``ArchSpec`` with the
-reference's fields, the LM shape set, and ``input_specs`` as shapes.
+reference's fields, the LM and recsys shape sets, and ``input_specs`` as
+shapes.
 
-Only the dense LM configs are ported (``llama3_2_1b``, ``codeqwen1_5_7b``,
-``qwen1_5_110b``); the other families and the MoE / MLA LMs raise
+Ported: the dense LM configs (``llama3_2_1b``, ``codeqwen1_5_7b``,
+``qwen1_5_110b``) and the recsys CTR configs (``dlrm_mlperf``, ``fm``,
+``xdeepfm``); the other families, BERT4Rec and the MoE / MLA LMs raise
 ``NotImplementedError`` naming their ROADMAP item.  ``input_specs`` gives
 ``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
 ``jax.ShapeDtypeStruct``s: nothing is allocated.
@@ -62,13 +64,26 @@ def lm_shapes(full_attention: bool = True) -> Tuple[ShapeCell, ...]:
     )
 
 
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval",
+              {"batch": 1, "n_candidates": 1_048_576}),   # 2^20 ≈ "1M";
+              # divides the 512-device mesh exactly (1e6 does not)
+)
+
+
 def input_specs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
-    """Model inputs of ``cell`` as ``TensorSpec``s (the LM family)."""
-    if arch.kind != "lm":
-        raise NotImplementedError(
-            f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
-            f"11: side workloads)")
-    return _lm_inputs(arch.config, cell)
+    """Model inputs of ``cell`` as ``TensorSpec``s (the LM and recsys
+    families)."""
+    if arch.kind == "lm":
+        return _lm_inputs(arch.config, cell)
+    if arch.kind == "recsys":
+        return _recsys_inputs(arch, cell)
+    raise NotImplementedError(
+        f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
+        f"11: side workloads)")
 
 
 def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
@@ -88,15 +103,31 @@ def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     raise ValueError(cell.step)
 
 
-_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b")
+def _recsys_inputs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
+    """The CTR models' inputs (reference ``registry.py:160``): sparse ids,
+    DLRM's dense features, labels to train, candidates to retrieve."""
+    if arch.model == "bert4rec":
+        raise NotImplementedError(f"{arch.name}: {_WAITING['bert4rec']}")
+    cfg = arch.config
+    b = cell.dims["batch"]
+    base = {"sparse": TensorSpec((b, cfg.n_sparse), torch.int32)}
+    if arch.model == "dlrm":
+        base["dense"] = TensorSpec((b, cfg.n_dense), torch.float32)
+    if cell.step == "train":
+        base["labels"] = TensorSpec((b,), torch.int32)
+    if cell.step == "retrieval":
+        base["candidates"] = TensorSpec((cell.dims["n_candidates"],),
+                                        torch.int32)
+    return base
+
+
+_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b", "dlrm_mlperf",
+           "fm", "xdeepfm")
 _WAITING = {
     "qwen3_moe_30b_a3b": "MoE (ROADMAP Queue 1 item 11)",
     "deepseek_v2_236b": "MoE + MLA (ROADMAP Queue 1 item 11)",
     "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
-    "dlrm_mlperf": "the recsys models (ROADMAP Queue 1 item 11)",
-    "fm": "the recsys models (ROADMAP Queue 1 item 11)",
-    "xdeepfm": "the recsys models (ROADMAP Queue 1 item 11)",
-    "bert4rec": "the recsys models (ROADMAP Queue 1 item 11)",
+    "bert4rec": "BERT4Rec (ROADMAP Queue 1 item 11)",
     "cf_movielens": "the CF config (ROADMAP Queue 1 item 10; the engine "
                     "itself is repro_torch.core.facade.CFEngine)",
 }

@@ -1,10 +1,10 @@
-"""Synthetic LM batches (port of ``repro.data.batches.lm_batch``):
-host-side numpy, deterministic per seed, byte-identical to the
-reference's generator."""
+"""Synthetic batches (port of ``repro.data.batches``: ``lm_batch``,
+``recsys_batch``, ``candidates``): host-side numpy, deterministic per
+seed, byte-identical to the reference's generators."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -16,3 +16,32 @@ def lm_batch(batch: int, seq_len: int, vocab: int, seed: int = 0
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (batch, seq_len + 1), dtype=np.int32)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32)}
+
+
+def recsys_batch(batch: int, field_sizes: Sequence[int], n_dense: int = 0,
+                 seed: int = 0, power_law: bool = True
+                 ) -> Dict[str, np.ndarray]:
+    """CTR batch: {"sparse": (batch, F) int32 per-field ids, "labels":
+    (batch,) int32 0/1, and with ``n_dense`` "dense": (batch, n_dense)
+    f32 normals}.  A field of more than 100 ids draws zipf(1.2) − 1
+    clipped to its vocabulary (the hot-row skew of real CTR logs), a
+    smaller one uniformly."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for s in field_sizes:
+        if power_law and s > 100:
+            raw = rng.zipf(1.2, batch) - 1
+            cols.append(np.minimum(raw, s - 1))
+        else:
+            cols.append(rng.integers(0, s, batch))
+    out = {"sparse": np.stack(cols, 1).astype(np.int32),
+           "labels": rng.integers(0, 2, batch).astype(np.int32)}
+    if n_dense:
+        out["dense"] = rng.normal(0, 1, (batch, n_dense)).astype(np.float32)
+    return out
+
+
+def candidates(n: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """(n,) int32 candidate ids, uniform in [0, vocab)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, n).astype(np.int32)

@@ -18,11 +18,12 @@ from repro_torch.kernels.similarity import similarity_plain
 _EPS = 1e-8
 
 
-def similarity_ref(ra: torch.Tensor, rb: torch.Tensor, measure: str = "all"):
+def similarity_ref(ra: torch.Tensor, rb: torch.Tensor, measure: str = "all",
+                   beta: float = core_sim.PCC_SIG_BETA):
     """(m, D) × (n, D) → similarity under ``measure`` (or the jaccard,
-    cosine, pcc triple for ``"all"``): the fused-similarity kernel's plain
-    version."""
-    return similarity_plain(ra, rb, measure=measure)
+    cosine, pcc triple for ``"all"``; ``beta`` is ``pcc_sig``'s horizon):
+    the fused-similarity kernel's plain version."""
+    return similarity_plain(ra, rb, measure=measure, beta=beta)
 
 
 def tile_predict_ref(nbr: torch.Tensor, w: torch.Tensor,
@@ -187,3 +188,24 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = logits.masked_fill(~mask[:, None], float("-inf"))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+# -- embedding bag --------------------------------------------------------------
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor, *,
+                      combiner: str = "sum") -> torch.Tensor:
+    """(V, D) table, (B, L) ids with -1 padding → (B, D) bags: the gathered
+    (B, L, D) rows masked and summed in the table's dtype, the mean divided
+    by max(count, 1) in that dtype.  Ids ≥ V are clamped to V − 1, as the
+    reference oracle's indexing does (they lie outside the contract).
+    Oracle for ``repro_torch.kernels.embedding_bag.embedding_bag``."""
+    valid = indices >= 0
+    safe = torch.where(valid, indices, 0).long().clamp_max(table.shape[0] - 1)
+    rows = table[safe] * valid[..., None].to(table.dtype)      # (B, L, D)
+    bags = rows.sum(dim=1)
+    if combiner == "mean":
+        cnt = valid.sum(dim=1, keepdim=True).clamp_min(1)
+        bags = bags / cnt.to(bags.dtype)
+    elif combiner != "sum":
+        raise ValueError(f"unknown combiner {combiner!r}")
+    return bags

@@ -1,2 +1,4 @@
-"""LM-family models of the port: the dense GQA transformer's serving path
-(``transformer.py``) and its building blocks (``common.py``)."""
+"""Models of the port: the LM family's dense GQA transformer serving path
+(``transformer.py``), the recsys CTR models' serving and retrieval steps
+(``dlrm.py``, ``fm.py``, ``xdeepfm.py`` over ``embedding.py``'s fused
+tables) and their building blocks (``common.py``)."""

@@ -32,7 +32,6 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.models import common as cm
 
@@ -154,26 +153,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-class _Tree(nn.Module):
-    """A nested dict of tensors as submodules and parameters, so that
-    ``named_parameters()`` gives the reference's dotted pytree paths."""
-
-    def __init__(self, tree: Dict[str, Any]):
-        super().__init__()
-        for name, val in tree.items():
-            if isinstance(val, dict):
-                self.add_module(name, _Tree(val))
-            else:
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
-
-    def tree(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = dict(self._parameters)
-        for name, mod in self._modules.items():
-            out[name] = mod.tree()
-        return out
-
-
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
@@ -212,22 +191,16 @@ def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
-class Transformer(nn.Module):
+class Transformer(cm.ParamTree):
     """The dense GQA transformer for serving: ``prefill`` and
     ``decode_step`` (see the module docstring)."""
 
     def __init__(self, cfg: TransformerConfig, params: Dict[str, Any],
                  use_kernel: bool = True):
-        super().__init__()
         _require_dense(cfg)
+        super().__init__(params)
         self.cfg = cfg
         self.use_kernel = use_kernel
-        for name, val in params.items():
-            if isinstance(val, dict):
-                self.add_module(name, _Tree(val))
-            else:
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
         self._cast_weights()
 
     @property

@@ -16,7 +16,9 @@ arrays, and a subtree that lacks a key raises.
 :func:`transformer_from_reference` does the same for the LM family: the
 reference's ``repro.models.transformer.init_params`` tree (host arrays)
 becomes the port's ``Transformer`` module on a device, so both packages
-compute on the same weights.
+compute on the same weights.  :func:`recsys_from_reference` does it for
+the recsys CTR models (DLRM, FM, xDeepFM), whose trees hold lists too
+(xDeepFM's ``"cin"``).
 """
 
 from __future__ import annotations
@@ -86,6 +88,8 @@ def from_reference_state(tree: dict, device="cuda") -> Dict[str, object]:
 def _tensor_tree(tree, dev):
     if isinstance(tree, dict):
         return {key: _tensor_tree(val, dev) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensor_tree(val, dev) for val in tree]
     arr = _host(tree)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)       # bf16 host arrays (ml_dtypes)
@@ -102,3 +106,17 @@ def transformer_from_reference(cfg, params: dict, device="cuda",
     from repro_torch.models.transformer import Transformer
     dev = resolve_device(device)
     return Transformer(cfg, _tensor_tree(params, dev), use_kernel=use_kernel)
+
+
+def recsys_from_reference(cfg, params: dict, device="cuda"):
+    """Reference recsys parameter tree (nested dicts and lists of host or
+    jax arrays, f32) → the port's model for ``cfg`` (``DLRMConfig`` →
+    ``DLRM``, ``FMConfig`` → ``FM``, ``XDeepFMConfig`` → ``XDeepFM``) on
+    ``device`` with the same parameter paths and values."""
+    from repro_torch.models import dlrm, fm, xdeepfm
+    models = {dlrm.DLRMConfig: dlrm.DLRM, fm.FMConfig: fm.FM,
+              xdeepfm.XDeepFMConfig: xdeepfm.XDeepFM}
+    if type(cfg) not in models:
+        raise TypeError(f"no recsys model of the port for {type(cfg)}")
+    dev = resolve_device(device)
+    return models[type(cfg)](cfg, _tensor_tree(params, dev))

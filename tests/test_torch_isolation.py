@@ -47,7 +47,11 @@ def test_scan_covers_the_package():
                  "models/common.py", "models/transformer.py",
                  "configs/registry.py", "configs/llama3_2_1b.py",
                  "configs/codeqwen1_5_7b.py", "configs/qwen1_5_110b.py",
-                 "launch/steps.py", "data/batches.py"):
+                 "launch/steps.py", "data/batches.py",
+                 "kernels/embedding_bag.py", "kernels/ops.py",
+                 "models/embedding.py", "models/dlrm.py", "models/fm.py",
+                 "models/xdeepfm.py", "configs/dlrm_mlperf.py",
+                 "configs/fm.py", "configs/xdeepfm.py"):
         assert want in names
 
 
@@ -61,6 +65,7 @@ def test_scan_covers_the_package():
     ("support", "repro/kernels/support.py", ["fused_support_scores"]),
     ("flash_attention", "repro/kernels/flash_attention.py",
      ["flash_attention"]),
+    ("embedding_bag", "repro/kernels/embedding_bag.py", ["embedding_bag"]),
 ])
 def test_kernel_sources_and_wrappers(name, replaces, wrappers):
     import importlib

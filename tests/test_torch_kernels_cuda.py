@@ -426,3 +426,63 @@ def test_llama_smoke_serving_on_card(cuda):
         lg, cg = gpu.decode_step(nxt.to(cuda), cg)
         assert_parity(f"cuda.llama_smoke.decode{step}", lg.cpu(), lc, 1e-4)
     assert flash_attention.launches == before + 4 * cfg.n_layers
+
+
+# -- the embedding-bag kernel (recsys) against its plain version ------------
+
+def _bag_inputs(seed, v, d, b, l, dtype, cuda, pad=0.3):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(0, 1, (v, d)).astype(np.float32))
+    idx = rng.integers(0, v, (b, l))
+    idx[rng.random((b, l)) < pad] = -1
+    return table.to(cuda, dtype), torch.from_numpy(idx.astype(np.int32)).to(
+        cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,l", [
+    (50, 1, 1, 1), (50, 10, 1, 1), (300, 128, 1, 1),     # B = L = 1
+    (1000, 1, 37, 9), (1000, 10, 37, 9),                 # FM / xDeepFM D
+    (5000, 128, 513, 100), (777, 12, 5, 33),             # multi-hot; D % 8
+    (64, 300, 7, 40), (64, 36, 3, 70),                   # D > 32 lanes · 8
+])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_bag_kernel_matches_plain(cuda, dtype, v, d, b, l, combiner):
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    table, idx = _bag_inputs(v + d + b + l, v, d, b, l, dtype, cuda)
+    idx[0, -1] = -1                                    # a padded last slot
+    if b > 2:
+        idx[2] = -1                                    # an all-padding bag
+    before = embedding_bag.launches
+    got = embedding_bag(table, idx, combiner=combiner)
+    assert embedding_bag.launches == before + 1
+    want = embedding_bag_plain(table, idx, combiner=combiner)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, d)
+    assert_parity(f"cuda.bag.{combiner}.{str(dtype)[6:]}.V{v}.D{d}.B{b}.L{l}",
+                  got.float(), want.float())
+    if b > 2:
+        assert bool((got[2] == 0).all())
+    # int64 ids launch the same arithmetic
+    assert torch.equal(embedding_bag(table, idx.long(), combiner=combiner),
+                       got)
+
+
+def test_bag_kernel_rejects_ids_past_the_table(cuda):
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    table, idx = _bag_inputs(0, 100, 16, 8, 4, torch.float32, cuda)
+    idx[3, 2] = 100
+    with pytest.raises(ValueError, match="≥ the table's 100 rows"):
+        embedding_bag(table, idx)
+    with pytest.raises(ValueError, match="≥ the table's 100 rows"):
+        embedding_bag(table, idx.long() + 2**40)
+    with pytest.raises(TypeError):
+        embedding_bag(table.double(), idx)
+    with pytest.raises(ValueError):
+        embedding_bag(table.T, idx)                    # not contiguous
+    with pytest.raises(ValueError):
+        embedding_bag(table, idx.cpu())
+    from repro_torch.kernels import ops
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table.cpu(), idx.cpu(), impl="kernel")

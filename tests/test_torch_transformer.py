@@ -188,7 +188,7 @@ def test_llama_full_width_param_count():
 
 
 def test_unported_families_raise():
-    for name in ("qwen3_moe_30b_a3b", "deepseek_v2_236b", "egnn", "fm"):
+    for name in ("qwen3_moe_30b_a3b", "deepseek_v2_236b", "egnn", "bert4rec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(name)
     cfg = dataclasses.replace(get_arch("llama3_2_1b").smoke_config(),
