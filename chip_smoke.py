@@ -19,7 +19,10 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    ids, and a small input must agree between the CPU path and the card;
 4. the approximate index's kernels (centroid distances, scan / select
    top-M, co-rated rerank) against their plain versions on the card, at
-   ragged shapes (ids equal, values within 1e-6, 0 expected);
+   ragged shapes (ids equal, values within 1e-6, 0 expected); the
+   radix select also on ±0.0, all −inf rows, m = 1, m = L, m above the
+   finite count and a row too long for shared memory, its values equal
+   bit for bit (signs of zeros included);
 5. the approx path at 6040 × 3952, pcc, k = 40, default ``IndexConfig``:
    ``CFEngine(neighbor_mode="approx", backend="kernel")`` fit →
    ``recall_vs_exact`` → a cluster-restricted query (n_probe 4, 1024
@@ -60,13 +63,20 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     ragged per-row kv_len (keys past it hold NaN and must not be read),
     fully masked rows (Sq > Skv, causal: exactly 0), f32 (atol 1e-5) and
     bf16 (against the plain f32 result rounded to bf16: atol 2e-2 and,
-    elementwise, one bf16 unit in the last place plus 1e-5);
+    elementwise, one bf16 unit in the last place plus 1e-5); then the
+    bf16 routes by name: Sq·group of 16 (split-K decode) and 17
+    (tensor-core prefill), per-row kv_len of 0, 1, less than a split, one
+    split and every split on both routes (exact zeros at kv_len 0), d /
+    dv of 40, 72 and 256 with dv ≠ d, and rows 65 elements apart (the
+    scalar staging path); each call's route counter is checked;
 11. LM serving: Llama-3.2-1B at full width (16 layers, d 2048, 32/8
     heads, vocab 128256, bf16), weights from a seeded generator on the
     card; ``build_step`` prefill on 4 prompts × 2048 tokens (``lm_batch``
     seed 0, max_len 2080) and 16 greedy decode steps with the flash
-    kernel's launch count zeroed before and read after (> 0 in prefill
-    and in decode), ``cache["len"]`` 2064, the layer-0 q / k / v of the
+    kernel's launch and route counts zeroed before and read after (> 0 in
+    prefill and in decode; every prefill launch on the tensor-core route,
+    every decode launch on the split-K route), ``cache["len"]`` 2064,
+    the layer-0 q / k / v of the
     prefill through kernel and plain version, as they are (bf16) and as
     f32 copies (atol 1e-5); then the same model with
     the attention on the plain version, teacher-forced on the same
@@ -75,7 +85,13 @@ per source, in parallel).  Phases, each ended by a device synchronize:
 12. each kernel's time against its plain version, a library yardstick
     and its bound, at the main paths' shapes (CUDA events), the flash
     kernel at its prefill and its decode launch (that launch's inputs
-    also as f32 copies against the plain version, atol 1e-5);
+    also as f32 copies against the plain version, atol 1e-5), the select
+    at both of its path shapes (the cluster query's Q 256 × L 8192,
+    m 906, and the item index's Q 6040 × L 3952, m 512, each beside
+    ``torch.topk``), and the previous designs' times of kernels 5 and 8
+    beside the new ones (the decode launch, the selects and their library
+    calls are timed queued behind a spin kernel, so the host's work to
+    enqueue them is not counted; each call with it is logged too);
 13. ``torch.profiler``: where the device time of a steady exact fit, of
     recommend(all users), of an approx query, of an approx
     recommend(all users), of the LM prefill and of one LM decode step
@@ -148,6 +164,14 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 TOL = 1e-6
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# kernels 5 and 8 before their redesign (the select's bitonic merge, the
+# flash kernel's f32 SIMT tiles for bf16): ms a launch, timed by this
+# script on an H100 80GB HBM3 at 700 W (CUDA events; the item-index
+# select from its torch.profiler entry)
+PREVIOUS_MS = {"select_topm Q=256 L=8192 m=906": 0.9113,
+               "select_topm Q=6040 L=3952 m=512": 2.534,
+               "flash_attention prefill": 2.9568,
+               "flash_attention decode": 0.2644}
 BF16_ULP = 2.0 ** -7   # a bf16 x's unit in the last place is ≤ |x|·2⁻⁷
 DEVICE = "cuda"
 
@@ -178,6 +202,24 @@ def time_ms(fn, reps: int = 10) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_ms_queued(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls that
+    are enqueued behind a ~20 ms spin kernel, so a launch shorter than
+    the host's work to enqueue it is timed on the device alone (CUDA
+    events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -225,6 +267,25 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: str):
+    """(kernel with its template arguments, registers, spill line) for
+    each entry function of an ``nvcc -Xptxas -v`` report."""
+    import re
+    out, fn, spill = [], "?", ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]*kernel)(I\w*?E)?E", m.group(1))
+            fn = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.append((fn, int(m.group(1)), spill))
+    return out
 
 
 def phase_kernels(dev, rng, train_dev):
@@ -455,16 +516,23 @@ def phase_index_kernels(dev, rng, train_dev):
         check_topm(f"scan_topm Q={q_n} N={n} P={p} m={m} dup={dup}",
                    fused_scan_topm(q, prox, q_ids, m=m),
                    scan_topm_plain(q, prox, q_ids, min(m, n)), err, "scan")
-    for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64)):
+    for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64),
+                      (9, 300, 1), (9, 300, 300), (9, 300, 280),
+                      (3, 40000, 700)):
         sc = torch.from_numpy(
             rng.integers(-40, 41, (q_n, n)).astype(np.float32) / 8).to(dev)
         sc[torch.rand(sc.shape, device=dev) < 0.1] = float("-inf")
         sc[1] = float("-inf")                        # an all -inf row
+        sc[2, ::3] = -0.0                            # ±0.0 ties
+        sc[2, 1::3] = 0.0
         none = torch.full((q_n,), -1, dtype=torch.int32, device=dev)
         got = select_topm(sc, none, m=m)
+        want = select_topm_twin(sc, none, m=m)
         check(bool((got[1][1] == n).all()), "all -inf row carries sentinel")
-        check_topm(f"select_topm Q={q_n} N={n} m={m} (ties, -inf rows)",
-                   got, select_topm_twin(sc, none, m=m), err, "select")
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+              f"select_topm Q={q_n} N={n} m={m}: values equal bit for bit")
+        check_topm(f"select_topm Q={q_n} N={n} m={m} (ties, ±0, -inf rows)",
+                   got, want, err, "select")
     q = train_dev[:37].contiguous()
     cand = train_dev[100:231].contiguous()
     norms = torch.sqrt((cand.double() ** 2).sum(1)).float()
@@ -895,6 +963,37 @@ def phase_recommend_scale(dev, r):
     return out
 
 
+def phase_select_item_timing(dev, eng):
+    """Phase 12 (kernel 5 at its second path shape): the item index's
+    select over the support scores of one 6040-user chunk (seen items
+    −inf), m = the default shortlist, beside ``torch.topk``."""
+    from repro_torch.kernels.select import select_topm, select_topm_twin
+    from repro_torch.kernels.support import fused_support_scores
+    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
+    ratings = eng.snapshot()[0]
+    n_items = ratings.shape[1]
+    sc = fused_support_scores(dev_t, msk_t, safe, w, means)[:, :n_items]
+    sc = sc.masked_fill(ratings > 0, float("-inf")).contiguous()
+    q_n = sc.shape[0]
+    m = min(eng.item_index.cfg.shortlist, n_items)
+    none = torch.full((q_n,), -1, dtype=torch.int32, device=dev)
+    got, want = select_topm(sc, none, m=m), select_topm_twin(sc, none, m=m)
+    check(torch.equal(got[1], want[1])
+          and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          "select at the item index's shape: ids and values bit for bit")
+    bound, by = bound_ms(q_n * n_items * 4.0 + q_n * 4.0 + q_n * m * 8.0,
+                         float(q_n * n_items))
+    out = {"ms": time_ms_queued(lambda: select_topm(sc, none, m=m)),
+           "call_ms": time_ms(lambda: select_topm(sc, none, m=m), reps=20),
+           "plain_ms": time_ms(lambda: select_topm_twin(sc, none, m=m),
+                               reps=5),
+           "library_ms": time_ms_queued(lambda: torch.topk(sc, m)),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+           "shape": f"Q={q_n} L={n_items} m={m}"}
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_support_timings(dev, eng, err, launches):
     """Phase 12 (kernel 7): kernel vs plain vs torch.sparse.mm at one
     6040-user chunk of the approx-recommend path."""
@@ -1087,11 +1186,13 @@ def phase_index_timings(dev, eng, err, launches):
     big_l = sp.shape[1]
     row("select_topm", "src/repro_torch/csrc/select.cu",
         "src/repro/kernels/select.py:164", "select",
-        time_ms(lambda: select_topm(sp, none, m=ms), reps=20),
+        time_ms_queued(lambda: select_topm(sp, none, m=ms)),
         time_ms(lambda: select_topm_twin(sp, none, m=ms), reps=5),
-        time_ms(lambda: torch.topk(sp, ms), reps=20), e,
+        time_ms_queued(lambda: torch.topk(sp, ms)), e,
         256 * big_l * 4.0 + 256 * 4.0 + 256 * ms * 8.0, 256.0 * big_l,
         f"Q=256 L={big_l} ({len(cand)} candidates) m={ms}")
+    rows[-1]["call_ms"] = time_ms(lambda: select_topm(sp, none, m=ms),
+                                  reps=20)
 
     # kernel 6: the union-Gram rerank of the same 2048-query block, pcc
     u = torch.unique(shorts.long())
@@ -1192,8 +1293,71 @@ def phase_flash_kernel(dev):
             err[dtype] = max(err[dtype], e)
         log(f"  {str(dtype)[6:]}: {len(shapes) * 2 + 2} cases, "
             f"max_abs_diff={err[dtype]!r} (tolerance {FLASH_TOL[dtype]})")
+    seen = phase_flash_routes(dev, gen, err)
+    log(f"  bf16 by route: {seen} calls, each on its expected route; "
+        f"max_abs_diff={err[torch.bfloat16]!r}")
     torch.cuda.synchronize()
     return err
+
+
+def phase_flash_routes(dev, gen, err):
+    """Phase 10, the bf16 routes by name (each call's route counter is
+    checked): Sq·group 16 / 17 at the split / tensor-core boundary;
+    per-row kv_len of 0, 1, < one split (128 keys), one split, past one
+    split and every split on both routes (NaN past kv_len, exact zeros at
+    0); d / dv of 40, 72 and 256; rows 65 elements apart."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    routes = flash_attention.routes
+    seen = dict.fromkeys(routes, 0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def routed(name, want, q, k, v, **kw):
+        before = dict(routes)
+        got = flash_attention(q, k, v, **kw)
+        check(routes[want] == before[want] + 1
+              and sum(routes.values()) == sum(before.values()) + 1,
+              f"{name}: one launch on the {want} route")
+        seen[want] += 1
+        err[torch.bfloat16] = max(err[torch.bfloat16],
+                                  flash_close(name, got, q, k, v, **kw))
+        return got
+
+    for hkv, grp, sq, want in ((2, 8, 2, "split"), (1, 1, 16, "split"),
+                               (1, 1, 17, "mma"), (2, 17, 1, "mma")):
+        q, k, v = rnd(2, hkv * grp, sq, 64), rnd(2, hkv, 200, 64), \
+            rnd(2, hkv, 200, 64)
+        for causal in (True, False):
+            routed(f"flash bf16 hkv={hkv} g={grp} sq={sq} causal={causal}",
+                   want, q, k, v, causal=causal)
+    lens = [0, 1, 100, 128, 257, 384]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for sq, want in ((1, "split"), (5, "mma")):
+        q, k, v = rnd(6, 8, sq, 64), rnd(6, 2, 384, 64), rnd(6, 2, 384, 64)
+        for row, n in enumerate(lens):
+            k[row, :, n:] = float("nan")
+            v[row, :, n:] = float("nan")
+        got = routed(f"flash bf16 kv_len {lens} sq={sq}", want, q, k, v,
+                     causal=True, kv_len=kv_len)
+        check(bool(torch.isfinite(got).all()),
+              f"flash bf16 kv_len sq={sq}: no key past kv_len is read")
+        check(bool((got[0] == 0).all()),
+              f"flash bf16 kv_len sq={sq}: kv_len 0 gives exact zeros")
+    for d, dv in ((40, 72), (72, 40), (256, 256), (256, 40), (72, 256)):
+        for sq, want in ((1, "split"), (33, "mma")):
+            q, k, v = rnd(2, 8, sq, d), rnd(2, 2, 150, d), rnd(2, 2, 150, dv)
+            routed(f"flash bf16 d={d} dv={dv} sq={sq}", want, q, k, v,
+                   causal=True)
+    kv_len = torch.tensor([90, 37], dtype=torch.int32, device=dev)
+    for sq, want in ((1, "split"), (40, "mma")):
+        q, k, v = (rnd(2, h, n, 65)[..., :64]
+                   for h, n in ((8, sq), (2, 90), (2, 90)))
+        routed(f"flash bf16 rows 65 apart sq={sq}", want, q, k, v,
+               causal=True, kv_len=kv_len)
+    check(seen["split"] > 0 and seen["mma"] > 0, "both bf16 routes ran")
+    return seen
 
 
 def lm_margin_agree(kern, plain, margin=0.05):
@@ -1251,11 +1415,14 @@ def phase_lm(dev):
 
     for fn in all_wrappers().values():
         fn.launches = 0
+    routes = flash_attention.routes
+    routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     logits, cache = prefill.fn(model, {"tokens": toks}, max_len=max_len)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     pre_launches = flash_attention.launches
+    pre_routes = dict(routes)
     kern_logits = [logits.clone()]
     fed = []
     t0 = time.perf_counter()
@@ -1270,6 +1437,12 @@ def phase_lm(dev):
                        "decode": flash_attention.launches - pre_launches}
     check(out["launches"]["prefill"] > 0, "flash kernel launched in prefill")
     check(out["launches"]["decode"] > 0, "flash kernel launched in decode")
+    out["routes"] = {"prefill": pre_routes,
+                     "decode": {k: routes[k] - pre_routes[k] for k in routes}}
+    check(pre_routes["mma"] == pre_launches,
+          f"every prefill launch on the tensor-core route: {pre_routes}")
+    check(out["routes"]["decode"]["split"] == out["launches"]["decode"],
+          f"every decode launch on the split-K route: {out['routes']}")
     out["decode_ms_per_token"] = decode_s / steps * 1e3
     out["tokens_per_s"] = b * steps / decode_s
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1332,15 +1505,15 @@ def phase_flash_timings(lm, err):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
-    def lib_ms(q, k, v, causal):
+    def lib_ms(q, k, v, causal, timer=time_ms):
         """One ``scaled_dot_product_attention`` call, K/V repeated before
         the timed call where this PyTorch has no ``enable_gqa``."""
         if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-            return time_ms(lambda: F.scaled_dot_product_attention(
+            return timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True))
         g = q.shape[1] // k.shape[1]
         kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        return time_ms(lambda: F.scaled_dot_product_attention(
+        return timer(lambda: F.scaled_dot_product_attention(
             q, kr, vr, is_causal=causal))
 
     q, k, v = lm["qkv"]
@@ -1368,12 +1541,15 @@ def phase_flash_timings(lm, err):
             flash_attention(qf, kf, vf, kv_len=kv_len), qf, kf, vf,
             causal=True, kv_len=kv_len)
         del qf, kf, vf
-        dec = {"ms": time_ms(lambda: flash_attention(qd, kc, vc,
-                                                     kv_len=kv_len), reps=50),
+        dec = {"ms": time_ms_queued(lambda: flash_attention(
+                   qd, kc, vc, kv_len=kv_len)),
+               "call_ms": time_ms(lambda: flash_attention(
+                   qd, kc, vc, kv_len=kv_len), reps=50),
                "plain_ms": time_ms(lambda: flash_attention_plain(
                    qd, kc, vc, kv_len=kv_len), reps=10),
                "library_ms": lib_ms(qd, kc[:, :, :kv_n].contiguous(),
-                                    vc[:, :, :kv_n].contiguous(), False),
+                                    vc[:, :, :kv_n].contiguous(), False,
+                                    time_ms_queued),
                "max_abs_err": d_err, "max_abs_err_f32": d_err_f32}
         dec["bound_ms"], dec["bound_by"] = bound_ms(
             (2 * b * hkv * kv_n * d + 2 * b * hq * d) * 2.0,
@@ -1867,9 +2043,8 @@ def main() -> int:
         f"{ {k: round(v, 2) for k, v in per_kernel.items()} })")
     for name in _build.KERNELS:
         report = _build.library_path(name).with_suffix(".log").read_text()
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas {name}: {line.strip()}")
+        for fn, regs, spill in ptxas_summary(report):
+            log(f"    ptxas {name}: {fn}: {regs} registers, {spill}")
 
     t0 = time.perf_counter()
     train, test, spec = load_ml1m_synthetic()
@@ -1997,7 +2172,8 @@ def main() -> int:
         f"{lm['decode_ms_per_token']:.3f} ms/step (4 rows), "
         f"{lm['tokens_per_s']:.1f} generated tokens/s; peak device memory "
         f"{lm['peak_gib']:.2f} GiB; cache len 2064")
-    log(f"    flash launches on the LM path: {lm['launches']}")
+    log(f"    flash launches on the LM path: {lm['launches']}; by route "
+        f"{lm['routes']}")
     log(f"    layer-0 prefill q/k/v: kernel vs plain max_abs_diff "
         f"{lm['layer0_err']!r} (bf16, tolerance 2e-2 and one bf16 ulp + "
         f"1e-5), {lm['layer0_err_f32']!r} (f32 copies, tolerance 1e-5)")
@@ -2013,17 +2189,34 @@ def main() -> int:
     kernels += phase_support_timings(dev, eng_rec, serr, rc["launches"])
     flash_row, flash_dec = phase_flash_timings(lm, ferr[torch.bfloat16])
     kernels.append(flash_row)
+    sel_item = phase_select_item_timing(dev, eng_rec)
     for k in kernels:
         log(f"    {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
     log(f"    flash_attention decode launch (Sq=1, kv_len 2049, B=4, "
-        f"Hq=32, Hkv=8, d=64, bf16): {flash_dec['ms']:.4f} ms (plain "
+        f"Hq=32, Hkv=8, d=64, bf16): {flash_dec['ms']:.4f} ms on the device "
+        f"(the call, host included, {flash_dec['call_ms']:.4f}; plain "
         f"{flash_dec['plain_ms']:.4f}, library "
         f"{flash_dec['library_ms']:.4f}, bound {flash_dec['bound_ms']:.4f} "
         f"ms by {flash_dec['bound_by']}), max_abs_diff "
         f"{flash_dec['max_abs_err']!r} (bf16), "
         f"{flash_dec['max_abs_err_f32']!r} (f32 copies)")
+    log(f"    select_topm at the item index's shape ({sel_item['shape']}): "
+        f"{sel_item['ms']:.4f} ms on the device (the call, host included, "
+        f"{sel_item['call_ms']:.4f}; plain {sel_item['plain_ms']:.4f}, "
+        f"library {sel_item['library_ms']:.4f}, bound "
+        f"{sel_item['bound_ms']:.4f} ms by {sel_item['bound_by']}), ids "
+        f"and values bit for bit")
+    sel_row = next(k for k in kernels if k["name"] == "select_topm")
+    log(f"    select_topm at the cluster query's shape: the call, host "
+        f"included, {sel_row['call_ms']:.4f} ms")
+    now = {"select_topm Q=256 L=8192 m=906": sel_row["ms"],
+           "select_topm Q=6040 L=3952 m=512": sel_item["ms"],
+           "flash_attention prefill": flash_row["ms"],
+           "flash_attention decode": flash_dec["ms"]}
+    log("    kernels 5 and 8, previous design -> this design (ms): "
+        + "; ".join(f"{k} {PREVIOUS_MS[k]} -> {now[k]:.4f}" for k in now))
     log("[13] torch.profiler: device time of a steady fit / recommend / "
         "approx query / approx recommend / LM prefill / LM decode step")
     phase_profile(eng, eng_ap, eng_rec, lm)

@@ -12,44 +12,68 @@
 // q_off = kv_len[b] − Sq — the reference's decode_attention
 // (repro/models/common.py) when Sq = 1.
 //
-// Design.  The TPU kernel walks a (B, Hq, Sq/bq, Skv/bk) grid with the KV
-// axis innermost, carrying m / l / acc in VMEM scratch from one grid step
-// to the next, and reads each K/V block once per query head.  Here one
-// thread block owns (batch row, kv head, tile of BR packed query rows),
-// where the packed rows are (query position, head of the group) pairs,
-// query-major: the group's Hq/Hkv heads share every K/V tile the block
-// stages, so Llama's group of 4 reads K/V once per kv head, and a decode
-// step (Sq = 1) still puts the whole group in one tile (BR = 16).  The KV
-// loop runs inside the block: each 64-key K and V tile is staged in shared
-// memory as f32 (16-byte loads where strides allow), scores for a BR × 64
-// tile come from 4×4 register tiles per thread (float4 shared loads along
-// the head dim), the row max and sum are reduced across the 16 threads of
-// a row with warp shuffles, p goes to shared memory, and each thread
-// accumulates its 4 rows × DVT output columns in registers.  Tiles past
-// the causal frontier of the block's last row, or past kv_end, are never
-// loaded (a decode launch reads no key at or past kv_len).  Sq and Skv
-// need not divide the tile sizes: ragged rows and keys are masked.
+// Rows are packed as in the TPU kernel's GQA reading: one block owns
+// (batch row, kv head) and a run of packed rows — (query position, head
+// of the group) pairs, query-major — so the group's Hq/Hkv heads share
+// every K/V tile the block stages, and K/V is read once per kv head.
+// One C entry point takes three routes, chosen by the caller (the
+// wrapper) by dtype and by packed rows R = Sq·Hq/Hkv:
 //
-// Guards, as in the TPU kernel: NEG_INF is finfo(f32).min, not -inf;
-// p = exp(s − m_new) but 0 where s == NEG_INF; alpha = exp(m_prev − m_new)
-// but 0 where m_prev == NEG_INF; the output divides by max(l, 1e-30), so a
-// fully masked row is 0.  Exponentials are expf (not __expf), the final
-// division is IEEE (__fdiv_rn), and l is updated with separately rounded
-// products and sums; the dot products use fused multiply-adds in a fixed
-// order, so the kernel agrees with repro_torch.kernels.flash_attention.
-// flash_attention_plain to rounding (atol 1e-5 in f32), not bit for bit.
+// "simt" (f32).  BR = 64 packed rows a block (16 when R ≤ 16); each
+// 64-key K and V tile is staged in shared memory as f32 (16-byte loads
+// where strides allow), scores for a BR × 64 tile come from 4×4 register
+// tiles per thread, row max / sum are reduced with warp shuffles, p goes
+// to shared memory, and each thread accumulates 4 rows × DVT output
+// columns.  f32 FMAs on the CUDA cores keep the 1e-5 contract of the
+// reference's Precision.HIGHEST (TF32 tensor cores would not).
+//
+// "mma" (bf16, R > 16).  BR = 64 packed rows a block, 16 a warp.  K and V
+// tiles of 32 keys stay bf16 in shared memory (32 keys, not 64: 96
+// registers, five blocks an SM, 11 % faster at the Llama shape), fed
+// by a two-stage cp.async ring of 16-byte copies (the next tile loads
+// while this one is computed), rows padded by 16 bytes so ldmatrix is
+// conflict-free.  The warp's Q fragments are loaded once with ldmatrix
+// and kept in registers (d, dv ≤ 128; reloaded from shared memory per
+// tile past that).  S = QKᵀ is mma.sync m16n8k16 bf16 → f32; the online
+// softmax runs on the accumulator fragments in f32; P goes from the S
+// registers to A fragments without shared memory, split as p_hi =
+// bf16(p), p_lo = bf16(p − p_hi), and O += P·V is two mma.sync (V
+// fragments by ldmatrix.trans), so P keeps ~2⁻¹⁷ of relative precision
+// while l is summed from the f32 p.  d and dv are zero-padded to 64, 128
+// or 256 in shared memory (exact).  Masks apply only on tiles that reach
+// kv_end or the causal frontier of the block's first row.  Blocks run
+// the longest (last) row tiles first.
+//
+// "split" (bf16, R ≤ 16: decode).  Split-K over the keys, two launches.
+// Launch 1, grid (splits, Hkv, B): a block takes 128 keys of one
+// (b, kv head) — K and V by 16-byte cp.async, V landing while the scores
+// are computed — one key a thread: R dot products in f32 against the
+// group's q rows (f32 in shared memory), the chunk's row max and sum by
+// warp shuffles, p in shared memory, and P·V by (column pair, key group)
+// threads reduced in a fixed order; it writes the rows' partial m, l and
+// unnormalised acc (f32) to a workspace the wrapper allocates.  Launch 2,
+// grid (Hkv, B), combines the splits in split order: M = max m_s, w_s =
+// exp(m_s − M) (0 where m_s is NEG_INF), L = Σ w_s·l_s, acc = Σ w_s·acc_s,
+// out = acc / max(L, 1e-30) in bf16.  A split at or past a row's key end
+// is never started or read, so kv_len 0 gives exact zeros.
+//
+// Guards, as in the TPU kernel, on every route: NEG_INF is
+// finfo(f32).min, not -inf; p = exp(s − m_new) but 0 where s == NEG_INF;
+// alpha = exp(m_prev − m_new) but 0 where m_prev == NEG_INF; the output
+// divides by max(l, 1e-30), so a fully masked row is 0.  Exponentials are
+// expf (not __expf), the final division is IEEE (__fdiv_rn), and l is
+// updated with separately rounded products and sums.  No key at or past
+// a row's kv_end (nor past the block's causal frontier) is loaded.
 //
 // Bound.  At the prefill launch of Llama-3.2-1B (B = 4, Hq = 32, Hkv = 8,
 // S = 2048, d = 64, bf16, causal) the function needs 4·B·Hq·S²·d/2 ≈ 6.9e10
 // operations (0.07 ms at the 989 TFLOP/s bf16 tensor-core peak) against
-// ~84 MB of q/k/v/o (0.025 ms at 3.35 TB/s): bound by operations.  This
-// kernel does them as f32 FMAs on the CUDA cores (67 TFLOP/s peak), so it
-// cannot come within 15× of that bound; mma/wgmma QKᵀ and PV with p in
-// bf16 are the next design.  A decode launch (Sq = 1, kv_len ≈ 2049) must
-// read 2·B·Hkv·L·d·2 B ≈ 16.8 MB of cache (5.0 µs at 3.35 TB/s): bound by
-// bytes, and with one block per (b, kv head) — 32 blocks on 132 SMs — by
-// the latency of each block's serial tile loop; split-K over the cache is
-// the next design there.
+// ~84 MB of q/k/v/o (0.025 ms at 3.35 TB/s): bound by operations.  The
+// mma route does QKᵀ once and PV twice (the P split) on mma.sync, not
+// wgmma, and its softmax on the CUDA cores.  A decode launch (Sq = 1,
+// kv_len ≈ 2049) must read 2·B·Hkv·L·d·2 B ≈ 16.8 MB of cache (5.0 µs at
+// 3.35 TB/s): bound by bytes; the split route puts 17 × 8 × 4 = 544
+// blocks of 128 keys on the 132 SMs, so every SM has loads in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,26 +99,11 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // one 16-byte chunk of a row → f32 in shared memory
 __device__ __forceinline__ void chunk_to_f32(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void chunk_to_f32(float* dst,
-                                             const __nv_bfloat16* src) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, e.x, e.y);
 }
 
 // Stage `nrows` rows into dst (row stride ld floats, `width` columns, a
@@ -337,21 +346,640 @@ int launch_t(const Args& a, int batch, cudaStream_t stream) {
   return launch_dv<T, 64>(a, batch, stream);
 }
 
+
+// ---- bf16 routes: shared pieces --------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global → shared copy; zero-fills the 16 bytes when !full (no
+// byte of src is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage `nrows` bf16 rows of `width` columns (a multiple of 8) at row
+// stride ld: row r comes from row_ptr(r) (nullptr: zeros), columns ≥ ncols
+// are zero.  vec: 16-byte cp.async (ncols a multiple of 8, rows 16-byte
+// aligned; the caller commits and waits); else element by element.
+template <typename RowPtr>
+__device__ __forceinline__ void stage_bf16(bf16* dst, int ld, int nrows,
+                                           int ncols, int width, bool vec,
+                                           const void* any, RowPtr row_ptr) {
+  if (vec) {
+    const int cpr = width / 8;
+    for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = (i - r * cpr) * 8;
+      const bf16* src = row_ptr(r);
+      const bool ok = src != nullptr && c < ncols;
+      cp_async16(dst + r * ld + c, ok ? static_cast<const void*>(src + c) : any,
+                 ok);
+    }
+  } else {
+    const bf16 zero = __ushort_as_bfloat16(static_cast<unsigned short>(0));
+    for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
+      const int r = i / width, c = i - r * width;
+      const bf16* src = row_ptr(r);
+      dst[r * ld + c] = (src != nullptr && c < ncols) ? src[c] : zero;
+    }
+  }
+}
+
+// ---- "mma": tensor-core prefill (bf16, more than 16 packed rows) -----------
+
+constexpr int MMA_BR = 64;       // packed rows a block, 16 a warp
+constexpr int MMA_THREADS = 128;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16×8 f32) += a (16×16 bf16, row) · b (16×8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) → bf16x2 hi = round(x, y) and lo = round((x, y) − hi)
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+constexpr int MMA_KEYS = 32;     // keys a K/V tile
+
+__host__ __device__ constexpr int mma_smem_bytes(int dk, int dv) {
+  return 2 * (MMA_BR * (dk + 8) + 2 * MMA_KEYS * (dk + 8) +
+              2 * MMA_KEYS * (dv + 8));
+}
+
+// DK, DV: d and dv padded (64, 128 or 256).  Fragment layouts are those
+// of mma.m16n8k16: lane = 4·g + t4; an accumulator holds (row g, cols
+// 2·t4, 2·t4 + 1) in [0, 1] and row g + 8 in [2, 3].
+template <int DK, int DV>
+__global__ void __launch_bounds__(MMA_THREADS)
+mma_kernel(const Args a) {
+  constexpr int BK = MMA_KEYS;
+  constexpr int LDK = DK + 8, LDV = DV + 8;
+  constexpr bool QREG = DK <= 128 && DV <= 128;
+  extern __shared__ uint4 smem_u4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_u4);
+  bf16* k_s = q_s + MMA_BR * LDK;
+  bf16* v_s = k_s + 2 * BK * LDK;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = a.Hq / a.Hkv;
+  const int n_rows = a.Sq * group;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * MMA_BR;
+  const int kv_req = a.kv_len != nullptr ? a.kv_len[b] : a.Skv;
+  const int kv_end = max(0, min(kv_req, a.Skv));
+  const int q_off = kv_req - a.Sq;
+  int key_end = kv_end;  // no row of this block sees a key at or past this
+  if (a.causal) {
+    const int last_qi = (min(r0 + MMA_BR, n_rows) - 1) / group;
+    key_end = min(kv_end, max(0, q_off + last_qi + 1));
+  }
+  const int n_tiles = (key_end + BK - 1) / BK;
+  const int qpos_first = q_off + r0 / group;
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0];
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  const bool vec = a.vec != 0;
+
+  stage_bf16(q_s, LDK, MMA_BR, a.d, DK, vec, a.q, [&](int r) -> const bf16* {
+    const int pr = r0 + r;
+    if (pr >= n_rows) return nullptr;
+    const int qi = pr / group, h = hk * group + (pr - qi * group);
+    return qb + h * a.qs[1] + qi * a.qs[2];
+  });
+  cp_async_commit();
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BK;
+    stage_bf16(k_s + st * BK * LDK, LDK, BK, a.d, DK, vec, a.k,
+               [&](int r) -> const bf16* {
+                 const int p = k0 + r;
+                 return p < key_end ? kb + p * a.ks[2] : nullptr;
+               });
+    stage_bf16(v_s + st * BK * LDV, LDV, BK, a.dv, DV, vec, a.v,
+               [&](int r) -> const bf16* {
+                 const int p = k0 + r;
+                 return p < key_end ? vb + p * a.vs[2] : nullptr;
+               });
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+
+  const int wr = warp * 16;
+  const int pr0 = r0 + wr + g, pr1 = pr0 + 8;
+  const int qpos0 = q_off + pr0 / group, qpos1 = q_off + pr1 / group;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float o[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  uint32_t qf[QREG ? DK / 16 : 1][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = k_s + st * BK * LDK;
+    const bf16* vs = v_s + st * BK * LDV;
+    const bf16* q_row = q_s + (wr + (lane & 15)) * LDK + (lane >> 4) * 8;
+    if (QREG && t == 0) {
+#pragma unroll
+      for (int kc = 0; kc < (QREG ? DK / 16 : 1); ++kc)
+        ldsm_x4(qf[kc], q_row + kc * 16);
+    }
+
+    // S = Q Kᵀ over the tile's BK keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DK / 16; ++kc) {
+      uint32_t af[4];
+      if (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[e] = qf[QREG ? kc : 0][e];
+      } else {
+        ldsm_x4(af, q_row + kc * 16);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < BK / 16; ++n2) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, ks + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDK +
+                         kc * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * n2], af, bfr[0], bfr[1]);
+        mma_bf16(s[2 * n2 + 1], af, bfr[2], bfr[3]);
+      }
+    }
+
+    // online softmax on the fragments (rows g and g + 8 of the warp)
+    const int k0 = t * BK;
+    const bool edge =
+        k0 + BK > kv_end || (a.causal && k0 + BK - 1 > qpos_first);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = k0 + n * 8 + 2 * t4 + (e & 1);
+        const int qp = e < 2 ? qpos0 : qpos1;
+        const bool ok =
+            !edge || (p < kv_end && (!a.causal || p <= qp));
+        const float x = ok ? __fmul_rn(s[n][e], a.scale) : NEG_INF;
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn0 : mn1;
+        const float p = s[n][e] == NEG_INF ? 0.f : expf(s[n][e] - mn);
+        s[n][e] = p;
+        if (e < 2) ps0 = __fadd_rn(ps0, p); else ps1 = __fadd_rn(ps1, p);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      ps0 = __fadd_rn(ps0, __shfl_xor_sync(0xffffffffu, ps0, off));
+      ps1 = __fadd_rn(ps1, __shfl_xor_sync(0xffffffffu, ps1, off));
+    }
+    const float al0 = m0 == NEG_INF ? 0.f : expf(m0 - mn0);
+    const float al1 = m1 == NEG_INF ? 0.f : expf(m1 - mn1);
+    l0 = __fadd_rn(__fmul_rn(al0, l0), ps0);
+    l1 = __fadd_rn(__fmul_rn(al1, l1), ps1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      o[n][0] = __fmul_rn(o[n][0], al0);
+      o[n][1] = __fmul_rn(o[n][1], al0);
+      o[n][2] = __fmul_rn(o[n][2], al1);
+      o[n][3] = __fmul_rn(o[n][3], al1);
+    }
+
+    // O += P V, P as p_hi + p_lo
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      split_bf16x2(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split_bf16x2(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < DV / 16; ++n2) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                             LDV + n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * n2], ah, vf[0], vf[1]);
+        mma_bf16(o[2 * n2], al, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], ah, vf[2], vf[3]);
+        mma_bf16(o[2 * n2 + 1], al, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int pr = half ? pr1 : pr0;
+    if (pr >= n_rows) continue;
+    const int qi = pr / group, h = hk * group + (pr - qi * group);
+    bf16* orow = ob + h * a.os[1] + qi * a.os[2];
+    const float den = fmaxf(half ? l1 : l0, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * t4 + e;
+        if (col < a.dv)
+          orow[col] = __float2bfloat16_rn(__fdiv_rn(o[n][2 * half + e], den));
+      }
+  }
+}
+
+template <int DK, int DV>
+int launch_mma(const Args& a, int batch, cudaStream_t stream) {
+  const int n_rows = a.Sq * (a.Hq / a.Hkv);
+  const dim3 grid((n_rows + MMA_BR - 1) / MMA_BR, a.Hkv, batch);
+  constexpr int bytes = mma_smem_bytes(DK, DV);
+  auto kern = mma_kernel<DK, DV>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<grid, MMA_THREADS, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DK>
+int launch_mma_dv(const Args& a, int batch, cudaStream_t stream) {
+  if (a.dv <= 64) return launch_mma<DK, 64>(a, batch, stream);
+  if (a.dv <= 128) return launch_mma<DK, 128>(a, batch, stream);
+  return launch_mma<DK, 256>(a, batch, stream);
+}
+
+int launch_mma_all(const Args& a, int batch, cudaStream_t stream) {
+  if (a.d <= 64) return launch_mma_dv<64>(a, batch, stream);
+  if (a.d <= 128) return launch_mma_dv<128>(a, batch, stream);
+  return launch_mma_dv<256>(a, batch, stream);
+}
+
+// ---- "split": split-K decode (bf16, at most 16 packed rows) ----------------
+
+constexpr int SPLIT_KEYS = 128;   // keys a split block takes, one a thread
+constexpr int SPLIT_ROWS = 16;    // packed rows a split holds at most
+constexpr int SPLIT_THREADS = SPLIT_KEYS;
+constexpr int COMBINE_THREADS = 256;
+
+__host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
+// V is staged VW columns wide: 32, 64 or 128 column pairs cover dv
+__host__ __device__ __forceinline__ int split_vw(int dv) {
+  return dv <= 64 ? 64 : dv <= 128 ? 128 : 256;
+}
+
+struct SplitLayout {   // shared-memory offsets in bytes
+  int q, kr, v, p, red, bytes;
+};
+
+__host__ __device__ __forceinline__ SplitLayout split_layout(int rows, int d,
+                                                             int dv) {
+  const int dw = round8(d), vw = split_vw(dv);
+  const int kg = SPLIT_THREADS / (vw / 2);
+  SplitLayout L;
+  L.q = 0;                                          // rows × dw f32
+  L.kr = L.q + rows * dw * 4;                       // K, then the PV partials
+  const int k_bytes = SPLIT_KEYS * (dw + 8) * 2;
+  const int red_bytes = kg * rows * vw * 4;
+  L.v = L.kr + (k_bytes > red_bytes ? k_bytes : red_bytes);
+  L.p = L.v + SPLIT_KEYS * (vw + 8) * 2;            // rows × SPLIT_KEYS f32
+  L.red = L.p + rows * SPLIT_KEYS * 4;              // 2 × 4 warps × 16 f32
+  L.bytes = L.red + 2 * (SPLIT_THREADS / 32) * SPLIT_ROWS * 4;
+  return L;
+}
+
+// The keys no packed row of (b) sees at or past: kv_end, or the causal
+// frontier of the last query.
+__device__ __forceinline__ int split_key_end(const Args& a, int b,
+                                             int* kv_end_out, int* q_off_out) {
+  const int kv_req = a.kv_len != nullptr ? a.kv_len[b] : a.Skv;
+  const int kv_end = max(0, min(kv_req, a.Skv));
+  const int q_off = kv_req - a.Sq;
+  *kv_end_out = kv_end;
+  *q_off_out = q_off;
+  return a.causal ? min(kv_end, max(0, q_off + a.Sq)) : kv_end;
+}
+
+// Workspace (f32): acc [B][Hkv][n_split][16][dv], then m and l
+// [B][Hkv][n_split][16] each.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_kernel(const Args a, float* __restrict__ ws, int n_split) {
+  extern __shared__ uint4 smem_u4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_u4);
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = a.Hq / a.Hkv;
+  const int rows = a.Sq * group;
+  int kv_end, q_off;
+  const int key_end = split_key_end(a, b, &kv_end, &q_off);
+  const int c0 = split * SPLIT_KEYS;
+  if (c0 >= key_end) return;          // never read by the combine
+  const int c1 = min(c0 + SPLIT_KEYS, key_end);
+
+  const int dw = round8(a.d), vw = split_vw(a.dv);
+  const int ldk = dw + 8, ldv = vw + 8;
+  const SplitLayout L = split_layout(rows, a.d, a.dv);
+  float* q_f = reinterpret_cast<float*>(smem + L.q);
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L.kr);
+  float* red = reinterpret_cast<float*>(smem + L.kr);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L.v);
+  float* p_s = reinterpret_cast<float*>(smem + L.p);
+  float* red_m = reinterpret_cast<float*>(smem + L.red);
+  float* red_l = red_m + (SPLIT_THREADS / 32) * SPLIT_ROWS;
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0];
+  const bool vec = a.vec != 0;
+  stage_bf16(k_s, ldk, SPLIT_KEYS, a.d, dw, vec, a.k,
+             [&](int r) -> const bf16* {
+               const int p = c0 + r;
+               return p < c1 ? kb + p * a.ks[2] : nullptr;
+             });
+  cp_async_commit();
+  stage_bf16(v_s, ldv, SPLIT_KEYS, a.dv, vw, vec, a.v,
+             [&](int r) -> const bf16* {
+               const int p = c0 + r;
+               return p < c1 ? vb + p * a.vs[2] : nullptr;
+             });
+  cp_async_commit();
+  for (int i = tid; i < rows * dw; i += SPLIT_THREADS) {
+    const int r = i / dw, c = i - r * dw;
+    const int qi = r / group, h = hk * group + (r - qi * group);
+    q_f[i] = c < a.d ? __bfloat162float(qb[h * a.qs[1] + qi * a.qs[2] + c])
+                     : 0.f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // scores of this thread's key against every packed row
+  const int p = c0 + tid;
+  float s[SPLIT_ROWS];
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) s[r] = 0.f;
+  const bf16* krow = k_s + tid * ldk;
+  for (int c = 0; c < dw; c += 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    float kf[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      kf[2 * e] = f.x;
+      kf[2 * e + 1] = f.y;
+    }
+#pragma unroll
+    for (int r = 0; r < SPLIT_ROWS; ++r) {
+      if (r < rows) {
+        const float* qr = q_f + r * dw + c;
+        float x = s[r];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x = fmaf(qr[e], kf[e], x);
+        s[r] = x;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    if (r < rows) {
+      const bool ok =
+          p < c1 && p < kv_end && (!a.causal || p <= q_off + r / group);
+      s[r] = ok ? __fmul_rn(s[r], a.scale) : NEG_INF;
+      float mx = s[r];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) red_m[warp * SPLIT_ROWS + r] = mx;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    if (r < rows) {
+      float mr = red_m[r];
+#pragma unroll
+      for (int w = 1; w < SPLIT_THREADS / 32; ++w)
+        mr = fmaxf(mr, red_m[w * SPLIT_ROWS + r]);
+      const float pv = s[r] == NEG_INF ? 0.f : expf(s[r] - mr);
+      p_s[r * SPLIT_KEYS + tid] = pv;
+      float sum = pv;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      if (lane == 0) red_l[warp * SPLIT_ROWS + r] = sum;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // P·V: thread (column pair, key group), partials reduced in key-group
+  // order (the K tile's space holds them)
+  const int npairs = vw / 2, kg_n = SPLIT_THREADS / npairs;
+  const int pair = tid % npairs, kg = tid / npairs;
+  const int kpg = SPLIT_KEYS / kg_n;
+  const int k_lo = kg * kpg, k_hi = min(k_lo + kpg, c1 - c0);
+  float acc[SPLIT_ROWS][2];
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int j = k_lo; j < k_hi; ++j) {
+    const float2 vv = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(v_s + j * ldv + 2 * pair));
+#pragma unroll
+    for (int r = 0; r < SPLIT_ROWS; ++r) {
+      if (r < rows) {
+        const float pv = p_s[r * SPLIT_KEYS + j];
+        acc[r][0] = fmaf(pv, vv.x, acc[r][0]);
+        acc[r][1] = fmaf(pv, vv.y, acc[r][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    if (r < rows) {
+      red[(kg * rows + r) * vw + 2 * pair] = acc[r][0];
+      red[(kg * rows + r) * vw + 2 * pair + 1] = acc[r][1];
+    }
+  }
+  __syncthreads();
+
+  const size_t slot = (static_cast<size_t>(b) * a.Hkv + hk) * n_split + split;
+  const size_t n_slots = static_cast<size_t>(gridDim.z) * a.Hkv * n_split;
+  float* ws_acc = ws + slot * SPLIT_ROWS * a.dv;
+  float* ws_m = ws + n_slots * SPLIT_ROWS * a.dv + slot * SPLIT_ROWS;
+  float* ws_l = ws_m + n_slots * SPLIT_ROWS;
+  for (int i = tid; i < rows * a.dv; i += SPLIT_THREADS) {
+    const int r = i / a.dv, c = i - r * a.dv;
+    float x = red[r * vw + c];
+    for (int k2 = 1; k2 < kg_n; ++k2)
+      x = __fadd_rn(x, red[(k2 * rows + r) * vw + c]);
+    ws_acc[r * a.dv + c] = x;
+  }
+  if (tid < rows) {
+    float l = red_l[tid];
+#pragma unroll
+    for (int w = 1; w < SPLIT_THREADS / 32; ++w)
+      l = __fadd_rn(l, red_l[w * SPLIT_ROWS + tid]);
+    float mr = red_m[tid];
+#pragma unroll
+    for (int w = 1; w < SPLIT_THREADS / 32; ++w)
+      mr = fmaxf(mr, red_m[w * SPLIT_ROWS + tid]);
+    ws_m[tid] = mr;
+    ws_l[tid] = l;
+  }
+}
+
+// Combines the splits of each (b, kv head) in split order → bf16 output.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine_kernel(const Args a, const float* __restrict__ ws, int n_split,
+               int batch) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int group = a.Hq / a.Hkv;
+  const int rows = a.Sq * group;
+  int kv_end, q_off;
+  const int key_end = split_key_end(a, b, &kv_end, &q_off);
+  const int ns = (key_end + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const size_t slot0 = (static_cast<size_t>(b) * a.Hkv + hk) * n_split;
+  const size_t n_slots = static_cast<size_t>(batch) * a.Hkv * n_split;
+  const float* ws_m = ws + n_slots * SPLIT_ROWS * a.dv;
+  const float* ws_l = ws_m + n_slots * SPLIT_ROWS;
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0];
+  for (int i = threadIdx.x; i < rows * a.dv; i += COMBINE_THREADS) {
+    const int r = i / a.dv, c = i - r * a.dv;
+    float mx = NEG_INF;
+    for (int sp = 0; sp < ns; ++sp)
+      mx = fmaxf(mx, ws_m[(slot0 + sp) * SPLIT_ROWS + r]);
+    float l = 0.f, acc = 0.f;
+    for (int sp = 0; sp < ns; ++sp) {
+      const size_t at = (slot0 + sp) * SPLIT_ROWS + r;
+      const float ms = ws_m[at];
+      const float w = ms == NEG_INF ? 0.f : expf(ms - mx);
+      l = __fadd_rn(l, __fmul_rn(w, ws_l[at]));
+      acc = __fadd_rn(acc, __fmul_rn(w, ws[at * a.dv + c]));
+    }
+    const int qi = r / group, h = hk * group + (r - qi * group);
+    ob[h * a.os[1] + qi * a.os[2] + c] =
+        __float2bfloat16_rn(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+  }
+}
+
+int split_count(int skv) {
+  return skv > 0 ? (skv + SPLIT_KEYS - 1) / SPLIT_KEYS : 1;
+}
+
+int launch_split(const Args& a, int batch, float* ws, cudaStream_t stream) {
+  const int n_split = split_count(a.Skv);
+  const int rows = a.Sq * (a.Hq / a.Hkv);
+  const int bytes = split_layout(rows, a.d, a.dv).bytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  split_kernel<<<dim3(n_split, a.Hkv, batch), SPLIT_THREADS, bytes, stream>>>(
+      a, ws, n_split);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  combine_kernel<<<dim3(a.Hkv, batch), COMBINE_THREADS, 0, stream>>>(
+      a, ws, n_split, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Floats of workspace the "split" route needs (the wrapper allocates it).
+extern "C" long long repro_flash_split_workspace(int batch, int hkv, int skv,
+                                                 int dv) {
+  return static_cast<long long>(batch) * hkv * split_count(skv) *
+         SPLIT_ROWS * (dv + 2);
+}
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq,
 // dv), each with unit stride on its last axis; strides[12] (host array)
 // holds the (batch, head, row) element strides of q, k, v and o in that
 // order.  kv_len: (B,) int32 on the device, or nullptr.  dtype 0 = f32,
-// 1 = bf16 (q, k, v and o alike).  d, dv ≤ 256 (the wrapper checks).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// 1 = bf16 (q, k, v and o alike); 1 ≤ d, dv ≤ 256.  route 0 = "simt"
+// (f32), 1 = "mma" (bf16, Sq·Hq/Hkv > 16), 2 = "split" (bf16, Sq·Hq/Hkv ≤
+// 16; workspace of repro_flash_split_workspace floats).  A route that does
+// not take the dtype or shape returns cudaErrorInvalidValue unlaunched.
+// Otherwise returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const void* kv_len,
                                      const long long* strides, int batch,
                                      int hq, int hkv, int sq, int skv, int d,
                                      int dv, float scale, int causal,
-                                     int dtype, void* stream) {
+                                     int dtype, int route, void* workspace,
+                                     void* stream) {
+  const int rows = hkv > 0 ? sq * (hq / hkv) : 0;
+  const bool ok_shape = d >= 1 && d <= 256 && dv >= 1 && dv <= 256;
+  const bool ok = ok_shape &&
+      ((route == 0 && dtype == 0) || (route == 1 && dtype == 1 && rows > 16) ||
+       (route == 2 && dtype == 1 && rows <= 16 && workspace != nullptr));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.kv_len = static_cast<const int*>(kv_len);
@@ -372,6 +1000,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
         reinterpret_cast<uintptr_t>(v) % 16 == 0;
   a.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(a, batch, s);
+  if (route == 1) return launch_mma_all(a, batch, s);
+  if (route == 2)
+    return launch_split(a, batch, static_cast<float*>(workspace), s);
   return launch_t<float>(a, batch, s);
 }

@@ -7,7 +7,10 @@ version; ``ref.py`` holds the oracles under the reference's names,
 loads the sources.  Importing builds nothing.
 """
 
+from repro_torch.kernels.cluster import (centroid_distances,
+                                         fused_centroid_distances)
 from repro_torch.kernels.ops import (embedding_bag, flash_attention,
                                      pairwise_similarity)
 
-__all__ = ["embedding_bag", "flash_attention", "pairwise_similarity"]
+__all__ = ["centroid_distances", "embedding_bag", "flash_attention",
+           "fused_centroid_distances", "pairwise_similarity"]

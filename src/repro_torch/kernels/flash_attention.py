@@ -14,8 +14,13 @@ positions ≥ ``kv_len[b]`` are masked and the row's queries align to
 ``repro.models.common.decode_attention`` over a cache of ``cache_len + 1``
 keys; with ``kv_len=None`` it is exactly the TPU kernel's contract.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises — it never falls back.
+On a CUDA tensor the wrapper takes one of three routes of the kernel,
+by dtype and by packed rows R = Sq·Hq/Hkv (the query positions times the
+heads of a GQA group): f32 → ``"simt"`` (f32 FMAs, the 1e-5 contract);
+bf16 with R > 16 → ``"mma"`` (tensor-core prefill); bf16 with R ≤ 16 →
+``"split"`` (split-K decode, two launches and an f32 workspace).  It
+launches that route or raises — it never falls back; on a CPU tensor it
+runs the plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from repro_torch.kernels import _build
 NEG_INF = float(torch.finfo(torch.float32).min)
 MAX_HEAD_DIM = 256          # shared-memory tiles hold d, dv ≤ 256
 PLAIN_BLOCK_KV = 512        # the plain version's KV block
+SPLIT_MAX_ROWS = 16         # packed rows the split-K decode route holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"simt": 0, "mma": 1, "split": 2}
 
 
 def _check(q, k, v, kv_len):
@@ -113,9 +120,22 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-                       i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+                       i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p, p]
         fn.restype = ctypes.c_int
-    return fn
+        ws = lib.repro_flash_split_workspace
+        ws.argtypes = [i, i, i, i]
+        ws.restype = ctypes.c_longlong
+    return lib
+
+
+def route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel route a CUDA call with these q, k takes: ``"simt"`` for
+    f32, ``"mma"`` for bf16 with more than ``SPLIT_MAX_ROWS`` packed rows
+    (Sq·Hq/Hkv), ``"split"`` for bf16 with at most that many."""
+    if q.dtype == torch.float32:
+        return "simt"
+    rows = q.shape[2] * (q.shape[1] // k.shape[1])
+    return "mma" if rows > SPLIT_MAX_ROWS else "split"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -126,8 +146,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     docstring).
 
     CUDA tensors (f32 or bf16, unit stride on the last axis, any other
-    strides; d, dv ≤ 256) launch the kernel on the current stream and add
-    one to ``flash_attention.launches``; the output is allocated
+    strides; d, dv ≤ 256) launch the kernel's route (:func:`route`) on
+    the current stream and add one to ``flash_attention.launches`` and to
+    ``flash_attention.routes[route]``; the output is allocated
     (B, Sq, Hq, dv) and returned as its (B, Hq, Sq, dv) view, so the
     model's head merge is free.  CPU tensors run the plain version.
     """
@@ -155,18 +176,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel():
+        path = route(q, k)
         strides = (ctypes.c_longlong * 12)(*(
             s for t in (q, k, v, out) for s in t.stride()[:3]))
         with torch.cuda.device(q.device):
+            lib = _lib()
+            ws = None
+            if path == "split":
+                ws = torch.empty(lib.repro_flash_split_workspace(
+                    b, hkv, skv, dv), dtype=torch.float32, device=q.device)
             stream = torch.cuda.current_stream().cuda_stream
-            status = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(),
-                            None if kv_len is None else kv_len.data_ptr(),
-                            strides, b, hq, hkv, sq, skv, d, dv, scale,
-                            int(causal), _DTYPES[q.dtype], stream)
-        _build.check(status, "flash_attention")
+            status = lib.repro_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if kv_len is None else kv_len.data_ptr(), strides, b,
+                hq, hkv, sq, skv, d, dv, scale, int(causal),
+                _DTYPES[q.dtype], _ROUTES[path],
+                None if ws is None else ws.data_ptr(), stream)
+        _build.check(status, f"flash_attention ({path})")
         flash_attention.launches += 1
+        flash_attention.routes[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(_ROUTES, 0)

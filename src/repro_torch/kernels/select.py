@@ -61,7 +61,7 @@ def _lib(name):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, p]
                        if name == "repro_scan_topm"
-                       else [p, p, p, p, i, i, i, i, p])
+                       else [p, p, p, p, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -127,7 +127,8 @@ def select_topm(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
     """Canonical top-``m`` over precomputed (Q, N) f32 scores: ``(values,
     int32 ids)``, same contract as :func:`fused_scan_topm`; pass
     out-of-range ``q_ids`` (e.g. -1) when the scores already carry their
-    knockouts.  CUDA tensors launch the kernel and add one to
+    knockouts.  CUDA tensors launch the radix-select kernel (``m`` ≤
+    16384 after clamping to N; it raises past that) and add one to
     ``select_topm.launches``; CPU tensors run the plain version."""
     if scores.dim() != 2:
         raise ValueError(f"need (Q, N) scores, got {tuple(scores.shape)}")
@@ -152,7 +153,7 @@ def select_topm(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
             stream = torch.cuda.current_stream().cuda_stream
             status = _lib("repro_select_topm")(
                 scores.data_ptr(), q_ids.data_ptr(), out_v.data_ptr(),
-                out_i.data_ptr(), n_q, n, m, _m_pad(m), stream)
+                out_i.data_ptr(), n_q, n, m, stream)
         _build.check(status, "select_topm")
         select_topm.launches += 1
     return out_v, out_i

@@ -182,3 +182,18 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention(q[:, :2], k, k,
                         kv_len=torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,sq,want", [
+    (torch.float32, 32, 8, 1, "simt"), (torch.float32, 32, 8, 2048, "simt"),
+    (torch.bfloat16, 32, 8, 1, "split"), (torch.bfloat16, 16, 2, 2, "split"),
+    (torch.bfloat16, 1, 1, 16, "split"), (torch.bfloat16, 1, 1, 17, "mma"),
+    (torch.bfloat16, 32, 8, 5, "mma"), (torch.bfloat16, 32, 8, 2048, "mma"),
+])
+def test_kernel_route_rule(dtype, hq, hkv, sq, want):
+    """A CUDA call's route: f32 → simt; bf16 → the split-K decode at up to
+    16 packed rows (Sq·Hq/Hkv), the tensor-core prefill past that."""
+    from repro_torch.kernels.flash_attention import route
+    q = torch.zeros((1, hq, sq, 8), dtype=dtype)
+    k = torch.zeros((1, hkv, 4, 8), dtype=dtype)
+    assert route(q, k) == want

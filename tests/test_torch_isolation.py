@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro`` (an
-AST scan), every kernel wrapper carries a launch count, and each CUDA
-source names the TPU kernel it replaces and its bound."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/`` imports ``jax`` or the
+reference package ``repro`` (an AST scan), every kernel wrapper carries a
+launch count, and each CUDA source names the TPU kernel it replaces and
+its bound."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path):

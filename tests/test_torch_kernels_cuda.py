@@ -167,6 +167,111 @@ def test_select_kernel_matches_plain(cuda, q_n, n, m):
     assert bool((got_i[2] == n).all())
 
 
+def _select_bitwise(name, s, q_ids, m):
+    """The radix-select kernel against its plain version: ids equal and
+    values equal bit for bit (the sign of a zero included); one launch."""
+    from repro_torch.kernels.select import select_topm, select_topm_twin
+    before = select_topm.launches
+    got_v, got_i = select_topm(s, q_ids, m=m)
+    assert select_topm.launches == before + 1
+    want_v, want_i = select_topm_twin(s, q_ids, m=m)
+    torch.cuda.synchronize()
+    assert_parity(name + ".ids", got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32)), \
+        f"{name}: values differ in their bits"
+    return got_v, got_i
+
+
+@pytest.mark.parametrize("case", ["ties", "signed_zeros", "all_neg_inf",
+                                  "m1", "m_eq_L", "m_past_finite"])
+def test_select_radix_edge_cases(cuda, case):
+    """Ties across the threshold, ±0.0 (equal keys, ties to the lower id,
+    each value's sign kept), all −inf rows, m = 1, m = L and m above the
+    finite count (the tail is (−inf, L))."""
+    rng = np.random.default_rng(len(case))
+    q_n, n, m = 9, 300, 40
+    s = rng.integers(-3, 4, (q_n, n)).astype(np.float32)
+    if case == "ties":
+        s[0] = 1.0                                   # one value everywhere
+        s[1] = np.minimum(s[1], 1.0)
+        s[1, ::2] = 2.0                              # the cut inside a run
+    elif case == "signed_zeros":
+        s = np.where(rng.random((q_n, n)) < 0.5, -0.0, 0.0).astype(
+            np.float32)
+        s[:, ::7] = -1.0
+        s[3, :5] = 1.0
+    elif case == "all_neg_inf":
+        s[:] = -np.inf
+        s[4, 10] = 0.5
+    elif case == "m1":
+        m = 1
+    elif case == "m_eq_L":
+        m = n
+        s[rng.random(s.shape) < 0.2] = -np.inf
+    else:
+        s[rng.random(s.shape) < 0.9] = -np.inf       # ~30 finite a row
+        s[5] = np.nan                                # NaN is never taken
+        s[5, 3] = 2.0
+    st = torch.from_numpy(s).to(cuda)
+    q_ids = torch.full((q_n,), -1, dtype=torch.int32, device=cuda)
+    q_ids[6] = 7                                     # a knocked-out column
+    if case == "m_past_finite":
+        from repro_torch.kernels.select import select_topm
+        got_v, got_i = select_topm(st, q_ids, m=m)
+        torch.cuda.synchronize()
+        fin = np.isfinite(s)
+        for r in range(q_n):
+            c = int(fin[r].sum()) - int(r == 6 and fin[6, 7])
+            assert bool((got_i[r, c:] == n).all())
+            assert bool(torch.isneginf(got_v[r, c:]).all())
+        assert got_i[5, 0].item() == 3 and got_i[5, 1].item() == n
+        s[5] = -np.inf                               # the plain sorts NaN
+        s[5, 3] = 2.0                                # past −inf; compare
+        st = torch.from_numpy(s).to(cuda)            # without it
+    got_v, got_i = _select_bitwise(f"cuda.select.radix.{case}", st, q_ids, m)
+    if case == "ties":
+        assert got_i[0].tolist() == list(range(m))
+        assert got_i[1].tolist() == list(range(0, 2 * m, 2))
+    if case == "signed_zeros":
+        z = got_v[0] == 0
+        assert bool(z.any())
+        ids = got_i[0][z]
+        assert bool((ids[1:] > ids[:-1]).all())      # zeros by ascending id
+    if case == "all_neg_inf":
+        assert bool((got_i[0] == n).all())
+        assert got_i[4, 0].item() == 10 and bool((got_i[4, 1:] == n).all())
+
+
+@pytest.mark.parametrize("q_n,n,m", [
+    (256, 8192, 906),      # the cluster query's select
+    (6040, 3952, 512),     # the item index's select
+    (3, 40000, 100),       # a row too long for shared memory (streamed)
+    (5, 40000, 3000),
+])
+def test_select_radix_at_path_shapes(cuda, q_n, n, m):
+    """Proxy-like scores with −inf padding (the bucketed candidate pool's
+    tail) and knockouts, at both path shapes and past the staging limit."""
+    rng = np.random.default_rng(q_n + n)
+    s = (rng.normal(size=(q_n, n)) / 8).astype(np.float32)
+    s = np.round(s * 4096) / 4096                   # exact ties
+    s[:, n - n // 7:] = -np.inf
+    s[rng.random(s.shape) < 0.05] = -np.inf
+    q_ids = torch.from_numpy(rng.integers(-1, n, q_n).astype(np.int32))
+    _select_bitwise(f"cuda.select.radix.{q_n}x{n}.m{m}",
+                    torch.from_numpy(s).to(cuda), q_ids.to(cuda), m)
+
+
+def test_select_radix_rejects_past_its_domain(cuda):
+    from repro_torch.kernels.select import select_topm
+    s = torch.zeros((2, 20000), device=cuda)
+    q_ids = torch.full((2,), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        select_topm(s, q_ids, m=16385)
+    got_v, got_i = select_topm(s, q_ids, m=16384)
+    torch.cuda.synchronize()
+    assert got_i[0].tolist() == list(range(16384))
+
+
 @pytest.mark.parametrize("measure", ["jaccard", "cosine", "pcc", "pcc_sig"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("beta", [50.0, 7.3])
@@ -403,6 +508,81 @@ def test_flash_kernel_strided_inputs_and_rejects(cuda):
         flash_attention(torch.zeros(1, 1, 4, 300, device=cuda),
                         torch.zeros(1, 1, 4, 300, device=cuda),
                         torch.zeros(1, 1, 4, 300, device=cuda))
+
+
+def _routed(q, k, v, want_route, **kw):
+    """One flash call; asserts it took ``want_route`` (and one launch)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    before = dict(flash_attention.routes)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = flash_attention.routes
+    assert after[want_route] == before[want_route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    return got
+
+
+@pytest.mark.parametrize("sq,group,want", [(1, 4, "split"), (5, 4, "mma")])
+def test_flash_bf16_kv_len_sweep(cuda, sq, group, want):
+    """Per-row kv_len of 0, 1, less than a split (128 keys), exactly one
+    split, past one split and every split of the cache, mixed across the
+    batch; keys past kv_len hold NaN and are never read; kv_len 0 gives
+    exact zeros."""
+    lens = [0, 1, 100, 128, 257, 384]
+    q, k, v = _attn_inputs(sq + group, len(lens), 2 * group, 2, sq, 384,
+                           64, 64, torch.bfloat16, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for row, n in enumerate(lens):
+        k[row, :, n:] = float("nan")
+        v[row, :, n:] = float("nan")
+    got = _routed(q, k, v, want, causal=True, kv_len=kv_len)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _attn_close(f"cuda.flash.bf16.kv_len.{want}", got, q, k, v, causal=True,
+                kv_len=kv_len)
+
+
+@pytest.mark.parametrize("hkv,group,sq,want", [
+    (2, 8, 2, "split"), (1, 1, 16, "split"), (2, 4, 4, "split"),
+    (1, 1, 17, "mma"), (2, 17, 1, "mma"), (1, 4, 5, "mma"),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_route_boundary(cuda, hkv, group, sq, want, causal):
+    """Sq·group = 16 goes to the split-K decode, 17 to the tensor-core
+    prefill; both against the plain version."""
+    q, k, v = _attn_inputs(hkv + group + sq, 2, hkv * group, hkv, sq, 200,
+                           64, 64, torch.bfloat16, cuda)
+    got = _routed(q, k, v, want, causal=causal)
+    _attn_close(f"cuda.flash.bf16.route.{hkv}x{group}x{sq}.{want}", got, q,
+                k, v, causal=causal)
+
+
+@pytest.mark.parametrize("d,dv", [(40, 72), (72, 40), (256, 256), (256, 40),
+                                  (72, 256)])
+@pytest.mark.parametrize("sq,want", [(1, "split"), (33, "mma")])
+def test_flash_bf16_head_dims(cuda, d, dv, sq, want):
+    """d and dv of 40, 72 and 256, dv ≠ d, zero-padded in shared memory,
+    on both bf16 routes, causal and not."""
+    q, k, v = _attn_inputs(d + dv + sq, 2, 8, 2, sq, 150, d, dv,
+                           torch.bfloat16, cuda)
+    for causal in (True, False):
+        got = _routed(q, k, v, want, causal=causal)
+        _attn_close(f"cuda.flash.bf16.d{d}.dv{dv}.{want}.causal={causal}",
+                    got, q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("sq,want", [(1, "split"), (40, "mma")])
+def test_flash_bf16_unaligned_strides(cuda, sq, want):
+    """Rows 65 elements apart (not 16-byte aligned) take the scalar staging
+    path of both bf16 routes."""
+    g = torch.Generator().manual_seed(sq)
+    buf = [torch.randn(2, h, s, 65, generator=g).to(cuda, torch.bfloat16)
+           for h, s in ((8, sq), (2, 90), (2, 90))]
+    q, k, v = (x[..., :64] for x in buf)
+    kv_len = torch.tensor([90, 37], dtype=torch.int32, device=cuda)
+    got = _routed(q, k, v, want, causal=True, kv_len=kv_len)
+    _attn_close(f"cuda.flash.bf16.unaligned.{want}", got, q.contiguous(),
+                k.contiguous(), v.contiguous(), causal=True, kv_len=kv_len)
 
 
 def test_llama_smoke_serving_on_card(cuda):
