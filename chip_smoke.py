@@ -22,20 +22,28 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    ragged shapes (ids equal, values within 1e-6, 0 expected); the
    radix select also on ±0.0, all −inf rows, m = 1, m = L, m above the
    finite count and a row too long for shared memory, its values equal
-   bit for bit (signs of zeros included);
+   bit for bit (signs of zeros included); the scan bit for bit at the
+   approx path's and phase 6's block shapes, P not a multiple of 4, ties,
+   and raising past the select's m ≤ 16384; the rerank bit for bit on
+   both routes (``fused_rerank_scores.routes``: "simt" for f32 queries,
+   "imma" for int8 × int8, values up to 127 included), every measure,
+   raising outside the int8 route's exact domain;
 5. the approx path at 6040 × 3952, pcc, k = 40, default ``IndexConfig``:
    ``CFEngine(neighbor_mode="approx", backend="kernel")`` fit →
    ``recall_vs_exact`` → a cluster-restricted query (n_probe 4, 1024
    users) → ``update_ratings`` (oracle-checked) → a ``BatchingServer``
    answering 256 requests, with the launch counts zeroed before and read
-   after (kernels 3-6 must be > 0); then the same engine with
+   after (kernels 3-6 must be > 0, every rerank launch on the "imma"
+   route); then the same engine with
    ``IndexConfig(use_kernel=False)`` (the plain versions, on the card) must
    give equal spill ids and distances, centroids, shortlists, neighbor ids
    and scores, and two fits must give identical centroids;
 6. the scale phase at U = 32768 (``BENCH_index.json``'s
    ``index_cosine_U32768`` row: cosine, k = 20, raw features,
    project_dim 512, rerank_frac 0.02, seed 0): index fit and full query
-   against the exact kernel-backend top-k; recall@20 ≥ 0.94;
+   against the exact kernel-backend top-k; recall@20 ≥ 0.94 and equal to
+   the earlier designs' 0.9489044189453125; every rerank launch of the
+   query on the "imma" route;
 7. the support kernel (the item index's segmented SpMM) against its
    plain version on the card, at ragged shapes (b = 1, widths not a
    multiple of 512 or of 4, all-masked rows, k = 1) and at the full
@@ -88,12 +96,14 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     also as f32 copies against the plain version, atol 1e-5), the select
     at both of its path shapes (the cluster query's Q 256 × L 8192,
     m 906, and the item index's Q 6040 × L 3952, m 512, each beside
-    ``torch.topk``), and the previous designs' times of kernels 5 and 8
+    ``torch.topk``), the scan's two launches (scores, radix select)
+    alone, the rerank beside six ``torch._int_mm`` calls and on its
+    f32 route, and the previous designs' times of kernels 4, 5, 6 and 8
     beside the new ones (the decode launch, the selects and their library
     calls are timed queued behind a spin kernel, so the host's work to
     enqueue them is not counted; each call with it is logged too);
 13. ``torch.profiler``: where the device time of a steady exact fit, of
-    recommend(all users), of an approx query, of an approx
+    recommend(all users), of an approx query (16 rows), of an approx
     recommend(all users), of the LM prefill and of one LM decode step
     goes, and the device's busy share;
 
@@ -157,21 +167,31 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM bandwidth, f32 on the CUDA cores
-# (the CF kernels' f32 inputs) and bf16 on the tensor cores (the LM's
-# bf16 attention inputs)
+# (the CF kernels' f32 inputs), bf16 on the tensor cores (the LM's bf16
+# attention inputs) and int8 on the tensor cores (the rerank's int8 route)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1.979e15
 TOL = 1e-6
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # kernels 5 and 8 before their redesign (the select's bitonic merge, the
 # flash kernel's f32 SIMT tiles for bf16): ms a launch, timed by this
 # script on an H100 80GB HBM3 at 700 W (CUDA events; the item-index
-# select from its torch.profiler entry)
+# select from its torch.profiler entry); kernels 4 and 6 before theirs
+# (the scan's running bitonic merge; the rerank's f32 SIMT tiles with f32
+# queries over the union padded to 8192 columns), timed by
+# tools/kernel_times.py --only index on the parent tree in the same call
+# as this design, on an H100 80GB HBM3 at 700 W
 PREVIOUS_MS = {"select_topm Q=256 L=8192 m=906": 0.9113,
                "select_topm Q=6040 L=3952 m=512": 2.534,
                "flash_attention prefill": 2.9568,
-               "flash_attention decode": 0.2644}
+               "flash_attention decode": 0.2644,
+               "fused_scan_topm Q=2048 N=6040 P=256 m=906": 2.2792,
+               "fused_rerank_scores G=2048 J=3952 pcc": 28.6784}
+# phase 6's recall@20, the same with every kernel design so far (exact
+# kernels on the same seeded data)
+RECALL_U32768 = 0.9489044189453125
 BF16_ULP = 2.0 ** -7   # a bf16 x's unit in the last place is ≤ |x|·2⁻⁷
 DEVICE = "cuda"
 
@@ -505,17 +525,27 @@ def phase_index_kernels(dev, rng, train_dev):
         log(f"  centroid_distances ({m},{d})x({n},{d}) max_abs_diff={e!r}; "
             f"row subset bitwise equal to the full call")
     # kernels 4/5: the reference Pallas kernel's failing shape, duplicated
-    # pool rows (exact ties across merge blocks), m > N
+    # pool rows (exact ties), m > N, P not a multiple of 4, the approx
+    # path's block (phase 5) and phase 6's; values bit for bit
     for q_n, n, p, m, dup in ((130, 257, 33, 17, 1), (21, 240, 12, 25, 8),
-                              (9, 40, 8, 999, 1), (2048, 6040, 256, 906, 1)):
+                              (9, 40, 8, 999, 1), (2048, 6040, 256, 906, 1),
+                              (2048, 32768, 512, 655, 1)):
         q = unit_rows(rng, q_n, p, dev)
         prox = unit_rows(rng, n // dup, p, dev).repeat_interleave(dup, 0)
         prox = prox.contiguous()
         q_ids = torch.arange(q_n, dtype=torch.int32, device=dev)
         q_ids[::7] = n                               # padding queries
-        check_topm(f"scan_topm Q={q_n} N={n} P={p} m={m} dup={dup}",
-                   fused_scan_topm(q, prox, q_ids, m=m),
-                   scan_topm_plain(q, prox, q_ids, min(m, n)), err, "scan")
+        got = fused_scan_topm(q, prox, q_ids, m=m)
+        want = scan_topm_plain(q, prox, q_ids, min(m, n))
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+              f"scan_topm Q={q_n} N={n} P={p} m={m}: values bit for bit")
+        check_topm(f"scan_topm Q={q_n} N={n} P={p} m={m} dup={dup}", got,
+                   want, err, "scan")
+    try:
+        fused_scan_topm(q[:2], prox[:20000], q_ids[:2], m=16385)
+        check(False, "scan past the select's domain raises")
+    except ValueError as exc:
+        log(f"  scan_topm m=16385: raises ({exc})")
     for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64),
                       (9, 300, 1), (9, 300, 300), (9, 300, 280),
                       (3, 40000, 700)):
@@ -533,23 +563,49 @@ def phase_index_kernels(dev, rng, train_dev):
               f"select_topm Q={q_n} N={n} m={m}: values equal bit for bit")
         check_topm(f"select_topm Q={q_n} N={n} m={m} (ties, ±0, -inf rows)",
                    got, want, err, "select")
-    q = train_dev[:37].contiguous()
-    cand = train_dev[100:231].contiguous()
-    norms = torch.sqrt((cand.double() ** 2).sum(1)).float()
-    counts = (cand > 0).sum(1).float()
-    for measure in ("jaccard", "cosine", "pcc", "pcc_sig"):
-        for dtype in (torch.float32, torch.int8):
+    # kernel 6 on both routes: "simt" (f32 queries; f32 or int8
+    # candidates) and "imma" (int8 × int8: training rows, values up to 127
+    # at J = 300 for the squares' hi halves, all-zero rows, G and Kc off
+    # the tiles), every measure, β 50 and 7.3; values bit for bit
+    big = torch.from_numpy(rng.integers(-128, 128, (80, 300))
+                           * (rng.random((80, 300)) < 0.5)).to(dev)
+    big[3] = 0
+    cases = [(train_dev[:37], train_dev[100:231], "simt", None),
+             (train_dev[:37], train_dev[100:231].to(torch.int8), "simt",
+              None),
+             (train_dev[:130].to(torch.int8),
+              train_dev[300:457].to(torch.int8), "imma", 5),
+             (big[:33].to(torch.int8), big[33:].to(torch.int8), "imma", 128)]
+    for q, c, route, bound in cases:
+        q, c = q.contiguous(), c.contiguous()
+        cf = c.float()
+        norms = torch.sqrt((cf.double() ** 2).sum(1)).float()
+        counts = (cf > 0).sum(1).float()
+        for measure in ("jaccard", "cosine", "pcc", "pcc_sig"):
             for beta in (50.0, 7.3):
-                c = cand.to(dtype)
-                e = max_diff(fused_rerank_scores(q, c, norms, counts,
-                                                 measure=measure, beta=beta),
-                             rerank_scores_plain(q, c, norms, counts,
-                                                 measure=measure, beta=beta))
-                err["rerank"] = max(err["rerank"], e)
-                check(e <= TOL, f"rerank {measure} {dtype} beta {beta} "
-                                f"diff {e}")
-        log(f"  rerank_scores {measure:8s} (37,3952)x(131,3952) f32+int8, "
-            f"beta 50/7.3 max_abs_diff={err['rerank']!r}")
+                before = dict(fused_rerank_scores.routes)
+                got = fused_rerank_scores(q, c, norms, counts,
+                                          measure=measure, beta=beta,
+                                          max_value=bound)
+                want = rerank_scores_plain(q, c, norms, counts,
+                                           measure=measure, beta=beta)
+                check(fused_rerank_scores.routes[route] == before[route] + 1,
+                      f"rerank {route} route taken")
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"rerank {measure} {route} {tuple(q.shape)}x"
+                      f"{tuple(c.shape)} beta {beta}: bit for bit")
+                err["rerank"] = max(err["rerank"], max_diff(got, want))
+        log(f"  rerank_scores {route} {str(q.dtype)[6:]}x{str(c.dtype)[6:]} "
+            f"{tuple(q.shape)}x{tuple(c.shape)}, 4 measures, beta 50/7.3: "
+            f"bit for bit")
+    try:
+        fused_rerank_scores(*(t.to(torch.int8) for t in (train_dev[:4],
+                                                         train_dev[4:9])),
+                            norms[:5], counts[:5])
+        check(False, "int8 rerank outside its exact domain raises")
+    except ValueError as exc:
+        log(f"  rerank int8 at J=3952 without max_value: raises ({exc})")
     torch.cuda.synchronize()
     return err
 
@@ -569,6 +625,7 @@ def phase_approx(dev, train):
     out = {}
     for fn in (fused_similarity, fused_tile_predict, *wrappers.values()):
         fn.launches = 0
+    wrappers["rerank"].routes.update(imma=0, simt=0)
     t0 = time.perf_counter()
     eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
                    neighbor_mode="approx", device=dev).fit()
@@ -639,8 +696,12 @@ def phase_approx(dev, train):
                p99_ms=stats["latency_p99_ms"])
     torch.cuda.synchronize()
     out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    out["rerank_routes"] = dict(wrappers["rerank"].routes)
     for name, n in out["launches"].items():
         check(n > 0, f"{name} kernel launched on the approx path")
+    check(out["rerank_routes"]["imma"] == out["launches"]["rerank"],
+          f"every rerank launch of the approx path took the int8 route "
+          f"({out['rerank_routes']})")
 
     # the same engine on the plain versions (use_kernel=False), on the card
     t0 = time.perf_counter()
@@ -687,6 +748,7 @@ def phase_scale(dev):
     from repro_torch.core.similarity import user_stats
     from repro_torch.data import load_ml1m_synthetic
     from repro_torch.index import ClusteredIndex, IndexConfig
+    from repro_torch.kernels.rerank import fused_rerank_scores
     out = {}
     t0 = time.perf_counter()
     train, _, _ = load_ml1m_synthetic(n_users=32768, n_items=3952, seed=0)
@@ -704,10 +766,18 @@ def phase_scale(dev):
     ix.fit(r, means)
     torch.cuda.synchronize()
     out["fit_s"] = time.perf_counter() - t0
+    fused_rerank_scores.launches = 0
+    fused_rerank_scores.routes.update(imma=0, simt=0)
     t0 = time.perf_counter()
     _, got_i = ix.query(r, means, k=20, measure="cosine")
     torch.cuda.synchronize()
     out["query_s"] = time.perf_counter() - t0
+    out["rerank_routes"] = dict(fused_rerank_scores.routes)
+    check(fused_rerank_scores.launches > 0
+          and out["rerank_routes"]["imma"] == fused_rerank_scores.launches,
+          f"every rerank launch of the U=32768 query took the int8 route "
+          f"({fused_rerank_scores.launches} launches, "
+          f"{out['rerank_routes']})")
     lq = ix.last_query
     out["query"] = {"rerank_fraction": lq.rerank_fraction,
                     "seconds_shortlist": lq.seconds_shortlist,
@@ -724,6 +794,9 @@ def phase_scale(dev):
     hits = (ex[:, :, None] == got_i[:, None, :]).any(-1) & (ex >= 0)
     out["recall"] = float(hits.sum()) / max(int((ex >= 0).sum()), 1)
     check(out["recall"] >= 0.94, f"recall@20 {out['recall']} < 0.94")
+    check(out["recall"] == RECALL_U32768,
+          f"recall@20 {out['recall']!r} is the earlier designs' "
+          f"{RECALL_U32768!r} (the kernels are exact)")
     check(bool(torch.isfinite(exact.scores).all()), "finite exact scores")
     torch.cuda.synchronize()
     return out
@@ -1112,6 +1185,7 @@ def phase_index_timings(dev, eng, err, launches):
     from repro_torch.kernels.rerank import (fused_rerank_scores,
                                             rerank_scores_plain)
     from repro_torch.kernels.select import (fused_scan_topm,
+                                            proxy_scores_cuda,
                                             scan_topm_plain, select_topm,
                                             select_topm_twin)
     ix = eng.index
@@ -1145,7 +1219,8 @@ def phase_index_timings(dev, eng, err, launches):
         2.0 * m * nc * p + 2.0 * (m + nc) * p + 3.0 * m * nc,
         f"({m},{p})x({nc},{p})")
 
-    # kernel 4: one 2048-query block of the full-pool scan
+    # kernel 4: one 2048-query block of the full-pool scan; its two
+    # launches (scores, radix select) also alone
     q_n = min(2048, n)
     mm = min(ix._max_rerank(eng.k), n)
     q = x[:q_n].contiguous()
@@ -1153,15 +1228,25 @@ def phase_index_timings(dev, eng, err, launches):
     got = fused_scan_topm(q, x, q_ids, m=mm)
     want = scan_topm_plain(q, x, q_ids, mm)
     check(torch.equal(got[1], want[1]), "scan ids at timing shape")
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          "scan values at timing shape bit for bit")
     e = max_diff(got[0], want[0])
-    check(e <= TOL, f"scan values at timing shape diff {e}")
+    scores = proxy_scores_cuda(q, x)
+    check(torch.equal(scores.view(torch.int32),
+                      proxy_scores_ref(q, x).view(torch.int32)),
+          "scan's score launch bit for bit")
+    split = {"scores_ms": time_ms(lambda: proxy_scores_cuda(q, x), reps=20),
+             "select_ms": time_ms(lambda: select_topm(scores, q_ids, m=mm),
+                                  reps=20),
+             "floor_ms": 2.0 * q_n * n * p / (132 * 128 * 1.98e9) * 1e3}
     row("fused_scan_topm", "src/repro_torch/csrc/select.cu",
         "src/repro/kernels/select.py:120", "scan",
-        time_ms(lambda: fused_scan_topm(q, x, q_ids, m=mm)),
+        time_ms(lambda: fused_scan_topm(q, x, q_ids, m=mm), reps=20),
         time_ms(lambda: scan_topm_plain(q, x, q_ids, mm), reps=3),
         time_ms(lambda: torch.topk(torch.matmul(q, x.T), mm)), e,
         (q_n + n) * p * 4.0 + q_n * 4.0 + q_n * mm * 8.0,
         2.0 * q_n * n * p, f"Q={q_n} N={n} P={p} m={mm}")
+    rows[-1]["split"] = split
     shorts = got[1]
 
     # kernel 5: the cluster-restricted select of the cluster query's first
@@ -1194,36 +1279,81 @@ def phase_index_timings(dev, eng, err, launches):
     rows[-1]["call_ms"] = time_ms(lambda: select_topm(sp, none, m=ms),
                                   reps=20)
 
-    # kernel 6: the union-Gram rerank of the same 2048-query block, pcc
+    # kernel 6: the union-Gram rerank of the same 2048-query block, pcc, as
+    # the path calls it: int8 query rows and the real union columns (the
+    # sentinel included) on the "imma" route
     u = torch.unique(shorts.long())
-    ku = tcl._bucket(min(q_n * shorts.shape[1], n) + 1)
     u_real = int((u < n).sum())
-    u = torch.cat([u, u.new_full((ku - u.numel(),), n)]).clamp_max(n - 1)
+    u = u.clamp_max(n - 1)
+    kc = u.numel()
     src = ix._gather_source(ratings)
+    bound = tcl._abs_bound(src)
     norms, counts = tcl._user_norms_counts(ratings)
-    qr = ratings[:q_n].contiguous()
+    qr = src[:q_n].contiguous()
     cr = src[u].contiguous()
     cn, cc = norms[u].contiguous(), counts[u].contiguous()
-    e = max_diff(fused_rerank_scores(qr, cr, cn, cc, measure="pcc"),
-                 rerank_scores_plain(qr, cr, cn, cc, measure="pcc"))
-    check(e == 0.0, f"rerank at timing shape diff {e}")
-    crf = cr.float()
-    mq, mc = (qr > 0).float(), (crf > 0).float()
-    ops = [(mq, mc.T), (qr, crf.T), (qr, mc.T), (mq, crf.T),
-           (qr * qr, mc.T), (mq, (crf * crf).T)]
+    check(qr.dtype == torch.int8 and cr.dtype == torch.int8,
+          "the path's rerank operands are int8")
+
+    def rerank():
+        return fused_rerank_scores(qr, cr, cn, cc, measure="pcc",
+                                   max_value=bound)
+
+    before = fused_rerank_scores.routes["imma"]
+    got6 = rerank()
+    check(fused_rerank_scores.routes["imma"] == before + 1,
+          "the timing shape takes the int8 route")
+    want6 = rerank_scores_plain(qr, cr, cn, cc, measure="pcc")
+    check(torch.equal(got6.view(torch.int32), want6.view(torch.int32)),
+          "rerank at timing shape bit for bit")
+    e = max_diff(got6, want6)
+    # library yardsticks: six f32 matmuls; six torch._int_mm on the real
+    # columns (the same integer sums; it needs widths a multiple of 8)
+    qf, crf = qr.float(), cr.float()
+    mq, mc = (qf > 0).float(), (crf > 0).float()
+    ops = [(mq, mc.T), (qf, crf.T), (qf, mc.T), (mq, crf.T),
+           (qf * qf, mc.T), (mq, (crf * crf).T)]
     ops = [(a.contiguous(), b.contiguous()) for a, b in ops]
-    row("fused_rerank_scores", "src/repro_torch/csrc/rerank.cu",
-        "src/repro/kernels/rerank.py:134", "rerank",
-        time_ms(lambda: fused_rerank_scores(qr, cr, cn, cc, measure="pcc"),
-                reps=5),
-        time_ms(lambda: rerank_scores_plain(qr, cr, cn, cc, measure="pcc"),
-                reps=5),
-        time_ms(lambda: [torch.matmul(a, b) for a, b in ops], reps=5), e,
-        q_n * d_items * 4.0 + ku * d_items * cr.element_size()
-        + ku * 8.0 + q_n * ku * 4.0,
-        6 * 2.0 * q_n * ku * d_items,
-        f"G={q_n} Kc={ku} ({u_real} distinct candidates) J={d_items} pcc "
-        f"{str(cr.dtype).split('.')[-1]} candidates")
+    lib6 = time_ms(lambda: [torch.matmul(a, b) for a, b in ops], reps=5)
+    kr = cr[:u_real - u_real % 8]
+    planes = [((qr > 0).to(torch.int8), (kr > 0).to(torch.int8)),
+              (qr, kr), (qr, (kr > 0).to(torch.int8)),
+              ((qr > 0).to(torch.int8), kr), (qr * qr, (kr > 0).to(torch.int8)),
+              ((qr > 0).to(torch.int8), kr * kr)]
+    if bound > 11:                  # v² leaves int8
+        int_mm = f"null (ratings up to {bound}: squares leave int8)"
+    else:
+        try:
+            int_mm = time_ms(lambda: [torch._int_mm(a, b.T)
+                                      for a, b in planes], reps=5)
+        except (RuntimeError, AttributeError) as exc:   # a yardstick only
+            int_mm = f"null ({type(exc).__name__}: {str(exc)[:80]})"
+    simt_q = qr.float()
+    check(torch.equal(fused_rerank_scores(simt_q, cr, cn, cc,
+                                          measure="pcc").view(torch.int32),
+                      want6.view(torch.int32)),
+          "the simt route at the timing shape bit for bit")
+    simt_ms = time_ms(lambda: fused_rerank_scores(simt_q, cr, cn, cc,
+                                                  measure="pcc"), reps=3)
+    ops6 = 6 * 2.0 * q_n * kc * d_items
+    bytes6 = (q_n + kc) * d_items * 1.0 + kc * 8.0 + q_n * kc * 4.0
+    bound6, by6 = bound_ms(bytes6, ops6, PEAK_INT8_OPS_PER_S)
+    err["rerank"] = max(err["rerank"], e)
+    rows.append({
+        "name": "fused_rerank_scores", "route": "cuda",
+        "source": "src/repro_torch/csrc/rerank.cu",
+        "replaces": "src/repro/kernels/rerank.py:134",
+        "launches": launches["rerank"], "max_abs_err": err["rerank"],
+        "ms": time_ms(rerank, reps=10),
+        "plain_ms": time_ms(lambda: rerank_scores_plain(
+            qr, cr, cn, cc, measure="pcc"), reps=5),
+        "bound_ms": bound6, "bound_by": by6, "library_ms": lib6,
+        "shape": f"G={q_n} Kc={kc} ({u_real} distinct candidates"
+                 f"{' + the sentinel' if kc > u_real else ''}) J={d_items} "
+                 f"pcc int8 x int8, max_value {bound}",
+        "int_mm_ms": int_mm, "simt_ms": simt_ms,
+        "simt_bound_ms": bound_ms(
+            (q_n * 4.0 + kc) * d_items + kc * 8.0 + q_n * kc * 4.0, ops6)[0]})
     torch.cuda.synchronize()
     return rows
 
@@ -1592,19 +1722,19 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
 
     profile_each((("fit", eng.fit),
                   ("recommend", lambda: eng.recommend(n=10)),
-                  ("approx query", approx_query),
+                  ("approx query", approx_query, 16),
                   ("approx recommend", lambda: eng_rec.recommend(n=10)),
                   ("LM prefill", lm_prefill),
                   ("LM decode step", lm_decode)))
 
 
 def profile_each(named) -> None:
-    """For each (name, fn): one warm call, then one call under
+    """For each (name, fn[, rows]): one warm call, then one call under
     ``torch.profiler``; logs wall ms, device-busy ms and share, and the
-    six largest device-time entries."""
+    ``rows`` (default six) largest device-time entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, fn in named:
+    for name, fn, *n_rows in named:
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1620,7 +1750,7 @@ def profile_each(named) -> None:
         check(busy_ms > 0, f"profiler saw device work in {name}")
         log(f"    {name}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-        for ms, n, key in rows[:6]:
+        for ms, n, key in rows[:n_rows[0] if n_rows else 6]:
             log(f"      {ms:9.3f} ms  x{n:<4d} {key[:72]}")
 
 
@@ -2101,7 +2231,8 @@ def main() -> int:
         f"{ap['refold']}")
     log(f"    serving: 256 requests, {ap['serve_req_per_s']:.1f} req/s, "
         f"p50 {ap['p50_ms']:.2f} ms, p99 {ap['p99_ms']:.2f} ms")
-    log(f"    launches on the approx path: {ap['launches']}")
+    log(f"    launches on the approx path: {ap['launches']}; rerank by "
+        f"route {ap['rerank_routes']}")
     log("    kernel == plain versions (spill ids/dist, centroids, proxies, "
         "shortlists, neighbor ids and scores, cluster query) and two fits "
         "identical")
@@ -2116,7 +2247,8 @@ def main() -> int:
         f"{sc['fit_s']:.3f}s, query {sc['query_s']:.3f}s {sc['query']}; "
         f"exact kernel top-k {sc['exact_s']:.3f}s")
     log(f"    recall@20 {sc['recall']!r} (floor 0.94); peak device memory "
-        f"{sc['peak_gib']:.2f} GiB (index fit + query)")
+        f"{sc['peak_gib']:.2f} GiB (index fit + query); rerank by route "
+        f"{sc['rerank_routes']}")
 
     log("[7] support kernel vs plain version on the card; support score "
         "== exact prediction")
@@ -2211,11 +2343,28 @@ def main() -> int:
     sel_row = next(k for k in kernels if k["name"] == "select_topm")
     log(f"    select_topm at the cluster query's shape: the call, host "
         f"included, {sel_row['call_ms']:.4f} ms")
+    scan_row = next(k for k in kernels if k["name"] == "fused_scan_topm")
+    sp = scan_row["split"]
+    log(f"    fused_scan_topm's two launches alone: scores "
+        f"{sp['scores_ms']:.4f} ms (the pinned order's no-FMA floor "
+        f"{sp['floor_ms']:.4f} ms at 1.98 GHz), radix select "
+        f"{sp['select_ms']:.4f} ms")
+    rr_row = next(k for k in kernels if k["name"] == "fused_rerank_scores")
+    int_mm = rr_row["int_mm_ms"]
+    log(f"    fused_rerank_scores: int8 route {rr_row['ms']:.4f} ms (bound "
+        f"{rr_row['bound_ms']:.4f} ms at the int8 peak over the real "
+        f"columns), six torch._int_mm "
+        f"{int_mm if isinstance(int_mm, str) else f'{int_mm:.4f} ms'}; "
+        f"simt route (f32 queries) {rr_row['simt_ms']:.4f} ms (bound "
+        f"{rr_row['simt_bound_ms']:.4f} ms at the f32 peak); both bit for "
+        f"bit")
     now = {"select_topm Q=256 L=8192 m=906": sel_row["ms"],
            "select_topm Q=6040 L=3952 m=512": sel_item["ms"],
            "flash_attention prefill": flash_row["ms"],
-           "flash_attention decode": flash_dec["ms"]}
-    log("    kernels 5 and 8, previous design -> this design (ms): "
+           "flash_attention decode": flash_dec["ms"],
+           "fused_scan_topm Q=2048 N=6040 P=256 m=906": scan_row["ms"],
+           "fused_rerank_scores G=2048 J=3952 pcc": rr_row["ms"]}
+    log("    kernels 4, 5, 6 and 8, previous design -> this design (ms): "
         + "; ".join(f"{k} {PREVIOUS_MS[k]} -> {now[k]:.4f}" for k in now))
     log("[13] torch.profiler: device time of a steady fit / recommend / "
         "approx query / approx recommend / LM prefill / LM decode step")

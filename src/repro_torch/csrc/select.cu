@@ -4,7 +4,7 @@
 // one running merge (_topm_step / _merge_topm):
 //   * fused_scan_topm (_scan_kernel): proxy scores q·Pᵀ of a query block
 //     against the whole pool, self-pair knocked out, canonical top-M per
-//     query — the (Q, N) score matrix is never written to device memory;
+//     query;
 //   * select_topm (_select_kernel): the same selection over precomputed
 //     (Q, N) scores.
 // Selection is canonical: descending score, ties to the lower candidate
@@ -12,21 +12,23 @@
 // scores) carries the sentinel id N — the order of the plain version
 // (repro_torch.kernels.ref.select_topm_ref, a stable two-key sort).
 //
-// Scan design.  A thread block owns QT query rows and keeps, per row, a
-// buffer of CAP (score, id) pairs in shared memory (CAP a power of two
-// ≥ MB + S, MB = M padded to 128).  The candidate axis is walked in
-// sub-chunks of S = 512 columns; each thread scores two columns of a
-// sub-chunk for all QT rows (the dot product over the proxy dimension in
-// order p = 0..P−1 with separately rounded products and sums, the plain
-// version's order, with the query rows in shared memory).  A candidate
-// enters a row's buffer only if it beats the row's current M-th entry —
-// an exact prune, since that threshold only rises — at a slot taken with
-// a shared-memory atomic.  Before a sub-chunk could overflow a buffer,
-// and after the last one, all QT buffers are bitonic-sorted by
-// (score desc, id asc), which makes the slot order irrelevant; the top
-// MB stay, and the MB-th becomes the new threshold.  The output is the
-// first M entries of the final sort.  Per-row scores use one fixed order,
-// so the kernel and its plain version give the same bits.
+// Scan design: two launches on one stream, the score matrix in between
+// in a device workspace the wrapper allocates (the TPU kernel folds each
+// score block into a running top-M so that the (Q, N) matrix never
+// exists; on this card that fold was the slow part).
+//   1. proxy_scores_kernel: a register-tiled f32 product, 128 × 128
+//      outputs a block, 8 × 8 a thread (rows ty + 16i, columns tx + 16j),
+//      32-dimension K slices of q and the proxies staged by cp.async in a
+//      double buffer.  Each output's sum walks p = 0..P−1 in order with
+//      separately rounded products and sums (__fmul_rn, __fadd_rn, no
+//      FMA) — the plain version's order (ref.proxy_scores_ref), so the
+//      scores are equal bit for bit whatever the tiling.  The zero-filled
+//      tail of the last slice adds +0 to a sum that is never −0.
+//   2. radix_topm_kernel (below) on the workspace, with q_ids for the
+//      self-pair knockout: the same canonical top-M as select mode.
+// One workspace holds every row: row slabs whose scores stay in the
+// 50 MB L2 until the select reads them were slower at both index shapes
+// (tools/kernel_times.py times them).
 //
 // Select design (radix select).  One block of 256 threads owns one row
 // of L scores, staged once in shared memory when it fits (L ≤ 32768) and
@@ -43,20 +45,19 @@
 // lowest-id ties at T, their slots decided by block prefix scans (no
 // atomics), and a bitonic sort of those k (key, ~id) pairs in shared
 // memory puts them in canonical order; slots past k get (−inf, L).
+// Domain: M ≤ 16384 (the sort buffer's shared memory).
 //
 // Bound.  Scan mode on one 2048-query block at 6040 users, P = 256:
-// 2·Q·N·P = 6.3e9 f32 operations (~0.09 ms at 67 TFLOP/s) and
-// (Q + N)·P·4 + Q·M·8 bytes (~8.4 MB, ~0.003 ms): the GEMM is cheap; the
-// kernel is bound by the merge — the bitonic sorts of the CAP-wide
-// buffers in shared memory, which no roofline of the card counts.
-// Select mode reads Q·L·4 bytes once and writes Q·M·8: bound by bytes
-// (1.0e7 bytes, 3.1 µs, at the cluster query's Q 256, L 8192, M 906).
-// The four histogram passes re-read the row from shared memory, and the
-// final bitonic sort of k ≤ M entries costs log²(k)/2 block barriers.
-//
-// Next design for the scan (not in this file): the same radix select in
-// place of the running bitonic merge, and the proxy GEMM on the tensor
-// cores (a fixed-order TF32-free split would keep the bits).
+// 2·Q·N·P = 6.3e9 f32 operations (~0.09 ms at 67 TFLOP/s, which counts
+// an FMA as two) and (Q + N)·P·4 + Q·M·8 bytes (~8.4 MB, ~0.003 ms).
+// The pinned order forbids the FMA, so the floor for these inputs is
+// 2·Q·N·P = 6.3e9 single-rounded instructions on 132 × 128 lanes,
+// ~0.19 ms at 1.98 GHz.  The workspace adds Q·N·4 bytes written and read
+// (49.5 MB at this shape).  Select mode reads Q·L·4 bytes once and
+// writes Q·M·8: bound by bytes (1.0e7 bytes, 3.1 µs, at the cluster
+// query's Q 256, L 8192, M 906).  The four histogram passes re-read the
+// row from shared memory, and the final bitonic sort of k ≤ M entries
+// costs log²(k)/2 block barriers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,193 +65,118 @@
 
 namespace {
 
-constexpr int NT = 256;       // threads per block
-constexpr int S = 512;        // candidate columns per sub-chunk (2/thread)
+constexpr int NT = 256;                   // threads per block
+constexpr size_t SMEM_MAX = 200 * 1024;   // of the 227 KB opt-in
 
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+// ---- scan mode: fixed-order proxy scores ----------------------------------
+
+constexpr int BQ = 128;            // query rows a block
+constexpr int BC = 128;            // pool rows (score columns) a block
+constexpr int BP = 32;             // proxy dimensions a K slice
+constexpr int LDP = BP + 4;        // shared row stride (floats)
+constexpr int TQ = 8, TC = 8;      // outputs a thread: 8 rows × 8 columns
+constexpr int SCORE_SMEM = 2 * (BQ + BC) * LDP * 4;
+static_assert(NT == (BQ / TQ) * (BC / TC), "16 × 16 threads");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
 }
 
-// Sort every row's buffer [0, CAP) by (score desc, id asc), after filling
-// the unused tail [cnt, CAP) with the sentinel (-inf, n).  Afterwards the
-// row keeps its best mb entries (cnt = mb) and thr = its mb-th entry.
-template <int QT>
-__device__ void sort_rows(float* val, int* idx, int* cnt, float* thr_v,
-                          int* thr_i, int cap, int mb, int n) {
-  const int tid = threadIdx.x;
-  for (int t = tid; t < QT * cap; t += NT) {
-    const int r = t / cap, e = t % cap;
-    if (e >= cnt[r]) {
-      val[t] = -INFINITY;
-      idx[t] = n;
-    }
-  }
-  __syncthreads();
-  const int half = cap / 2;
-  for (int k = 2; k <= cap; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < QT * half; t += NT) {
-        const int r = t / half, h = t % half;
-        const int i = ((h & ~(j - 1)) << 1) | (h & (j - 1));
-        const int l = i | j;
-        const int a = r * cap + i, b = r * cap + l;
-        const float av = val[a], bv = val[b];
-        const int ai = idx[a], bi = idx[b];
-        const bool up = (i & k) == 0;      // better-first segment
-        if (up ? better(bv, bi, av, ai) : better(av, ai, bv, bi)) {
-          val[a] = bv; val[b] = av;
-          idx[a] = bi; idx[b] = ai;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (tid < QT) {
-    cnt[tid] = mb;
-    thr_v[tid] = val[tid * cap + mb - 1];
-    thr_i[tid] = idx[tid * cap + mb - 1];
-  }
-  __syncthreads();
-}
-
-// Proxy scores q·p over the P proxy dimensions, merged into a running
-// canonical top-M per query row.
-template <int QT>
-__global__ void __launch_bounds__(NT)
-topm_kernel(const float* __restrict__ q, const float* __restrict__ prox,
-            const int* __restrict__ q_ids, float* __restrict__ out_v,
-            int* __restrict__ out_i, int nq, int n, int p, int m, int mb,
-            int cap) {
+// (nq, p) × (n, p) → (nq, n) scores, p a multiple of 4, rows 16-byte
+// aligned.
+__global__ void __launch_bounds__(NT, 1)
+proxy_scores_kernel(const float* __restrict__ q,
+                    const float* __restrict__ prox, float* __restrict__ out,
+                    int nq, int n, int p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int p4 = (p + 3) & ~3;
-  float* qs = smem;                                   // QT × p4
-  float* val = qs + QT * p4;                          // QT × cap
-  int* idx = reinterpret_cast<int*>(val + QT * cap);  // QT × cap
-  int* cnt = idx + QT * cap;                          // QT
-  float* thr_v = reinterpret_cast<float*>(cnt + QT);  // QT
-  int* thr_i = reinterpret_cast<int*>(thr_v + QT);    // QT
-  int* qid = thr_i + QT;                              // QT
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * BQ, col0 = blockIdx.x * BC;
+  const int n_slices = (p + BP - 1) / BP;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * QT;
-  const int rows = min(QT, nq - row0);
-
-  for (int t = tid; t < QT * p4; t += NT) {
-    const int r = t / p4, f = t % p4;
-    qs[t] = (r < rows && f < p) ? q[static_cast<size_t>(row0 + r) * p + f]
-                                : 0.f;
-  }
-  if (tid < QT) {
-    cnt[tid] = 0;
-    thr_v[tid] = -INFINITY;
-    thr_i[tid] = n;
-    qid[tid] = tid < rows ? q_ids[row0 + tid] : -1;
-  }
-  __syncthreads();
-
-  for (int c0 = 0; c0 < n; c0 += S) {
-    bool full = false;
-    if (tid < QT) full = cnt[tid] + S > cap;
-    if (__syncthreads_or(full)) {
-      sort_rows<QT>(val, idx, cnt, thr_v, thr_i, cap, mb, n);
+  // one stage: BQ query rows then BC pool rows, BP / 4 16-byte chunks each
+  auto load = [&](int stage, int kt) {
+    float* dst = sm + stage * (BQ + BC) * LDP;
+    for (int c = tid; c < (BQ + BC) * (BP / 4); c += NT) {
+      const int r = c / (BP / 4), ch = c % (BP / 4);
+      const int gk = kt * BP + ch * 4;
+      const bool is_q = r < BQ;
+      const int gr = is_q ? row0 + r : col0 + r - BQ;
+      const bool ok = gk < p && gr < (is_q ? nq : n);
+      const float* base = is_q ? q : prox;
+      const float* src = ok ? base + static_cast<size_t>(gr) * p + gk : base;
+      cp_async16(dst + r * LDP + ch * 4, src, ok ? 16 : 0);
     }
-    for (int j = c0 + tid; j < min(c0 + S, n); j += NT) {
-      float s[QT];
+  };
+
+  float acc[TQ][TC];
 #pragma unroll
-      for (int r = 0; r < QT; ++r) s[r] = 0.f;
-      const float* pj = prox + static_cast<size_t>(j) * p;
-      if ((p & 3) == 0) {
-        for (int f = 0; f < p; f += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(pj + f);
+  for (int i = 0; i < TQ; ++i)
 #pragma unroll
-          for (int r = 0; r < QT; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(qs + r * p4 + f);
-            s[r] = __fadd_rn(s[r], __fmul_rn(a.x, v.x));
-            s[r] = __fadd_rn(s[r], __fmul_rn(a.y, v.y));
-            s[r] = __fadd_rn(s[r], __fmul_rn(a.z, v.z));
-            s[r] = __fadd_rn(s[r], __fmul_rn(a.w, v.w));
-          }
-        }
-      } else {
-        for (int f = 0; f < p; ++f) {
-          const float v = pj[f];
+    for (int jj = 0; jj < TC; ++jj) acc[i][jj] = 0.f;
+
+  load(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int kt = 0; kt < n_slices; ++kt) {
+    if (kt + 1 < n_slices) load((kt + 1) & 1, kt + 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const float* as = sm + (kt & 1) * (BQ + BC) * LDP;
+    const float* bs = as + BQ * LDP;
 #pragma unroll
-          for (int r = 0; r < QT; ++r) {
-            s[r] = __fadd_rn(s[r], __fmul_rn(qs[r * p4 + f], v));
-          }
-        }
-      }
+    for (int f = 0; f < BP; f += 4) {
+      float4 b[TC];
 #pragma unroll
-      for (int r = 0; r < QT; ++r) {
-        if (r >= rows) continue;
-        float v = s[r];
-        if (j == qid[r]) v = -INFINITY;
-        const int id = (v == -INFINITY) ? n : j;
-        if (better(v, id, thr_v[r], thr_i[r])) {
-          const int pos = atomicAdd(&cnt[r], 1);
-          val[r * cap + pos] = v;
-          idx[r * cap + pos] = id;
+      for (int jj = 0; jj < TC; ++jj)
+        b[jj] = *reinterpret_cast<const float4*>(bs + (tx + 16 * jj) * LDP + f);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDP + f);
+#pragma unroll
+        for (int jj = 0; jj < TC; ++jj) {
+          float s = acc[i][jj];
+          s = __fadd_rn(s, __fmul_rn(a.x, b[jj].x));
+          s = __fadd_rn(s, __fmul_rn(a.y, b[jj].y));
+          s = __fadd_rn(s, __fmul_rn(a.z, b[jj].z));
+          s = __fadd_rn(s, __fmul_rn(a.w, b[jj].w));
+          acc[i][jj] = s;
         }
       }
     }
     __syncthreads();
   }
-  sort_rows<QT>(val, idx, cnt, thr_v, thr_i, cap, mb, n);
 
-  for (int t = tid; t < rows * m; t += NT) {
-    const int r = t / m, e = t % m;
-    const size_t o = static_cast<size_t>(row0 + r) * m + e;
-    out_v[o] = val[r * cap + e];
-    out_i[o] = idx[r * cap + e];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int jj = 0; jj < TC; ++jj) {
+      const int c = col0 + tx + 16 * jj;
+      if (c < n) out[static_cast<size_t>(r) * n + c] = acc[i][jj];
+    }
   }
 }
 
-size_t smem_bytes(int qt, int p, int cap) {
-  const size_t p4 = static_cast<size_t>((p + 3) & ~3);
-  return qt * p4 * 4 + static_cast<size_t>(qt) * cap * 8 +
-         static_cast<size_t>(qt) * 16;
-}
-
-template <int QT>
-int launch(const float* q, const float* prox, const int* q_ids,
-           float* out_v, int* out_i, int nq, int n, int p, int m, int mb,
-           int cap, cudaStream_t stream) {
-  const size_t smem = smem_bytes(QT, p, cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      topm_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int scores_launch(const float* q, const float* prox, float* out, int nq,
+                  int n, int p, cudaStream_t stream) {
+  if (p % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(prox) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      proxy_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SCORE_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (nq + QT - 1) / QT;
-  topm_kernel<QT><<<grid, NT, smem, stream>>>(q, prox, q_ids, out_v, out_i,
-                                              nq, n, p, m, mb, cap);
+  const dim3 grid((n + BC - 1) / BC, (nq + BQ - 1) / BQ);
+  proxy_scores_kernel<<<grid, NT, SCORE_SMEM, stream>>>(q, prox, out, nq, n,
+                                                        p);
   return static_cast<int>(cudaGetLastError());
-}
-
-constexpr size_t SMEM_MAX = 200 * 1024;   // of the 227 KB opt-in
-
-int dispatch(const float* q, const float* prox, const int* q_ids,
-             float* out_v, int* out_i, int nq, int n, int p, int m, int mb,
-             int cap, cudaStream_t stream) {
-  if (smem_bytes(8, p, cap) <= SMEM_MAX && nq >= 8)
-    return launch<8>(q, prox, q_ids, out_v, out_i, nq, n, p, m, mb, cap,
-                     stream);
-  if (smem_bytes(4, p, cap) <= SMEM_MAX && nq >= 4)
-    return launch<4>(q, prox, q_ids, out_v, out_i, nq, n, p, m, mb, cap,
-                     stream);
-  if (smem_bytes(2, p, cap) <= SMEM_MAX && nq >= 2)
-    return launch<2>(q, prox, q_ids, out_v, out_i, nq, n, p, m, mb, cap,
-                     stream);
-  if (smem_bytes(1, p, cap) <= SMEM_MAX)
-    return launch<1>(q, prox, q_ids, out_v, out_i, nq, n, p, m, mb, cap,
-                     stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int buffer_cap(int mb) {
-  int cap = 1;
-  while (cap < mb + S) cap <<= 1;
-  return cap;
 }
 
 // ---- select mode: radix select ------------------------------------------
@@ -471,18 +397,35 @@ int select_dispatch(const float* scores, const int* q_ids, float* out_v,
 
 }  // namespace
 
-// (Q, P) queries × (N, P) proxies → canonical top-m (Q, m) values + ids.
-// mb is m padded to 128 (≥ m).  Returns cudaGetLastError() after the
-// launch (0 = launched); the caller raises on anything else.
+// (Q, P) queries × (N, P) proxies → (Q, N) f32 scores in the plain
+// version's order (P a multiple of 4, 16-byte aligned rows).  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int repro_proxy_scores(const void* q, const void* prox,
+                                  void* out, int nq, int n, int p,
+                                  void* stream) {
+  return scores_launch(static_cast<const float*>(q),
+                       static_cast<const float*>(prox),
+                       static_cast<float*>(out), nq, n, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// (Q, P) queries × (N, P) proxies → canonical top-m (Q, m) values + ids:
+// the scores into `ws` (Q × N f32), then the radix select of every row
+// with the self-pair knockout.  P a multiple of 4, 16-byte aligned rows,
+// m ≤ min(N, 16384).  Returns the first launch error (0 = both went).
 extern "C" int repro_scan_topm(const void* q, const void* prox,
-                               const void* q_ids, void* out_v, void* out_i,
-                               int nq, int n, int p, int m, int mb,
+                               const void* q_ids, void* ws, void* out_v,
+                               void* out_i, int nq, int n, int p, int m,
                                void* stream) {
-  return dispatch(static_cast<const float*>(q),
-                  static_cast<const float*>(prox),
-                  static_cast<const int*>(q_ids), static_cast<float*>(out_v),
-                  static_cast<int*>(out_i), nq, n, p, m, mb, buffer_cap(mb),
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  const int err = scores_launch(static_cast<const float*>(q),
+                                static_cast<const float*>(prox), w, nq, n,
+                                p, s);
+  if (err != 0) return err;
+  return select_dispatch(w, static_cast<const int*>(q_ids),
+                         static_cast<float*>(out_v), static_cast<int*>(out_i),
+                         nq, n, m, s);
 }
 
 // (Q, N) precomputed scores → canonical top-m (Q, m) values + ids, m ≤ N

@@ -225,6 +225,15 @@ def _user_norms_counts(ratings):
             (ratings > 0).sum(-1).float())
 
 
+def _abs_bound(src):
+    """Largest |value| of an int8 rerank gather source (one device sync),
+    the bound the rerank kernel's int8 route checks its exact domain
+    against; None for an f32 source."""
+    if src.dtype != torch.int8:
+        return None
+    return max(abs(int(v)) for v in torch.stack(torch.aminmax(src)).tolist())
+
+
 def _topk_with_padding(s, ids, k, n):
     """Canonical top-``k`` of (b, w) scores/ids, padding to ``k`` columns
     with (NEG_INF, n) first; NEG_INF slots surface as id -1, the exact
@@ -300,34 +309,35 @@ def _fused_scan_restricted(proxies, cand_pad, q_ids, *, m, use_kernel):
     return v, shorts
 
 
-def _fused_rerank_block(r_gather, ratings, norms, counts, q_ids, shorts, *,
-                        ku, k, measure, beta, use_kernel):
+def _fused_rerank_block(r_gather, norms, counts, q_ids, shorts, *, k,
+                        measure, beta, use_kernel, max_value=None):
     """Device union-Gram rerank of one query block's shortlists.
 
-    ``shorts``: (b, M) global shortlist ids with sentinel ``U`` padding.
-    The block's candidate union (sorted, padded with ``U`` to ``ku``) is
-    gathered once and the whole (block, union) slab is scored by the CUDA
-    rerank kernel (its plain version with ``use_kernel=False``); each
+    ``q_ids`` / ``shorts``: the block's real query rows and their (b, M)
+    global shortlist ids with sentinel ``U`` padding.  The block's sorted
+    candidate union (the sentinel included when present) and the query
+    rows are gathered once from ``r_gather`` (int8 when the ratings are
+    int8-exact) and the whole (rows, union) slab is scored by the CUDA
+    rerank kernel (its plain version with ``use_kernel=False``);
+    ``max_value`` bounds |rating| for the kernel's int8 route.  Each
     query's own shortlist is restricted back out by ``searchsorted``, and
-    the epilogue is the canonical ``(-score, id)`` sort with NEG_INF
-    slots as id -1.
+    the epilogue is the canonical ``(-score, id)`` sort with NEG_INF slots
+    as id -1.
     """
     n = r_gather.shape[0]
     u = torch.unique(shorts.long())
-    if u.numel() > ku:
-        raise RuntimeError(f"shortlist union {u.numel()} exceeds ku={ku}")
-    u = torch.cat([u, u.new_full((ku - u.numel(),), n)])
     safe_u = u.clamp_max(n - 1)
-    q_rows = ratings[q_ids.clamp_max(n - 1)].contiguous()
+    q_rows = r_gather[q_ids.long().clamp_max(n - 1)].contiguous()
     args = (q_rows, r_gather[safe_u].contiguous(),
             norms[safe_u].contiguous(), counts[safe_u].contiguous())
     if use_kernel:
-        s = fused_rerank_scores(*args, measure=measure, beta=beta)
+        s = fused_rerank_scores(*args, measure=measure, beta=beta,
+                                max_value=max_value)
     else:
         s = rerank_scores_plain(*args, measure=measure, beta=beta)
     # every real shortlist id is in the union, so searchsorted lands on
     # its column; sentinel slots are masked (the clamp is for them)
-    col = torch.searchsorted(u, shorts.long()).clamp(0, ku - 1)
+    col = torch.searchsorted(u, shorts.long()).clamp_max(u.numel() - 1)
     sc = torch.gather(s, 1, col)
     invalid = (shorts >= n) | (shorts == q_ids[:, None])
     sc = sc.masked_fill(invalid, nb.NEG_INF)
@@ -904,6 +914,7 @@ class ClusteredIndex(_SpillClusterCore):
         use_kernel = self._use_kernel()
         m = min(max_rerank, n)
         r_gather = self._gather_source(ratings)
+        max_value = _abs_bound(r_gather) if use_kernel else None
         norms, counts = _user_norms_counts(ratings)
         n_probed = 0
         n_reranked = 0
@@ -966,14 +977,14 @@ class ClusteredIndex(_SpillClusterCore):
             # the count sync also fences the scan, so its cost lands in
             # the shortlist stage (rerank timing starts after)
             n_reranked += int((shorts[:nv] < n).sum())
-            ku = _bucket(min(bq * shorts.shape[1], n) + 1)
-            with obs.span("query.rerank", kind="fused", block=lo // bq,
-                          ku=ku) as rsp:
+            with obs.span("query.rerank", kind="fused",
+                          block=lo // bq) as rsp:
                 s, i = _fused_rerank_block(
-                    r_gather, ratings, norms, counts, ids_t, shorts, ku=ku,
-                    k=k, measure=measure, beta=beta, use_kernel=use_kernel)
-                out_s[lo:lo + bq] = s.cpu().numpy()[:nv]
-                out_i[lo:lo + bq] = i.cpu().numpy()[:nv]
+                    r_gather, norms, counts, ids_t[:nv], shorts[:nv], k=k,
+                    measure=measure, beta=beta, use_kernel=use_kernel,
+                    max_value=max_value)
+                out_s[lo:lo + nv] = s.cpu().numpy()
+                out_i[lo:lo + nv] = i.cpu().numpy()
             t_rerank += rsp.duration
         return n_probed, n_reranked, t_rerank
 

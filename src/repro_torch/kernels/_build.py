@@ -95,6 +95,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def padded_rows(x, width: int):
+    """2-D ``x`` as rows of ``width`` elements at a 16-byte aligned
+    address, for kernels that stage rows in 16-byte copies: zero-padded
+    on the right (a copy) when narrower, copied when misaligned, else
+    ``x`` itself.  Each caller states why its zeros change nothing."""
+    if x.shape[1] != width:
+        out = x.new_zeros((x.shape[0], width))
+        out[:, :x.shape[1]] = x
+        return out
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
     if status != 0:

@@ -6,7 +6,9 @@ running merge:
 
 * :func:`fused_scan_topm` (``fused_scan_topm`` / ``_scan_kernel``) — proxy
   scores of a query block against the whole pool, self-pair knocked out,
-  canonical top-``m`` per query, without writing the (Q, N) scores;
+  canonical top-``m`` per query.  On the card it is two launches on one
+  stream: the scores in the plain version's fixed order into a device
+  workspace, then the radix select of :func:`select_topm` over them;
 * :func:`select_topm` (``select_topm`` / ``_select_kernel``) — the same
   selection over precomputed (Q, N) scores.
 
@@ -16,7 +18,8 @@ id ``N``.  Proxy scores are dot products summed in one fixed order
 (``ref.proxy_scores_ref``) in the kernel and the plain version alike, so
 the two give the same bits.  The CUDA kernel is held to the oracle, not
 to the Pallas kernel (which misses its own oracle at Q=130, N=257,
-P=33, m=17).
+P=33, m=17).  The radix select takes ``m`` ≤ :data:`SELECT_M_MAX`; both
+wrappers raise past it (the scan before its launch).
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.  The index's other
@@ -35,11 +38,9 @@ from repro_torch.kernels.ref import scan_topm_ref, select_topm_ref
 
 scan_topm_plain = scan_topm_ref
 
-
-def _m_pad(m: int) -> int:
-    """The running buffer's width: ``m`` rounded up to 128 (at least 128),
-    as the TPU kernel pads its lanes."""
-    return max(128, -(-m // 128) * 128)
+# the radix select's sort buffer (m entries, rounded up to a power of two,
+# 8 bytes each) lives in shared memory
+SELECT_M_MAX = 16384
 
 
 def scan_topm_twin(q: torch.Tensor, proxies: torch.Tensor,
@@ -59,9 +60,9 @@ def _lib(name):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, p]
-                       if name == "repro_scan_topm"
-                       else [p, p, p, p, i, i, i, p])
+        fn.argtypes = {"repro_scan_topm": [p, p, p, p, p, p, i, i, i, i, p],
+                       "repro_proxy_scores": [p, p, p, i, i, i, p],
+                       "repro_select_topm": [p, p, p, p, i, i, i, p]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,6 +73,32 @@ def _check_ids(q_ids: torch.Tensor, n_q: int, device) -> None:
                          f"{tuple(q_ids.shape)} on {q_ids.device}")
 
 
+def _scan_operands(q: torch.Tensor, proxies: torch.Tensor):
+    """Both operands as rows of a multiple of 4 floats, 16-byte aligned:
+    each zero pad adds 0·0 = +0 to a sum that starts at +0 and so is
+    never −0, which leaves every score's bits as they are."""
+    p4 = -(-q.shape[1] // 4) * 4
+    return _build.padded_rows(q, p4), _build.padded_rows(proxies, p4), p4
+
+
+def proxy_scores_cuda(q: torch.Tensor, proxies: torch.Tensor):
+    """The scan's first launch alone: (Q, P) × (N, P) → (Q, N) f32 scores
+    in ``ref.proxy_scores_ref``'s order, on the card (f32, contiguous).
+    For timing and checking the two launches apart; the scan path goes
+    through :func:`fused_scan_topm`, and this launch is not counted."""
+    n_q, n = q.shape[0], proxies.shape[0]
+    q, proxies, p4 = _scan_operands(q, proxies)
+    out = torch.empty((n_q, n), dtype=torch.float32, device=q.device)
+    if n_q and n:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib("repro_proxy_scores")(
+                q.data_ptr(), proxies.data_ptr(), out.data_ptr(), n_q, n,
+                p4, stream)
+        _build.check(status, "proxy_scores_cuda")
+    return out
+
+
 def fused_scan_topm(q: torch.Tensor, proxies: torch.Tensor,
                     q_ids: torch.Tensor, *, m: int):
     """(Q, P) query proxies × (N, P) pool proxies → canonical top-``m``
@@ -80,15 +107,15 @@ def fused_scan_topm(q: torch.Tensor, proxies: torch.Tensor,
 
     ``q_ids``: (Q,) global ids for the self-pair knockout (out-of-range,
     e.g. -1 or N, for padding queries).  Knocked-out slots come back as
-    ``-inf`` with id ``N``.  CUDA tensors launch the kernel on the current
-    stream and add one to ``fused_scan_topm.launches``; CPU tensors run
-    the plain version.
+    ``-inf`` with id ``N``.  CUDA tensors launch the score kernel and the
+    radix select on the current stream (``m`` ≤ :data:`SELECT_M_MAX`
+    after clamping; it raises past that) and add one to
+    ``fused_scan_topm.launches``; CPU tensors run the plain version.
     """
     if q.dim() != 2 or proxies.dim() != 2 or q.shape[1] != proxies.shape[1]:
         raise ValueError(f"need (Q, P) × (N, P), got {tuple(q.shape)} × "
                          f"{tuple(proxies.shape)}")
-    n_q, p = q.shape
-    n = proxies.shape[0]
+    n_q, n = q.shape[0], proxies.shape[0]
     if n == 0 or m < 1:
         raise ValueError(f"need a non-empty pool and m ≥ 1 (N={n}, m={m})")
     m = min(m, n)
@@ -106,15 +133,21 @@ def fused_scan_topm(q: torch.Tensor, proxies: torch.Tensor,
     if not (q.is_contiguous() and proxies.is_contiguous()
             and q_ids.is_contiguous()):
         raise ValueError("inputs must be contiguous")
+    if m > SELECT_M_MAX:
+        raise ValueError(f"fused_scan_topm: m = {m} is past the radix "
+                         f"select's domain (m ≤ {SELECT_M_MAX}, its sort "
+                         f"buffer's shared memory)")
+    q, proxies, p4 = _scan_operands(q, proxies)
     out_v = torch.empty((n_q, m), dtype=torch.float32, device=q.device)
     out_i = torch.empty((n_q, m), dtype=torch.int32, device=q.device)
     if n_q:
+        ws = torch.empty((n_q, n), dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             status = _lib("repro_scan_topm")(
                 q.data_ptr(), proxies.data_ptr(), q_ids.data_ptr(),
-                out_v.data_ptr(), out_i.data_ptr(), n_q, n, p, m, _m_pad(m),
-                stream)
+                ws.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), n_q, n,
+                p4, m, stream)
         _build.check(status, "fused_scan_topm")
         fused_scan_topm.launches += 1
     return out_v, out_i
@@ -128,8 +161,9 @@ def select_topm(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
     int32 ids)``, same contract as :func:`fused_scan_topm`; pass
     out-of-range ``q_ids`` (e.g. -1) when the scores already carry their
     knockouts.  CUDA tensors launch the radix-select kernel (``m`` ≤
-    16384 after clamping to N; it raises past that) and add one to
-    ``select_topm.launches``; CPU tensors run the plain version."""
+    :data:`SELECT_M_MAX` after clamping to N; it raises past that) and
+    add one to ``select_topm.launches``; CPU tensors run the plain
+    version."""
     if scores.dim() != 2:
         raise ValueError(f"need (Q, N) scores, got {tuple(scores.shape)}")
     n_q, n = scores.shape

@@ -89,9 +89,10 @@ def _capture(monkeypatch, module):
     got = []
     orig = module._fused_rerank_block
 
-    def grab(r_gather, ratings, norms, counts, q_ids, shorts, **kw):
+    def grab(*args, **kw):
+        q_ids, shorts = args[-2:]        # the last two in both packages
         got.append((to_np(q_ids), to_np(shorts)))
-        return orig(r_gather, ratings, norms, counts, q_ids, shorts, **kw)
+        return orig(*args, **kw)
 
     monkeypatch.setattr(module, "_fused_rerank_block", grab)
     return got
@@ -184,6 +185,81 @@ def test_carried_state_k_exceeds_population(monkeypatch):
     _, t_i = _compare_carried("index.carried.k_gt_u", jix, tix, r, rt,
                               means, monkeypatch, k=12, measure="cosine")
     assert (t_i[:, -1] == -1).all()
+
+
+# -- the fused rerank over the block's real union and rows --------------------
+
+def _padded_rerank_block(ratings, r_gather, norms, counts, q_ids, shorts, *,
+                         ku, k, measure):
+    """The fused rerank as it scored a block before: f32 query rows from
+    the ratings, every (padding included) row of the block, and the union
+    padded with the sentinel to the power of two ``ku``."""
+    from repro_torch.kernels.rerank import rerank_scores_plain
+    n = r_gather.shape[0]
+    u = torch.unique(shorts.long())
+    u = torch.cat([u, u.new_full((ku - u.numel(),), n)])
+    safe_u = u.clamp_max(n - 1)
+    s = rerank_scores_plain(ratings[q_ids.long().clamp_max(n - 1)],
+                            r_gather[safe_u], norms[safe_u], counts[safe_u],
+                            measure=measure)
+    col = torch.searchsorted(u, shorts.long()).clamp(0, ku - 1)
+    sc = torch.gather(s, 1, col)
+    invalid = (shorts >= n) | (shorts == q_ids[:, None])
+    sc = sc.masked_fill(invalid, nb.NEG_INF)
+    ci = torch.where(invalid, torch.full_like(shorts, n), shorts)
+    return tcl._topk_with_padding(sc, ci.to(torch.int32), k, n)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_fused_rerank_block_real_union_equals_padded(measure):
+    """Scoring only the block's real query rows against the real union
+    columns (int8 query rows from the gather source) gives the padded
+    form's top-k bit for bit, ids and scores."""
+    from repro_torch.core import predict as pred
+    rng = np.random.default_rng(23)
+    n, bq, m, k = 90, 16, 21, 7
+    _, rt, _ = _data(23, n, 64)
+    src = pred.make_gather_source(rt)
+    assert src.dtype == torch.int8
+    norms, counts = tcl._user_norms_counts(rt)
+    nv = 11                                      # real rows; then padding
+    q_ids = torch.full((bq,), n, dtype=torch.int32)
+    q_ids[:nv] = torch.from_numpy(rng.choice(n, nv, replace=False)
+                                  .astype(np.int32))
+    shorts = torch.from_numpy(rng.integers(0, n, (bq, m)).astype(np.int32))
+    shorts[rng.random((bq, m)) < 0.2] = n        # sentinel slots
+    shorts[:nv, 0] = q_ids[:nv]                  # self pairs
+    shorts[3] = n                                # a row with no candidates
+    ku = tcl._bucket(min(bq * m, n) + 1)
+    want_s, want_i = _padded_rerank_block(rt, src, norms, counts, q_ids,
+                                          shorts, ku=ku, k=k,
+                                          measure=measure)
+    got_s, got_i = tcl._fused_rerank_block(
+        src, norms, counts, q_ids[:nv], shorts[:nv], k=k, measure=measure,
+        beta=None, use_kernel=False)
+    assert torch.equal(got_i, want_i[:nv])
+    assert torch.equal(got_s.view(torch.int32), want_s[:nv].view(torch.int32))
+    assert (got_i[3] == -1).all()
+
+
+@pytest.mark.parametrize("measure", ("cosine", "pcc"))
+def test_fused_query_reranks_int8_rows_of_real_blocks(measure, monkeypatch):
+    """Integer ratings: the fused rerank gets the int8 gather source and
+    only its block's real rows (the pool branch's one tall block of 256
+    rows holds the 150 users), and the query still equals the
+    reference's."""
+    r, rt, means, jix, tix = _carried(6, 150, 48)
+    seen = []
+    orig = tcl._fused_rerank_block
+
+    def spy(r_gather, norms, counts, q_ids, shorts, **kw):
+        seen.append((r_gather.dtype, q_ids.shape[0], shorts.shape[0]))
+        return orig(r_gather, norms, counts, q_ids, shorts, **kw)
+
+    monkeypatch.setattr(tcl, "_fused_rerank_block", spy)
+    _compare_carried(f"index.carried.int8_rows.{measure}", jix, tix, r, rt,
+                     means, monkeypatch, k=6, measure=measure)
+    assert seen == [(torch.int8, 150, 150)]
 
 
 # -- refold -------------------------------------------------------------------

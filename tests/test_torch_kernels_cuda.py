@@ -126,16 +126,28 @@ def test_centroid_kernel_matches_plain(cuda, m, n, d):
                        got[rows])
 
 
-@pytest.mark.parametrize("q_n,n,p,m,dup", [
-    (130, 257, 33, 17, 1), (37, 300, 24, 17, 1), (21, 240, 12, 25, 8),
-    (9, 40, 8, 999, 1), (300, 6040, 256, 906, 1), (64, 4000, 512, 656, 1),
+@pytest.mark.parametrize("q_n,n,p,m,dup,dead", [
+    (130, 257, 33, 17, 1, False), (37, 300, 24, 17, 1, False),
+    (21, 240, 12, 25, 8, False), (9, 40, 8, 999, 1, False),
+    (300, 6040, 256, 906, 1, False), (64, 4000, 512, 656, 1, False),
+    (2048, 6040, 256, 906, 1, False),       # the approx path's block
+    (2048, 32768, 512, 655, 1, False),      # the U = 32768 index's block
+    (70, 900, 64, 300, 30, False),          # 30 copies of each proxy: ties
+    (40, 500, 16, 50, 1, True),             # rows of −inf scores
+    (33, 60, 16, 60, 1, False),             # m = N
+    (33, 61, 13, 200, 1, False),            # m > N, P not a multiple of 4
 ])
-def test_scan_kernel_matches_plain(cuda, q_n, n, p, m, dup):
+def test_scan_kernel_matches_plain(cuda, q_n, n, p, m, dup, dead):
+    """Ids equal and values equal bit for bit; one launch counted for
+    the two on the card (scores, then the radix select)."""
     from repro_torch.kernels.select import fused_scan_topm, scan_topm_plain
     rng = np.random.default_rng(q_n + n + p)
     q = _unit(rng, q_n, p, cuda)
     prox = _unit(rng, n // dup, p, cuda).repeat_interleave(dup, 0)
     prox = prox.contiguous()
+    if dead:                                 # −inf · positive = −inf
+        q[::3] = float("inf")
+        prox = -prox.abs()
     q_ids = torch.arange(q_n, dtype=torch.int32, device=cuda)
     q_ids[::4] = n
     before = fused_scan_topm.launches
@@ -145,7 +157,23 @@ def test_scan_kernel_matches_plain(cuda, q_n, n, p, m, dup):
     torch.cuda.synchronize()
     name = f"cuda.scan.{q_n}x{n}x{p}.m{m}.dup{dup}"
     assert_parity(name + ".ids", got_i, want_i)
-    assert_parity(name + ".vals", got_v, want_v, atol=1e-6)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32)), \
+        name + ".vals"
+    if dead:
+        assert bool((got_i[::3] == n).all())
+
+
+def test_scan_kernel_raises_past_the_select_domain(cuda):
+    from repro_torch.kernels.select import SELECT_M_MAX, fused_scan_topm
+    rng = np.random.default_rng(3)
+    q, prox = _unit(rng, 4, 16, cuda), _unit(rng, SELECT_M_MAX + 10, 16, cuda)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    before = fused_scan_topm.launches
+    with pytest.raises(ValueError, match="domain"):
+        fused_scan_topm(q, prox, ids, m=SELECT_M_MAX + 1)
+    assert fused_scan_topm.launches == before
+    got_v, got_i = fused_scan_topm(q, prox, ids, m=SELECT_M_MAX)
+    assert got_i.shape == (4, SELECT_M_MAX)
 
 
 @pytest.mark.parametrize("q_n,n,m", [(19, 140, 23), (256, 3000, 906),
@@ -272,23 +300,82 @@ def test_select_radix_rejects_past_its_domain(cuda):
     assert got_i[0].tolist() == list(range(16384))
 
 
+def _rerank_case(case, rng, cuda):
+    """(query rows, candidate rows, max_value) of one rerank test case."""
+    if case == "path":          # int8 × int8 at J = 3952, G, Kc off tiles
+        q = int_ratings(rng, 133, 3952)
+        c = int_ratings(rng, 141, 3952)
+        bound = 5
+    elif case == "wide":        # |values| up to 128: the squares' hi halves
+        q = rng.integers(-128, 128, (37, 300)) * (rng.random((37, 300)) < .5)
+        c = rng.integers(-128, 128, (70, 300)) * (rng.random((70, 300)) < .5)
+        q[:, 0], c[:, 0] = 127, -128
+        bound = 128
+    else:                       # "small", as the f32 cases
+        q, c = int_ratings(rng, 70, 300), int_ratings(rng, 130, 300)
+        bound = 5
+    q, c = np.array(q, np.float32), np.array(c, np.float32)
+    q[1] = 0.0                  # all-zero rows on both sides
+    c[2] = 0.0
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(c).to(cuda),
+            bound)
+
+
 @pytest.mark.parametrize("measure", ["jaccard", "cosine", "pcc", "pcc_sig"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("beta", [50.0, 7.3])
-def test_rerank_kernel_matches_plain(cuda, measure, dtype, beta):
+@pytest.mark.parametrize("case,dtype", [
+    ("small", torch.float32), ("small", torch.int8), ("small", "int8xint8"),
+    ("path", torch.float32), ("path", torch.int8), ("path", "int8xint8"),
+    ("wide", "int8xint8")])
+def test_rerank_kernel_matches_plain(cuda, measure, beta, case, dtype):
+    """f32 queries with f32 or int8 candidates (the "simt" route) and
+    int8 × int8 (the "imma" route): bit for bit, every measure."""
     from repro_torch.kernels.rerank import (fused_rerank_scores,
                                             rerank_scores_plain)
     rng = np.random.default_rng(11)
-    q = torch.from_numpy(int_ratings(rng, 70, 300)).to(cuda)
-    c = torch.from_numpy(int_ratings(rng, 130, 300)).to(cuda)
+    q, c, bound = _rerank_case(case, rng, cuda)
     norms = torch.sqrt((c.double() ** 2).sum(1)).float()
     counts = (c > 0).sum(1).float()
-    got = fused_rerank_scores(q, c.to(dtype), norms, counts,
-                              measure=measure, beta=beta)
-    want = rerank_scores_plain(q, c.to(dtype), norms, counts,
-                               measure=measure, beta=beta)
+    if dtype == "int8xint8":
+        q, c, route = q.to(torch.int8), c.to(torch.int8), "imma"
+    else:
+        c, route = c.to(dtype), "simt"
+    before = dict(fused_rerank_scores.routes)
+    got = fused_rerank_scores(q, c, norms, counts, measure=measure,
+                              beta=beta, max_value=bound)
+    assert fused_rerank_scores.routes[route] == before[route] + 1
+    want = rerank_scores_plain(q, c, norms, counts, measure=measure,
+                               beta=beta)
     torch.cuda.synchronize()
-    assert_parity(f"cuda.rerank.{measure}.{dtype}.{beta}", got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        f"cuda.rerank.{case}.{measure}.{dtype}.{beta}"
+
+
+def test_rerank_kernel_routes_and_domain(cuda):
+    """The route follows the dtypes: int8 × int8 → "imma"; f32 queries
+    (f32 or int8 candidates) → "simt"; int8 queries need int8
+    candidates; the int8 route raises outside its exact domain."""
+    from repro_torch.kernels.rerank import fused_rerank_scores
+    rng = np.random.default_rng(4)
+    r = torch.from_numpy(int_ratings(rng, 40, 3952)).to(cuda)
+    q, c = r[:8].contiguous(), r[8:].contiguous()
+    norms = torch.sqrt((c.double() ** 2).sum(1)).float()
+    counts = (c > 0).sum(1).float()
+    for qq, cc, route in ((q, c, "simt"), (q, c.to(torch.int8), "simt"),
+                          (q.to(torch.int8), c.to(torch.int8), "imma")):
+        before = dict(fused_rerank_scores.routes)
+        fused_rerank_scores(qq, cc, norms, counts, measure="pcc",
+                            max_value=5)
+        assert fused_rerank_scores.routes == {
+            k: v + (k == route) for k, v in before.items()}
+    with pytest.raises(TypeError):
+        fused_rerank_scores(q.to(torch.int8), c, norms, counts)
+    with pytest.raises(ValueError, match="exact domain"):   # 128² · 3952
+        fused_rerank_scores(q.to(torch.int8), c.to(torch.int8), norms,
+                            counts)
+    with pytest.raises(ValueError, match="exact domain"):   # 66² · 3952
+        fused_rerank_scores(q.to(torch.int8), c.to(torch.int8), norms,
+                            counts, max_value=66)
 
 
 def test_approx_engine_kernel_equals_plain_on_card(cuda):

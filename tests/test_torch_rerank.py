@@ -99,3 +99,51 @@ def test_rerank_rejects_bad_input():
     with pytest.raises(ValueError):
         fused_rerank_scores(q, torch.zeros(3, 6), torch.zeros(3),
                             torch.zeros(3), measure="dice")
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("beta", [50.0, 7.3])
+def test_rerank_int8_query_rows_equal_f32_rows(measure, beta):
+    """The int8 route's operands: int8 query rows (with int8 candidates)
+    give the f32 rows' scores bit for bit, in the plain version and
+    through the wrapper on the CPU, and the reference's oracle agrees."""
+    q, c, norms, counts = _case(13, 29, 70, 200)
+    nc = (torch.from_numpy(norms), torch.from_numpy(counts))
+    want = rerank_scores_plain(torch.from_numpy(q), torch.from_numpy(c), *nc,
+                               measure=measure, beta=beta)
+    q8 = torch.from_numpy(q).to(torch.int8)
+    c8 = torch.from_numpy(c).to(torch.int8)
+    for got in (rerank_scores_plain(q8, c8, *nc, measure=measure, beta=beta),
+                fused_rerank_scores(q8, c8, *nc, measure=measure,
+                                    beta=beta, max_value=5)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    jax_want = jref.rerank_scores_ref(jnp.asarray(q), jnp.asarray(c),
+                                      jnp.asarray(norms),
+                                      jnp.asarray(counts), measure=measure,
+                                      beta=beta)
+    assert_parity(f"rerank.int8_queries.{measure}.beta{beta}", want,
+                  jax_want)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_rerank_zero_padded_items_change_nothing(measure):
+    """The int8 route stages J in 16-byte copies, so the wrapper pads both
+    operands' rows with zeros to a multiple of 16: zeros add nothing to
+    any Gram sum, and the scores are the same bits — also for values up to
+    127 and below zero, where the squares leave a byte."""
+    rng = np.random.default_rng(17)
+    q = rng.integers(-128, 128, (9, 300)) * (rng.random((9, 300)) < 0.4)
+    c = rng.integers(-128, 128, (14, 300)) * (rng.random((14, 300)) < 0.4)
+    q[2] = 0                                     # an all-zero row
+    c[5] = 0
+    q8, c8 = (torch.from_numpy(x.astype(np.int8)) for x in (q, c))
+    norms = torch.from_numpy(np.sqrt((c.astype(np.float64) ** 2).sum(1))
+                             .astype(np.float32))
+    counts = torch.from_numpy((c > 0).sum(1).astype(np.float32))
+    want = rerank_scores_plain(q8, c8, norms, counts, measure=measure)
+    pad = (0, 4)                                 # 300 → 304 = 19 · 16
+    got = rerank_scores_plain(torch.nn.functional.pad(q8, pad),
+                              torch.nn.functional.pad(c8, pad), norms,
+                              counts, measure=measure)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isfinite(want).all())

@@ -19,9 +19,9 @@ import torch
 from _torch_parity import assert_parity, to_np
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
-from repro_torch.kernels.select import (_m_pad, fused_scan_topm,
-                                        scan_topm_twin, select_topm,
-                                        smallest_k, topk_canonical)
+from repro_torch.kernels.select import (fused_scan_topm, scan_topm_twin,
+                                        select_topm, smallest_k,
+                                        topk_canonical)
 
 
 def _int_case(rng, q_n, n, p, dup=1):
@@ -141,8 +141,6 @@ def test_twin_and_helpers():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(NotImplementedError):
         scan_topm_twin(q, p, ids, m=5, approx=True)
-    assert [_m_pad(m) for m in (1, 128, 129, 906, 656)] == \
-        [128, 128, 256, 1024, 768]
     d = torch.tensor([[3.0, 1.0, 1.0, 0.5], [2.0, 2.0, 2.0, 2.0]])
     v, i = smallest_k(d, 3)
     assert i.tolist() == [[3, 1, 2], [0, 1, 2]] and v[0, 0] == 0.5
@@ -160,3 +158,27 @@ def test_wrappers_reject_bad_input():
         fused_scan_topm(q, torch.zeros(5, 3), ids3, m=2)
     with pytest.raises(ValueError):
         select_topm(torch.zeros(4), torch.zeros(4, dtype=torch.int32), m=2)
+
+
+@pytest.mark.parametrize("p", [1, 12, 33, 255])
+def test_proxy_scores_zero_padding_keeps_bits(p):
+    """The scan kernel stages P in 16-byte copies, so the wrapper pads the
+    proxy rows with zeros to a multiple of 4 (and the kernel's last K
+    slice is zero-filled): each pad adds 0·0 = +0 to a sum that starts at
+    +0 and so is never −0, which leaves every score's bits as they are —
+    infinities and NaN included."""
+    rng = np.random.default_rng(p)
+    q = rng.normal(size=(7, p)).astype(np.float32)
+    prox = rng.normal(size=(30, p)).astype(np.float32)
+    q[1] = 0.0
+    prox[2, 0] = np.inf
+    prox[3, 0] = -np.inf
+    prox[4, 0] = np.nan
+    prox[5] = -0.0
+    qt, pt = torch.from_numpy(q), torch.from_numpy(prox)
+    want = ref.proxy_scores_ref(qt, pt)
+    pad = (0, -(-p // 32) * 32 - p)
+    got = ref.proxy_scores_ref(torch.nn.functional.pad(qt, pad),
+                               torch.nn.functional.pad(pt, pad))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not bool((want.view(torch.int32) == -2 ** 31).any())  # no −0.0

@@ -1,27 +1,44 @@
-"""Time kernels 8 and 5 of the PyTorch/CUDA port at their path shapes on
-seeded random inputs, beside their library yardsticks.
+"""Time kernels 8, 5, 4 and 6 of the PyTorch/CUDA port at their path
+shapes on seeded inputs, beside their library yardsticks.
 
-    python3 tools/kernel_times.py
+    python3 tools/kernel_times.py [--src DIR] [--only index]
 
 Run from the repository root on a machine with a CUDA card.  Prints one
 line each: the flash-attention prefill launch (Llama-3.2-1B's layer
 shape: B 4, Hq 32, Hkv 8, S 2048, d 64, bf16, causal) against
 ``scaled_dot_product_attention``; its decode launch (Sq 1 against 2049
 of 2080 cached keys); each launch's max abs diff from the plain version;
-and ``select_topm`` at the cluster query's shape (Q 256, L 8192, m 906)
-and the item index's (Q 6040, L 3952, m 512) against ``torch.topk``,
-with its plain version (ids and values must be equal).  Times are CUDA
-events over back-to-back calls, the host's enqueue included.
+``select_topm`` at the cluster query's shape (Q 256, L 8192, m 906) and
+the item index's (Q 6040, L 3952, m 512) against ``torch.topk``, with its
+plain version (ids and values must be equal); then the index kernels
+(``--only index`` runs these alone): ``fused_scan_topm`` at the approx
+path's block (Q 2048, N 6040, P 256, m 906) and at the U = 32768 index's
+(Q 2048, N 32768, P 512, m 655) against ``matmul`` + ``topk`` and, where
+the tree has the score launch alone, against its two launches run in
+L2-sized row slabs, and ``fused_rerank_scores`` (pcc) on one 2048-query block of the
+ML-1M surrogate as the path calls it — int8 queries over the 6040 real
+union columns and the sentinel where the tree takes int8 queries, f32
+queries over the union padded to 8192 columns as the previous design
+did — each held to its plain version bit for bit.  ``--src DIR`` imports
+``repro_torch`` from DIR (an unpacked parent tree, to time two designs in
+one call).  Times are CUDA events over back-to-back calls, the host's
+enqueue included.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
+import inspect
 import os
 import sys
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-    __file__)), "..", "src"))
+_ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+_ARGS.add_argument("--src", default=os.path.join(os.path.dirname(
+    os.path.abspath(__file__)), "..", "src"))
+_ARGS.add_argument("--only", choices=("index",), default=None)
+ARGS = _ARGS.parse_args()
+sys.path.insert(0, os.path.abspath(ARGS.src))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -41,13 +58,85 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bitwise(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def scan_in_slabs(sel, q, pool, ids, m, slab_bytes):
+    """The scan's two launches row slab by row slab, each slab's scores
+    small enough to stay in the 50 MB L2 until its select reads them: the
+    alternative to the one workspace the scan ships with."""
+    rows = max(1, slab_bytes // (4 * pool.shape[0]))
+    for r0 in range(0, q.shape[0], rows):
+        scores = sel.proxy_scores_cuda(q[r0:r0 + rows], pool)
+        sel.select_topm(scores, ids[r0:r0 + rows], m=m)
+
+
+def index_kernels(dev) -> bool:
+    """Kernels 4 and 6 at their path shapes; False on any mismatch."""
+    import repro_torch.kernels.select as sel
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.kernels.rerank import (fused_rerank_scores,
+                                            rerank_scores_plain)
+    ok = True
+    rng = np.random.default_rng(0)
+    for n, p, m in ((6040, 256, 906), (32768, 512, 655)):
+        x = rng.normal(size=(n, p)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        pool = torch.from_numpy(x).to(dev)
+        q = pool[:2048].contiguous()
+        ids = torch.arange(2048, dtype=torch.int32, device=dev)
+        got = sel.fused_scan_topm(q, pool, ids, m=m)
+        want = sel.scan_topm_plain(q, pool, ids, m)
+        same = torch.equal(got[1], want[1]) and bitwise(got[0], want[0])
+        ok &= same
+        line = (f"scan Q=2048 N={n} P={p} m={m} bitwise {same} ms "
+                f"{time_ms(lambda: sel.fused_scan_topm(q, pool, ids, m=m))!r}"
+                f" matmul+topk {time_ms(lambda: torch.topk(q @ pool.T, m))!r}")
+        if hasattr(sel, "proxy_scores_cuda"):
+            for mb in (16, 32):
+                line += f" slabs{mb}MB " + repr(time_ms(
+                    lambda: scan_in_slabs(sel, q, pool, ids, m, mb << 20)))
+        print(line, flush=True)
+    train, _, _ = load_ml1m_synthetic()
+    r = torch.from_numpy(train).to(dev)
+    n = r.shape[0]
+    r8 = r.to(torch.int8)
+    norms = torch.sqrt((r.double() ** 2).sum(1)).float()
+    counts = (r > 0).sum(1).float()
+    u = torch.arange(n + 1, device=dev).clamp_max(n - 1)   # + the sentinel
+    ku = torch.cat([u, u.new_full((8192 - u.numel(),), n - 1)])
+    forms = [("previous form: f32 queries, union padded to 8192", r[:2048],
+              ku, {})]
+    if "max_value" in inspect.signature(fused_rerank_scores).parameters:
+        forms.append(("int8 queries, 6040 real columns + sentinel",
+                      r8[:2048], u, {"max_value": 5}))
+    for name, q, cols, kw in forms:
+        q = q.contiguous()
+        c, cn, cc = (t[cols].contiguous() for t in (r8, norms, counts))
+        got = fused_rerank_scores(q, c, cn, cc, measure="pcc", **kw)
+        same = bitwise(got, rerank_scores_plain(q, c, cn, cc, measure="pcc"))
+        ok &= same
+        print(f"rerank pcc G=2048 Kc={c.shape[0]} J={c.shape[1]} ({name}) "
+              f"bitwise {same} ms "
+              f"{time_ms(lambda: fused_rerank_scores(q, c, cn, cc, measure='pcc', **kw), 5)!r}",
+              flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
         return 2
+    dev = "cuda"
+    print(f"repro_torch from {os.path.abspath(ARGS.src)}")
+    if ARGS.only == "index":
+        ok = index_kernels(dev)
+        print(torch.cuda.get_device_name(0))
+        return 0 if ok else 1
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels.select import select_topm, select_topm_twin
-    dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
@@ -87,8 +176,9 @@ def main() -> int:
               f"{time_ms(lambda: select_topm_twin(sc, none, m=m), 5)!r}")
         if not same:
             return 1
+    ok = index_kernels(dev)
     print(torch.cuda.get_device_name(0))
-    return 0
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
