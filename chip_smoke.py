@@ -9,12 +9,21 @@ per source, in parallel).  Phases, each ended by a device synchronize:
 
 1. environment — card name and power limit, torch/CUDA versions, build;
 2. each kernel against its plain PyTorch version on the card, at ragged
-   shapes and at the main path's shapes (max abs diff ≤ 1e-6 required);
+   shapes and at the main path's shapes (max abs diff ≤ 1e-6 required;
+   0.0 for the similarity kernel): the similarity kernel's two routes by
+   name (``fused_similarity.routes``: "simt" for f32 rows, "imma" for the
+   same values as int8), every measure (pcc_sig and "all" included), m
+   and n off the 128 / 64 / 16 tiles, D off 16, signed values at
+   max_value 15 (one u8 square plane) and 16 (the hi plane too), and the
+   exact domain's edge (max_value² · D = 2^24 taken, one item more and
+   int8 at D = 3952 without max_value raising);
 3. the main path at the paper's size (ML-1M surrogate, 6040 × 3952,
    pcc, k = 40): ``CFEngine(backend="kernel")`` fit → predict / MAE →
    ``recommend`` → ``update_ratings`` (oracle-checked) → a
    ``BatchingServer`` answering 512 requests; the kernels' launch counts
-   are zeroed just before and read just after, and must be > 0.  Then the
+   are zeroed just before and read just after, and must be > 0, every
+   similarity launch on the "imma" route; a steady fit's wall and device
+   time under ``torch.profiler``.  Then the
    sequential backend (plain torch) must give the same neighbor and item
    ids, and a small input must agree between the CPU path and the card;
 4. the approximate index's kernels (centroid distances, scan / select
@@ -45,9 +54,12 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    the earlier designs' 0.9489044189453125; every rerank launch of the
    query on the "imma" route;
 7. the support kernel (the item index's segmented SpMM) against its
-   plain version on the card, at ragged shapes (b = 1, widths not a
+   plain versions on the card, at ragged shapes (b = 1, widths not a
    multiple of 512 or of 4, all-masked rows, k = 1) and at the full
-   6040-user chunk (max abs diff 0.0 required), and the identity that
+   6040-user chunk (max abs diff 0.0 required): the "table" route on
+   random tables, and both routes by name (``fused_support_scores.routes``:
+   "int8" from int8 ratings and means, "table" from the tables of the same
+   data) against the int8 route's plain version; and the identity that
    makes the approx recommend exact: on integer ratings the support score
    equals the tile-predict kernel's exact prediction bit for bit;
 8. the approx-recommend path at 6040 × 3952, pcc, k = 40, exact
@@ -58,7 +70,9 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    (oracle-checked, item index included) → a ``BatchingServer`` with a
    ``DegradationLadder(staged_when_degraded=False)`` answering 256
    requests (none returns a rated item), with the launch counts zeroed
-   before and read after (kernels 3, 5 and 7 must be > 0); then the item
+   before and read after (kernels 3, 5 and 7 must be > 0, every support
+   launch on the "int8" route, and the update patching the gather source
+   and building no table); then the item
    index on the plain versions (``use_kernel=False``) must fit and
    recommend bitwise the same;
 9. ``BENCH_recommend.json``'s ``recommend_cosine_U32768`` row on phase
@@ -91,7 +105,11 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     tokens: logits compared at every step, argmax equal on every row
     whose plain top-2 margin exceeds 0.05;
 12. each kernel's time against its plain version, a library yardstick
-    and its bound, at the main paths' shapes (CUDA events), the flash
+    and its bound, at the main paths' shapes (CUDA events); the
+    similarity kernel's "imma" launch also beside six ``torch._int_mm``
+    calls, its f32 "simt" route and the f32 peak's bound; the support
+    kernel's "int8" route also beside its "table" route, the tables'
+    bytes bound and the pinned order's no-FMA floor; the flash
     kernel at its prefill and its decode launch (that launch's inputs
     also as f32 copies against the plain version, atol 1e-5), the select
     at both of its path shapes (the cluster query's Q 256 × L 8192,
@@ -316,26 +334,64 @@ def phase_kernels(dev, rng, train_dev):
     from repro_torch.kernels.similarity import (fused_similarity,
                                                 similarity_plain)
     err = {"similarity": 0.0, "predict": 0.0}
-    shapes = [((257, 3952), (131, 3952)), ((1, 17), (33, 17))]
-    for (m, d), (n, _) in shapes:
-        ra = int_ratings(rng, m, d, 0.3).to(dev)
-        rb = int_ratings(rng, n, d, 0.3).to(dev)
-        for measure in ("jaccard", "cosine", "pcc", "pcc_sig", "all"):
-            e = max_diff(fused_similarity(ra, rb, measure=measure),
-                         similarity_plain(ra, rb, measure=measure))
-            err["similarity"] = max(err["similarity"], e)
-            log(f"  similarity {measure:8s} ({m},{d})x({n},{d}) "
-                f"max_abs_diff={e!r}")
-            check(e <= TOL, f"similarity {measure} ({m},{n},{d}) diff {e}")
-    block = train_dev[:1024].contiguous()
-    for measure in ("jaccard", "cosine", "pcc", "pcc_sig", "all"):
-        e = max_diff(fused_similarity(train_dev, block, measure=measure),
-                     similarity_plain(train_dev, block, measure=measure))
-        err["similarity"] = max(err["similarity"], e)
-        log(f"  similarity {measure:8s} {tuple(train_dev.shape)}x"
-            f"{tuple(block.shape)} max_abs_diff={e!r}")
-        check(e <= TOL, f"similarity {measure} full-size diff {e}")
+
+    def sim_routes(name, ra, rb, max_value):
+        """Every measure on both routes, by name: f32 rows → "simt", the
+        same values as int8 → "imma", each bit for bit with the plain
+        version (0.0 required)."""
+        for route, a, b in (("simt", ra, rb),
+                            ("imma", ra.to(torch.int8), rb.to(torch.int8))):
+            for measure in ("jaccard", "cosine", "pcc", "pcc_sig", "all"):
+                before = dict(fused_similarity.routes)
+                got = fused_similarity(a, b, measure=measure,
+                                       max_value=max_value)
+                check(fused_similarity.routes == {
+                    k: v + (k == route) for k, v in before.items()},
+                    f"similarity {name} {measure} took the {route} route")
+                e = max_diff(got, similarity_plain(a, b, measure=measure))
+                err["similarity"] = max(err["similarity"], e)
+                check(e == 0.0, f"similarity {route} {measure} {name} "
+                      f"diff {e}")
+            log(f"  similarity {route} (5 measures) {name} max_value "
+                f"{max_value} max_abs_diff={err['similarity']!r}")
         torch.cuda.synchronize()
+
+    def signed(rows, d, bound):
+        x = rng.integers(-bound, bound + 1, (rows, d)) \
+            * (rng.random((rows, d)) < 0.5)
+        x[0] = bound                                 # a row at the bound
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    # ragged m, n (off the 128 / 64 / 16 tiles) and D (off 16: padded)
+    for m, n, d in ((257, 131, 3952), (1, 33, 17), (129, 65, 3952),
+                    (200, 100, 1000), (17, 1, 3)):
+        sim_routes(f"({m},{d})x({n},{d})", int_ratings(rng, m, d, 0.3)
+                   .to(dev), int_ratings(rng, n, d, 0.3).to(dev), 5)
+    # |v| ≤ 15: one u8 square plane; 16: the hi plane joins
+    for bound in (15, 16):
+        sim_routes(f"(150,1000)x(70,1000) signed", signed(150, 1000, bound),
+                   signed(70, 1000, bound), bound)
+    # the domain's edge: max_value² · D = 2^24 is taken, one item more
+    # raises, as does D = 3952 without max_value (int8's own 128)
+    edge = signed(40, 4096, 64)
+    edge[1] = 64.0                      # dot(row 0, row 1) = 2^24
+    sim_routes("(40,4096)x(40,4096) at max_value² · D = 2^24", edge, edge,
+               64)
+    for a, kw in ((torch.zeros(3, 4097, dtype=torch.int8, device=dev),
+                   {"max_value": 64}),
+                  (train_dev[:8].to(torch.int8), {})):
+        try:
+            fused_similarity(a, a, measure="pcc", **kw)
+        except ValueError as exc:
+            check("exact domain" in str(exc), "domain error message")
+        else:
+            check(False, f"int8 similarity at D={a.shape[1]}, {kw} must "
+                  f"raise outside the exact domain")
+    log("  similarity imma: max_value² · D = 2^24 taken; 2^24 + 4096 and "
+        "no max_value at D = 3952 raise")
+    block = train_dev[:1024].contiguous()
+    sim_routes(f"{tuple(train_dev.shape)}x{tuple(block.shape)}", train_dev,
+               block, 5)
 
     src = pr.make_gather_source(train_dev)
     means = pr.user_means(train_dev)
@@ -375,6 +431,7 @@ def phase_main_path(dev, train, test):
 
     out = {}
     fused_similarity.launches = 0
+    fused_similarity.routes = dict.fromkeys(fused_similarity.routes, 0)
     fused_tile_predict.launches = 0
     t0 = time.perf_counter()
     eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
@@ -382,6 +439,10 @@ def phase_main_path(dev, train, test):
     torch.cuda.synchronize()
     out["fit_s"] = time.perf_counter() - t0
     fit_idx, fit_scores = eng.idx.clone(), eng.scores.clone()
+    out["fit_routes"] = dict(fused_similarity.routes)
+    check(out["fit_routes"]["imma"] == fused_similarity.launches > 0,
+          f"every similarity launch of the fit on the int8 route: "
+          f"{out['fit_routes']}")
 
     t0 = time.perf_counter()
     pred = eng.predict()
@@ -435,8 +496,15 @@ def phase_main_path(dev, train, test):
     torch.cuda.synchronize()
     out["launches"] = {"similarity": fused_similarity.launches,
                        "predict": fused_tile_predict.launches}
+    out["routes"] = dict(fused_similarity.routes)
     check(out["launches"]["similarity"] > 0, "similarity kernel launched")
+    check(out["routes"]["imma"] == out["launches"]["similarity"],
+          f"every similarity launch of the main path on the int8 route: "
+          f"{out['routes']}")
     check(out["launches"]["predict"] > 0, "tile predict kernel launched")
+    # a steady fit's wall and device time (torch.profiler)
+    out["fit_profile"] = profile_each((("exact fit (steady)", eng.fit),),
+                                      n_rows=3)[0]
 
     # the sequential backend (plain torch.matmul path) on the same input
     seq = CFEngine(train, measure="pcc", k=40, backend="sequential",
@@ -818,31 +886,53 @@ def support_args(rng, b, k, u, i, dev, masked=False):
 
 def chunk_operands(eng):
     """The support scorer's operands for every user of an engine, as the
-    item index builds them: the padded (U, I') tables and the masked
-    weights / clipped ids of the neighbor cache."""
-    from repro_torch.index.item_index import _dense_tables
-    from repro_torch.kernels.support import BT
+    item index builds them: the padded (U, I') tables (the "table"
+    route's), the int8 rating matrix (the "int8" route's, with the
+    means), and the masked weights / clipped ids of the neighbor cache."""
+    from repro_torch.kernels.support import support_tables, support_width
     ratings, scores, idx, means = eng.snapshot()
-    n_items = ratings.shape[1]
-    tbl = _dense_tables(ratings, means, n_items + (-n_items) % BT)
+    tbl = support_tables(ratings, means, support_width(ratings.shape[1]))
     safe = torch.where(idx >= 0, idx, 0).to(torch.int32).contiguous()
     w = torch.where((scores > 0) & (idx >= 0), scores,
                     torch.zeros_like(scores)).contiguous()
-    return tbl, safe, w, means.contiguous()
+    return tbl, ratings.to(torch.int8), safe, w, means.contiguous()
+
+
+def support_routes(name, r8, tables, rest, want):
+    """The support scorer on both routes by name — "int8" from the int8
+    ratings and means, "table" from the tables of the same data — each
+    bit for bit with ``want`` (0.0 required); returns the int8 route's
+    output and the larger diff."""
+    from repro_torch.kernels.support import fused_support_scores
+    outs, err = {}, 0.0
+    for route, ops in (("int8", r8), ("table", tables)):
+        before = dict(fused_support_scores.routes)
+        outs[route] = fused_support_scores(*ops, *rest)
+        check(fused_support_scores.routes == {
+            k: v + (k == route) for k, v in before.items()},
+            f"support {name} took the {route} route")
+        e = max_diff(outs[route], want)
+        err = max(err, e)
+        check(e == 0.0, f"support {route} route {name} diff {e}")
+    return outs["int8"], err
 
 
 def phase_support_kernel(dev, rng, eng):
-    """Phase 7: the support kernel against its plain version on the card,
-    and the support score against the tile-predict kernel (identity)."""
+    """Phase 7: the support kernel on both routes against its plain
+    versions on the card, and the support score against the tile-predict
+    kernel (identity)."""
     from repro_torch.core import predict as pr
     from repro_torch.kernels.support import (fused_support_scores,
-                                             support_scores_plain)
+                                             support_scores_int8_plain,
+                                             support_scores_plain,
+                                             support_tables, support_width)
     err = 0.0
     for b, k, u, i, masked in ((1, 40, 300, 3952, False),
                                (5, 7, 40, 130, True), (1, 1, 17, 7, False),
                                (33, 40, 300, 1024, True),
                                (257, 40, 6040, 4096, False),
                                (2, 12, 50, 513, False)):
+        # the table route on random tables
         args = support_args(rng, b, k, u, i, dev, masked)
         got = fused_support_scores(*args)
         e = max_diff(got, support_scores_plain(*args))
@@ -852,13 +942,30 @@ def phase_support_kernel(dev, rng, eng):
             check(torch.equal(got[1::2], args[4][1::2, None].clamp(1, 5)
                               .expand_as(got[1::2])),
                   "all-masked rows fall back to the query mean")
+        # both routes on integer ratings and their users' means
+        r8 = int_ratings(rng, u, i, 0.3).to(dev, torch.int8)
+        means = torch.from_numpy(rng.uniform(2, 4, u).astype(np.float32)) \
+            .to(dev)
+        rest = args[2:]
+        want = support_scores_int8_plain(r8, means, *rest)
+        got8, e8 = support_routes(
+            f"b={b} k={k} U={u} I={i}", (r8, means),
+            support_tables(r8, means, support_width(i)), rest, want)
+        err = max(err, e8)
+        if masked:
+            check(torch.equal(got8[1::2], args[4][1::2, None].clamp(1, 5)
+                              .expand_as(got8[1::2])),
+                  "int8 route: all-masked rows fall back to the query mean")
         log(f"  support_scores b={b} k={k} U={u} I'={i} "
-            f"{'masked rows ' if masked else ''}max_abs_diff={e!r}")
-    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
-    got = fused_support_scores(dev_t, msk_t, safe, w, means)
-    e = max_diff(got, support_scores_plain(dev_t, msk_t, safe, w, means))
+            f"{'masked rows ' if masked else ''}table route on random "
+            f"tables max_abs_diff={e!r}; int8 and table routes on integer "
+            f"ratings max_abs_diff={e8!r}")
+    (dev_t, msk_t), r8, safe, w, means = chunk_operands(eng)
+    rest = (safe, w, means)
+    got, e = support_routes("at the 6040-user chunk", (r8, means),
+                            (dev_t, msk_t), rest,
+                            support_scores_plain(dev_t, msk_t, *rest))
     err = max(err, e)
-    check(e == 0.0, f"support at the 6040-user chunk diff {e}")
     ratings, scores, idx, _ = eng.snapshot()
     exact = pr.predict_from_neighbors_blocked(
         ratings, scores, idx, means=means, item_block=512,
@@ -867,8 +974,9 @@ def phase_support_kernel(dev, rng, eng):
     check(torch.equal(got[:, :n_items], exact),
           "support kernel == tile-predict kernel (exact prediction)")
     log(f"  support_scores at the {tuple(ratings.shape)} chunk (I'="
-        f"{dev_t.shape[1]}, k={safe.shape[1]}) max_abs_diff={e!r}; equal "
-        f"bit for bit to predict_from_neighbors_blocked(use_kernel=True)")
+        f"{dev_t.shape[1]}, k={safe.shape[1]}): int8 and table routes "
+        f"max_abs_diff={e!r} against the plain version; equal bit for bit "
+        f"to predict_from_neighbors_blocked(use_kernel=True)")
     torch.cuda.synchronize()
     return err
 
@@ -879,10 +987,13 @@ def phase_recommend(dev, train):
     from repro_torch.core.facade import CFEngine
     from repro_torch.index import ItemClusteredIndex, ItemIndexConfig
     from repro_torch.serving.engine import BatchingServer, DegradationLadder
+    from repro_torch.kernels.support import fused_support_scores
     wrappers = all_wrappers()
     out = {}
     for fn in wrappers.values():
         fn.launches = 0
+    fused_support_scores.routes = dict.fromkeys(fused_support_scores.routes,
+                                                0)
     t0 = time.perf_counter()
     eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
                    recommend_mode="approx", device=dev).fit()
@@ -930,7 +1041,10 @@ def phase_recommend(dev, train):
                      "n_full_rows": lr.n_full_rows,
                      "caches_patched": lr.caches_patched,
                      "profile_refold": lr.profile_refold}
-    check(lr.caches_patched == 2, "gather source and scorer tables patched")
+    # the scorer's int8 route reads the patched gather source: no
+    # tables are built or patched
+    check(lr.caches_patched == 1 and ix._support_dense_cache is None,
+          "gather source patched, no scorer tables")
     s_ap, i_ap = eng.recommend(n=10)
     s_ex, i_ex = eng.recommend(n=10, mode="exact")
     check(torch.equal(i_ap, i_ex) and torch.equal(s_ap, s_ex),
@@ -963,6 +1077,9 @@ def phase_recommend(dev, train):
     for name in ("cluster", "select", "support"):
         check(out["launches"][name] > 0,
               f"{name} kernel launched on the approx-recommend path")
+    out["support_routes"] = dict(fused_support_scores.routes)
+    check(out["support_routes"]["int8"] == out["launches"]["support"],
+          f"every support launch on the int8 route: {out['support_routes']}")
 
     # the item index on the plain versions (use_kernel=False), on the card
     t0 = time.perf_counter()
@@ -1042,10 +1159,10 @@ def phase_select_item_timing(dev, eng):
     −inf), m = the default shortlist, beside ``torch.topk``."""
     from repro_torch.kernels.select import select_topm, select_topm_twin
     from repro_torch.kernels.support import fused_support_scores
-    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
+    _, r8, safe, w, means = chunk_operands(eng)
     ratings = eng.snapshot()[0]
     n_items = ratings.shape[1]
-    sc = fused_support_scores(dev_t, msk_t, safe, w, means)[:, :n_items]
+    sc = fused_support_scores(r8, means, safe, w, means)[:, :n_items]
     sc = sc.masked_fill(ratings > 0, float("-inf")).contiguous()
     q_n = sc.shape[0]
     m = min(eng.item_index.cfg.shortlist, n_items)
@@ -1068,18 +1185,23 @@ def phase_select_item_timing(dev, eng):
 
 
 def phase_support_timings(dev, eng, err, launches):
-    """Phase 12 (kernel 7): kernel vs plain vs torch.sparse.mm at one
+    """Phase 12 (kernel 7): both routes vs plain vs torch.sparse.mm at one
     6040-user chunk of the approx-recommend path."""
     from repro_torch.kernels.support import (fused_support_scores,
-                                             support_scores_plain)
-    (dev_t, msk_t), safe, w, means = chunk_operands(eng)
+                                             support_scores_int8_plain)
+    (dev_t, msk_t), r8, safe, w, means = chunk_operands(eng)
     b, k = safe.shape
     u, width = dev_t.shape
-    args = (dev_t, msk_t, safe, w, means)
-    e = max_diff(fused_support_scores(*args), support_scores_plain(*args))
+    n_items = r8.shape[1]
+    args8 = (r8, means, safe, w, means)
+    args_t = (dev_t, msk_t, safe, w, means)
+    want = support_scores_int8_plain(*args8)
+    e = max(max_diff(fused_support_scores(*args8), want),
+            max_diff(fused_support_scores(*args_t), want))
     check(e == 0.0, f"support at timing shape diff {e}")
-    ms = time_ms(lambda: fused_support_scores(*args), reps=10)
-    plain_ms = time_ms(lambda: support_scores_plain(*args), reps=3)
+    ms = time_ms(lambda: fused_support_scores(*args8), reps=20)
+    table_ms = time_ms(lambda: fused_support_scores(*args_t), reps=20)
+    plain_ms = time_ms(lambda: support_scores_int8_plain(*args8), reps=3)
     # the library yardstick: the (b, U) CSR weight matrix against the
     # stacked (U, 2I') [dev | msk] table — the same SpMM, no epilogue
     crow = torch.arange(0, b * k + 1, k, dtype=torch.int64, device=dev)
@@ -1089,19 +1211,22 @@ def phase_support_timings(dev, eng, err, launches):
     lib_ms = time_ms(lambda: torch.sparse.mm(wmat, stacked), reps=10)
     del stacked
     rows_read = int(torch.unique(safe).numel())
-    n_bytes = 2.0 * rows_read * width * 4 + b * k * 8.0 + b * 4.0 \
-        + b * width * 4.0
+    common = b * k * 8.0 + b * 4.0 + b * width * 4.0
     n_ops = 4.0 * b * k * width + 5.0 * b * width
-    bound, by = bound_ms(n_bytes, n_ops)
+    bound, by = bound_ms(rows_read * (n_items + 4.0) + common, n_ops)
+    table_bound = bound_ms(2.0 * rows_read * width * 4 + common, n_ops)[0]
     torch.cuda.synchronize()
     return [{"name": "fused_support_scores", "route": "cuda",
              "source": "src/repro_torch/csrc/support.cu",
              "replaces": "src/repro/kernels/support.py:68",
              "launches": launches["support"], "max_abs_err": max(err, e),
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": by, "library_ms": lib_ms,
-             "shape": f"b={b} k={k} U={u} I'={width} ({rows_read} distinct "
-                      f"neighbor rows)"}]
+             "bound_by": by, "library_ms": lib_ms, "table_ms": table_ms,
+             "table_bound_ms": table_bound,
+             "nofma_floor_ms": 4.0 * b * k * width
+             / (PEAK_F32_OPS_PER_S / 2) * 1e3,
+             "shape": f"b={b} k={k} U={u} I={n_items} I'={width} "
+                      f"({rows_read} distinct neighbor rows), int8 route"}]
 
 
 def phase_timings(dev, eng, err, launches):
@@ -1114,10 +1239,22 @@ def phase_timings(dev, eng, err, launches):
                                                 similarity_plain)
     ratings, scores, idx, means = eng.snapshot()
     u, d = ratings.shape
+    # one launch of the fit as it runs: the int8 operand, its max_value
+    src = pr.make_gather_source(ratings)
+    check(src.dtype == torch.int8, "the fit's similarity operand is int8")
+    bound8 = int(src.max())
+    block8 = src[:1024]
     block = ratings[:1024].contiguous()
     n = block.shape[0]
-    sim_ms = time_ms(lambda: fused_similarity(ratings, block,
-                                              measure="pcc"))
+    want = similarity_plain(ratings, block, measure="pcc")
+    e = max(max_diff(fused_similarity(src, block8, measure="pcc",
+                                      max_value=bound8), want),
+            max_diff(fused_similarity(ratings, block, measure="pcc"), want))
+    check(e == 0.0, f"similarity at timing shape diff {e}")
+    sim_ms = time_ms(lambda: fused_similarity(src, block8, measure="pcc",
+                                              max_value=bound8), reps=20)
+    simt_ms = time_ms(lambda: fused_similarity(ratings, block,
+                                               measure="pcc"))
     sim_plain = time_ms(lambda: similarity_plain(ratings, block,
                                                  measure="pcc"))
     ma, mb = (ratings > 0).float(), (block > 0).float()
@@ -1125,11 +1262,15 @@ def phase_timings(dev, eng, err, launches):
            (ratings * ratings, mb.T), (ma, (block * block).T)]
     ops = [(a.contiguous(), b.contiguous()) for a, b in ops]
     sim_lib = time_ms(lambda: [torch.matmul(a, b) for a, b in ops])
-    e = max_diff(fused_similarity(ratings, block, measure="pcc"),
-                 similarity_plain(ratings, block, measure="pcc"))
-    check(e <= TOL, f"similarity at timing shape diff {e}")
-    sim_bound, sim_by = bound_ms((u * d + n * d + u * n) * 4.0,
-                                 12.0 * u * n * d)
+    # the same six integer sums as torch._int_mm (squares ≤ 25 fit int8)
+    m8a, m8b = (src > 0).to(torch.int8), (block8 > 0).to(torch.int8)
+    planes = [(m8a, m8b), (src, block8), (src, m8b), (m8a, block8),
+              (src * src, m8b), (m8a, block8 * block8)]
+    int_mm = time_ms(lambda: [torch._int_mm(a, b.T) for a, b in planes])
+    n_ops = 12.0 * u * n * d
+    sim_bound, sim_by = bound_ms(u * d + n * d + u * n * 4.0, n_ops,
+                                 PEAK_INT8_OPS_PER_S)
+    f32_bound = bound_ms((u * d + n * d + u * n) * 4.0, n_ops)[0]
 
     # the recommend tile: 1024 users × k=40 neighbors × 512 items, int8
     m, lo, hi = 1024, 0, 512
@@ -1159,8 +1300,10 @@ def phase_timings(dev, eng, err, launches):
          "launches": launches["similarity"],
          "max_abs_err": max(err["similarity"], e), "ms": sim_ms,
          "plain_ms": sim_plain, "bound_ms": sim_bound, "bound_by": sim_by,
-         "library_ms": sim_lib,
-         "shape": f"({u},{d})x({n},{d}) pcc"},
+         "library_ms": sim_lib, "int_mm_ms": int_mm, "simt_ms": simt_ms,
+         "f32_bound_ms": f32_bound,
+         "shape": f"({u},{d})x({n},{d}) pcc int8 x int8, max_value "
+                  f"{bound8}"},
         {"name": "fused_tile_predict", "route": "cuda",
          "source": "src/repro_torch/csrc/predict.cu",
          "replaces": "src/repro/kernels/predict.py:55",
@@ -1728,13 +1871,15 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
                   ("LM decode step", lm_decode)))
 
 
-def profile_each(named) -> None:
+def profile_each(named, n_rows: int = 6) -> list:
     """For each (name, fn[, rows]): one warm call, then one call under
     ``torch.profiler``; logs wall ms, device-busy ms and share, and the
-    ``rows`` (default six) largest device-time entries."""
+    ``rows`` (default ``n_rows``) largest device-time entries.  Returns
+    each call's (wall ms, device-busy ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, fn, *n_rows in named:
+    out = []
+    for name, fn, *rows_wanted in named:
         fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1750,8 +1895,10 @@ def profile_each(named) -> None:
         check(busy_ms > 0, f"profiler saw device work in {name}")
         log(f"    {name}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-        for ms, n, key in rows[:n_rows[0] if n_rows else 6]:
+        for ms, n, key in rows[:rows_wanted[0] if rows_wanted else n_rows]:
             log(f"      {ms:9.3f} ms  x{n:<4d} {key[:72]}")
+        out.append((wall_ms, busy_ms))
+    return out
 
 
 # -- the recsys CTR slice (DLRM-MLPerf, FM, xDeepFM) and kernel 9 -----------
@@ -2198,7 +2345,12 @@ def main() -> int:
     log(f"    serving: 512 requests, {main_out['serve_req_per_s']:.1f} req/s, "
         f"p50 {main_out['p50_ms']:.2f} ms, p99 {main_out['p99_ms']:.2f} ms, "
         f"{main_out['batches']} batches")
-    log(f"    launches on the main path: {main_out['launches']}")
+    log(f"    launches on the main path: {main_out['launches']}; "
+        f"similarity by route {main_out['routes']} (the fit alone "
+        f"{main_out['fit_routes']})")
+    log(f"    exact fit: wall {main_out['fit_s']:.4f} s (first fit); a "
+        f"steady fit {main_out['fit_profile'][0]:.2f} ms wall, "
+        f"{main_out['fit_profile'][1]:.2f} ms device busy")
     log(f"    held-out MAE {main_out['mae']!r}; kernel backend == "
         f"sequential backend (ids, scores, top-n) at "
         f"{train.shape[0]}x{train.shape[1]}")
@@ -2274,7 +2426,8 @@ def main() -> int:
     log(f"    serving: 256 requests, {rc['serve_req_per_s']:.1f} req/s, p50 "
         f"{rc['p50_ms']:.2f} ms, p99 {rc['p99_ms']:.2f} ms, health "
         f"{rc['health']}; no served item was already rated")
-    log(f"    launches on the approx-recommend path: {rc['launches']}")
+    log(f"    launches on the approx-recommend path: {rc['launches']}; "
+        f"support by route {rc['support_routes']}")
     log(f"    peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -2349,6 +2502,22 @@ def main() -> int:
         f"{sp['scores_ms']:.4f} ms (the pinned order's no-FMA floor "
         f"{sp['floor_ms']:.4f} ms at 1.98 GHz), radix select "
         f"{sp['select_ms']:.4f} ms")
+    sim_row = kernels[0]
+    log(f"    fused_similarity: int8 route {sim_row['ms']:.4f} ms (bound "
+        f"{sim_row['bound_ms']:.4f} ms at the int8 peak), six "
+        f"torch._int_mm {sim_row['int_mm_ms']:.4f} ms, six torch.matmul "
+        f"{sim_row['library_ms']:.4f} ms; simt route (f32 rows, the "
+        f"previous design) {sim_row['simt_ms']:.4f} ms (bound "
+        f"{sim_row['f32_bound_ms']:.4f} ms at the f32 peak); both bit for "
+        f"bit")
+    sup_row = next(k for k in kernels if k["name"] == "fused_support_scores")
+    log(f"    fused_support_scores: int8 route {sup_row['ms']:.4f} ms "
+        f"(bound {sup_row['bound_ms']:.4f} ms by {sup_row['bound_by']}; "
+        f"the pinned order's no-FMA floor {sup_row['nofma_floor_ms']:.4f} "
+        f"ms), table route (the previous design) {sup_row['table_ms']:.4f} "
+        f"ms (bytes bound of its tables {sup_row['table_bound_ms']:.4f} "
+        f"ms), torch.sparse.mm {sup_row['library_ms']:.4f} ms; both bit "
+        f"for bit")
     rr_row = next(k for k in kernels if k["name"] == "fused_rerank_scores")
     int_mm = rr_row["int_mm_ms"]
     log(f"    fused_rerank_scores: int8 route {rr_row['ms']:.4f} ms (bound "

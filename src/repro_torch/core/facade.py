@@ -9,8 +9,11 @@ with one of two backends:
   (the paper's baseline);
 * ``kernel``     — the streaming top-k of the reference's ``pallas``
   backend, each candidate block scored by the hand-written CUDA
-  similarity kernel; ``recommend`` and the serving batch predictor route
-  every item tile through the CUDA tile-predict kernel.
+  similarity kernel — on its int8 tensor-core route when the matrix
+  round-trips through int8 inside the route's exact domain
+  (:func:`_similarity_operand`), on its f32 route otherwise;
+  ``recommend`` and the serving batch predictor route every item tile
+  through the CUDA tile-predict kernel.
 
 Both are exact on integer ratings: the Gram sums are exact integers and
 the kernels keep the plain version's operation order, so the two backends
@@ -118,6 +121,19 @@ def _cross_scores(ratings, cand_ids, *, measure, beta=None):
               (cand_ids[None, :] == rows[:, None])
     s = s.masked_fill(invalid, nb.NEG_INF)
     return s, cand_ids.to(torch.int32)[None, :].expand(n_users, -1)
+
+
+def _similarity_operand(ratings, gather_src):
+    """The similarity kernel's operand and ``max_value`` for a fit: the
+    int8 gather source when the matrix round-trips through int8 (integer
+    ratings in [0, 127]) and every Gram sum stays exact (``max_value² ·
+    D ≤ 2^24``), with its largest rating as ``max_value`` (one device
+    sync); else the f32 matrix and None."""
+    if gather_src.dtype == torch.int8 and gather_src.numel():
+        bound = int(gather_src.max())
+        if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
+            return gather_src, bound
+    return ratings, None
 
 
 def _repair_rows(scores, idx, cross_s, cross_i, touch_ids, *, k):
@@ -356,15 +372,18 @@ class CFEngine:
         n_users = ratings.shape[0]
         dev = ratings.device
         bs = min(self.block_size, n_users)
+        src, max_value = _similarity_operand(ratings,
+                                             self._gather_source(ratings))
         best_s = torch.full((n_users, self.k), nb.NEG_INF,
                             dtype=torch.float32, device=dev)
         best_i = torch.full((n_users, self.k), -1, dtype=torch.int32,
                             device=dev)
         q_ids = torch.arange(n_users, device=dev)
         for b0 in range(0, n_users, bs):
-            block = ratings[b0:b0 + bs]
-            s = ksim.fused_similarity(ratings, block, measure=self.measure,
-                                      beta=self.pcc_sig_beta)
+            block = src[b0:b0 + bs]
+            s = ksim.fused_similarity(src, block, measure=self.measure,
+                                      beta=self.pcc_sig_beta,
+                                      max_value=max_value)
             cand = b0 + torch.arange(block.shape[0], device=dev)
             s = s.masked_fill(cand[None, :] == q_ids[:, None], nb.NEG_INF)
             ids = cand.to(torch.int32)[None, :].expand(n_users, -1)

@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "imma.cuh"
+
 namespace {
 
 constexpr float EPS = 1e-8f;
@@ -258,6 +260,8 @@ void launch(const float* qv, const void* cr, const float* cn,
 
 namespace imma {
 
+using namespace repro_imma;
+
 constexpr int BK = 64;        // items (bytes) per stage
 constexpr int LDS = BK + 16;  // shared row stride: ldmatrix conflict-free
 constexpr int STAGES = 3;
@@ -281,94 +285,6 @@ struct Shape {
   static constexpr int SQ_BYTES = SIX ? 2 * PLANE : 0;
   static constexpr int SMEM = STAGES * PLANE + SQ_BYTES + 2 * BM * 4;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// A fragments of TM m16 tiles and B fragments of TN n8 tiles, k32 wide,
-// from a plane at p (the lane's ldmatrix offset already added).
-template <int TM>
-__device__ __forceinline__ void load_a(unsigned (&a)[TM][4],
-                                       const unsigned char* p) {
-#pragma unroll
-  for (int m = 0; m < TM; ++m) ldsm_x4(a[m], p + m * 16 * LDS);
-}
-
-template <int TN>
-__device__ __forceinline__ void load_b(unsigned (&b)[TN][2],
-                                       const unsigned char* p) {
-  static_assert(TN % 2 == 0, "one x4 load feeds two n8 tiles");
-#pragma unroll
-  for (int n = 0; n < TN; n += 2) {
-    unsigned r[4];
-    ldsm_x4(r, p + n * 8 * LDS);
-    b[n][0] = r[0];
-    b[n][1] = r[1];
-    b[n + 1][0] = r[2];
-    b[n + 1][1] = r[3];
-  }
-}
-
-// D += A·B on one m16n8k32 tile; A / B signed (s8) or unsigned (u8).
-#define REPRO_IMMA(NAME, AT, BT)                                          \
-  __device__ __forceinline__ void NAME(int (&d)[4], const unsigned (&a)[4], \
-                                       unsigned b0, unsigned b1) {         \
-    asm volatile("mma.sync.aligned.m16n8k32.row.col.s32." AT "." BT        \
-                 ".s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "            \
-                 "{%0,%1,%2,%3};\n"                                       \
-                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),   \
-                   "r"(b1));                                               \
-  }
-REPRO_IMMA(mma_ss, "s8", "s8")
-REPRO_IMMA(mma_us, "u8", "s8")
-REPRO_IMMA(mma_su, "s8", "u8")
-#undef REPRO_IMMA
-
-// 1 in each byte of w that is > 0 (signed), else 0.
-__device__ __forceinline__ unsigned mask4(unsigned w) {
-  return __vcmpgts4(w, 0u) & 0x01010101u;
-}
-
-// Squares of the four signed bytes of w, split v² = 256·hi + lo (u8
-// bytes); returns whether some |v| > 15 (hi ≠ 0).
-__device__ __forceinline__ bool square4(unsigned w, unsigned& lo,
-                                        unsigned& hi) {
-  lo = 0u;
-  hi = 0u;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int v = static_cast<int>(static_cast<signed char>(w >> (8 * b)));
-    const unsigned sq = static_cast<unsigned>(v * v);
-    lo |= (sq & 255u) << (8 * b);
-    hi |= (sq >> 8) << (8 * b);
-  }
-  return hi != 0u;
-}
 
 template <int KIND>
 __global__ void __launch_bounds__(Shape<KIND>::NT, Shape<KIND>::MIN_BLOCKS)
@@ -414,13 +330,8 @@ imma_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ cr,
         for (int e = 0; e < 4; ++e) acc[a][m][n][e] = 0;
   int row_stat = 0;   // this thread's share of its query row's statistic
 
-  // ldmatrix lane offsets: A x4 = (rows 0-7 | 8-15) × (bytes 0-15 | 16-31)
-  // → a0..a3; B x4 = two n8 tiles × (bytes 0-15 | 16-31) → b0, b1 of each
-  const int a_off = (wm * TM * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                    (lane >> 4) * 16;
-  const int b_off =
-      (BM + wn * TN * 8 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDS +
-      ((lane >> 3) & 1) * 16;
+  const int a_off = a_lane_offset<LDS>(wm * TM * 16, lane);
+  const int b_off = b_lane_offset<LDS>(BM + wn * TN * 8, lane);
   unsigned char* sq_lo = sq;
   unsigned char* sq_hi = sq + S::PLANE;
 
@@ -468,8 +379,8 @@ imma_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ cr,
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
       unsigned av[TM][4], bv[TN][2];
-      load_a<TM>(av, st + a_off + ks * 32);
-      load_b<TN>(bv, st + b_off + ks * 32);
+      load_a<TM, LDS>(av, st + a_off + ks * 32);
+      load_b<TN, LDS>(bv, st + b_off + ks * 32);
       if constexpr (KIND == COSINE) {
 #pragma unroll
         for (int m = 0; m < TM; ++m)
@@ -506,21 +417,21 @@ imma_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ cr,
           }
           // the squares' lo planes once the values are dead
           unsigned aq[TM][4], bq[TN][2];
-          load_a<TM>(aq, sq_lo + a_off + ks * 32);
+          load_a<TM, LDS>(aq, sq_lo + a_off + ks * 32);
 #pragma unroll
           for (int m = 0; m < TM; ++m)
 #pragma unroll
             for (int n = 0; n < TN; ++n)
               mma_us(acc[4][m][n], aq[m], bm[n][0], bm[n][1]);
-          load_b<TN>(bq, sq_lo + b_off + ks * 32);
+          load_b<TN, LDS>(bq, sq_lo + b_off + ks * 32);
 #pragma unroll
           for (int m = 0; m < TM; ++m)
 #pragma unroll
             for (int n = 0; n < TN; ++n)
               mma_su(acc[5][m][n], am[m], bq[n][0], bq[n][1]);
           if (wide) {   // block-uniform: the hi halves of the squares
-            load_a<TM>(aq, sq_hi + a_off + ks * 32);
-            load_b<TN>(bq, sq_hi + b_off + ks * 32);
+            load_a<TM, LDS>(aq, sq_hi + a_off + ks * 32);
+            load_b<TN, LDS>(bq, sq_hi + b_off + ks * 32);
 #pragma unroll
             for (int m = 0; m < TM; ++m) {
 #pragma unroll

@@ -7,18 +7,35 @@
 //   den = Σ_j w[b,j] · msk[nb[b,j], i]
 //   out = clip(q̄[b] + num / max(den, 1e-8), 1, 5)   (q̄[b] when den ≤ 1e-8)
 // — the item index's exact shortlist scorer: the predictor's num/den form
-// for every item, with the neighbors' deviation rows precomputed.
+// for every item.
 //
-// Design.  The TPU kernel walks a (b, I'/bt, k) grid with the neighbor
-// axis innermost, DMA-ing one (1, bt) row tile of each table per step
-// into VMEM accumulators.  Here the k loop moves inside the block: one
-// thread block per (query row, 512-column tile), the row's k neighbor ids
-// and weights staged in shared memory in chunks of 64, and each of the
-// 128 threads owns 4 consecutive columns, read as one float4 per table
-// per neighbor (neighboring threads on neighboring 16-byte words, so each
-// warp's loads coalesce into 512-byte segments).  Widths that are not a
-// multiple of 4 (tables narrower than one tile are not padded) take a
-// scalar path.  Ids outside [0, U) contribute nothing (the callers pass
+// Two routes, chosen by the caller from the operand's dtype:
+//
+// "table" (support_kernel): the f32 (U, I') dev / msk tables the item
+// index builds.  One thread block per (query row, 512-column tile), the
+// row's k neighbor ids and weights staged in shared memory in chunks of
+// 64, each of the 128 threads owning 4 consecutive columns, read as one
+// float4 per table per neighbor (neighboring threads on neighboring
+// 16-byte words, so each warp's loads coalesce into 512-byte segments).
+// Widths that are not a multiple of 4 take a scalar path.
+//
+// "int8" (support_int8_kernel): the (U, I) int8 rating matrix and the
+// (U,) f32 user means in place of the tables.  Both tables are functions
+// of them — dev = where(r > 0, r − mean[u], 0), msk = (r > 0), zero past
+// I — so the kernel rebuilds each element bit for bit from one byte and
+// the neighbor's mean: d = r > 0 ? __fsub_rn(r, mean) : 0, m = r > 0.
+// One byte a gathered element instead of eight, from a matrix (23.9 MB
+// at ML-1M) that stays in the 50 MB L2, where the 198 MB of tables did
+// not.  One thread block per (query row, 2048-column tile); each of the
+// 128 threads owns 16 consecutive columns, read as one 16-byte load per
+// neighbor (a warp reads a 512-byte row segment); the row's neighbor ids,
+// weights and means are staged in shared memory.  A byte becomes a float
+// without the int → float converter: __byte_perm places it in the
+// mantissa of 2^23, and subtracting 2^23 is exact.  Rows whose width is
+// not a multiple of 16, or that are not 16-byte aligned, take a scalar
+// path.
+//
+// Both routes: ids outside [0, U) contribute nothing (the callers pass
 // clipped ids; the guard only keeps a bad id from reading out of bounds).
 //
 // Order of sums.  j runs 0..k−1 with separately rounded multiplies and
@@ -26,17 +43,20 @@
 // IEEE division (__fdiv_rn): the order of the plain version
 // repro_torch.kernels.support.support_scores_plain, so the two agree bit
 // for bit — and, on the same rounded r − r̄ values, the order of the tile
-// predictor, so the support score equals the exact prediction.
+// predictor, so the support score equals the exact prediction.  On the
+// "int8" route the products are w·d and w·m exactly as the table route
+// forms them (w·0 included), so the two routes agree bit for bit too.
 //
-// Bound.  The function reads each table once and writes the output once:
-// at one 6040-row chunk, k = 40, I' = 4096 that is 2·U·I'·4 + b·I'·4 bytes
-// (~0.30 GB, ~0.09 ms at 3.35 TB/s) against 4·b·k·I' f32 operations
-// (~4.0e9, ~0.06 ms at 67 TFLOP/s): bound by bytes.  This kernel reads
-// each neighbor's rows once per query row instead, b·k·I'·8 bytes
-// (~7.9 GB) of gathered rows, and the 198 MB of tables do not fit in the
-// 50 MB L2 — so it is bound by those gathers, milliseconds, not the
-// bound.  Ordering query rows so that rows sharing neighbors run together
-// (L2 reuse) and TMA row gathers are the next design, not this file's.
+// Bound.  At one 6040-row chunk, k = 40, I' = 4096: 4·b·k·I' f32
+// operations (~4.0e9: ~0.06 ms at 67 TFLOP/s; the pinned order forbids
+// FMA, so ~0.12 ms at the no-FMA rate) against, on the "table" route,
+// 2·U·I'·4 + b·I'·4 bytes (~0.30 GB, ~0.09 ms at 3.35 TB/s) of tables
+// read once — but the kernel reads each neighbor's rows once per query
+// row, b·k·I'·8 bytes (~7.9 GB) of gathers, and the tables do not fit in
+// L2, so it is bound by those gathers.  On the "int8" route the bytes
+// are U·I + b·I'·4 (~0.12 GB, ~0.04 ms) and the gathers, b·k·I' bytes,
+// hit L2: it is bound by operations — the pinned order's four, plus the
+// byte's conversion, the subtraction and the two selects of the rebuild.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,11 +137,145 @@ support_kernel(const float* __restrict__ dev, const float* __restrict__ msk,
   }
 }
 
+constexpr int BT8 = 2048;     // columns per block, "int8" route
+constexpr int NT8 = BT8 / 16;  // threads per block, 16 columns each
+
+// The float value of byte b of w as an unsigned 8-bit integer.
+__device__ __forceinline__ float byte_value(unsigned w, int b) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + b)),
+                   8388608.f);
+}
+
+// One element's products, formed as the table route forms them from its
+// rebuilt dev / msk values: pd = w·d, pm = w·m with w0 = w·0 where the
+// item is unrated (r ≤ 0) or past I.  x: the rating's float value, read
+// only where it is positive (pos).  ZERO: w0 is +0 (w ≥ 0 and finite,
+// every masked weight).  Then the unrated terms are skipped: num and den
+// start at +0 and a round-to-nearest sum is −0 only when both addends
+// are, so neither is ever −0, and adding +0 leaves their bits as they
+// are.
+template <bool ZERO>
+__device__ __forceinline__ void products(bool pos, float x, float mu, float w1,
+                                         float w0, float wj, float& num,
+                                         float& den) {
+  if (ZERO) {
+    if (pos) {
+      num = __fadd_rn(num, __fmul_rn(wj, __fsub_rn(x, mu)));
+      den = __fadd_rn(den, w1);
+    }
+  } else {
+    const float pd = pos ? __fmul_rn(wj, __fsub_rn(x, mu)) : w0;
+    num = __fadd_rn(num, pd);
+    den = __fadd_rn(den, pos ? w1 : w0);
+  }
+}
+
+// One neighbor row's 16 columns (VEC: one 16-byte word v, all inside
+// [0, I) or all past it; else the scalar bytes at src, masked at I).
+template <bool VEC, bool ZERO>
+__device__ __forceinline__ void neighbor(const uint4& v, const int8_t* src,
+                                         int c0, int n_items, float mu,
+                                         float w1, float w0, float wj,
+                                         float (&num)[16],
+                                         float (&den)[16]) {
+  if (VEC) {
+    const unsigned wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // bytes that are not positive (signed) → 0, so x > 0 is r > 0
+      const unsigned pw = wd[q] & __vcmpgts4(wd[q], 0u);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float x = byte_value(pw, b);
+        products<ZERO>(x > 0.f, x, mu, w1, w0, wj, num[4 * q + b],
+                       den[4 * q + b]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = c0 + e < n_items ? src[e] : 0;
+      products<ZERO>(r > 0, static_cast<float>(r), mu, w1, w0, wj, num[e],
+                     den[e]);
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT8)
+support_int8_kernel(const int8_t* __restrict__ r,
+                    const float* __restrict__ means, int n_users,
+                    int n_items, int n_cols, const int* __restrict__ ids,
+                    const float* __restrict__ w,
+                    const float* __restrict__ q_means,
+                    float* __restrict__ out, int k) {
+  __shared__ int s_id[KC];
+  __shared__ float s_w[KC], s_w1[KC], s_w0[KC], s_mu[KC];
+
+  const int row = blockIdx.x;
+  const int c0 = blockIdx.y * BT8 + threadIdx.x * 16;
+  const size_t rk = static_cast<size_t>(row) * k;
+  float num[16], den[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    num[e] = 0.f;
+    den[e] = 0.f;
+  }
+  for (int j0 = 0; j0 < k; j0 += KC) {
+    const int kc = min(KC, k - j0);
+    __syncthreads();
+    if (threadIdx.x < kc) {
+      const int id = ids[rk + j0 + threadIdx.x];
+      const float wj = w[rk + j0 + threadIdx.x];
+      const bool ok = id >= 0 && id < n_users;
+      s_id[threadIdx.x] = ok ? id : -1;
+      s_w[threadIdx.x] = wj;
+      s_w1[threadIdx.x] = __fmul_rn(wj, 1.f);
+      s_w0[threadIdx.x] = __fmul_rn(wj, 0.f);
+      s_mu[threadIdx.x] = ok ? means[id] : 0.f;
+    }
+    __syncthreads();
+    if (c0 >= n_cols) continue;
+#pragma unroll 2
+    for (int j = 0; j < kc; ++j) {
+      const int id = s_id[j];
+      if (id < 0) continue;
+      const float wj = s_w[j], w1 = s_w1[j], w0 = s_w0[j], mu = s_mu[j];
+      const int8_t* src = r + static_cast<size_t>(id) * n_items + c0;
+      // n_items and n_cols are multiples of 16 on the VEC path: a
+      // thread's 16 columns lie all inside [0, I) or all past it
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (VEC && c0 < n_items) v = *reinterpret_cast<const uint4*>(src);
+      if (__float_as_uint(w0) == 0u) {   // block-uniform
+        neighbor<VEC, true>(v, src, c0, n_items, mu, w1, w0, wj, num, den);
+      } else {
+        neighbor<VEC, false>(v, src, c0, n_items, mu, w1, w0, wj, num, den);
+      }
+    }
+  }
+  if (c0 >= n_cols) return;
+  const float q = q_means[row];
+  float* o = out + static_cast<size_t>(row) * n_cols + c0;
+  if (VEC) {
+#pragma unroll
+    for (int e = 0; e < 16; e += 4)
+      *reinterpret_cast<float4*>(o + e) = make_float4(
+          epilogue(num[e], den[e], q), epilogue(num[e + 1], den[e + 1], q),
+          epilogue(num[e + 2], den[e + 2], q),
+          epilogue(num[e + 3], den[e + 3], q));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (c0 + e < n_cols) o[e] = epilogue(num[e], den[e], q);
+  }
+}
+
 }  // namespace
 
-// dev/msk: (n_users, n_cols) f32; ids: (b, k) int32; w: (b, k) f32 masked
-// weights; q_means: (b,); out: (b, n_cols).  Returns cudaGetLastError()
-// after the launch (0 = launched); the caller raises on anything else.
+// The "table" route.  dev/msk: (n_users, n_cols) f32; ids: (b, k) int32;
+// w: (b, k) f32 masked weights; q_means: (b,); out: (b, n_cols).  Returns
+// cudaGetLastError() after the launch (0 = launched); the caller raises
+// on anything else.
 extern "C" int repro_support_scores(const void* dev, const void* msk,
                                     int n_users, int n_cols, const void* ids,
                                     const void* w, const void* q_means,
@@ -145,6 +299,37 @@ extern "C" int repro_support_scores(const void* dev, const void* msk,
   } else {
     support_kernel<false><<<grid, block, 0, s>>>(d, m, n_users, n_cols, i32,
                                                  wf, qm, o, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The "int8" route.  ratings: (n_users, n_items) int8; means: (n_users,)
+// f32; out: (b, n_cols) with n_cols ≥ n_items (columns past n_items score
+// as the tables' zero padding); ids, w, q_means as above.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_support_scores_int8(const void* ratings,
+                                         const void* means, int n_users,
+                                         int n_items, int n_cols,
+                                         const void* ids, const void* w,
+                                         const void* q_means, void* out,
+                                         int b, int k, void* stream) {
+  const dim3 grid(b, (n_cols + BT8 - 1) / BT8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = n_items % 16 == 0 && n_cols % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ratings) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int8_t* r = static_cast<const int8_t*>(ratings);
+  const float* mu = static_cast<const float*>(means);
+  const int* i32 = static_cast<const int*>(ids);
+  const float* wf = static_cast<const float*>(w);
+  const float* qm = static_cast<const float*>(q_means);
+  float* o = static_cast<float*>(out);
+  if (vec) {
+    support_int8_kernel<true><<<grid, NT8, 0, s>>>(
+        r, mu, n_users, n_items, n_cols, i32, wf, qm, o, k);
+  } else {
+    support_int8_kernel<false><<<grid, NT8, 0, s>>>(
+        r, mu, n_users, n_items, n_cols, i32, wf, qm, o, k);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,10 +17,13 @@ item axis:
 
    * ``"kernel"`` (what ``"auto"`` resolves to on every device) — the
      exact predictor num/den form for every item, as one segmented SpMM
-     between the k-sparse neighbor weights and dense deviation / rated-
-     mask tables: the CUDA support kernel on the card
+     between the k-sparse neighbor weights and the deviation / rated-mask
+     tables: the CUDA support kernel on the card
      (``repro_torch.kernels.support``), its plain version on the CPU or
-     with ``use_kernel=False``.  Selection is the CUDA select kernel
+     with ``use_kernel=False``.  When the ratings round-trip through int8
+     the scorer takes its int8 route — the int8 gather source and the
+     user means in place of the tables, which are then never built —
+     else the dense f32 tables.  Selection is the CUDA select kernel
      (``kernels/select.py::select_topm``), so the (b, I) scores never
      leave the device.
    * ``"proxy"`` — each user's *taste profile* in item-proxy space
@@ -51,8 +54,9 @@ columns' proxies, repairs spill assignments exactly through the shared
 certificate, and maintains the user profiles by a rank-deficient
 correction (untouched users take ``Σ w_col · Δproxy`` over the touched
 columns; touched users are recomputed in full), with a periodic cold
-re-fold; the dense scorer tables are patched copy-on-write along the
-ratings version chain, so a serving snapshot's tables stay valid.
+re-fold; the dense scorer tables (f32 route) are patched copy-on-write
+along the ratings version chain, so a serving snapshot's tables stay
+valid.
 ``check_consistent`` asserts all of it against a cold rebuild.
 """
 
@@ -72,8 +76,10 @@ from repro_torch.index.clustered import (RefoldStats, _bucket, _project,
 from repro_torch.index.kmeans import center_rows, normalize_rows
 from repro_torch.kernels import select as sel_mod
 from repro_torch.kernels.ref import proxy_scores_ref
-from repro_torch.kernels.support import (BT, fused_support_scores,
-                                         support_scores_plain)
+from repro_torch.kernels.support import (fused_support_scores,
+                                         support_scores_int8_plain,
+                                         support_scores_plain,
+                                         support_tables, support_width)
 
 SHORTLIST_MODES = ("support", "kernel", "proxy", "auto")
 
@@ -200,19 +206,6 @@ def _shortlist_scores_all(prof, proxies, seen_rows):
     return proxy_scores_ref(prof, proxies).masked_fill(seen_rows, _NEG_INF)
 
 
-def _dense_tables(rows: torch.Tensor, means: torch.Tensor, width: int):
-    """(n, I) rating rows and their users' means → the support scorer's
-    (n, width) deviation and rated-mask rows, zero columns past I (den 0
-    there: the mean fallback, sliced off by the caller)."""
-    dev = center_rows(rows, means)
-    msk = (rows > 0).float()
-    pad = width - rows.shape[1]
-    if pad:
-        dev = torch.nn.functional.pad(dev, (0, pad))
-        msk = torch.nn.functional.pad(msk, (0, pad))
-    return dev.contiguous(), msk.contiguous()
-
-
 def _rerank_items(ratings, gather_src, nb_scores, nb_idx, means, q_means,
                   q_ids, cand_items, *, n, item_block):
     """Exact top-n over per-query candidate item lists.
@@ -307,9 +300,7 @@ class ItemClusteredIndex(_SpillClusterCore):
         cache = self._support_dense_cache
         if cache is not None and cache[0] is ratings:
             return cache[1]
-        n_items = ratings.shape[1]
-        pair = _dense_tables(ratings, means,
-                             n_items + (-n_items) % min(BT, n_items))
+        pair = support_tables(ratings, means, support_width(ratings.shape[1]))
         self._support_dense_cache = (ratings, pair)
         return pair
 
@@ -416,12 +407,23 @@ class ItemClusteredIndex(_SpillClusterCore):
             return sel_mod.select_topm(scores, none, m=m)
         return sel_mod.select_topm_twin(scores, none, m=m)
 
-    def _score_select(self, ratings, means, nb_scores, nb_idx, ids, tables,
-                      m_short: int) -> torch.Tensor:
+    def _support_operands(self, ratings, means):
+        """The support scorer's (dev, msk) operand pair: the int8 gather
+        source and the (U,) means when the ratings round-trip through int8
+        (the scorer's int8 route: no tables built), else the dense f32
+        tables."""
+        src = self._gather_source(ratings)
+        if src.dtype == torch.int8:
+            return src, means.contiguous()
+        return self._support_dense(ratings, means)
+
+    def _score_select(self, ratings, means, nb_scores, nb_idx, ids,
+                      operands, m_short: int) -> torch.Tensor:
         """Support-score one chunk of query rows (every item, exact num/den
         form, seen items → −inf) and select its canonical top-``m_short``
         items on the device: (b, m_short) ascending ids, sentinel
-        ``n_items`` on every −inf slot."""
+        ``n_items`` on every −inf slot.  ``operands``: the scorer's
+        (dev, msk) pair (:meth:`_support_operands`)."""
         n_items = self.n_items
         sc, ix = nb_scores[ids], nb_idx[ids]
         w = torch.where((sc > 0.0) & (ix >= 0), sc,
@@ -429,10 +431,13 @@ class ItemClusteredIndex(_SpillClusterCore):
         safe = torch.where(ix >= 0, ix, torch.zeros_like(ix)).to(
             torch.int32).contiguous()
         qm = means[ids].contiguous()
-        dev_t, msk_t = tables
-        scorer = (fused_support_scores if self._use_kernel()
-                  else support_scores_plain)
-        num = scorer(dev_t, msk_t, safe, w, qm)[:, :n_items]
+        if self._use_kernel():
+            scorer = fused_support_scores
+        elif operands[0].dtype == torch.int8:
+            scorer = support_scores_int8_plain
+        else:
+            scorer = support_scores_plain
+        num = scorer(*operands, safe, w, qm)[:, :n_items]
         num = num.masked_fill(ratings[ids] > 0, _NEG_INF).contiguous()
         # −inf slots already carry the sentinel id n_items (= num's width)
         return torch.sort(self._select(num, m_short)[1], dim=1).values
@@ -447,7 +452,7 @@ class ItemClusteredIndex(_SpillClusterCore):
         m_short = min(max(n, shortlist), n_items)
         dev = ratings.device
         gather_src = self._gather_source(ratings)
-        tables = self._support_dense(ratings, means)
+        operands = self._support_operands(ratings, means)
         out_s, out_i = [], []
         n_reranked = 0
         sb, bq = self.cfg.score_block, self.cfg.rerank_block
@@ -455,7 +460,7 @@ class ItemClusteredIndex(_SpillClusterCore):
             ids = torch.as_tensor(uids[lo:lo + sb], device=dev)
             with obs.span("recommend.score", chunk=ci, rows=len(ids)):
                 shorts = self._score_select(ratings, means, nb_scores,
-                                            nb_idx, ids, tables, m_short)
+                                            nb_idx, ids, operands, m_short)
             n_reranked += int((shorts < n_items).sum())
             for b0 in range(0, len(ids), bq):
                 sub = ids[b0:b0 + bq]
@@ -548,8 +553,8 @@ class ItemClusteredIndex(_SpillClusterCore):
             return 0
         dev_t, msk_t = cache[1]
         rows = torch.as_tensor(touched, device=ratings.device).long()
-        d_rows, m_rows = _dense_tables(ratings[rows], means[rows],
-                                       dev_t.shape[1])
+        d_rows, m_rows = support_tables(ratings[rows], means[rows],
+                                        dev_t.shape[1])
         dev_t, msk_t = dev_t.clone(), msk_t.clone()
         dev_t[rows] = d_rows
         msk_t[rows] = m_rows

@@ -45,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Content-addressed library path for ``csrc/<name>.cu``."""
+    """Content-addressed library path for ``csrc/<name>.cu`` (the hash
+    covers the shared ``csrc/*.cuh`` headers too)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

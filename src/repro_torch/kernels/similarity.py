@@ -8,6 +8,15 @@ the measure's epilogue in registers; it is bound by operations (see the
 note in the CUDA source).  The plain version is
 ``repro_torch.core.similarity``'s ``gram_terms`` plus the epilogues.
 
+Two routes on the card, chosen before the launch from the operands'
+dtypes (:func:`similarity_route`) and counted in
+``fused_similarity.routes``: ``"imma"`` (both blocks int8: the int8
+tensor cores, int32 sums) and ``"simt"`` (both blocks f32: f32 FMAs on
+the CUDA cores).  The ``"imma"`` route's domain is every Gram sum at most
+2^24 — where the f32 plain version is exact too — checked on the host
+from D and a bound on |value| (``max_value``, else int8's own 128);
+outside it the wrapper raises.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
 """
@@ -23,8 +32,13 @@ from repro_torch.kernels import _build
 
 MEASURES = ("jaccard", "cosine", "pcc")
 ALL_MEASURES = MEASURES + ("pcc_sig",)    # "all" keeps the 3-tuple
+ROUTES = ("imma", "simt")
 _CODES = {"jaccard": 0, "cosine": 1, "pcc": 2, "pcc_sig": 3, "all": 4}
-_DTYPES = {torch.float32: 0, torch.int8: 1}
+_ROUTE_OF = {torch.int8: "imma", torch.float32: "simt"}
+# the "imma" route's domain: f32 is exact on every Gram sum up to 2^24
+EXACT_SUM = 2 ** 24
+# |value| ≤ 15 keeps v² in one u8 square plane; above, a hi plane joins
+NARROW_MAX = 15
 
 
 def similarity_plain(ra: torch.Tensor, rb: torch.Tensor, *,
@@ -40,26 +54,57 @@ def similarity_plain(ra: torch.Tensor, rb: torch.Tensor, *,
     return sim._EPILOGUES[measure](g)
 
 
-def _lib():
+def similarity_route(a_dtype: torch.dtype, b_dtype: torch.dtype, d: int,
+                     max_value: int | None = None) -> str:
+    """The card's route for (m, d) × (n, d) blocks of these dtypes:
+    ``"imma"`` for int8 × int8, ``"simt"`` for f32 × f32; raises
+    ``TypeError`` on any other pair and ``ValueError`` when an int8 pair
+    lies outside the exact domain ``max_value² · d ≤ 2^24`` (int8's own
+    bound, 128, without ``max_value``)."""
+    route = _ROUTE_OF.get(a_dtype)
+    if route is None or b_dtype != a_dtype:
+        raise TypeError(f"need matching f32 or int8 blocks, got {a_dtype} "
+                        f"and {b_dtype}")
+    if route == "imma":
+        bound = 128 if max_value is None else int(max_value)
+        if bound * bound * d > EXACT_SUM:
+            raise ValueError(
+                f"int8 similarity outside its exact domain: max_value² · D "
+                f"= {bound}² · {d} > 2^24, where f32 Gram sums stop being "
+                f"exact; pass the ratings' bound as max_value, or f32 rows")
+    return route
+
+
+def _lib(route: str):
     lib = _build.load("similarity")
-    fn = lib.repro_similarity
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if route == "simt":
+        fn = lib.repro_similarity
+        if fn.argtypes is None:
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    else:
+        fn = lib.repro_similarity_imma
+        if fn.argtypes is None:
+            fn.argtypes = [p] * 9 + [i, i, i, i, i, f, p]
+    fn.restype = ctypes.c_int
     return fn
 
 
 def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
                      measure: str = "all",
-                     beta: float = sim.PCC_SIG_BETA):
+                     beta: float = sim.PCC_SIG_BETA,
+                     max_value: int | None = None):
     """(m, D) × (n, D) rating blocks → (m, n) f32 similarity under
     ``measure``, or the (jaccard, cosine, pcc) tuple for ``"all"``.
 
-    ``ra``/``rb``: contiguous f32 or int8, both on one device.  CUDA
-    tensors launch the kernel on the current stream (output from
-    ``torch.empty``, no synchronisation) and add one to
-    ``fused_similarity.launches``; CPU tensors run the plain version.
+    ``ra``/``rb``: contiguous, both f32 or both int8, on one device.
+    ``max_value``: a bound on |value| of both blocks that the caller
+    knows (the ratings' scale), for the int8 route's exactness domain
+    ``max_value² · D ≤ 2^24``; at most 15 also keeps each square in one
+    u8 plane.  CUDA tensors launch the kernel on the current stream
+    (outputs and scratch from ``torch.empty``, no synchronisation) and add
+    one to ``fused_similarity.launches`` and to the route's entry of
+    ``fused_similarity.routes``; CPU tensors run the plain version.
     """
     if measure not in _CODES:
         raise ValueError(f"unknown measure {measure!r}; want one of "
@@ -74,25 +119,47 @@ def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
         return similarity_plain(ra, rb, measure=measure, beta=beta)
     if ra.device.type != "cuda":
         raise ValueError(f"unsupported device {ra.device}")
-    if ra.dtype not in _DTYPES or rb.dtype != ra.dtype:
-        raise TypeError(f"need matching f32 or int8 blocks, got {ra.dtype} "
-                        f"and {rb.dtype}")
-    if not (ra.is_contiguous() and rb.is_contiguous()):
-        raise ValueError("rating blocks must be contiguous")
     m, d = ra.shape
     n = rb.shape[0]
+    route = similarity_route(ra.dtype, rb.dtype, d, max_value)
+    if not (ra.is_contiguous() and rb.is_contiguous()):
+        raise ValueError("rating blocks must be contiguous")
+    dev = ra.device
     n_out = 3 if measure == "all" else 1
-    outs = [torch.empty((m, n), dtype=torch.float32, device=ra.device)
+    outs = [torch.empty((m, n), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
     if m and n:
         ptrs = [o.data_ptr() for o in outs] + [0] * (3 - n_out)
-        with torch.cuda.device(ra.device):
+        with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            status = _lib()(ra.data_ptr(), rb.data_ptr(), *ptrs, m, n, d,
-                            _DTYPES[ra.dtype], _CODES[measure], beta, stream)
+            if route == "simt":
+                status = _lib(route)(ra.data_ptr(), rb.data_ptr(), *ptrs, m,
+                                     n, d, _CODES[measure], beta, stream)
+            else:
+                # rows of 16-byte multiples: a zero item adds nothing to
+                # any sum or row statistic
+                d = -(-d // 16) * 16
+                ra = _build.padded_rows(ra, d)
+                rb = _build.padded_rows(rb, d)
+                wide = max_value is None or int(max_value) > NARROW_MAX
+                planes = 0 if measure in ("jaccard", "cosine") \
+                    else 1 + wide
+                sq_a = torch.empty((planes, m, d), dtype=torch.uint8,
+                                   device=dev)
+                sq_b = torch.empty((planes, n, d), dtype=torch.uint8,
+                                   device=dev)
+                st_a = torch.empty((2, m), dtype=torch.float32, device=dev)
+                st_b = torch.empty((2, n), dtype=torch.float32, device=dev)
+                status = _lib(route)(
+                    ra.data_ptr(), rb.data_ptr(), sq_a.data_ptr(),
+                    sq_b.data_ptr(), st_a.data_ptr(), st_b.data_ptr(),
+                    *ptrs, m, n, d, _CODES[measure], int(wide), beta,
+                    stream)
         _build.check(status, "fused_similarity")
         fused_similarity.launches += 1
+        fused_similarity.routes[route] += 1
     return tuple(outs) if measure == "all" else outs[0]
 
 
 fused_similarity.launches = 0
+fused_similarity.routes = dict.fromkeys(ROUTES, 0)

@@ -1,5 +1,5 @@
 """Fused support scorer (segmented SpMM): the hand-written CUDA kernel
-(``csrc/support.cu``) and its plain PyTorch version.
+(``csrc/support.cu``) and its plain PyTorch versions.
 
 Port of the Pallas TPU kernel ``repro.kernels.support.fused_support_scores``
 (``_support_kernel``), the item index's exact shortlist scorer:
@@ -9,11 +9,20 @@ Port of the Pallas TPU kernel ``repro.kernels.support.fused_support_scores``
     pred      = clip(q̄_b + num/den, 1, 5)     (q̄_b where den ≤ 1e-8)
 
 over dense (U, I') deviation / rated-mask tables (``I'`` = the item count
-padded to ``BT`` columns, as the reference's operand cache pads it).  The
-k-reduction runs in order k = 0..k−1 with a separate multiply and add per
-step in the kernel and in :func:`support_scores_plain` alike, so the two
-agree bit for bit; on the same rounded ``r − r̄`` values that is also the
-tile predictor's order, so a support score equals the exact prediction.
+padded to ``BT`` columns, as the reference's operand cache pads it;
+:func:`support_tables` builds them).  The k-reduction runs in order
+k = 0..k−1 with a separate multiply and add per step in the kernel and in
+:func:`support_scores_plain` alike, so the two agree bit for bit; on the
+same rounded ``r − r̄`` values that is also the tile predictor's order, so
+a support score equals the exact prediction.
+
+Two routes on the card, chosen before the launch from the operand's dtype
+(:func:`support_route`) and counted in ``fused_support_scores.routes``:
+``"table"`` (the f32 tables) and ``"int8"`` (the (U, I) int8 rating
+matrix and the (U,) user means in their place: the kernel rebuilds each
+table element from one byte, bit for bit, so both routes give the same
+scores; :func:`support_scores_int8_plain` is the int8 route's plain
+version).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
@@ -30,6 +39,28 @@ from repro_torch.kernels import _build
 _DEN_EPS = 1e-8
 
 BT = 512            # item-tile width the operand tables are padded to
+ROUTES = ("table", "int8")
+
+
+def support_width(n_items: int) -> int:
+    """The scorer's padded output width I' for ``n_items`` columns."""
+    return n_items + (-n_items) % min(BT, n_items) if n_items else 0
+
+
+def support_tables(rows: torch.Tensor, means: torch.Tensor, width: int):
+    """(n, I) rating rows and their users' means → the support scorer's
+    (n, width) f32 deviation ``where(r > 0, r − mean, 0)`` and rated-mask
+    rows, zero columns past I (den 0 there: the mean fallback, sliced off
+    by the caller)."""
+    rows = rows.float()
+    zero = torch.zeros((), dtype=torch.float32, device=rows.device)
+    dev = torch.where(rows > 0, rows - means[:, None], zero)
+    msk = (rows > 0).float()
+    pad = width - rows.shape[1]
+    if pad:
+        dev = torch.nn.functional.pad(dev, (0, pad))
+        msk = torch.nn.functional.pad(msk, (0, pad))
+    return dev.contiguous(), msk.contiguous()
 
 
 def support_scores_plain(dev: torch.Tensor, msk: torch.Tensor,
@@ -53,32 +84,85 @@ def support_scores_plain(dev: torch.Tensor, msk: torch.Tensor,
     return pred.clamp(1.0, 5.0)
 
 
-def _lib():
+def support_scores_int8_plain(ratings: torch.Tensor, means: torch.Tensor,
+                              nb_idx: torch.Tensor, nb_w: torch.Tensor,
+                              q_means: torch.Tensor, *,
+                              width: int | None = None) -> torch.Tensor:
+    """Plain version of the int8 route: the tables from the (U, I) rating
+    matrix and (U,) means (:func:`support_tables`), then
+    :func:`support_scores_plain`."""
+    n_items = ratings.shape[1]
+    dev, msk = support_tables(ratings, means, support_width(n_items)
+                              if width is None else width)
+    return support_scores_plain(dev, msk, nb_idx, nb_w, q_means)
+
+
+def support_route(dev: torch.Tensor, msk: torch.Tensor,
+                  width: int | None = None) -> str:
+    """The route for a ``(dev, msk)`` operand pair: ``"table"`` for equal
+    (U, I') f32 tables, ``"int8"`` for a (U, I) int8 rating matrix with
+    its (U,) f32 means (output ``width`` ≥ I); raises ``TypeError`` /
+    ``ValueError`` on anything else."""
+    if dev.dim() != 2:
+        raise ValueError(f"need a (U, I') table or (U, I) matrix, got "
+                         f"{tuple(dev.shape)}")
+    if dev.dtype == torch.int8:
+        if msk.dtype != torch.float32:
+            raise TypeError(f"the int8 route takes f32 means, got "
+                            f"{msk.dtype}")
+        if msk.shape != dev.shape[:1]:
+            raise ValueError(f"means must be {tuple(dev.shape[:1])}, got "
+                             f"{tuple(msk.shape)}")
+        if width is not None and width < dev.shape[1]:
+            raise ValueError(f"width {width} < the {dev.shape[1]} items")
+        return "int8"
+    if dev.shape != msk.shape:
+        raise ValueError(f"need equal (U, I') tables, got "
+                         f"{tuple(dev.shape)} and {tuple(msk.shape)}")
+    if dev.dtype != torch.float32 or msk.dtype != torch.float32:
+        raise TypeError(f"need f32 tables or an int8 matrix, got "
+                        f"{dev.dtype} and {msk.dtype}")
+    if width is not None and width != dev.shape[1]:
+        raise ValueError("width applies to the int8 route only")
+    return "table"
+
+
+def _lib(route: str):
     lib = _build.load("support")
-    fn = lib.repro_support_scores
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, p, p, p, p, i, i, p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if route == "table":
+        fn = lib.repro_support_scores
+        if fn.argtypes is None:
+            fn.argtypes = [p, p, i, i, p, p, p, p, i, i, p]
+    else:
+        fn = lib.repro_support_scores_int8
+        if fn.argtypes is None:
+            fn.argtypes = [p, p, i, i, i, p, p, p, p, i, i, p]
+    fn.restype = ctypes.c_int
     return fn
 
 
 def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
                          nb_idx: torch.Tensor, nb_w: torch.Tensor,
-                         q_means: torch.Tensor) -> torch.Tensor:
+                         q_means: torch.Tensor, *,
+                         width: int | None = None) -> torch.Tensor:
     """(U, I') deviation/mask tables × (b, k) neighbors → (b, I') scores.
 
-    ``nb_w`` must be the masked weights (invalid / non-positive neighbors
-    at 0) and ``nb_idx`` int32 ids clipped into ``[0, U)`` — what the item
-    index's scorer prepares.  Seen-item knockout is the caller's.  CUDA
-    tensors launch the kernel on the current stream (output from
-    ``torch.empty``, no synchronisation) and add one to
-    ``fused_support_scores.launches``; CPU tensors run the plain version.
+    On the ``"int8"`` route ``dev`` is the (U, I) int8 rating matrix and
+    ``msk`` the (U,) f32 user means, and the output is (b, ``width``)
+    (default :func:`support_width` of I), scored as the tables
+    :func:`support_tables` would give.  ``nb_w`` must be the masked
+    weights (invalid / non-positive neighbors at 0) and ``nb_idx`` int32
+    ids clipped into ``[0, U)`` — what the item index's scorer prepares.
+    Seen-item knockout is the caller's.  CUDA tensors launch the kernel
+    on the current stream (output from ``torch.empty``, no
+    synchronisation) and add one to ``fused_support_scores.launches`` and
+    to the route's entry of ``fused_support_scores.routes``; CPU tensors
+    run the plain version.
     """
-    if dev.dim() != 2 or dev.shape != msk.shape or nb_idx.dim() != 2:
-        raise ValueError(f"need equal (U, I') tables and (b, k) ids, got "
-                         f"{tuple(dev.shape)}, {tuple(msk.shape)} and "
-                         f"{tuple(nb_idx.shape)}")
+    route = support_route(dev, msk, width)
+    if nb_idx.dim() != 2:
+        raise ValueError(f"need (b, k) ids, got {tuple(nb_idx.shape)}")
     b, k = nb_idx.shape
     if nb_w.shape != (b, k) or q_means.shape != (b,):
         raise ValueError(f"nb_w must be {(b, k)} and q_means {(b,)}, got "
@@ -86,28 +170,40 @@ def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
     tensors = (dev, msk, nb_idx, nb_w, q_means)
     if any(t.device != dev.device for t in tensors):
         raise ValueError("all inputs must be on one device")
+    n_users, n_items = dev.shape
+    if route == "int8" and width is None:
+        width = support_width(n_items)
     if dev.device.type == "cpu":
+        if route == "int8":
+            return support_scores_int8_plain(dev, msk, nb_idx, nb_w,
+                                             q_means, width=width)
         return support_scores_plain(dev, msk, nb_idx, nb_w, q_means)
     if dev.device.type != "cuda":
         raise ValueError(f"unsupported device {dev.device}")
     if nb_idx.dtype != torch.int32 or any(
-            t.dtype != torch.float32 for t in (dev, msk, nb_w, q_means)):
-        raise TypeError(f"need f32 tables, weights and means and int32 ids, "
-                        f"got {[t.dtype for t in tensors]}")
+            t.dtype != torch.float32 for t in (nb_w, q_means)):
+        raise TypeError(f"need f32 weights and means and int32 ids, got "
+                        f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
-    out = torch.empty((b, dev.shape[1]), dtype=torch.float32,
-                      device=dev.device)
-    if b and dev.shape[1]:
+    n_cols = n_items if route == "table" else width
+    out = torch.empty((b, n_cols), dtype=torch.float32, device=dev.device)
+    if b and n_cols:
         with torch.cuda.device(dev.device):
             stream = torch.cuda.current_stream().cuda_stream
-            status = _lib()(dev.data_ptr(), msk.data_ptr(), dev.shape[0],
-                            dev.shape[1], nb_idx.data_ptr(),
-                            nb_w.data_ptr(), q_means.data_ptr(),
-                            out.data_ptr(), b, k, stream)
+            common = (nb_idx.data_ptr(), nb_w.data_ptr(),
+                      q_means.data_ptr(), out.data_ptr(), b, k, stream)
+            if route == "table":
+                status = _lib(route)(dev.data_ptr(), msk.data_ptr(),
+                                     n_users, n_cols, *common)
+            else:
+                status = _lib(route)(dev.data_ptr(), msk.data_ptr(),
+                                     n_users, n_items, n_cols, *common)
         _build.check(status, "fused_support_scores")
         fused_support_scores.launches += 1
+        fused_support_scores.routes[route] += 1
     return out
 
 
 fused_support_scores.launches = 0
+fused_support_scores.routes = dict.fromkeys(ROUTES, 0)

@@ -14,6 +14,7 @@ from _torch_parity import torch_single_thread  # noqa: F401
 from repro.core import metrics as ref_metrics
 from repro.core.facade import CFEngine as RefEngine
 from repro_torch.core import metrics
+from repro_torch.core import facade as tfacade
 from repro_torch.core.facade import BACKENDS, CFEngine
 from repro_torch.core.similarity import (SIMILARITY_MEASURES,
                                          pairwise_similarity)
@@ -51,6 +52,75 @@ def test_backends_agree_bitwise(ml_small):
     b = _port(ml_small[0], "pcc", "kernel")
     assert torch.equal(a.idx, b.idx) and torch.equal(a.scores, b.scores)
     assert torch.equal(a.recommend(n=10)[1], b.recommend(n=10)[1])
+
+
+def _record_similarity_operands(monkeypatch):
+    """Record (dtype, max_value) of every fused-similarity call the
+    facade makes."""
+    seen = []
+    real = tfacade.ksim.fused_similarity
+
+    def spy(ra, rb, **kw):
+        seen.append((ra.dtype, rb.dtype, kw.get("max_value")))
+        return real(ra, rb, **kw)
+
+    monkeypatch.setattr(tfacade.ksim, "fused_similarity", spy)
+    return seen
+
+
+@pytest.mark.parametrize("measure", SIMILARITY_MEASURES)
+def test_kernel_backend_takes_the_int8_operand(ml_small, ref_engines,
+                                               monkeypatch, measure):
+    """Integer ratings: every candidate block of the kernel fit goes to
+    the similarity kernel as int8 with the ratings' bound (5), and the
+    fit equals the sequential backend bit for bit — and the reference's,
+    bit for bit except pcc_sig's one-ulp score difference, which both
+    port backends share."""
+    seen = _record_similarity_operands(monkeypatch)
+    eng = _port(ml_small[0], measure, "kernel")
+    assert len(seen) == 3                       # 384 users, blocks of 128
+    assert set(seen) == {(torch.int8, torch.int8, 5)}
+    seq = _port(ml_small[0], measure, "sequential")
+    assert torch.equal(eng.idx, seq.idx)
+    assert torch.equal(eng.scores, seq.scores)
+    r_s, r_i = ref_engines[measure].neighbors()
+    assert_parity(f"engine.kernel.int8.{measure}.ids", eng.idx, r_i)
+    assert_parity(f"engine.kernel.int8.{measure}.scores", eng.scores, r_s,
+                  atol=2e-5 if measure == "pcc_sig" else 0.0)
+    seen.clear()
+    st = eng.update_ratings([3, 3, 200], [7, 8, 9], [4.0, 0.0, 1.0],
+                            oracle_check=True)
+    assert st.oracle_ok           # the refit and the oracle's recompute
+    assert seen and set(seen) == {(torch.int8, torch.int8, 5)}
+
+
+def test_half_star_ratings_take_the_f32_operand(ml_small, monkeypatch):
+    """A 3.5 rating leaves int8: the fit scores f32 blocks (no
+    max_value), still bit for bit the sequential backend's."""
+    train = ml_small[0].copy()
+    train[0, np.nonzero(train[0])[0][0]] = 3.5
+    seen = _record_similarity_operands(monkeypatch)
+    eng = _port(train, "pcc", "kernel")
+    assert set(seen) == {(torch.float32, torch.float32, None)}
+    seq = _port(train, "pcc", "sequential")
+    assert torch.equal(eng.idx, seq.idx)
+    assert torch.equal(eng.scores, seq.scores)
+
+
+@pytest.mark.parametrize("top,width,want", [
+    (5, 3952, "int8"), (64, 4096, "int8"), (64, 4097, "f32"),
+    (127, 3952, "f32"), (0, 300, "int8")])
+def test_similarity_operand_choice(top, width, want):
+    """The fit's operand: int8 with its largest rating as max_value inside
+    the int8 route's exact domain (max_value² · D ≤ 2^24), else f32."""
+    r = torch.zeros((3, width))
+    r[1, 2] = float(top)
+    src = r.to(torch.int8)
+    op, max_value = tfacade._similarity_operand(r, src)
+    if want == "int8":
+        assert op is src and max_value == top
+    else:
+        assert op is r and max_value is None
 
 
 def _assert_recommend_tie_aware(name, got_i, want_i, pred):

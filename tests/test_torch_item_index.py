@@ -248,17 +248,70 @@ def test_update_stream_keeps_item_index_consistent(features):
         eng.recommend(n=5)                   # builds the per-ratings caches
         st = eng.update_ratings(*delta, oracle_check=True)
         assert st.oracle_ok
-        # the gather source and the scorer tables were patched along the
-        # version chain, copy-on-write, to what a cold build gives
-        assert ix.last_refold.caches_patched == 2
-        cached = ix._support_dense_cache
+        # integer ratings: the scorer takes its int8 route, so the int8
+        # gather source is its operand and no table is built; the source
+        # was patched along the version chain, copy-on-write, to what a
+        # cold build gives
+        assert ix.last_refold.caches_patched == 1
+        assert ix._support_dense_cache is None
+        cached = ix._gather_cache
         assert cached[0] is eng.ratings
-        cold = tii._dense_tables(eng.ratings, eng.means, 48)
-        assert torch.equal(cached[1][0], cold[0])
-        assert torch.equal(cached[1][1], cold[1])
+        assert torch.equal(cached[1], eng.ratings.to(torch.int8))
     assert ix.check_consistent(eng.ratings, eng.means)
     e_s, e_i = eng.recommend(n=5, mode="exact")
     s, i = eng.recommend(n=5)
+    assert torch.equal(s, e_s) and torch.equal(i, e_i)
+
+
+@pytest.mark.parametrize("features", ["raw", "centered"])
+def test_update_stream_patches_tables_on_the_f32_route(features):
+    """Half-star ratings leave int8: the scorer reads the dense f32
+    tables, patched copy-on-write along the version chain."""
+    rng = np.random.default_rng(3)
+    r = int_ratings(rng, 80, 48)
+    r[r == 3] = 3.5
+    eng = _port(r, n_clusters=6, features=features, shortlist=16)
+    ix = eng.item_index
+    for delta in _deltas(rng, 80, 48):
+        eng.recommend(n=5)
+        st = eng.update_ratings(*delta, oracle_check=True)
+        assert st.oracle_ok
+        assert ix.last_refold.caches_patched == 2
+        cached = ix._support_dense_cache
+        assert cached[0] is eng.ratings
+        cold = tii.support_tables(eng.ratings, eng.means, 48)
+        assert torch.equal(cached[1][0], cold[0])
+        assert torch.equal(cached[1][1], cold[1])
+    e_s, e_i = eng.recommend(n=5, mode="exact")
+    s, i = eng.recommend(n=5)
+    assert torch.equal(s, e_s) and torch.equal(i, e_i)
+
+
+@pytest.mark.parametrize("measure", ["pcc", "jaccard"])
+def test_int8_route_scores_equal_the_table_route(monkeypatch, measure):
+    """The scorer's int8 operands (gather source, means) and the dense
+    tables give the same shortlist scores bit for bit, so the int8 route
+    changes no recommendation."""
+    r = int_ratings(np.random.default_rng(11), 120, 200, 0.3)
+    eng = _port(r, measure=measure, k=8, shortlist=24)
+    ix = eng.item_index
+    ratings, scores, idx, means = eng.snapshot()
+    ops = ix._support_operands(ratings, means)
+    assert ops[0].dtype == torch.int8 and ops[1] is not None
+    assert ix._support_dense_cache is None
+    ids = torch.arange(0, 120, 3)
+    got = ix._score_select(ratings, means, scores, idx, ids, ops, 24)
+    tables = ix._support_dense(ratings, means)
+    want = ix._score_select(ratings, means, scores, idx, ids, tables, 24)
+    assert torch.equal(got, want)
+    seen = []
+    real = tii.support_scores_int8_plain
+    monkeypatch.setattr(tii, "support_scores_int8_plain",
+                        lambda *a, **kw: seen.append(a[0].dtype)
+                        or real(*a, **kw))
+    s, i = eng.recommend(n=5)
+    assert seen and set(seen) == {torch.int8}
+    e_s, e_i = eng.recommend(n=5, mode="exact")
     assert torch.equal(s, e_s) and torch.equal(i, e_i)
 
 

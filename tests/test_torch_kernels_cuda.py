@@ -29,29 +29,94 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,n,d", [(257, 131, 3952), (1, 33, 17),
-                                   (64, 64, 32), (70, 5, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
-def test_similarity_kernel_matches_plain(cuda, m, n, d, dtype):
-    rng = np.random.default_rng(m + n + d)
-    ra = torch.from_numpy(int_ratings(rng, m, d)).to(cuda, dtype)
-    rb = torch.from_numpy(int_ratings(rng, n, d)).to(cuda, dtype)
-    for measure in ("jaccard", "cosine", "pcc", "pcc_sig", "all"):
-        before = fused_similarity.launches
-        got = fused_similarity(ra, rb, measure=measure, beta=7.3)
-        assert fused_similarity.launches == before + 1
+SIM_MEASURES = ("jaccard", "cosine", "pcc", "pcc_sig", "all")
+
+
+def _similarity_bitwise(name, ra, rb, route, **kw):
+    """Every measure through the kernel on ``route`` against the plain
+    version, bit for bit; one launch and one route count each."""
+    for measure in SIM_MEASURES:
+        before = dict(fused_similarity.routes)
+        launches = fused_similarity.launches
+        got = fused_similarity(ra, rb, measure=measure, beta=7.3, **kw)
+        assert fused_similarity.launches == launches + 1
+        assert fused_similarity.routes == {
+            k: v + (k == route) for k, v in before.items()}
         want = similarity_plain(ra, rb, measure=measure, beta=7.3)
         torch.cuda.synchronize()
         if measure != "all":
             got, want = (got,), (want,)
         for g, w in zip(got, want):
-            assert_parity(f"cuda.similarity.{measure}.{m}x{n}x{d}", g, w)
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+                f"{name}.{measure}"
+
+
+@pytest.mark.parametrize("m,n,d", [(257, 131, 3952), (1, 33, 17),
+                                   (64, 64, 32), (70, 5, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_similarity_kernel_matches_plain(cuda, m, n, d, dtype):
+    """Both routes on 1..5 ratings: f32 → "simt", int8 → "imma" (with
+    the ratings' bound as max_value: 128² · 3952 leaves the domain)."""
+    rng = np.random.default_rng(m + n + d)
+    ra = torch.from_numpy(int_ratings(rng, m, d)).to(cuda, dtype)
+    rb = torch.from_numpy(int_ratings(rng, n, d)).to(cuda, dtype)
+    route, kw = (("imma", {"max_value": 5}) if dtype == torch.int8
+                 else ("simt", {}))
+    _similarity_bitwise(f"cuda.similarity.{m}x{n}x{d}.{route}", ra, rb,
+                        route, **kw)
+
+
+@pytest.mark.parametrize("m,n,d", [(129, 65, 3952), (17, 200, 100),
+                                   (300, 129, 4000), (5, 1, 3)])
+@pytest.mark.parametrize("max_value", [15, 16])
+def test_similarity_imma_route_ragged(cuda, m, n, d, max_value):
+    """The int8 route at m, n off its 128 / 64 tiles, D off 16 (the
+    wrapper pads), signed values up to ±max_value: 15 keeps each square
+    in one u8 plane, 16 adds the hi plane."""
+    rng = np.random.default_rng(m * n + d + max_value)
+
+    def block(rows):
+        x = rng.integers(-max_value, max_value + 1, (rows, d))
+        x = x * (rng.random((rows, d)) < 0.6)
+        x[0, :] = max_value                      # a full row at the bound
+        return torch.from_numpy(x.astype(np.float32)).to(cuda)
+
+    ra, rb = block(m), block(n)
+    ra[-1] = 0.0                                 # an all-zero row
+    _similarity_bitwise(f"cuda.similarity.imma.{m}x{n}x{d}.v{max_value}",
+                        ra.to(torch.int8), rb.to(torch.int8), "imma",
+                        max_value=max_value)
+
+
+def test_similarity_imma_domain_edge(cuda):
+    """max_value² · D = 2^24 exactly is inside the int8 route's domain
+    (a dot of two all-64 rows is 2^24, still exact in f32); one item
+    more, or no max_value, raises."""
+    rng = np.random.default_rng(9)
+    d = 4096
+    x = rng.integers(-64, 65, (40, d)) * (rng.random((40, d)) < 0.5)
+    x[0], x[1] = 64, 64
+    x[2] = -64
+    ra = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    _similarity_bitwise("cuda.similarity.imma.edge", ra.to(torch.int8),
+                        ra[:23].contiguous().to(torch.int8), "imma",
+                        max_value=64)
+    dot = fused_similarity(ra[:2].to(torch.int8), ra[:2].to(torch.int8),
+                           measure="cosine", max_value=64)
+    assert bool((dot == 1.0).all())
+    big = torch.zeros(3, d + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="exact domain"):
+        fused_similarity(big, big, measure="pcc", max_value=64)
+    with pytest.raises(ValueError, match="exact domain"):
+        fused_similarity(ra.to(torch.int8), ra.to(torch.int8))
 
 
 def test_similarity_kernel_rejects_bad_inputs(cuda):
     a = torch.ones(4, 8, device=cuda)
     with pytest.raises(TypeError):
         fused_similarity(a.double(), a.double())
+    with pytest.raises(TypeError):               # one route per launch
+        fused_similarity(a, a.to(torch.int8))
     with pytest.raises(ValueError):
         fused_similarity(a.T, a.T)               # not contiguous
     with pytest.raises(ValueError):
@@ -84,8 +149,12 @@ def test_engine_backends_agree_on_card(cuda):
     r = int_ratings(rng, 300, 200)
     seq = CFEngine(r, k=12, block_size=128, backend="sequential",
                    device="cuda").fit()
+    before = dict(fused_similarity.routes)
     ker = CFEngine(r, k=12, block_size=128, backend="kernel",
                    device="cuda").fit()
+    # integer ratings: every candidate block on the int8 route
+    assert fused_similarity.routes["imma"] == before["imma"] + 3
+    assert fused_similarity.routes["simt"] == before["simt"]
     assert torch.equal(seq.idx, ker.idx)
     assert torch.equal(seq.scores, ker.scores)
     assert torch.equal(seq.recommend(n=10)[1], ker.recommend(n=10)[1])
@@ -430,25 +499,99 @@ def test_support_kernel_matches_plain(cuda, b, k, u, i, masked):
         assert torch.equal(got, args[4][:, None].clamp(1, 5).expand_as(got))
 
 
+def _support_int8_inputs(rng, b, k, u, i, cuda, negative=False):
+    """(U, I) int8 ratings, (U,) means, (b, k) ids, masked weights and
+    query means; ``negative`` adds negative ratings and weights (w·0 = −0:
+    the kernel's general path, beside its fast path for w·0 = +0)."""
+    r = int_ratings(rng, u, i, 0.3)
+    w = (rng.random((b, k)) * (rng.random((b, k)) < 0.8)).astype(np.float32)
+    if negative:
+        r = r - 2.0 * (rng.random((u, i)) < 0.1)
+        w = w - 0.5 * (rng.random((b, k)) < 0.3).astype(np.float32)
+    means = rng.uniform(2, 4, u).astype(np.float32)
+    idx = rng.integers(0, u, (b, k)).astype(np.int32)
+    qm = rng.uniform(2, 4, b).astype(np.float32)
+    t = [torch.from_numpy(x).to(cuda) for x in (r, means, idx, w, qm)]
+    t[0] = t[0].to(torch.int8)
+    return tuple(t)
+
+
+@pytest.mark.parametrize("b,k,u,i,negative", [
+    (5, 7, 40, 130, False), (1, 1, 17, 7, False), (9, 3, 25, 64, True),
+    (33, 40, 300, 1024, False), (257, 40, 6040, 3952, False),
+    (2, 12, 50, 513, True), (3, 70, 90, 2100, False)])
+def test_support_int8_route_matches_plain(cuda, b, k, u, i, negative):
+    """The int8 route (ratings and means in place of the tables) against
+    its plain version and the table route's kernel on the tables of the
+    same data: bit for bit, at widths off 16 and off the 2048-column
+    tile, k past the 64-neighbor staging chunk, negative ratings and
+    weights."""
+    from repro_torch.kernels.support import (fused_support_scores,
+                                             support_scores_int8_plain,
+                                             support_tables, support_width)
+    rng = np.random.default_rng(b + k + u + i)
+    r8, means, idx, w, qm = _support_int8_inputs(rng, b, k, u, i, cuda,
+                                                 negative)
+    before = dict(fused_support_scores.routes)
+    got = fused_support_scores(r8, means, idx, w, qm)
+    assert fused_support_scores.routes == {
+        key: v + (key == "int8") for key, v in before.items()}
+    width = support_width(i)
+    assert got.shape == (b, width)
+    want = support_scores_int8_plain(r8, means, idx, w, qm)
+    dev, msk = support_tables(r8, means, width)
+    table = fused_support_scores(dev, msk, idx, w, qm)
+    assert fused_support_scores.routes["table"] == before["table"] + 1
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.support.int8.{b}x{k}x{u}x{i}", got, want)
+    assert_parity(f"cuda.support.int8_vs_table.{b}x{k}x{u}x{i}", got,
+                  table)
+
+
+def test_support_int8_route_mean_fallback(cuda):
+    """Columns no neighbor rated (and the padding past I) score the
+    query mean, clipped; a width past the default pads further."""
+    from repro_torch.kernels.support import (fused_support_scores,
+                                             support_scores_int8_plain)
+    rng = np.random.default_rng(12)
+    r8, means, idx, w, qm = _support_int8_inputs(rng, 6, 5, 30, 96, cuda)
+    r8[:, :32] = 0                          # nobody rated items 0..31
+    qm[0], qm[1] = 0.5, 6.0                 # clipped to 1 and 5
+    got = fused_support_scores(r8, means, idx, w, qm, width=160)
+    want = support_scores_int8_plain(r8, means, idx, w, qm, width=160)
+    torch.cuda.synchronize()
+    assert_parity("cuda.support.int8.fallback", got, want)
+    fallback = qm[:, None].clamp(1, 5)
+    assert torch.equal(got[:, :32], fallback.expand(-1, 32))
+    assert torch.equal(got[:, 96:], fallback.expand(-1, 64))
+    with pytest.raises(ValueError):
+        fused_support_scores(r8, means, idx, w, qm, width=95)
+    with pytest.raises(TypeError):
+        fused_support_scores(r8, means.double(), idx, w, qm)
+
+
 def test_support_kernel_equals_tile_predict(cuda):
     """The support score is the exact prediction: the same ordered k-loop
     on the same rounded r − r̄ values as the tile-predict kernel."""
-    from repro_torch.index.item_index import _dense_tables
-    from repro_torch.kernels.support import BT, fused_support_scores
+    from repro_torch.kernels.support import (BT, fused_support_scores,
+                                             support_tables)
     rng = np.random.default_rng(4)
     r = torch.from_numpy(int_ratings(rng, 300, 700)).to(cuda)
     eng = CFEngine(r, k=12, block_size=128, device="cuda").fit()
     scores, idx, means = eng.scores, eng.idx, eng.means
-    dev, msk = _dense_tables(r, means, 700 + (-700) % BT)
+    dev, msk = support_tables(r, means, 700 + (-700) % BT)
     safe = torch.where(idx >= 0, idx, 0).to(torch.int32).contiguous()
     w = torch.where((scores > 0) & (idx >= 0), scores,
                     torch.zeros_like(scores)).contiguous()
     got = fused_support_scores(dev, msk, safe, w, means)[:, :700]
+    src = pr.make_gather_source(r)
+    got8 = fused_support_scores(src, means, safe, w, means)[:, :700]
     want = pr.predict_from_neighbors_blocked(
-        r, scores, idx, means=means, item_block=512,
-        gather_src=pr.make_gather_source(r), use_kernel=True)
+        r, scores, idx, means=means, item_block=512, gather_src=src,
+        use_kernel=True)
     torch.cuda.synchronize()
     assert_parity("cuda.support.identity_tile_predict", got, want)
+    assert_parity("cuda.support.int8.identity_tile_predict", got8, want)
 
 
 def test_support_kernel_rejects_bad_inputs(cuda):
@@ -473,12 +616,17 @@ def test_approx_recommend_equals_exact_on_card(cuda):
                         item_index_cfg=ItemIndexConfig(use_kernel=flag)
                         ).fit() for flag in (None, False)]
     ker, plain = engines
+    from repro_torch.kernels.support import fused_support_scores
+    before = dict(fused_support_scores.routes)
     s_ex, i_ex = ker.recommend(n=10, mode="exact")
     for shortlist in (512, 64, 10):
         s_k, i_k = ker.recommend(n=10, shortlist=shortlist)
         s_p, i_p = plain.recommend(n=10, shortlist=shortlist)
         assert torch.equal(s_k, s_ex) and torch.equal(i_k, i_ex)
         assert torch.equal(s_p, s_ex) and torch.equal(i_p, i_ex)
+    # integer ratings: every support launch on the int8 route
+    assert fused_support_scores.routes["int8"] == before["int8"] + 3
+    assert fused_support_scores.routes["table"] == before["table"]
     assert ker.recommend_recall_vs_exact(sample=64) == 1.0
     st = ker.update_ratings([4, 4, 9], [1, 2, 3], [5.0, 0.0, 2.0],
                             oracle_check=True)
@@ -486,6 +634,29 @@ def test_approx_recommend_equals_exact_on_card(cuda):
     s_ex, i_ex = ker.recommend(n=10, mode="exact")
     s_k, i_k = ker.recommend(n=10)
     assert torch.equal(s_k, s_ex) and torch.equal(i_k, i_ex)
+
+
+def test_approx_recommend_f32_route_on_card(cuda):
+    """Half-star ratings leave int8: both kernels take their f32 routes
+    (similarity "simt", support "table"), and approx still equals exact
+    bit for bit."""
+    from repro_torch.kernels.support import fused_support_scores
+    rng = np.random.default_rng(7)
+    r = int_ratings(rng, 300, 520)
+    r[r == 4] = 3.5
+    sim_before = dict(fused_similarity.routes)
+    sup_before = dict(fused_support_scores.routes)
+    eng = CFEngine(r, k=10, recommend_mode="approx", device="cuda").fit()
+    s_ap, i_ap = eng.recommend(n=10, shortlist=32)
+    s_ex, i_ex = eng.recommend(n=10, mode="exact")
+    assert torch.equal(s_ap, s_ex) and torch.equal(i_ap, i_ex)
+    assert fused_similarity.routes["simt"] > sim_before["simt"]
+    assert fused_similarity.routes["imma"] == sim_before["imma"]
+    assert fused_support_scores.routes["table"] > sup_before["table"]
+    assert fused_support_scores.routes["int8"] == sup_before["int8"]
+    seq = CFEngine(r, k=10, backend="sequential", device="cuda").fit()
+    assert torch.equal(seq.idx, eng.idx)
+    assert torch.equal(seq.scores, eng.scores)
 
 
 # -- the flash-attention kernel (LM serving) against its plain version ------

@@ -15,7 +15,8 @@ from repro.kernels.similarity import fused_similarity as ref_fused
 from repro_torch.core import similarity as sim
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.similarity import (fused_similarity,
-                                            similarity_plain)
+                                            similarity_plain,
+                                            similarity_route)
 
 GRAM_FIELDS = ("n_common", "dot", "sum_a", "sum_b", "sq_a", "sq_b",
                "count_a", "count_b", "norm_a", "norm_b")
@@ -148,3 +149,68 @@ def test_fused_similarity_wrapper_contract():
     before = fused_similarity.launches
     fused_similarity(ra, ra, measure="pcc")      # CPU: plain, no launch
     assert fused_similarity.launches == before
+
+
+@pytest.mark.parametrize("measure", ["all", "jaccard", "cosine", "pcc",
+                                     "pcc_sig"])
+def test_fused_similarity_int8_blocks_plain_vs_reference(measure):
+    """int8 blocks (the fit's operand on integer ratings) give the f32
+    blocks' scores bit for bit, and the reference's oracle's."""
+    rng = np.random.default_rng(17)
+    ra = int_ratings(rng, 31, 90, density=0.5)
+    rb = int_ratings(rng, 22, 90, density=0.5)
+    got = fused_similarity(torch.from_numpy(ra).to(torch.int8),
+                           torch.from_numpy(rb).to(torch.int8),
+                           measure=measure, max_value=5)
+    f32 = fused_similarity(torch.from_numpy(ra), torch.from_numpy(rb),
+                           measure=measure)
+    g_ref = ref_sim.gram_terms(jnp.asarray(ra), jnp.asarray(rb))
+    if measure == "all":
+        oracle = (ref_sim.jaccard_from_gram(g_ref),
+                  ref_sim.cosine_from_gram(g_ref),
+                  ref_sim.pcc_from_gram(g_ref))
+    elif measure == "pcc_sig":
+        oracle = (ref_sim.pcc_sig_from_gram(g_ref),)
+    else:
+        oracle = (ref_kref.similarity_ref(jnp.asarray(ra), jnp.asarray(rb),
+                                          measure),)
+    if measure != "all":
+        got, f32 = (got,), (f32,)
+    for j, (g, f, o) in enumerate(zip(got, f32, oracle)):
+        assert_parity(f"fused_similarity.int8.{measure}[{j}].vs_f32", g, f)
+        assert_parity(f"fused_similarity.int8.{measure}[{j}].vs_ref", g, o)
+
+
+@pytest.mark.parametrize("a,b,d,max_value,want", [
+    (torch.int8, torch.int8, 3952, 5, "imma"),
+    (torch.int8, torch.int8, 4096, 64, "imma"),       # 64² · 4096 = 2^24
+    (torch.int8, torch.int8, 1024, None, "imma"),     # 128² · 1024 = 2^24
+    (torch.float32, torch.float32, 3952, None, "simt"),
+    (torch.float32, torch.float32, 10 ** 6, 127, "simt"),
+    (torch.int8, torch.int8, 4097, 64, ValueError),
+    (torch.int8, torch.int8, 3952, None, ValueError),
+    (torch.int8, torch.int8, 3952, 66, ValueError),
+    (torch.float32, torch.int8, 16, 5, TypeError),
+    (torch.int8, torch.float32, 16, 5, TypeError),
+    (torch.float64, torch.float64, 16, None, TypeError),
+])
+def test_similarity_route_choice_and_domain(a, b, d, max_value, want):
+    """The card's route follows the dtypes; the int8 route's exact
+    domain is max_value² · D ≤ 2^24 (int8's own 128 without max_value)."""
+    if isinstance(want, str):
+        assert similarity_route(a, b, d, max_value) == want
+    else:
+        with pytest.raises(want, match="exact domain" if want is ValueError
+                           else "matching"):
+            similarity_route(a, b, d, max_value)
+
+
+def test_fused_similarity_routes_counter_on_cpu():
+    """A CPU call runs the plain version and counts no launch and no
+    route, on either dtype."""
+    ra = torch.from_numpy(int_ratings(np.random.default_rng(1), 6, 20))
+    before = (fused_similarity.launches, dict(fused_similarity.routes))
+    assert set(fused_similarity.routes) == {"imma", "simt"}
+    for a in (ra, ra.to(torch.int8)):
+        fused_similarity(a, a, measure="pcc", max_value=5)
+    assert (fused_similarity.launches, fused_similarity.routes) == before

@@ -71,10 +71,11 @@ SELECT = {
 
 
 def build(kind: str, variants: dict) -> dict:
-    """Compile each variant of csrc/<kind>.cu; returns name → (library,
-    ptxas lines of its entry functions)."""
+    """Compile each variant of csrc/<kind>.cu (the shared csrc/*.cuh
+    headers on the include path); returns name → (library, ptxas lines of
+    its entry functions)."""
     from repro_torch.kernels import _build
-    src = (ROOT / "src/repro_torch/csrc" / f"{kind}.cu").read_text()
+    src = (_build.CSRC / f"{kind}.cu").read_text()
     out_dir = ROOT / "src/repro_torch/build/variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -89,7 +90,8 @@ def build(kind: str, variants: dict) -> dict:
         cu.write_text(text)
         lib = out_dir / f"{kind}_{i}.so"
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     built = {}
     for name, (proc, lib) in procs.items():

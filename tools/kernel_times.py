@@ -1,7 +1,7 @@
-"""Time kernels 8, 5, 4 and 6 of the PyTorch/CUDA port at their path
-shapes on seeded inputs, beside their library yardsticks.
+"""Time kernels 8, 5, 4, 6, 1 and 7 of the PyTorch/CUDA port at their
+path shapes on seeded inputs, beside their library yardsticks.
 
-    python3 tools/kernel_times.py [--src DIR] [--only index]
+    python3 tools/kernel_times.py [--src DIR] [--only index|exact|support]...
 
 Run from the repository root on a machine with a CUDA card.  Prints one
 line each: the flash-attention prefill launch (Llama-3.2-1B's layer
@@ -19,10 +19,18 @@ L2-sized row slabs, and ``fused_rerank_scores`` (pcc) on one 2048-query block of
 ML-1M surrogate as the path calls it — int8 queries over the 6040 real
 union columns and the sentinel where the tree takes int8 queries, f32
 queries over the union padded to 8192 columns as the previous design
-did — each held to its plain version bit for bit.  ``--src DIR`` imports
-``repro_torch`` from DIR (an unpacked parent tree, to time two designs in
-one call).  Times are CUDA events over back-to-back calls, the host's
-enqueue included.
+did — each held to its plain version bit for bit.  ``--only exact``
+times ``fused_similarity`` at one exact-fit launch ((6040, 3952) ×
+(1024, 3952) of the ML-1M surrogate, pcc) on f32 rows and, where the
+tree has the int8 route, on the int8 rows with max_value 5, beside six
+f32 ``torch.matmul`` and six ``torch._int_mm`` calls; ``--only support``
+times ``fused_support_scores`` at the approx recommend's 6040-user chunk
+(k 40 exact pcc neighbors, I' 4096) on the f32 tables and, where the
+tree has it, on the int8 route, beside ``torch.sparse.mm``; both hold
+every route to its plain version bit for bit.  ``--only`` may repeat.
+``--src DIR`` imports ``repro_torch`` from DIR (an unpacked parent tree,
+to time two designs in one call).  Times are CUDA events over
+back-to-back calls, the host's enqueue included.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import sys
 _ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 _ARGS.add_argument("--src", default=os.path.join(os.path.dirname(
     os.path.abspath(__file__)), "..", "src"))
-_ARGS.add_argument("--only", choices=("index",), default=None)
+_ARGS.add_argument("--only", choices=("index", "exact", "support"),
+                   action="append", default=None)
 ARGS = _ARGS.parse_args()
 sys.path.insert(0, os.path.abspath(ARGS.src))
 
@@ -125,14 +134,102 @@ def index_kernels(dev) -> bool:
     return ok
 
 
+def exact_kernels(dev) -> bool:
+    """Kernel 1 at one exact-fit launch; False on any mismatch."""
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.kernels.similarity import (fused_similarity,
+                                                similarity_plain)
+    train, _, _ = load_ml1m_synthetic()
+    r = torch.from_numpy(train).to(dev)
+    r8 = r.to(torch.int8)
+    forms = [("f32", r, {})]
+    if "max_value" in inspect.signature(fused_similarity).parameters:
+        forms.append(("int8", r8, {"max_value": 5}))
+    ok = True
+    for name, a, kw in forms:
+        b = a[:1024].contiguous()
+        want = similarity_plain(a, b, measure="pcc")
+        got = fused_similarity(a, b, measure="pcc", **kw)
+        same = bitwise(got, want)
+        ok &= same
+        routes = getattr(fused_similarity, "routes", None)
+        print(f"similarity pcc {tuple(a.shape)}x{tuple(b.shape)} {name} "
+              f"bitwise {same} ms "
+              f"{time_ms(lambda: fused_similarity(a, b, measure='pcc', **kw))!r}"
+              f" routes {routes}", flush=True)
+    b = r[:1024]
+    ma, mb = (r > 0).float(), (b > 0).float()
+    ops = [(ma, mb.T), (r, b.T), (r, mb.T), (ma, b.T), (r * r, mb.T),
+           (ma, (b * b).T)]
+    ops = [(x.contiguous(), y.contiguous()) for x, y in ops]
+    b8 = r8[:1024]
+    m8a, m8b = (r8 > 0).to(torch.int8), (b8 > 0).to(torch.int8)
+    planes = [(m8a, m8b), (r8, b8), (r8, m8b), (m8a, b8), (r8 * r8, m8b),
+              (m8a, b8 * b8)]
+    print(f"six torch.matmul ms "
+          f"{time_ms(lambda: [torch.matmul(x, y) for x, y in ops])!r} "
+          f"six torch._int_mm ms "
+          f"{time_ms(lambda: [torch._int_mm(x, y.T) for x, y in planes])!r}",
+          flush=True)
+    return ok
+
+
+def support_kernels(dev) -> bool:
+    """Kernel 7 at the approx recommend's 6040-user chunk; False on any
+    mismatch."""
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.index import item_index
+    from repro_torch.kernels import support as ks
+    train, _, _ = load_ml1m_synthetic()
+    eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                   device=dev).fit()
+    ratings, scores, idx, means = eng.snapshot()
+    n_items = ratings.shape[1]
+    width = n_items + (-n_items) % ks.BT
+    # the function that makes the tables (the item index's own in a tree
+    # without the int8 route)
+    tables = getattr(ks, "support_tables", None) \
+        or item_index._dense_tables
+    dev_t, msk_t = tables(ratings, means, width)
+    safe = torch.where(idx >= 0, idx, 0).to(torch.int32).contiguous()
+    w = torch.where((scores > 0) & (idx >= 0), scores,
+                    torch.zeros_like(scores)).contiguous()
+    means = means.contiguous()
+    want = ks.support_scores_plain(dev_t, msk_t, safe, w, means)
+    forms = [("table", (dev_t, msk_t, safe, w, means))]
+    if hasattr(ks, "support_route"):
+        forms.append(("int8", (ratings.to(torch.int8), means, safe, w,
+                               means)))
+    ok = True
+    for name, args in forms:
+        same = bitwise(ks.fused_support_scores(*args), want)
+        ok &= same
+        print(f"support b={safe.shape[0]} k={safe.shape[1]} I'={width} "
+              f"{name} bitwise {same} ms "
+              f"{time_ms(lambda: ks.fused_support_scores(*args))!r} routes "
+              f"{getattr(ks.fused_support_scores, 'routes', None)}",
+              flush=True)
+    b, k = safe.shape
+    crow = torch.arange(0, b * k + 1, k, dtype=torch.int64, device=dev)
+    wmat = torch.sparse_csr_tensor(crow, safe.reshape(-1).long(),
+                                   w.reshape(-1), size=(b, ratings.shape[0]))
+    stacked = torch.cat([dev_t, msk_t], dim=1).contiguous()
+    print(f"torch.sparse.mm ms "
+          f"{time_ms(lambda: torch.sparse.mm(wmat, stacked))!r}", flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
         return 2
     dev = "cuda"
     print(f"repro_torch from {os.path.abspath(ARGS.src)}")
-    if ARGS.only == "index":
-        ok = index_kernels(dev)
+    if ARGS.only:
+        runs = {"index": index_kernels, "exact": exact_kernels,
+                "support": support_kernels}
+        ok = all([runs[name](dev) for name in ARGS.only])
         print(torch.cuda.get_device_name(0))
         return 0 if ok else 1
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
