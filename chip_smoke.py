@@ -389,6 +389,22 @@ def phase_kernels(dev, rng, train_dev):
                   f"raise outside the exact domain")
     log("  similarity imma: max_value² · D = 2^24 taken; 2^24 + 4096 and "
         "no max_value at D = 3952 raise")
+    # a max_value below the data is caught on the device: counted into
+    # the caller's n_bad, or raised by the wrapper
+    low = signed(70, 1000, 15)
+    low[5, 7], low[9, 999] = 16.0, -16.0
+    a8 = low.to(torch.int8)
+    n_bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    fused_similarity(a8, a8[:33], measure="pcc", max_value=15, n_bad=n_bad)
+    check(int(n_bad.item()) == 4, f"rows past max_value 15 counted "
+          f"{int(n_bad.item())}, want 4 (rows 5 and 9 of either block)")
+    try:
+        fused_similarity(a8, a8, measure="pcc", max_value=15)
+    except ValueError as exc:
+        check("past max_value" in str(exc), "max_value error message")
+    else:
+        check(False, "int8 similarity with data past max_value must raise")
+    log("  similarity imma: data past max_value counted and raised")
     block = train_dev[:1024].contiguous()
     sim_routes(f"{tuple(train_dev.shape)}x{tuple(block.shape)}", train_dev,
                block, 5)
@@ -1251,8 +1267,11 @@ def phase_timings(dev, eng, err, launches):
                                       max_value=bound8), want),
             max_diff(fused_similarity(ratings, block, measure="pcc"), want))
     check(e == 0.0, f"similarity at timing shape diff {e}")
+    n_bad = torch.zeros(1, dtype=torch.int32, device=dev)
     sim_ms = time_ms(lambda: fused_similarity(src, block8, measure="pcc",
-                                              max_value=bound8), reps=20)
+                                              max_value=bound8, n_bad=n_bad),
+                     reps=20)
+    check(int(n_bad.item()) == 0, "the timed launches' max_value holds")
     simt_ms = time_ms(lambda: fused_similarity(ratings, block,
                                                measure="pcc"))
     sim_plain = time_ms(lambda: similarity_plain(ratings, block,

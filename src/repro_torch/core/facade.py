@@ -379,15 +379,20 @@ class CFEngine:
         best_i = torch.full((n_users, self.k), -1, dtype=torch.int32,
                             device=dev)
         q_ids = torch.arange(n_users, device=dev)
+        # rows past max_value, counted on the device; read once, after
+        # the last launch, so no launch waits for the one before
+        n_bad = torch.zeros((1,), dtype=torch.int32, device=dev)
         for b0 in range(0, n_users, bs):
             block = src[b0:b0 + bs]
             s = ksim.fused_similarity(src, block, measure=self.measure,
                                       beta=self.pcc_sig_beta,
-                                      max_value=max_value)
+                                      max_value=max_value, n_bad=n_bad)
             cand = b0 + torch.arange(block.shape[0], device=dev)
             s = s.masked_fill(cand[None, :] == q_ids[:, None], nb.NEG_INF)
             ids = cand.to(torch.int32)[None, :].expand(n_users, -1)
             best_s, best_i = nb.merge_topk(best_s, best_i, s, ids, self.k)
+        if int(n_bad.item()):
+            raise ValueError(f"ratings past the fit's max_value {max_value}")
         return best_s, best_i
 
     def _obs_update(self, stats: UpdateStats) -> UpdateStats:

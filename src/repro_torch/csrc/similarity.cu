@@ -27,11 +27,12 @@
 //     a (TM·16) × (TN·8) sub-tile; the item axis streams through a
 //     3-stage cp.async ring of 128-byte (pcc with one square plane) or
 //     64-byte K slices of every plane (16-byte copies, zero-filled past
-//     m, n and D: a zero adds nothing to any sum).  The masks 1[v > 0] are made in registers from the value
-//     fragments (__vcmpgts4).  KIND: jaccard (n from the masks) and
-//     cosine (dot from the values), one product each, 8 warps on
-//     128 × 128 (two blocks an SM); the six-product kind (pcc, pcc_sig,
-//     "all") 16 warps on 128 × 64 (one block an SM): n, dot, sum_a,
+//     m, n and D: a zero adds nothing to any sum).  The masks 1[v > 0]
+//     are made in registers from the value fragments (__vcmpgts4).
+//     KIND: jaccard (n from the masks) and cosine (dot from the values),
+//     one product each, 8 warps on 128 × 128 (two blocks an SM); the
+//     six-product kind (pcc, pcc_sig, "all") 16 warps on 128 × 64 (one
+//     block an SM): n, dot, sum_a,
 //     sum_b, sq_a, sq_b from (Ma, A, A²) × (Mb, B, B²), with the hi
 //     square products only in the WIDE instantiation (max_value > 15,
 //     decided on the host, uniform for the launch).
@@ -41,8 +42,11 @@
 // Domain of the "imma" route: every Gram sum at most 2^24, where the plain
 // f32 version is exact too; the caller decides on the host from D and a
 // bound on |value| (max_value in the Python wrapper) and raises outside
-// it (max_value² · D > 2^24).  D must be a multiple of 16 and the rows
-// 16-byte aligned (the wrapper pads with zero items).
+// it (max_value² · D > 2^24).  row_prep counts the rows that break that
+// bound, so a max_value below the data raises too (after the launch)
+// instead of dropping hi squares or leaving the domain.  D must be a
+// multiple of 16 and the rows 16-byte aligned (the wrapper pads with
+// zero items).
 //
 // "simt" (both blocks f32; similarity_kernel).  One thread block owns a
 // 64×64 output tile and loops over the item axis D through 32-wide
@@ -299,16 +303,24 @@ struct Shape : Tiles<KIND> {
 // rated count and squared norm as exact integers, converted to f32 into
 // stats[row] and stats[rows + row]; with planes ≥ 1 the row's squares'
 // lo bytes into sq[row], with planes = 2 their hi bytes into
-// sq[rows + row] (u8 planes of the operand's shape).
+// sq[rows + row] (u8 planes of the operand's shape).  With bound < 128
+// a row holding some |v| > bound adds one to *n_bad: the caller's
+// max_value is checked here, so a wrong one raises instead of giving
+// wrong sums.
 __global__ void __launch_bounds__(PREP_NT)
 row_prep(const int8_t* __restrict__ x, int rows, int d, int planes,
-         unsigned char* __restrict__ sq, float* __restrict__ stats) {
+         int bound, unsigned char* __restrict__ sq,
+         float* __restrict__ stats, int* __restrict__ n_bad) {
   const int row = (blockIdx.x * PREP_NT + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const size_t base = static_cast<size_t>(row) * d;
   const size_t plane = static_cast<size_t>(rows) * d;
+  // bound and −bound in every byte (signed compares; bound ≤ 127 here)
+  const unsigned hi_lim = (bound < 128 ? bound : 127) * 0x01010101u;
+  const unsigned lo_lim = (bound < 128 ? (-bound) & 255 : 128) * 0x01010101u;
   int cnt = 0, ssq = 0;
+  unsigned over = 0u;
   for (int off = lane * 16; off < d; off += 32 * 16) {
     const uint4 v = *reinterpret_cast<const uint4*>(x + base + off);
     const unsigned w[4] = {v.x, v.y, v.z, v.w};
@@ -318,6 +330,7 @@ row_prep(const int8_t* __restrict__ x, int rows, int d, int planes,
       cnt += __popc(mask4(w[e]));
       ssq = __dp4a(static_cast<int>(w[e]), static_cast<int>(w[e]), ssq);
       square4(w[e], lo[e], hi[e]);
+      over |= __vcmpgts4(w[e], hi_lim) | __vcmplts4(w[e], lo_lim);
     }
     if (planes >= 1)
       *reinterpret_cast<uint4*>(sq + base + off) =
@@ -331,9 +344,11 @@ row_prep(const int8_t* __restrict__ x, int rows, int d, int planes,
     cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
     ssq += __shfl_xor_sync(0xffffffffu, ssq, o);
   }
+  const bool bad = __any_sync(0xffffffffu, over != 0u);
   if (lane == 0) {
     stats[row] = __int2float_rn(cnt);
     stats[rows + row] = __int2float_rn(ssq);
+    if (bad) atomicAdd(n_bad, 1);
   }
 }
 
@@ -576,15 +591,17 @@ extern "C" int repro_similarity(const void* ra, const void* rb, void* out0,
 // (1 + wide) planes of the operand's shape for pcc / pcc_sig / all,
 // unused (may be null) for jaccard and cosine; st_a / st_b: (2, m) /
 // (2, n) f32 scratch for the row statistics.  wide: some |value| may
-// exceed 15 (squares need the hi plane).  Returns the first non-zero
-// cudaGetLastError() of the three launches (row_prep of each block, then
-// the tile kernel); the caller raises on anything else.
+// exceed 15 (squares need the hi plane).  bound: the caller's bound on
+// |value| (128: none); rows of either block past it are counted into the
+// int32 device counter n_bad, which the caller reads.  Returns the first
+// non-zero cudaGetLastError() of the three launches (row_prep of each
+// block, then the tile kernel); the caller raises on anything else.
 extern "C" int repro_similarity_imma(const void* ra, const void* rb,
                                      void* sq_a, void* sq_b, void* st_a,
                                      void* st_b, void* out0, void* out1,
                                      void* out2, int m, int n, int d,
-                                     int measure, int wide, float beta,
-                                     void* stream) {
+                                     int measure, int wide, int bound,
+                                     void* n_bad, float beta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(ra);
   const int8_t* b = static_cast<const int8_t*>(rb);
@@ -600,10 +617,11 @@ extern "C" int repro_similarity_imma(const void* ra, const void* rb,
   float* sa = static_cast<float*>(st_a);
   float* sb = static_cast<float*>(st_b);
   constexpr int RPB = imma::PREP_NT / 32;
-  imma::row_prep<<<(m + RPB - 1) / RPB, imma::PREP_NT, 0, s>>>(a, m, d,
-                                                               planes, qa, sa);
-  imma::row_prep<<<(n + RPB - 1) / RPB, imma::PREP_NT, 0, s>>>(b, n, d,
-                                                               planes, qb, sb);
+  int* bad = static_cast<int*>(n_bad);
+  imma::row_prep<<<(m + RPB - 1) / RPB, imma::PREP_NT, 0, s>>>(
+      a, m, d, planes, bound, qa, sa, bad);
+  imma::row_prep<<<(n + RPB - 1) / RPB, imma::PREP_NT, 0, s>>>(
+      b, n, d, planes, bound, qb, sb, bad);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   float* o0 = static_cast<float*>(out0);

@@ -38,12 +38,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core.similarity import _sqrt
 from repro_torch.kernels.cluster import centroid_distances
-
-
-def center_rows(ratings: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
-    """Mean-centered rating rows: rated cells become (r − mean), rest 0."""
-    zero = torch.zeros((), dtype=torch.float32, device=ratings.device)
-    return torch.where(ratings > 0, ratings - means[:, None], zero)
+# the one definition, shared with the support scorer's deviation tables
+from repro_torch.kernels.support import center_rows  # noqa: F401
 
 
 def _row_sumsq(z: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ tensor cores, int32 sums) and ``"simt"`` (both blocks f32: f32 FMAs on
 the CUDA cores).  The ``"imma"`` route's domain is every Gram sum at most
 2^24 — where the f32 plain version is exact too — checked on the host
 from D and a bound on |value| (``max_value``, else int8's own 128);
-outside it the wrapper raises.
+outside it the wrapper raises.  The kernel checks ``max_value`` against
+the data and counts the rows past it, so a bound below the data raises
+too (after the launch).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
@@ -85,7 +87,7 @@ def _lib(route: str):
     else:
         fn = lib.repro_similarity_imma
         if fn.argtypes is None:
-            fn.argtypes = [p] * 9 + [i, i, i, i, i, f, p]
+            fn.argtypes = [p] * 9 + [i, i, i, i, i, i, p, f, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,17 +95,23 @@ def _lib(route: str):
 def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
                      measure: str = "all",
                      beta: float = sim.PCC_SIG_BETA,
-                     max_value: int | None = None):
+                     max_value: int | None = None,
+                     n_bad: torch.Tensor | None = None):
     """(m, D) × (n, D) rating blocks → (m, n) f32 similarity under
     ``measure``, or the (jaccard, cosine, pcc) tuple for ``"all"``.
 
     ``ra``/``rb``: contiguous, both f32 or both int8, on one device.
-    ``max_value``: a bound on |value| of both blocks that the caller
-    knows (the ratings' scale), for the int8 route's exactness domain
-    ``max_value² · D ≤ 2^24``; at most 15 also keeps each square in one
-    u8 plane.  CUDA tensors launch the kernel on the current stream
-    (outputs and scratch from ``torch.empty``, no synchronisation) and add
-    one to ``fused_similarity.launches`` and to the route's entry of
+    ``max_value``: a bound on |value| of both blocks (the ratings'
+    scale), for the int8 route's exactness domain ``max_value² · D ≤
+    2^24``; at most 15 also keeps each square in one u8 plane.  The
+    kernel counts the rows of either block holding a value past it: into
+    ``n_bad``, a (1,) int32 tensor on the blocks' device that the caller
+    reads when it next waits (a fit reads it once for all its launches),
+    or, without ``n_bad``, into a counter of its own that the wrapper
+    reads after the launch, waiting for it, and raises ``ValueError`` if
+    it is not 0.  CUDA tensors launch the kernel on the current stream
+    (outputs and scratch from ``torch.empty``) and add one to
+    ``fused_similarity.launches`` and to the route's entry of
     ``fused_similarity.routes``; CPU tensors run the plain version.
     """
     if measure not in _CODES:
@@ -141,7 +149,16 @@ def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
                 d = -(-d // 16) * 16
                 ra = _build.padded_rows(ra, d)
                 rb = _build.padded_rows(rb, d)
-                wide = max_value is None or int(max_value) > NARROW_MAX
+                bound = 128 if max_value is None else min(int(max_value),
+                                                          128)
+                own = n_bad is None and bound < 128
+                if own:
+                    n_bad = torch.zeros((1,), dtype=torch.int32, device=dev)
+                elif n_bad is not None and (n_bad.dtype != torch.int32
+                                            or n_bad.device != dev):
+                    raise ValueError("n_bad must be an int32 counter on "
+                                     f"{dev}")
+                wide = bound > NARROW_MAX
                 planes = 0 if measure in ("jaccard", "cosine") \
                     else 1 + wide
                 sq_a = torch.empty((planes, m, d), dtype=torch.uint8,
@@ -153,11 +170,18 @@ def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
                 status = _lib(route)(
                     ra.data_ptr(), rb.data_ptr(), sq_a.data_ptr(),
                     sq_b.data_ptr(), st_a.data_ptr(), st_b.data_ptr(),
-                    *ptrs, m, n, d, _CODES[measure], int(wide), beta,
-                    stream)
+                    *ptrs, m, n, d, _CODES[measure], int(wide), bound,
+                    0 if n_bad is None else n_bad.data_ptr(), beta, stream)
         _build.check(status, "fused_similarity")
         fused_similarity.launches += 1
         fused_similarity.routes[route] += 1
+        if route == "imma" and own:
+            bad = int(n_bad.item())
+            if bad:
+                raise ValueError(
+                    f"{bad} row(s) hold a value past max_value = "
+                    f"{max_value}: the int8 similarity would drop squares "
+                    f"or leave its exact domain; pass the ratings' bound")
     return tuple(outs) if measure == "all" else outs[0]
 
 

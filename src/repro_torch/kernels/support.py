@@ -47,14 +47,19 @@ def support_width(n_items: int) -> int:
     return n_items + (-n_items) % min(BT, n_items) if n_items else 0
 
 
+def center_rows(ratings: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
+    """Mean-centered rating rows: rated cells become (r − mean), rest 0."""
+    zero = torch.zeros((), dtype=torch.float32, device=ratings.device)
+    return torch.where(ratings > 0, ratings - means[:, None], zero)
+
+
 def support_tables(rows: torch.Tensor, means: torch.Tensor, width: int):
     """(n, I) rating rows and their users' means → the support scorer's
-    (n, width) f32 deviation ``where(r > 0, r − mean, 0)`` and rated-mask
-    rows, zero columns past I (den 0 there: the mean fallback, sliced off
-    by the caller)."""
+    (n, width) f32 deviation (:func:`center_rows`) and rated-mask rows,
+    zero columns past I (den 0 there: the mean fallback, sliced off by
+    the caller)."""
     rows = rows.float()
-    zero = torch.zeros((), dtype=torch.float32, device=rows.device)
-    dev = torch.where(rows > 0, rows - means[:, None], zero)
+    dev = center_rows(rows, means)
     msk = (rows > 0).float()
     pad = width - rows.shape[1]
     if pad:
@@ -86,22 +91,19 @@ def support_scores_plain(dev: torch.Tensor, msk: torch.Tensor,
 
 def support_scores_int8_plain(ratings: torch.Tensor, means: torch.Tensor,
                               nb_idx: torch.Tensor, nb_w: torch.Tensor,
-                              q_means: torch.Tensor, *,
-                              width: int | None = None) -> torch.Tensor:
+                              q_means: torch.Tensor) -> torch.Tensor:
     """Plain version of the int8 route: the tables from the (U, I) rating
     matrix and (U,) means (:func:`support_tables`), then
     :func:`support_scores_plain`."""
-    n_items = ratings.shape[1]
-    dev, msk = support_tables(ratings, means, support_width(n_items)
-                              if width is None else width)
+    dev, msk = support_tables(ratings, means,
+                              support_width(ratings.shape[1]))
     return support_scores_plain(dev, msk, nb_idx, nb_w, q_means)
 
 
-def support_route(dev: torch.Tensor, msk: torch.Tensor,
-                  width: int | None = None) -> str:
+def support_route(dev: torch.Tensor, msk: torch.Tensor) -> str:
     """The route for a ``(dev, msk)`` operand pair: ``"table"`` for equal
     (U, I') f32 tables, ``"int8"`` for a (U, I) int8 rating matrix with
-    its (U,) f32 means (output ``width`` ≥ I); raises ``TypeError`` /
+    its (U,) f32 means; raises ``TypeError`` /
     ``ValueError`` on anything else."""
     if dev.dim() != 2:
         raise ValueError(f"need a (U, I') table or (U, I) matrix, got "
@@ -113,8 +115,6 @@ def support_route(dev: torch.Tensor, msk: torch.Tensor,
         if msk.shape != dev.shape[:1]:
             raise ValueError(f"means must be {tuple(dev.shape[:1])}, got "
                              f"{tuple(msk.shape)}")
-        if width is not None and width < dev.shape[1]:
-            raise ValueError(f"width {width} < the {dev.shape[1]} items")
         return "int8"
     if dev.shape != msk.shape:
         raise ValueError(f"need equal (U, I') tables, got "
@@ -122,8 +122,6 @@ def support_route(dev: torch.Tensor, msk: torch.Tensor,
     if dev.dtype != torch.float32 or msk.dtype != torch.float32:
         raise TypeError(f"need f32 tables or an int8 matrix, got "
                         f"{dev.dtype} and {msk.dtype}")
-    if width is not None and width != dev.shape[1]:
-        raise ValueError("width applies to the int8 route only")
     return "table"
 
 
@@ -144,13 +142,12 @@ def _lib(route: str):
 
 def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
                          nb_idx: torch.Tensor, nb_w: torch.Tensor,
-                         q_means: torch.Tensor, *,
-                         width: int | None = None) -> torch.Tensor:
+                         q_means: torch.Tensor) -> torch.Tensor:
     """(U, I') deviation/mask tables × (b, k) neighbors → (b, I') scores.
 
     On the ``"int8"`` route ``dev`` is the (U, I) int8 rating matrix and
-    ``msk`` the (U,) f32 user means, and the output is (b, ``width``)
-    (default :func:`support_width` of I), scored as the tables
+    ``msk`` the (U,) f32 user means, and the output is (b,
+    :func:`support_width` of I), scored as the tables
     :func:`support_tables` would give.  ``nb_w`` must be the masked
     weights (invalid / non-positive neighbors at 0) and ``nb_idx`` int32
     ids clipped into ``[0, U)`` — what the item index's scorer prepares.
@@ -160,7 +157,7 @@ def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
     to the route's entry of ``fused_support_scores.routes``; CPU tensors
     run the plain version.
     """
-    route = support_route(dev, msk, width)
+    route = support_route(dev, msk)
     if nb_idx.dim() != 2:
         raise ValueError(f"need (b, k) ids, got {tuple(nb_idx.shape)}")
     b, k = nb_idx.shape
@@ -171,12 +168,10 @@ def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
     if any(t.device != dev.device for t in tensors):
         raise ValueError("all inputs must be on one device")
     n_users, n_items = dev.shape
-    if route == "int8" and width is None:
-        width = support_width(n_items)
     if dev.device.type == "cpu":
         if route == "int8":
             return support_scores_int8_plain(dev, msk, nb_idx, nb_w,
-                                             q_means, width=width)
+                                             q_means)
         return support_scores_plain(dev, msk, nb_idx, nb_w, q_means)
     if dev.device.type != "cuda":
         raise ValueError(f"unsupported device {dev.device}")
@@ -186,7 +181,7 @@ def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
-    n_cols = n_items if route == "table" else width
+    n_cols = n_items if route == "table" else support_width(n_items)
     out = torch.empty((b, n_cols), dtype=torch.float32, device=dev.device)
     if b and n_cols:
         with torch.cuda.device(dev.device):

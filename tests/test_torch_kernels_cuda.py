@@ -111,6 +111,38 @@ def test_similarity_imma_domain_edge(cuda):
         fused_similarity(ra.to(torch.int8), ra.to(torch.int8))
 
 
+@pytest.mark.parametrize("max_value,planted", [(15, 16), (15, -16), (5, 6),
+                                               (5, -6), (126, 127),
+                                               (127, -128)])
+@pytest.mark.parametrize("measure", ["pcc", "cosine"])
+def test_similarity_imma_checks_max_value(cuda, max_value, planted, measure):
+    """A max_value below the data is caught on the device: the wrapper
+    raises, or counts the offending rows of both blocks into the caller's
+    n_bad without waiting; values at ±max_value count nothing."""
+    rng = np.random.default_rng(max_value + abs(planted))
+    x = rng.integers(-max_value, max_value + 1, (70, 200))
+    ra = torch.from_numpy(x).to(cuda, torch.int8)
+    rb = ra[:33].clone()
+    n_bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    fused_similarity(ra, rb, measure=measure, max_value=max_value,
+                     n_bad=n_bad)
+    assert int(n_bad.item()) == 0
+    ra[3, 150] = planted
+    ra[69, 0] = planted
+    rb[32, 199] = planted
+    fused_similarity(ra, rb, measure=measure, max_value=max_value,
+                     n_bad=n_bad)
+    assert int(n_bad.item()) == 3
+    with pytest.raises(ValueError, match="past max_value"):
+        fused_similarity(ra, rb, measure=measure, max_value=max_value)
+    with pytest.raises(ValueError, match="past max_value"):
+        fused_similarity(rb[:1].contiguous(), rb, measure=measure,
+                         max_value=max_value)
+    fused_similarity(ra, rb, measure=measure, max_value=abs(planted))
+    _similarity_bitwise(f"cuda.similarity.imma.bound{planted}", ra, rb,
+                        "imma", max_value=abs(planted))
+
+
 def test_similarity_kernel_rejects_bad_inputs(cuda):
     a = torch.ones(4, 8, device=cuda)
     with pytest.raises(TypeError):
@@ -549,23 +581,24 @@ def test_support_int8_route_matches_plain(cuda, b, k, u, i, negative):
 
 
 def test_support_int8_route_mean_fallback(cuda):
-    """Columns no neighbor rated (and the padding past I) score the
-    query mean, clipped; a width past the default pads further."""
+    """Columns no neighbor rated (and the padding past I, out to the
+    next 512-column tile) score the query mean, clipped."""
     from repro_torch.kernels.support import (fused_support_scores,
                                              support_scores_int8_plain)
     rng = np.random.default_rng(12)
-    r8, means, idx, w, qm = _support_int8_inputs(rng, 6, 5, 30, 96, cuda)
+    r8, means, idx, w, qm = _support_int8_inputs(rng, 6, 5, 30, 600, cuda)
     r8[:, :32] = 0                          # nobody rated items 0..31
     qm[0], qm[1] = 0.5, 6.0                 # clipped to 1 and 5
-    got = fused_support_scores(r8, means, idx, w, qm, width=160)
-    want = support_scores_int8_plain(r8, means, idx, w, qm, width=160)
+    got = fused_support_scores(r8, means, idx, w, qm)
+    want = support_scores_int8_plain(r8, means, idx, w, qm)
     torch.cuda.synchronize()
+    assert got.shape == (6, 1024)
     assert_parity("cuda.support.int8.fallback", got, want)
     fallback = qm[:, None].clamp(1, 5)
     assert torch.equal(got[:, :32], fallback.expand(-1, 32))
-    assert torch.equal(got[:, 96:], fallback.expand(-1, 64))
+    assert torch.equal(got[:, 600:], fallback.expand(-1, 424))
     with pytest.raises(ValueError):
-        fused_support_scores(r8, means, idx, w, qm, width=95)
+        fused_support_scores(r8, means[:-1], idx, w, qm)
     with pytest.raises(TypeError):
         fused_support_scores(r8, means.double(), idx, w, qm)
 

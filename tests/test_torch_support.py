@@ -172,7 +172,7 @@ def test_support_int8_plain_is_the_exact_prediction():
     w = torch.where((scores > 0) & (idx >= 0), scores,
                     torch.zeros_like(scores))
     src = pr.make_gather_source(r)
-    got = fused_support_scores(src, means, safe, w, means, width=1024)
+    got = fused_support_scores(src, means, safe, w, means)
     assert got.shape == (120, 1024)
     assert bool((got[:, 700:] == means[:, None].clamp(1, 5)).all())
     want = pr.predict_from_neighbors_blocked(
@@ -182,10 +182,10 @@ def test_support_int8_plain_is_the_exact_prediction():
 
 
 @pytest.mark.parametrize("case,want", [
-    ("table", "table"), ("int8", "int8"), ("int8_width", "int8"),
-    ("int8_narrow_width", ValueError), ("int8_f64_means", TypeError),
+    ("table", "table"), ("int8", "int8"), ("int8_no_users", "int8"),
+    ("int8_means_2d", ValueError), ("int8_f64_means", TypeError),
     ("int8_means_shape", ValueError), ("table_shapes", ValueError),
-    ("table_f64", TypeError), ("table_width", ValueError),
+    ("table_f64", TypeError), ("table_int8_mask", TypeError),
     ("one_dim", ValueError)])
 def test_support_route_choice(case, want):
     """The route follows the first operand's dtype: f32 tables → "table",
@@ -194,12 +194,13 @@ def test_support_route_choice(case, want):
     r8 = torch.zeros((6, 40), dtype=torch.int8)
     mu = torch.zeros(6)
     args = {"table": (t, t), "int8": (r8, mu),
-            "int8_width": (r8, mu, 512), "int8_narrow_width": (r8, mu, 39),
+            "int8_no_users": (r8[:0], mu[:0]),
+            "int8_means_2d": (r8, mu[:, None]),
             "int8_f64_means": (r8, mu.double()),
             "int8_means_shape": (r8, torch.zeros(5)),
             "table_shapes": (t, t[:, :30]),
             "table_f64": (t.double(), t.double()),
-            "table_width": (t, t, 48), "one_dim": (mu, mu)}[case]
+            "table_int8_mask": (t, r8), "one_dim": (mu, mu)}[case]
     if isinstance(want, str):
         assert support_route(*args) == want
     else:

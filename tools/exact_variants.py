@@ -107,17 +107,19 @@ def main() -> int:
     sq_b = torch.empty((1, n, d), dtype=torch.uint8, device=dev)
     st_a = torch.empty((2, m), device=dev)
     st_b = torch.empty((2, n), device=dev)
+    n_bad = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def sim_call(lib):
         fn = lib.repro_similarity_imma
-        fn.argtypes = [p_] * 9 + [i_] * 5 + [f_, p_]
+        fn.argtypes = [p_] * 9 + [i_] * 6 + [p_, f_, p_]
         fn.restype = i_
         out = torch.empty((m, n), device=dev)
 
         def call():
             status = fn(r8.data_ptr(), b8.data_ptr(), sq_a.data_ptr(),
                         sq_b.data_ptr(), st_a.data_ptr(), st_b.data_ptr(),
-                        out.data_ptr(), 0, 0, m, n, d, 2, 0, 50.0, stream)
+                        out.data_ptr(), 0, 0, m, n, d, 2, 0, 5,
+                        n_bad.data_ptr(), 50.0, stream)
             assert status == 0, status
         return call, out
 

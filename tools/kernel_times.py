@@ -27,7 +27,10 @@ f32 ``torch.matmul`` and six ``torch._int_mm`` calls; ``--only support``
 times ``fused_support_scores`` at the approx recommend's 6040-user chunk
 (k 40 exact pcc neighbors, I' 4096) on the f32 tables and, where the
 tree has it, on the int8 route, beside ``torch.sparse.mm``; both hold
-every route to its plain version bit for bit.  ``--only`` may repeat.
+every route to its plain version bit for bit.  ``--only exact`` also
+times the exact fit's candidate loop on the host's clock, as shipped
+and, where the tree has the fit's shared ``n_bad`` counter, with a wait
+after every launch instead.  ``--only`` may repeat.
 ``--src DIR`` imports ``repro_torch`` from DIR (an unpacked parent tree,
 to time two designs in one call).  Times are CUDA events over
 back-to-back calls, the host's enqueue included.
@@ -143,8 +146,12 @@ def exact_kernels(dev) -> bool:
     r = torch.from_numpy(train).to(dev)
     r8 = r.to(torch.int8)
     forms = [("f32", r, {})]
-    if "max_value" in inspect.signature(fused_similarity).parameters:
-        forms.append(("int8", r8, {"max_value": 5}))
+    params = inspect.signature(fused_similarity).parameters
+    if "max_value" in params:
+        kw = {"max_value": 5}
+        if "n_bad" in params:   # the fit's counter: no wait per launch
+            kw["n_bad"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        forms.append(("int8", r8, kw))
     ok = True
     for name, a, kw in forms:
         b = a[:1024].contiguous()
@@ -171,7 +178,46 @@ def exact_kernels(dev) -> bool:
           f"six torch._int_mm ms "
           f"{time_ms(lambda: [torch._int_mm(x, y.T) for x, y in planes])!r}",
           flush=True)
+    fit_loop(train, dev)
     return ok
+
+
+def fit_loop(train, dev):
+    """Wall time of the exact fit's candidate loop
+    (``CFEngine._kernel_topk``, six launches at ML-1M), median of 11
+    after a warm-up; where the tree counts rows past ``max_value`` into
+    the fit's one counter, also with the wrapper's own counter (a wait
+    after every launch), the two forms in alternating order."""
+    import statistics
+    import time
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.kernels import similarity as ksim
+    eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                   device=dev).fit()
+    shipped = ksim.fused_similarity
+
+    def own(*a, n_bad=None, **kw):
+        return shipped(*a, **kw)
+
+    own.launches, own.routes = 0, getattr(shipped, "routes", None)
+    forms = {"as shipped": shipped}
+    if "n_bad" in inspect.signature(shipped).parameters:
+        forms["a wait after every launch"] = own
+    times = {name: [] for name in forms}
+    for rep in range(12):
+        for name, fn in (forms.items() if rep % 2 else
+                         reversed(forms.items())):
+            ksim.fused_similarity = fn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._kernel_topk(eng.ratings)
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    ksim.fused_similarity = shipped
+    for name, ms in times.items():
+        print(f"exact fit candidate loop, {name}: wall ms median "
+              f"{statistics.median(ms)!r} min {min(ms)!r}", flush=True)
 
 
 def support_kernels(dev) -> bool:
