@@ -16,19 +16,27 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    and n off the 128 / 64 / 16 tiles, D off 16, signed values at
    max_value 15 (one u8 square plane) and 16 (the hi plane too), and the
    exact domain's edge (max_value² · D = 2^24 taken, one item more and
-   int8 at D = 3952 without max_value raising);
+   int8 at D = 3952 without max_value raising); the tile-predict kernel's
+   two routes by name (``fused_tile_predict.routes``: "int8" for the int8
+   gather source, "f32" for f32 ratings) at k = 1 / 7 / 40 / 65 / 100,
+   over the whole item range, 512-item tiles and ranges off 16 (lo = 3,
+   100), and with ids outside [0, U), bit for bit;
 3. the main path at the paper's size (ML-1M surrogate, 6040 × 3952,
    pcc, k = 40): ``CFEngine(backend="kernel")`` fit → predict / MAE →
    ``recommend`` → ``update_ratings`` (oracle-checked) → a
    ``BatchingServer`` answering 512 requests; the kernels' launch counts
    are zeroed just before and read just after, and must be > 0, every
-   similarity launch on the "imma" route; a steady fit's wall and device
-   time under ``torch.profiler``.  Then the
+   similarity launch on the "imma" route and every tile-predict launch
+   (one a user block, over every item) on the "int8" route; a steady
+   fit's wall and device time under ``torch.profiler``.  Then the
    sequential backend (plain torch) must give the same neighbor and item
-   ids, and a small input must agree between the CPU path and the card;
+   ids and the same ``predict()`` bit for bit, and a small input must
+   agree between the CPU path and the card;
 4. the approximate index's kernels (centroid distances, scan / select
    top-M, co-rated rerank) against their plain versions on the card, at
-   ragged shapes (ids equal, values within 1e-6, 0 expected); the
+   ragged shapes (ids equal, values within 1e-6, 0 expected; the
+   distances bit for bit at 1, 33, 78, 97 and 182 centroids, and a row
+   subset bit for bit the full call); the
    radix select also on ±0.0, all −inf rows, m = 1, m = L, m above the
    finite count and a row too long for shared memory, its values equal
    bit for bit (signs of zeros included); the scan bit for bit at the
@@ -116,10 +124,17 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     m 906, and the item index's Q 6040 × L 3952, m 512, each beside
     ``torch.topk``), the scan's two launches (scores, radix select)
     alone, the rerank beside six ``torch._int_mm`` calls and on its
-    f32 route, and the previous designs' times of kernels 4, 5, 6 and 8
-    beside the new ones (the decode launch, the selects and their library
-    calls are timed queued behind a spin kernel, so the host's work to
-    enqueue them is not counted; each call with it is logged too);
+    f32 route, the tile predictor at the recommend's launch (a 1024-user
+    block over every item, and one 512-item tile) beside
+    ``torch.sparse.mm`` and the no-FMA floor, the centroid distances
+    beside ``torch.cdist().square()``, and the previous designs' times
+    of kernels 2, 3, 4, 5, 6 and 8 beside the new ones (kernels 2 and 3,
+    the decode launch, the selects and their library calls are timed
+    queued behind a spin kernel, so the host's work to enqueue them is
+    not counted; each call with it is logged too); the bounds of the
+    support kernel and the tile predictor count the operations that this
+    run's data needs, 4 for each rated element of a weighted neighbor
+    row (an unrated one adds ±0, which the kernels skip);
 13. ``torch.profiler``: where the device time of a steady exact fit, of
     recommend(all users), of an approx query (16 rows), of an approx
     recommend(all users), of the LM prefill and of one LM decode step
@@ -201,7 +216,14 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # queries over the union padded to 8192 columns), timed by
 # tools/kernel_times.py --only index on the parent tree in the same call
 # as this design, on an H100 80GB HBM3 at 700 W
-PREVIOUS_MS = {"select_topm Q=256 L=8192 m=906": 0.9113,
+# kernels 2 and 3 before theirs (one 512-item tile a thread block, one
+# item a thread; 32 × 32 output tiles with every norm recomputed), on the
+# device alone, timed by tools/kernel_times.py --only predict --only
+# cluster on the parent tree in the same call as this design, on an H100
+# 80GB HBM3 at 700 W
+PREVIOUS_MS = {"fused_tile_predict m=1024 k=40 [0,3952)": 0.1771,
+               "fused_centroid_distances (6040,256)x(78,256)": 0.0485,
+               "select_topm Q=256 L=8192 m=906": 0.9113,
                "select_topm Q=6040 L=3952 m=512": 2.534,
                "flash_attention prefill": 2.9568,
                "flash_attention decode": 0.2644,
@@ -293,6 +315,16 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_F32_OPS_PER_S):
                                  else "operations")
 
 
+def rated_terms(rows: torch.Tensor, ids: torch.Tensor,
+                w: torch.Tensor) -> int:
+    """The (neighbor, item) terms that a weighted sum over the gathered
+    rows ``rows[ids]`` needs: the rated elements (> 0) of rows that carry a
+    nonzero weight.  An unrated element or a weight-0 slot adds only ±0 to
+    num and den, which changes no prediction, so the kernels skip it."""
+    per_row = (rows > 0).sum(1)
+    return int((per_row[ids.long()] * (w != 0)).sum())
+
+
 def int_ratings(rng, u, d, density=0.05):
     return torch.from_numpy((rng.integers(1, 6, (u, d))
                              * (rng.random((u, d)) < density))
@@ -305,25 +337,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_summary(report: str):
-    """(kernel with its template arguments, registers, spill line) for
-    each entry function of an ``nvcc -Xptxas -v`` report."""
-    import re
-    out, fn, spill = [], "?", ""
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"\d+([a-z_]*kernel)(I\w*?E)?E", m.group(1))
-            fn = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
-        elif "spill stores" in line:
-            spill = line.strip()
-        else:
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                out.append((fn, int(m.group(1)), spill))
-    return out
 
 
 def phase_kernels(dev, rng, train_dev):
@@ -412,7 +425,7 @@ def phase_kernels(dev, rng, train_dev):
     src = pr.make_gather_source(train_dev)
     means = pr.user_means(train_dev)
     n_users, n_items = train_dev.shape
-    for k in (1, 7, 40):
+    for k in (1, 7, 40, 65, 100):
         m = 300
         ids = torch.from_numpy(rng.integers(0, n_users, (m, k))
                                .astype(np.int32)).to(dev)
@@ -421,18 +434,38 @@ def phase_kernels(dev, rng, train_dev):
         ids[::3, -1] = 0
         nbm = means[ids.long()].contiguous()
         qm = means[:m].contiguous()
-        for s in (src, train_dev):
-            # a full tile, the ragged last tile, an unaligned range
-            for lo, hi in ((0, min(512, n_items)),
+        # ids outside [0, U) contribute nothing: the plain version with
+        # that slot at id 0 and weight 0
+        bad = ids.clone()
+        bad[1::5, k // 2] = n_users + 7
+        bad[2::5, 0] = -1
+        w_bad = torch.where(bad == ids, w, torch.zeros_like(w)).contiguous()
+        ids_ok = torch.where(bad == ids, ids, torch.zeros_like(ids))
+        for s, route in ((src, "int8"), (train_dev, "f32")):
+            # the whole range (one launch of the path), a full and the
+            # ragged last 512-item tile, unaligned ranges (the int8
+            # route's byte loads)
+            for lo, hi in ((0, n_items), (0, min(512, n_items)),
                            (n_items - n_items % 512 or n_items - 368,
                             n_items),
-                           (min(100, n_items - 1), min(1333, n_items))):
+                           (min(100, n_items - 1), min(1333, n_items)),
+                           (min(3, n_items - 1), min(700, n_items))):
+                before = dict(fused_tile_predict.routes)
                 e = max_diff(fused_tile_predict(s, ids, w, nbm, qm, lo, hi),
                              tile_predict_plain(s, ids, w, nbm, qm, lo, hi))
+                check(fused_tile_predict.routes == {
+                    key: v + (key == route) for key, v in before.items()},
+                    f"tile predict took the {route} route")
                 err["predict"] = max(err["predict"], e)
-                check(e <= TOL, f"tile predict k={k} [{lo},{hi}) diff {e}")
-        log(f"  tile_predict k={k:2d} int8+f32 sources, 3 item ranges "
-            f"max_abs_diff={err['predict']!r}")
+                check(e == 0.0, f"tile predict {route} k={k} [{lo},{hi}) "
+                      f"diff {e}")
+            e = max_diff(fused_tile_predict(s, bad, w, nbm, qm, 3, 700),
+                         tile_predict_plain(s, ids_ok, w_bad, nbm, qm, 3,
+                                            700))
+            err["predict"] = max(err["predict"], e)
+            check(e == 0.0, f"tile predict {route} k={k} bad ids diff {e}")
+        log(f"  tile_predict k={k:3d} int8 and f32 routes, 5 item ranges "
+            f"and ids outside [0, U) max_abs_diff={err['predict']!r}")
     torch.cuda.synchronize()
     return err
 
@@ -449,6 +482,7 @@ def phase_main_path(dev, train, test):
     fused_similarity.launches = 0
     fused_similarity.routes = dict.fromkeys(fused_similarity.routes, 0)
     fused_tile_predict.launches = 0
+    fused_tile_predict.routes = dict.fromkeys(fused_tile_predict.routes, 0)
     t0 = time.perf_counter()
     eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
                    device=dev).fit()
@@ -468,7 +502,7 @@ def phase_main_path(dev, train, test):
     check(tuple(pred.shape) == tuple(train.shape), "predict shape")
     check(bool(torch.isfinite(pred).all()), "finite predictions")
     check(0.3 < mae < 1.5, f"held-out MAE {mae} out of range")
-    del pred
+    kernel_pred = pred
 
     t0 = time.perf_counter()
     rec_s, rec_i = eng.recommend(n=10)
@@ -513,11 +547,15 @@ def phase_main_path(dev, train, test):
     out["launches"] = {"similarity": fused_similarity.launches,
                        "predict": fused_tile_predict.launches}
     out["routes"] = dict(fused_similarity.routes)
+    out["predict_routes"] = dict(fused_tile_predict.routes)
     check(out["launches"]["similarity"] > 0, "similarity kernel launched")
     check(out["routes"]["imma"] == out["launches"]["similarity"],
           f"every similarity launch of the main path on the int8 route: "
           f"{out['routes']}")
     check(out["launches"]["predict"] > 0, "tile predict kernel launched")
+    check(out["predict_routes"]["int8"] == out["launches"]["predict"],
+          f"every tile-predict launch of the main path on the int8 route: "
+          f"{out['predict_routes']}")
     # a steady fit's wall and device time (torch.profiler)
     out["fit_profile"] = profile_each((("exact fit (steady)", eng.fit),),
                                       n_rows=3)[0]
@@ -530,6 +568,10 @@ def phase_main_path(dev, train, test):
           "kernel vs sequential neighbor scores")
     check(torch.equal(seq.recommend(n=10)[1], rec_i),
           "kernel vs sequential top-n item ids")
+    check(torch.equal(seq.predict().view(torch.int32),
+                      kernel_pred.view(torch.int32)),
+          "kernel vs sequential predict(), every user and item, bit for bit")
+    del kernel_pred
     torch.cuda.synchronize()
     return out, eng
 
@@ -596,7 +638,8 @@ def phase_index_kernels(dev, rng, train_dev):
                                             scan_topm_plain, select_topm,
                                             select_topm_twin)
     err = {"cluster": 0.0, "scan": 0.0, "select": 0.0, "rerank": 0.0}
-    for (m, d), n in (((257, 256), 78), ((1, 17), 33), ((6040, 256), 78)):
+    for (m, d), n in (((257, 256), 78), ((1, 17), 33), ((6040, 256), 78),
+                      ((301, 17), 97), ((2048, 512), 182), ((64, 1), 1)):
         x, c = unit_rows(rng, m, d, dev), unit_rows(rng, n, d, dev)
         full = fused_centroid_distances(x, c)
         e = max_diff(full, centroid_distances_plain(x, c))
@@ -1228,7 +1271,10 @@ def phase_support_timings(dev, eng, err, launches):
     del stacked
     rows_read = int(torch.unique(safe).numel())
     common = b * k * 8.0 + b * 4.0 + b * width * 4.0
-    n_ops = 4.0 * b * k * width + 5.0 * b * width
+    # 4 operations (w·d, w·m and their adds) a term the data needs, 5 an
+    # output for the epilogue
+    terms = rated_terms(r8, safe, w)
+    n_ops = 4.0 * terms + 5.0 * b * width
     bound, by = bound_ms(rows_read * (n_items + 4.0) + common, n_ops)
     table_bound = bound_ms(2.0 * rows_read * width * 4 + common, n_ops)[0]
     torch.cuda.synchronize()
@@ -1239,10 +1285,11 @@ def phase_support_timings(dev, eng, err, launches):
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
              "bound_by": by, "library_ms": lib_ms, "table_ms": table_ms,
              "table_bound_ms": table_bound,
-             "nofma_floor_ms": 4.0 * b * k * width
-             / (PEAK_F32_OPS_PER_S / 2) * 1e3,
+             "nofma_floor_ms": 4.0 * terms / (PEAK_F32_OPS_PER_S / 2)
+             * 1e3,
              "shape": f"b={b} k={k} U={u} I={n_items} I'={width} "
-                      f"({rows_read} distinct neighbor rows), int8 route"}]
+                      f"({rows_read} distinct neighbor rows, {terms} rated "
+                      f"terms of {b * k * n_items}), int8 route"}]
 
 
 def phase_timings(dev, eng, err, launches):
@@ -1291,8 +1338,9 @@ def phase_timings(dev, eng, err, launches):
                                  PEAK_INT8_OPS_PER_S)
     f32_bound = bound_ms((u * d + n * d + u * n) * 4.0, n_ops)[0]
 
-    # the recommend tile: 1024 users × k=40 neighbors × 512 items, int8
-    m, lo, hi = 1024, 0, 512
+    # the recommend's launch: one 1024-user block × k=40 neighbors over
+    # every item, int8 (and one 512-item tile, the previous design's)
+    m = min(1024, u)
     src = pr.make_gather_source(ratings)
     ids = torch.where(idx[:m] >= 0, idx[:m], 0).to(torch.int32).contiguous()
     w = torch.where((scores[:m] > 0) & (idx[:m] >= 0), scores[:m],
@@ -1300,17 +1348,35 @@ def phase_timings(dev, eng, err, launches):
     nbm = means[ids.long()].contiguous()
     qm = means[:m].contiguous()
     k = ids.shape[1]
-    pred_ms = time_ms(lambda: fused_tile_predict(src, ids, w, nbm, qm, lo,
-                                                 hi), reps=50)
-    pred_plain = time_ms(lambda: tile_predict_plain(src, ids, w, nbm, qm,
-                                                    lo, hi), reps=10)
-    e2 = max_diff(fused_tile_predict(src, ids, w, nbm, qm, lo, hi),
-                  tile_predict_plain(src, ids, w, nbm, qm, lo, hi))
-    check(e2 <= TOL, f"tile predict at timing shape diff {e2}")
+    pred = {}
+    for hi in (d, 512):
+        def call(hi=hi):
+            return fused_tile_predict(src, ids, w, nbm, qm, 0, hi)
+
+        check(torch.equal(call().view(torch.int32), tile_predict_plain(
+            src, ids, w, nbm, qm, 0, hi).view(torch.int32)),
+            f"tile predict at timing shape [0, {hi}) bit for bit")
+        pred[hi] = (time_ms_queued(call), time_ms(call, reps=50))
+    (pred_ms, pred_call_ms), (tile_ms, tile_call_ms) = pred[d], pred[512]
+    pred_plain = time_ms(lambda: tile_predict_plain(src, ids, w, nbm, qm, 0,
+                                                    d), reps=3)
+    # the library yardstick: the (m, U) CSR weight matrix against the
+    # stacked (U, 2I) [dev | mask] rows — the same num / den, no epilogue
+    crow = torch.arange(0, m * k + 1, k, dtype=torch.int64, device=dev)
+    wmat = torch.sparse_csr_tensor(crow, ids.reshape(-1).long(),
+                                   w.reshape(-1), size=(m, u))
+    stacked = torch.cat([torch.where(ratings > 0, ratings - means[:, None],
+                                     0.0), (ratings > 0).float()],
+                        dim=1).contiguous()
+    pred_lib = time_ms_queued(lambda: torch.sparse.mm(wmat, stacked),
+                              reps=20)
+    del stacked
     rows_read = int(torch.unique(ids).numel())
-    pred_bytes = rows_read * (hi - lo) * 1 + m * k * 4 * 3 + m * 4 \
-        + m * (hi - lo) * 4
-    pred_bound, pred_by = bound_ms(pred_bytes, 6.0 * m * k * (hi - lo))
+    pred_bytes = rows_read * d * 1 + m * k * 4 * 3 + m * 4 + m * d * 4
+    # 4 operations a term the data needs, 5 an output for the epilogue
+    pred_terms = rated_terms(src, ids, w)
+    pred_bound, pred_by = bound_ms(pred_bytes,
+                                   4.0 * pred_terms + 5.0 * m * d)
     torch.cuda.synchronize()
     return [
         {"name": "fused_similarity", "route": "cuda",
@@ -1326,12 +1392,16 @@ def phase_timings(dev, eng, err, launches):
         {"name": "fused_tile_predict", "route": "cuda",
          "source": "src/repro_torch/csrc/predict.cu",
          "replaces": "src/repro/kernels/predict.py:55",
-         "launches": launches["predict"],
-         "max_abs_err": max(err["predict"], e2), "ms": pred_ms,
-         "plain_ms": pred_plain, "bound_ms": pred_bound,
-         "bound_by": pred_by, "library_ms": None,
-         "shape": f"m={m} k={k} items[{lo},{hi}) int8 src {u}x{d}, "
-                  f"{rows_read} distinct neighbor rows"},
+         "launches": launches["predict"], "max_abs_err": err["predict"],
+         "ms": pred_ms, "plain_ms": pred_plain, "bound_ms": pred_bound,
+         "bound_by": pred_by, "library_ms": pred_lib,
+         "call_ms": pred_call_ms, "tile_ms": tile_ms,
+         "tile_call_ms": tile_call_ms,
+         "nofma_floor_ms": 4.0 * pred_terms / (PEAK_F32_OPS_PER_S / 2)
+         * 1e3,
+         "shape": f"m={m} k={k} items[0,{d}) int8 src {u}x{d}, "
+                  f"{rows_read} distinct neighbor rows, {pred_terms} rated "
+                  f"terms of {m * k * d}"},
     ]
 
 
@@ -1374,12 +1444,15 @@ def phase_index_timings(dev, eng, err, launches):
     check(e == 0.0, f"centroid distances at timing shape diff {e}")
     row("fused_centroid_distances", "src/repro_torch/csrc/cluster.cu",
         "src/repro/kernels/cluster.py:73", "cluster",
-        time_ms(lambda: fused_centroid_distances(x, c), reps=50),
+        time_ms_queued(lambda: fused_centroid_distances(x, c)),
         time_ms(lambda: centroid_distances_plain(x, c), reps=5),
-        time_ms(lambda: torch.cdist(x, c).square(), reps=50), e,
+        time_ms_queued(lambda: torch.cdist(x, c).square()), e,
         ((m + nc) * p + m * nc) * 4.0,
         2.0 * m * nc * p + 2.0 * (m + nc) * p + 3.0 * m * nc,
         f"({m},{p})x({nc},{p})")
+    rows[-1].update(
+        call_ms=time_ms(lambda: fused_centroid_distances(x, c), reps=50),
+        nofma_floor_ms=2.0 * m * nc * p / (PEAK_F32_OPS_PER_S / 2) * 1e3)
 
     # kernel 4: one 2048-query block of the full-pool scan; its two
     # launches (scores, radix select) also alone
@@ -2339,8 +2412,9 @@ def main() -> int:
         f"{ {k: round(v, 2) for k, v in per_kernel.items()} })")
     for name in _build.KERNELS:
         report = _build.library_path(name).with_suffix(".log").read_text()
-        for fn, regs, spill in ptxas_summary(report):
-            log(f"    ptxas {name}: {fn}: {regs} registers, {spill}")
+        for fn, regs, spill in _build.ptxas_report(report):
+            log(f"    ptxas {name}: {fn}: {regs} registers, {spill} bytes "
+                f"spill stores")
 
     t0 = time.perf_counter()
     train, test, spec = load_ml1m_synthetic()
@@ -2366,12 +2440,13 @@ def main() -> int:
         f"{main_out['batches']} batches")
     log(f"    launches on the main path: {main_out['launches']}; "
         f"similarity by route {main_out['routes']} (the fit alone "
-        f"{main_out['fit_routes']})")
+        f"{main_out['fit_routes']}); tile predict by route "
+        f"{main_out['predict_routes']}")
     log(f"    exact fit: wall {main_out['fit_s']:.4f} s (first fit); a "
         f"steady fit {main_out['fit_profile'][0]:.2f} ms wall, "
         f"{main_out['fit_profile'][1]:.2f} ms device busy")
     log(f"    held-out MAE {main_out['mae']!r}; kernel backend == "
-        f"sequential backend (ids, scores, top-n) at "
+        f"sequential backend (ids, scores, predict(), top-n) at "
         f"{train.shape[0]}x{train.shape[1]}")
     log(f"    peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2546,13 +2621,32 @@ def main() -> int:
         f"simt route (f32 queries) {rr_row['simt_ms']:.4f} ms (bound "
         f"{rr_row['simt_bound_ms']:.4f} ms at the f32 peak); both bit for "
         f"bit")
-    now = {"select_topm Q=256 L=8192 m=906": sel_row["ms"],
+    pred_row = next(k for k in kernels if k["name"] == "fused_tile_predict")
+    log(f"    fused_tile_predict: one whole-range launch {pred_row['ms']:.4f} "
+        f"ms on the device (the call, host included, "
+        f"{pred_row['call_ms']:.4f}; one 512-item tile "
+        f"{pred_row['tile_ms']:.4f}, the call {pred_row['tile_call_ms']:.4f}"
+        f"), torch.sparse.mm {pred_row['library_ms']:.4f} ms, bound "
+        f"{pred_row['bound_ms']:.4f} ms by {pred_row['bound_by']}, the "
+        f"pinned order's no-FMA floor {pred_row['nofma_floor_ms']:.4f} ms; "
+        f"bit for bit")
+    dist_row = next(k for k in kernels
+                    if k["name"] == "fused_centroid_distances")
+    log(f"    fused_centroid_distances: {dist_row['ms']:.4f} ms on the "
+        f"device (the call, host included, {dist_row['call_ms']:.4f}), "
+        f"torch.cdist().square() {dist_row['library_ms']:.4f} ms, bound "
+        f"{dist_row['bound_ms']:.4f} ms, the cross term's no-FMA floor "
+        f"{dist_row['nofma_floor_ms']:.4f} ms; bit for bit")
+    now = {"fused_tile_predict m=1024 k=40 [0,3952)": pred_row["ms"],
+           "fused_centroid_distances (6040,256)x(78,256)": dist_row["ms"],
+           "select_topm Q=256 L=8192 m=906": sel_row["ms"],
            "select_topm Q=6040 L=3952 m=512": sel_item["ms"],
            "flash_attention prefill": flash_row["ms"],
            "flash_attention decode": flash_dec["ms"],
            "fused_scan_topm Q=2048 N=6040 P=256 m=906": scan_row["ms"],
            "fused_rerank_scores G=2048 J=3952 pcc": rr_row["ms"]}
-    log("    kernels 4, 5, 6 and 8, previous design -> this design (ms): "
+    log("    kernels 2, 3, 4, 5, 6 and 8, previous design -> this design "
+        "(ms): "
         + "; ".join(f"{k} {PREVIOUS_MS[k]} -> {now[k]:.4f}" for k in now))
     log("[13] torch.profiler: device time of a steady fit / recommend / "
         "approx query / approx recommend / LM prefill / LM decode step")

@@ -12,8 +12,8 @@ with one of two backends:
   similarity kernel — on its int8 tensor-core route when the matrix
   round-trips through int8 inside the route's exact domain
   (:func:`_similarity_operand`), on its f32 route otherwise;
-  ``recommend`` and the serving batch predictor route every item tile
-  through the CUDA tile-predict kernel.
+  ``recommend`` and the serving batch predictor predict each user block
+  through the CUDA tile-predict kernel, one launch over every item.
 
 Both are exact on integer ratings: the Gram sums are exact integers and
 the kernels keep the plain version's operation order, so the two backends
@@ -80,8 +80,11 @@ _NOT_PORTED = {
     "pallas": "the 'kernel' backend (the CUDA port of the Pallas kernel)",
 }
 
-# exact-recommend streaming: users per block and items per predict tile —
-# peak intermediate is O(user_block · k · item_block), never O(m·k·I)
+# exact-recommend streaming: users per block and items per predict tile.
+# The tile bounds the plain route (the CPU, or the sequential backend),
+# which gathers an (m, k, item_block) intermediate, never O(m·k·I); the
+# kernel route on the card launches once a user block over every item,
+# since the kernel gathers inside itself and materialises no tile
 USER_BLOCK = 1024
 ITEM_BLOCK = 512
 

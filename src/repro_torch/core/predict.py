@@ -124,30 +124,28 @@ def predict_from_neighbors_blocked(ratings: torch.Tensor,
     """Item-tiled form of :func:`predict_from_neighbors`: peak memory
     O(m·k·item_block), bit-identical to the one-shot form.
 
-    With ``use_kernel`` each tile goes through
-    :func:`repro_torch.kernels.predict.fused_tile_predict`, which gathers
-    the neighbor rows inside the kernel (the (m, k, T) tile is never
-    materialised); on CPU tensors that wrapper runs its plain version.
+    With ``use_kernel`` the prediction goes through
+    :func:`repro_torch.kernels.predict.fused_tile_predict`.  On CUDA
+    tensors that is one launch over every item, written straight into the
+    (m, I) output: the kernel gathers the neighbor rows itself and never
+    materialises an (m, k, T) tile, so ``item_block`` bounds nothing there
+    and is not read.  On CPU tensors ``use_kernel`` changes nothing: the
+    items go ``item_block`` at a time through the gathered (m, k, T) tile,
+    which is also the kernel's plain version.
     """
     safe_idx, w, nb_means, query_means = _neighbor_inputs(
         ratings, scores, idx, means, query_means)
     src = ratings if gather_src is None else gather_src
     n_items = ratings.shape[1]
-    if use_kernel:
+    if use_kernel and src.device.type == "cuda":
         from repro_torch.kernels.predict import fused_tile_predict
-        ids32 = safe_idx.to(torch.int32).contiguous()
-        w = w.contiguous()
-        nb_means = nb_means.contiguous()
-        query_means = query_means.contiguous()
+        return fused_tile_predict(
+            src, safe_idx.to(torch.int32).contiguous(), w.contiguous(),
+            nb_means.contiguous(), query_means.contiguous(), 0, n_items)
     tiles = []
     for lo in range(0, n_items, item_block):
-        hi = min(lo + item_block, n_items)
-        if use_kernel:
-            tiles.append(fused_tile_predict(src, ids32, w, nb_means,
-                                            query_means, lo, hi))
-        else:
-            nbr = src[:, lo:hi][safe_idx.long()].float()     # (m, k, T)
-            tiles.append(_tile_predict(w, nbr, nb_means, query_means))
+        nbr = src[:, lo:lo + item_block][safe_idx.long()].float()  # (m, k, T)
+        tiles.append(_tile_predict(w, nbr, nb_means, query_means))
     return torch.cat(tiles, dim=1)
 
 

@@ -80,6 +80,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int BC = 64;              // keys per K/V tile
@@ -351,26 +353,10 @@ int launch_t(const Args& a, int batch, cudaStream_t stream) {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global → shared copy; zero-fills the 16 bytes when !full (no
-// byte of src is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro_cp::cp_async16;
+using repro_cp::cp_async_commit;
+using repro_cp::cp_async_wait;
+using repro_cp::smem_u32;
 
 // Stage `nrows` bf16 rows of `width` columns (a multiple of 8) at row
 // stride ld: row r comes from row_ptr(r) (nullptr: zeros), columns ≥ ncols
@@ -387,7 +373,7 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, int ld, int nrows,
       const bf16* src = row_ptr(r);
       const bool ok = src != nullptr && c < ncols;
       cp_async16(dst + r * ld + c, ok ? static_cast<const void*>(src + c) : any,
-                 ok);
+                 ok ? 16 : 0);
     }
   } else {
     const bf16 zero = __ushort_as_bfloat16(static_cast<unsigned short>(0));

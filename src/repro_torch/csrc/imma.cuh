@@ -1,8 +1,8 @@
 // int8 tensor-core building blocks shared by the "imma" routes of
-// rerank.cu and similarity.cu (sm_90a): cp.async staging, ldmatrix
-// fragment loads, mma.sync m16n8k32 with s32 accumulators, and the
-// operand planes made in registers (masks 1[v > 0], squares split into u8
-// lo / hi bytes).
+// rerank.cu and similarity.cu (sm_90a): cp.async staging (from
+// cp_async.cuh), ldmatrix fragment loads, mma.sync m16n8k32 with s32
+// accumulators, and the operand planes made in registers (masks 1[v > 0],
+// squares split into u8 lo / hi bytes).
 //
 // Fragment layout (PTX ISA, mma.m16n8k32 with .s8 / .u8): an A fragment
 // is four 32-bit registers holding a 16 × 32 byte tile, a B fragment two
@@ -17,29 +17,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace repro_imma {
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global → shared copy; `bytes` < 16 zero-fills the rest (0: a
-// zero row segment, for rows and columns past the operand's edge).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using repro_cp::cp_async16;
+using repro_cp::cp_async_commit;
+using repro_cp::cp_async_wait;
+using repro_cp::smem_u32;
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile(

@@ -63,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int NT = 256;                   // threads per block
@@ -78,12 +80,9 @@ constexpr int TQ = 8, TC = 8;      // outputs a thread: 8 rows × 8 columns
 constexpr int SCORE_SMEM = 2 * (BQ + BC) * LDP * 4;
 static_assert(NT == (BQ / TQ) * (BC / TC), "16 × 16 threads");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
+using repro_cp::cp_async16;
+using repro_cp::cp_async_commit;
+using repro_cp::cp_async_wait;
 
 // (nq, p) × (n, p) → (nq, n) scores, p a multiple of 4, rows 16-byte
 // aligned.
@@ -119,11 +118,11 @@ proxy_scores_kernel(const float* __restrict__ q,
     for (int jj = 0; jj < TC; ++jj) acc[i][jj] = 0.f;
 
   load(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
   for (int kt = 0; kt < n_slices; ++kt) {
     if (kt + 1 < n_slices) load((kt + 1) & 1, kt + 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
     const float* as = sm + (kt & 1) * (BQ + BC) * LDP;
     const float* bs = as + BQ * LDP;

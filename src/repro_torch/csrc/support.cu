@@ -31,7 +31,9 @@
 // neighbor (a warp reads a 512-byte row segment); the row's neighbor ids,
 // weights and means are staged in shared memory.  A byte becomes a float
 // without the int → float converter: __byte_perm places it in the
-// mantissa of 2^23, and subtracting 2^23 is exact.  Rows whose width is
+// mantissa of 2^23, and subtracting 2^23 is exact; where w·0 is +0 the
+// unrated terms are skipped.  Those helpers live in csrc/rating_rows.cuh,
+// shared with the tile predictor's "int8" route.  Rows whose width is
 // not a multiple of 16, or that are not 16-byte aligned, take a scalar
 // path.
 //
@@ -61,18 +63,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rating_rows.cuh"
+
 namespace {
+
+using namespace repro_rows;
 
 constexpr int BT = 512;       // columns per block
 constexpr int NT = BT / 4;    // threads per block, 4 columns each
 constexpr int KC = 64;        // neighbors staged per shared-memory chunk
-constexpr float EPS = 1e-8f;
-
-__device__ __forceinline__ float epilogue(float num, float den, float q) {
-  float pred = __fadd_rn(q, __fdiv_rn(num, fmaxf(den, EPS)));
-  pred = (den > EPS) ? pred : q;
-  return fminf(fmaxf(pred, 1.f), 5.f);
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(NT)
@@ -140,67 +139,6 @@ support_kernel(const float* __restrict__ dev, const float* __restrict__ msk,
 constexpr int BT8 = 2048;     // columns per block, "int8" route
 constexpr int NT8 = BT8 / 16;  // threads per block, 16 columns each
 
-// The float value of byte b of w as an unsigned 8-bit integer.
-__device__ __forceinline__ float byte_value(unsigned w, int b) {
-  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + b)),
-                   8388608.f);
-}
-
-// One element's products, formed as the table route forms them from its
-// rebuilt dev / msk values: pd = w·d, pm = w·m with w0 = w·0 where the
-// item is unrated (r ≤ 0) or past I.  x: the rating's float value, read
-// only where it is positive (pos).  ZERO: w0 is +0 (w ≥ 0 and finite,
-// every masked weight).  Then the unrated terms are skipped: num and den
-// start at +0 and a round-to-nearest sum is −0 only when both addends
-// are, so neither is ever −0, and adding +0 leaves their bits as they
-// are.
-template <bool ZERO>
-__device__ __forceinline__ void products(bool pos, float x, float mu, float w1,
-                                         float w0, float wj, float& num,
-                                         float& den) {
-  if (ZERO) {
-    if (pos) {
-      num = __fadd_rn(num, __fmul_rn(wj, __fsub_rn(x, mu)));
-      den = __fadd_rn(den, w1);
-    }
-  } else {
-    const float pd = pos ? __fmul_rn(wj, __fsub_rn(x, mu)) : w0;
-    num = __fadd_rn(num, pd);
-    den = __fadd_rn(den, pos ? w1 : w0);
-  }
-}
-
-// One neighbor row's 16 columns (VEC: one 16-byte word v, all inside
-// [0, I) or all past it; else the scalar bytes at src, masked at I).
-template <bool VEC, bool ZERO>
-__device__ __forceinline__ void neighbor(const uint4& v, const int8_t* src,
-                                         int c0, int n_items, float mu,
-                                         float w1, float w0, float wj,
-                                         float (&num)[16],
-                                         float (&den)[16]) {
-  if (VEC) {
-    const unsigned wd[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // bytes that are not positive (signed) → 0, so x > 0 is r > 0
-      const unsigned pw = wd[q] & __vcmpgts4(wd[q], 0u);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float x = byte_value(pw, b);
-        products<ZERO>(x > 0.f, x, mu, w1, w0, wj, num[4 * q + b],
-                       den[4 * q + b]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int r = c0 + e < n_items ? src[e] : 0;
-      products<ZERO>(r > 0, static_cast<float>(r), mu, w1, w0, wj, num[e],
-                     den[e]);
-    }
-  }
-}
-
 template <bool VEC>
 __global__ void __launch_bounds__(NT8)
 support_int8_kernel(const int8_t* __restrict__ r,
@@ -247,9 +185,11 @@ support_int8_kernel(const int8_t* __restrict__ r,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (VEC && c0 < n_items) v = *reinterpret_cast<const uint4*>(src);
       if (__float_as_uint(w0) == 0u) {   // block-uniform
-        neighbor<VEC, true>(v, src, c0, n_items, mu, w1, w0, wj, num, den);
+        neighbor<VEC, true>(v, src, c0, n_items, mu, w1, w0, w0, wj, num,
+                            den);
       } else {
-        neighbor<VEC, false>(v, src, c0, n_items, mu, w1, w0, wj, num, den);
+        neighbor<VEC, false>(v, src, c0, n_items, mu, w1, w0, w0, wj, num,
+                             den);
       }
     }
   }

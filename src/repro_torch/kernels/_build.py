@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -95,6 +96,40 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def entry_name(mangled: str) -> str:
+    """A mangled entry function's name with its template arguments, e.g.
+    ``predict_int8_kernelILb1E`` (the namespaces dropped)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group(0)
+        start = pos + len(digits)
+        pos = start + int(digits)
+        name = mangled[start:pos]
+    args = re.match(r"I\w*?E(?=E)", mangled[pos:])
+    return name + (args.group(0) if args else "")
+
+
+def ptxas_report(log: str) -> list:
+    """(entry function with its template arguments, registers, bytes of
+    spill stores) for each entry function of an ``nvcc -Xptxas -v``
+    report."""
+    out, fn, spill = [], "?", -1
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = entry_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((fn, int(m.group(1)), spill))
+    return out
 
 
 def padded_rows(x, width: int):

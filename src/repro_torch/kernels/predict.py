@@ -3,14 +3,19 @@ and its plain PyTorch version.
 
 Port of the Pallas TPU kernel ``repro.kernels.predict.fused_tile_predict``
 (``_predict_kernel``).  The GPU form gathers inside the kernel: it reads
-the int8 (or f32) rating matrix by neighbor id over the item range
-``[lo, hi)``, so the (m, k, T) neighbor tile is never materialised.  It sits
-near the ridge point (see the note in the CUDA source).  The plain version is
-the same gather followed by ``repro_torch.core.predict._tile_predict``,
-whose k-reduction runs in the kernel's order — the two agree bit for bit.
+the rating matrix by neighbor id over the item range ``[lo, hi)``, so the
+(m, k, T) neighbor tile is never materialised, and a caller can cover the
+whole item range in one launch.  The plain version is the same gather
+followed by ``repro_torch.core.predict._tile_predict``, whose k-reduction
+runs in the kernel's order — the two agree bit for bit.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises — it never falls back.
+Two routes on the card, chosen from the source's dtype and counted in
+``fused_tile_predict.routes``: ``"int8"`` (the int8 gather source: each
+thread owns 16 items of a row, read as one 16-byte load per neighbor row)
+and ``"f32"`` (f32 ratings, e.g. half stars: one thread per item).
+
+On a CPU tensor the wrapper runs the plain version and counts nothing; on
+a CUDA tensor it launches the kernel or raises — it never falls back.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.int8: 1}
+ROUTES = ("int8", "f32")
 
 
 def tile_predict_plain(src: torch.Tensor, ids: torch.Tensor,
@@ -56,8 +62,9 @@ def fused_tile_predict(src: torch.Tensor, ids: torch.Tensor,
     ``w``: (m, k) masked weights (invalid neighbors at 0); ``nb_means``:
     (m, k) neighbor means; ``q_means``: (m,) query means.  CUDA tensors
     launch the kernel on the current stream (output from ``torch.empty``,
-    no synchronisation) and add one to ``fused_tile_predict.launches``;
-    CPU tensors run the plain version.
+    no synchronisation) and add one to ``fused_tile_predict.launches`` and
+    to the route's entry of ``fused_tile_predict.routes`` (``"int8"`` for
+    an int8 source, ``"f32"`` for f32); CPU tensors run the plain version.
     """
     if src.dim() != 2 or ids.dim() != 2:
         raise ValueError(f"need (U, I) src and (m, k) ids, got "
@@ -95,7 +102,10 @@ def fused_tile_predict(src: torch.Tensor, ids: torch.Tensor,
                             stream)
         _build.check(status, "fused_tile_predict")
         fused_tile_predict.launches += 1
+        fused_tile_predict.routes[
+            "int8" if src.dtype == torch.int8 else "f32"] += 1
     return out
 
 
 fused_tile_predict.launches = 0
+fused_tile_predict.routes = dict.fromkeys(ROUTES, 0)

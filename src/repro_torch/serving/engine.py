@@ -69,7 +69,7 @@ from repro_torch.distributed.fault_tolerance import (RecoveryPolicy,
                                                      StragglerWatchdog,
                                                      TransientServeError)
 
-_ITEM_BLOCK = 512      # predict tile width: batch·k·tile intermediates
+_ITEM_BLOCK = 512      # plain-route predict tile: batch·k·tile intermediates
 
 # health levels, in escalation order (gauge value = list index)
 HEALTHY, DEGRADED, SHEDDING = 0, 1, 2

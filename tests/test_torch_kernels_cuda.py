@@ -155,9 +155,15 @@ def test_similarity_kernel_rejects_bad_inputs(cuda):
         fused_similarity(a, a.cpu())
 
 
-@pytest.mark.parametrize("k", [1, 7, 40])
+@pytest.mark.parametrize("k", [1, 7, 40, 65, 100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 def test_tile_predict_kernel_matches_plain(cuda, k, dtype):
+    """Both routes (f32 → "f32", int8 → "int8"), k past one 32- and one
+    64-neighbor chunk, 16-aligned ranges (the int8 route's 16-byte loads)
+    and ranges starting at 3 or 13 or with widths off 16 (its byte loads),
+    a zero-weight slot, ids outside [0, U) (they contribute nothing: the
+    plain version with that slot at id 0 and weight 0) and, on the int8
+    route, negative bytes (unrated, as r ≤ 0 is); bit for bit."""
     rng = np.random.default_rng(k)
     u, items, m = 300, 700, 37
     r = torch.from_numpy(int_ratings(rng, u, items)).to(cuda)
@@ -168,12 +174,54 @@ def test_tile_predict_kernel_matches_plain(cuda, k, dtype):
     means = pr.user_means(r)
     nbm = means[ids.long()].contiguous()
     qm = means[:m].contiguous()
+    bad = ids.clone()
+    bad[::4, k // 2] = u + 5                      # ids outside [0, U)
+    bad[1::4, 0] = -3
+    w0 = torch.where(bad == ids, w, torch.zeros_like(w)).contiguous()
     src = r.to(dtype)
-    for lo, hi in ((0, 700), (512, 700), (3, 260)):
+    if dtype == torch.int8:
+        src[5, ::3] = -3                          # negative bytes: unrated
+    route = "int8" if dtype == torch.int8 else "f32"
+    for lo, hi in ((0, 700), (0, 512), (512, 700), (16, 528), (3, 260),
+                   (13, 346), (0, 1), (699, 700)):
+        before = dict(fused_tile_predict.routes)
         got = fused_tile_predict(src, ids, w, nbm, qm, lo, hi)
+        assert fused_tile_predict.routes == {
+            key: v + (key == route) for key, v in before.items()}
         want = tile_predict_plain(src, ids, w, nbm, qm, lo, hi)
+        got_bad = fused_tile_predict(src, bad, w, nbm, qm, lo, hi)
+        want_bad = tile_predict_plain(src, ids, w0, nbm, qm, lo, hi)
         torch.cuda.synchronize()
-        assert_parity(f"cuda.tile_predict.k{k}.[{lo},{hi})", got, want)
+        assert_parity(f"cuda.tile_predict.{route}.k{k}.[{lo},{hi})", got,
+                      want)
+        assert_parity(f"cuda.tile_predict.{route}.k{k}.[{lo},{hi}).bad_ids",
+                      got_bad, want_bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_blocked_predict_one_launch_on_card(cuda, dtype):
+    """``predict_from_neighbors_blocked(use_kernel=True)`` on the card is
+    one launch over every item, whatever ``item_block``, bit for bit the
+    plain tiled form; the f32 source takes the "f32" route."""
+    rng = np.random.default_rng(9)
+    r = torch.from_numpy(int_ratings(rng, 200, 1000)).to(cuda)
+    eng = CFEngine(r, k=20, block_size=128, device="cuda").fit()
+    src = r.to(dtype)
+    route = "int8" if dtype == torch.int8 else "f32"
+    for item_block in (64, 512, 4096):
+        launches = fused_tile_predict.launches
+        before = dict(fused_tile_predict.routes)
+        got = pr.predict_from_neighbors_blocked(
+            r, eng.scores, eng.idx, means=eng.means, item_block=item_block,
+            gather_src=src, use_kernel=True)
+        assert fused_tile_predict.launches == launches + 1
+        assert fused_tile_predict.routes[route] == before[route] + 1
+        want = pr.predict_from_neighbors_blocked(
+            r, eng.scores, eng.idx, means=eng.means, item_block=item_block,
+            gather_src=src)
+        torch.cuda.synchronize()
+        assert_parity(f"cuda.blocked_predict.{route}.ib{item_block}", got,
+                      want)
 
 
 def test_engine_backends_agree_on_card(cuda):
@@ -223,6 +271,25 @@ def test_centroid_kernel_matches_plain(cuda, m, n, d):
     torch.cuda.synchronize()
     assert_parity(f"cuda.centroid.{m}x{n}x{d}", got, want)
     rows = torch.tensor([0, m - 1, m // 2], device=cuda)
+    assert torch.equal(fused_centroid_distances(x[rows].contiguous(), c),
+                       got[rows])
+
+
+@pytest.mark.parametrize("n", [1, 78, 97, 182])
+@pytest.mark.parametrize("d", [1, 17, 256, 512])
+def test_centroid_kernel_tiles(cuda, n, d):
+    """Centroid counts of one tile (1, 78), of two balanced tiles (97,
+    182) and widths off 4 (1, 17: plain staging) or of several stages
+    (256, 512); bit for bit, and a row subset bit for bit the full call."""
+    from repro_torch.kernels.cluster import (centroid_distances_plain,
+                                             fused_centroid_distances)
+    rng = np.random.default_rng(n * 1000 + d)
+    x, c = _unit(rng, 301, d, cuda), _unit(rng, n, d, cuda)
+    got = fused_centroid_distances(x, c)
+    want = centroid_distances_plain(x, c)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.centroid.tiles.301x{n}x{d}", got, want)
+    rows = torch.arange(3, 301, 5, device=cuda)
     assert torch.equal(fused_centroid_distances(x[rows].contiguous(), c),
                        got[rows])
 

@@ -114,9 +114,44 @@ def test_fused_tile_predict_wrapper_contract():
         fused_tile_predict(src, ids, w, w, q, 4, 4)
     with pytest.raises(ValueError):
         fused_tile_predict(src, ids, w, w, q[:2], 0, 9)
-    before = fused_tile_predict.launches
-    fused_tile_predict(src, ids, w, w, q, 0, 9)   # CPU: plain, no launch
-    assert fused_tile_predict.launches == before
+    # CPU: the plain version on either source dtype, no launch and no
+    # route counted; the route names are the card's two
+    assert tuple(fused_tile_predict.routes) == ("int8", "f32")
+    before = (fused_tile_predict.launches, dict(fused_tile_predict.routes))
+    r = torch.from_numpy(int_ratings(np.random.default_rng(8), 5, 9))
+    wr, nbm = torch.full((3, 2), 0.5), torch.full((3, 2), 2.75)
+    outs = [fused_tile_predict(r.to(dt), ids + 1, wr, nbm, q, 3, 8)
+            for dt in (torch.int8, torch.float32)]
+    assert_parity("fused_tile_predict.cpu.int8_vs_f32", outs[0], outs[1])
+    assert outs[0].shape == (3, 5)
+    assert (fused_tile_predict.launches,
+            dict(fused_tile_predict.routes)) == before
+
+
+@pytest.mark.parametrize("item_block", [7, 32, 100, 512])
+def test_blocked_kernel_path_on_cpu_tiles_like_plain(item_block):
+    """``use_kernel=True`` on CPU tensors tiles the items by
+    ``item_block`` through the gathered tile, no launch: bit for bit the
+    ``use_kernel=False`` form (int8 and f32 sources, a block past I), and
+    the reference's blocked predict within the 1-ulp tolerance of
+    ``test_predict_forms_match_reference``."""
+    r, s, i = _setup(7)
+    tr, ts, ti = _t(r, s, i)
+    want = ref_pr.predict_from_neighbors_blocked(
+        jnp.asarray(r), jnp.asarray(s), jnp.asarray(i),
+        item_block=item_block)
+    plain = pr.predict_from_neighbors_blocked(tr, ts, ti,
+                                              item_block=item_block)
+    before = (fused_tile_predict.launches, dict(fused_tile_predict.routes))
+    for src in (None, pr.make_gather_source(tr)):
+        got = pr.predict_from_neighbors_blocked(
+            tr, ts, ti, item_block=item_block, gather_src=src,
+            use_kernel=True)
+        tag = f"predict.blocked{item_block}.kernel_cpu"
+        assert_parity(tag + ".vs_plain", got, plain)
+        assert_parity(tag + ".vs_jax", got, want, atol=2e-5)
+    assert (fused_tile_predict.launches,
+            dict(fused_tile_predict.routes)) == before
 
 
 def test_gather_source_int8_and_copy_on_write_patch():

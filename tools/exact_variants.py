@@ -1,6 +1,7 @@
-"""Time patched copies of kernels 1 and 7 —
-``src/repro_torch/csrc/similarity.cu`` (the int8 pcc route) and
-``src/repro_torch/csrc/support.cu`` (the int8 route) — at their path
+"""Time patched copies of kernels 1, 7 and 2 —
+``src/repro_torch/csrc/similarity.cu`` (the int8 pcc route),
+``src/repro_torch/csrc/support.cu`` (the int8 route) and
+``src/repro_torch/csrc/predict.cu`` (the int8 route) — at their path
 shapes, and check each against its plain version.
 
     python3 tools/exact_variants.py
@@ -17,7 +18,13 @@ skipped) and four products (the sq_a / sq_b products skipped).  Support
 neighbors, I' 4096): without the fast path for w·0 = +0 (every element
 through the general selects), four neighbors unrolled, 64 threads a
 block, and the diagnostic that loads the neighbor rows and does no
-arithmetic.  Variants are built in parallel into
+arithmetic.  Tile predict (int8 route, k 40 exact pcc neighbors, one
+whole-range launch [0, 3952) for the exact recommend's 1024-user block
+and for a 32-user serving batch): two or eight neighbor rows in flight
+(four shipped), eight warps a block, without the skip of unrated terms,
+signed bytes read by one XOR a word in place of ``__vcmpgts4`` (the
+shared header inlined and patched), and the diagnostic that loads the
+neighbor rows and does no arithmetic.  Variants are built in parallel into
 ``src/repro_torch/build/variants/`` and timed in turns (forward, then
 backward order, CUDA events); each prints its registers and spills, its
 time and whether it equals the plain version bit for bit.
@@ -63,8 +70,9 @@ SIMILARITY = {
 }
 FAST = "      if (__float_as_uint(w0) == 0u) {   // block-uniform\n"
 BODY = (FAST + "        neighbor<VEC, true>(v, src, c0, n_items, mu, w1, w0,"
-        " wj, num, den);\n      } else {\n        neighbor<VEC, false>(v, "
-        "src, c0, n_items, mu, w1, w0, wj, num, den);\n      }\n")
+        " w0, wj, num,\n                            den);\n      } else {\n"
+        "        neighbor<VEC, false>(v, src, c0, n_items, mu, w1, w0, w0, "
+        "wj, num,\n                             den);\n      }\n")
 SUPPORT = {
     "shipped: 128 threads, 16 columns each, unroll 2": [],
     "no fast path for w·0 = +0": [(FAST, FAST.replace(
@@ -78,6 +86,35 @@ SUPPORT = {
     "diagnostic: loads only (wrong)": [(BODY, (
         "      num[0] = __fadd_rn(num[0], __uint_as_float((v.x ^ v.y ^ v.z"
         " ^ v.w) & 1u));\n"))],
+}
+
+
+ROWS_H = (Path(__file__).resolve().parent.parent
+          / "src/repro_torch/csrc/rating_rows.cuh").read_text()
+INLINE_ROWS = ('#include "rating_rows.cuh"', ROWS_H)
+SKIP = "        if ((zero >> (j + u)) & 1u) {             // warp-uniform\n"
+PREDICT = {
+    "shipped: 4 warps, 16 items a lane, 4 rows in flight": [],
+    "2 rows in flight": [("constexpr int UNROLL = 4;",
+                          "constexpr int UNROLL = 2;")],
+    "8 rows in flight": [("constexpr int UNROLL = 4;",
+                          "constexpr int UNROLL = 8;")],
+    "8 warps a block": [("constexpr int WARPS = 4;",
+                         "constexpr int WARPS = 8;")],
+    "no skip of unrated terms": [(SKIP, SKIP.replace(
+        "(zero >> (j + u)) & 1u", "false"))],
+    "signed bytes by one XOR a word": [
+        INLINE_ROWS,
+        ("      const unsigned pw = wd[q] & __vcmpgts4(wd[q], 0u);",
+         "      const unsigned pw = wd[q] ^ 0x80808080u;"),
+        ("        const float x = byte_value(pw, b);",
+         "        const float x = __fsub_rn(__uint_as_float(__byte_perm("
+         "pw, 0x4B000000u, 0x7540 + b)), 8388736.f);")],
+    "diagnostic: loads only (wrong)": [(
+        "          neighbor<VEC, true>(v[u], p, c0, t_len, mu, wj, 0.f, 0.f,"
+        " wj,\n                              num, den);",
+        "          num[0] = __fadd_rn(num[0], __uint_as_float((v[u].x ^ "
+        "v[u].y ^ v[u].z ^ v[u].w) & 1u));")],
 }
 
 
@@ -95,6 +132,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     sim = build("similarity", SIMILARITY)
     sup = build("support", SUPPORT)
+    pre = build("predict", PREDICT)
 
     train, _, _ = load_ml1m_synthetic()
     r = torch.from_numpy(train).to(dev)
@@ -147,6 +185,27 @@ def main() -> int:
             assert status == 0, status
         return call, out
 
+    from repro_torch.kernels.predict import tile_predict_plain
+    src8 = ratings.to(torch.int8)
+
+    def pred_call(lib, rows):
+        fn = lib.repro_tile_predict
+        fn.argtypes = [p_, i_, i_, i_] + [p_] * 5 + [i_] * 4 + [p_]
+        fn.restype = i_
+        ids = safe[:rows].contiguous()
+        wr = w[:rows].contiguous()
+        nbm = means[ids.long()].contiguous()
+        qm = means[:rows].contiguous()
+        out = torch.empty((rows, d), device=dev)
+        want = tile_predict_plain(src8, ids, wr, nbm, qm, 0, d)
+
+        def call():
+            status = fn(src8.data_ptr(), 1, m, d, ids.data_ptr(),
+                        wr.data_ptr(), nbm.data_ptr(), qm.data_ptr(),
+                        out.data_ptr(), rows, k, 0, d, stream)
+            assert status == 0, status
+        return call, out, want
+
     cases = []   # (label, call, check)
     for name, (lib, regs) in sim.items():
         call, out = sim_call(lib)
@@ -158,6 +217,13 @@ def main() -> int:
         vec = [x for x in regs if "int8_kernelILb1E" in x]
         cases.append((f"support int8 {name} [{'; '.join(vec)}]", call,
                       lambda out=out: bitwise(out, want_sup)))
+    for name, (lib, regs) in pre.items():
+        vec = [x for x in regs if "int8_kernelILb1E" in x]
+        for rows in (1024, 32):
+            call, out, want = pred_call(lib, rows)
+            cases.append((f"predict int8 m={rows} [0,{d}) {name} "
+                          f"[{'; '.join(vec)}]", call,
+                          lambda out=out, want=want: bitwise(out, want)))
     times = {label: [] for label, _, _ in cases}
     for order in (cases, cases[::-1]):
         for label, call, _ in order:

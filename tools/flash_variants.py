@@ -346,7 +346,8 @@ def build(vs: dict) -> dict:
         cu.write_text(text)
         so = cu.with_suffix(".so")
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():

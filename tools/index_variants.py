@@ -1,8 +1,9 @@
-"""Time patched copies of the approximate index's kernels 6 and 4 —
-``src/repro_torch/csrc/rerank.cu`` (the int8 pcc route) and
+"""Time patched copies of the approximate index's kernels 6, 4 and 3 —
+``src/repro_torch/csrc/rerank.cu`` (the int8 pcc route),
 ``src/repro_torch/csrc/select.cu`` (the scan's score launch and the radix
-select) — at the approx path's block shapes, and check each against its
-plain version.
+select) and ``src/repro_torch/csrc/cluster.cu`` (centroid distances) — at
+the approx path's block shapes, and check each against its plain
+version.
 
     python3 tools/index_variants.py
 
@@ -17,7 +18,13 @@ shipped cosine instantiation at the same shape as a one-product
 reference.  Scores (Q 2048, N 6040, P 256, seeded unit rows): two blocks
 an SM (128 registers) and the diagnostic FMA (not the pinned order).
 Select over those scores (m 906): the diagnostic without the final
-bitonic sort.  Variants are built in parallel into
+bitonic sort.  Centroid distances (seeded unit rows, (6040, 256) × (78,
+256) and the U = 32768 index's (2048, 512) × (182, 512)): register tiles
+of 2 × 8, 1 × 8, 2 × 4 and 4 × 8 outputs a thread (4 × 4 shipped), the
+full stages' loop not unrolled, 16-feature stages, plain staging in
+place of ``cp.async``, and the diagnostics without the norms, without
+the staging (the stages' loads dropped) and without the cross term.
+Variants are built in parallel into
 ``src/repro_torch/build/variants/`` and timed in turns (forward, then
 backward order, CUDA events); each prints its registers and spills, its
 time and whether it equals the plain version bit for bit.
@@ -26,7 +33,6 @@ time and whether it equals the plain version bit for bit.
 from __future__ import annotations
 
 import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +76,33 @@ SELECT = {
 }
 
 
+TILE = "constexpr int TM = 4, TN = 4;"
+FULL_STAGE = ("    if (kend == BK) {   // a full stage, unrolled: loads "
+              "hoisted ahead")
+CROSS = ("      for (int f = 0; f < BK; f += 4) step(f);",
+         "      for (int f = 0; f < kend; f += 4) step(f);")
+NORMS = ("    for (int e = tid; e < n_norm; e += nthreads) {\n"
+         "      const float* p")
+CLUSTER = {
+    "shipped: 4 x 4 a thread, 32-feature stages unrolled, cp.async": [],
+    "2 x 8 a thread": [(TILE, TILE.replace("4, TN = 4", "2, TN = 8"))],
+    "1 x 8 a thread": [(TILE, TILE.replace("4, TN = 4", "1, TN = 8"))],
+    "2 x 4 a thread": [(TILE, TILE.replace("4, TN = 4", "2, TN = 4"))],
+    "4 x 8 a thread": [(TILE, TILE.replace("4, TN = 4", "4, TN = 8"))],
+    "stages not unrolled": [(FULL_STAGE, "    if (false) {")],
+    "16-feature stages": [("constexpr int BK = 32;",
+                           "constexpr int BK = 16;")],
+    "plain staging (no cp.async)": [("const bool vec = d % 4 == 0 &&",
+                                     "const bool vec = false &&")],
+    "diagnostic: no norms (wrong)": [(NORMS, NORMS.replace(
+        "e < n_norm;", "e < 0;"))],
+    "diagnostic: no staging (wrong)": [
+        ("  if (n_stages) load(0, 0);", ""),
+        ("      load(s + 1, (s + 1) & 1);\n", "")],
+    "diagnostic: no cross term (wrong)": [(CROSS[0], ""), (CROSS[1], "")],
+}
+
+
 def build(kind: str, variants: dict) -> dict:
     """Compile each variant of csrc/<kind>.cu (the shared csrc/*.cuh
     headers on the include path); returns name → (library, ptxas lines of
@@ -98,17 +131,8 @@ def build(kind: str, variants: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {kind} {name!r}:\n{log}")
-        regs, fn, spill = [], "?", "?"
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                k = re.search(r"\d+([a-z_]*kernel)(I\w*?E)?E", m.group(1))
-                fn = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
-            elif "spill stores" in line:
-                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-            elif "Used" in line and "registers" in line:
-                used = re.search(r"Used (\d+) registers", line).group(1)
-                regs.append(f"{fn}: {used} regs, {spill} B spilled")
+        regs = [f"{fn}: {used} regs, {spill} B spilled"
+                for fn, used, spill in _build.ptxas_report(log)]
         built[name] = (ctypes.CDLL(str(lib)), regs)
     return built
 
@@ -144,6 +168,7 @@ def main() -> int:
 
     rr = build("rerank", RERANK)
     sel = build("select", SELECT)
+    cl = build("cluster", CLUSTER)
 
     train, _, _ = load_ml1m_synthetic()
     r8 = torch.from_numpy(train).to(dev).to(torch.int8)
@@ -215,6 +240,36 @@ def main() -> int:
         cases.append((f"select m=906 {name}", call,
                       lambda v=v, i=i: torch.equal(i, t_want[1])
                       and bitwise(v, t_want[0])))
+    from repro_torch.kernels.cluster import centroid_distances_plain
+    shapes = []
+    for dm, dn, dd in ((6040, 78, 256), (2048, 182, 512)):
+        a, b = (rng.normal(size=(rows, dd)).astype(np.float32)
+                for rows in (dm, dn))
+        a /= np.linalg.norm(a, axis=1, keepdims=True)
+        b /= np.linalg.norm(b, axis=1, keepdims=True)
+        xa, cb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        shapes.append((xa, cb, centroid_distances_plain(xa, cb)))
+
+    def dist_call(lib, xa, cb):
+        fn = lib.repro_centroid_distances
+        fn.argtypes = [p_] * 3 + [i_] * 3 + [p_]
+        fn.restype = i_
+        out = torch.empty((xa.shape[0], cb.shape[0]), device=dev)
+
+        def call():
+            status = fn(xa.data_ptr(), cb.data_ptr(), out.data_ptr(),
+                        xa.shape[0], cb.shape[0], xa.shape[1], stream)
+            assert status == 0, status
+        return call, out
+
+    for name, (lib, regs) in cl.items():
+        vec = [r for r in regs if r.startswith("dist_kernelILb1E")]
+        for xa, cb, want_d in shapes:
+            call, out = dist_call(lib, xa, cb)
+            cases.append((f"distances {tuple(xa.shape)}x{tuple(cb.shape)} "
+                          f"{name} [{'; '.join(vec)}]", call,
+                          lambda out=out, want_d=want_d: bitwise(out,
+                                                                 want_d)))
     times = {label: [] for label, _, _ in cases}
     for order in (cases, cases[::-1]):
         for label, call, _ in order:

@@ -1,7 +1,8 @@
-"""Time kernels 8, 5, 4, 6, 1 and 7 of the PyTorch/CUDA port at their
-path shapes on seeded inputs, beside their library yardsticks.
+"""Time kernels 8, 5, 4, 6, 1, 7, 2 and 3 of the PyTorch/CUDA port at
+their path shapes on seeded inputs, beside their library yardsticks.
 
-    python3 tools/kernel_times.py [--src DIR] [--only index|exact|support]...
+    python3 tools/kernel_times.py [--src DIR]
+        [--only index|exact|support|predict|cluster]...
 
 Run from the repository root on a machine with a CUDA card.  Prints one
 line each: the flash-attention prefill launch (Llama-3.2-1B's layer
@@ -27,13 +28,30 @@ f32 ``torch.matmul`` and six ``torch._int_mm`` calls; ``--only support``
 times ``fused_support_scores`` at the approx recommend's 6040-user chunk
 (k 40 exact pcc neighbors, I' 4096) on the f32 tables and, where the
 tree has it, on the int8 route, beside ``torch.sparse.mm``; both hold
-every route to its plain version bit for bit.  ``--only exact`` also
+every route to its plain version bit for bit.  ``--only predict`` times
+``fused_tile_predict`` on the int8 source of the ML-1M surrogate (k 40
+exact pcc neighbors, the first 1024 users) at one recommend tile (items
+[0, 512)) and at one whole-range launch ([0, 3952)), each on the device
+alone (queued behind a spin kernel) and as a call with its host work,
+then ``predict_from_neighbors_blocked(use_kernel=True)`` for that user
+block as the exact recommend calls it (every launch of the call), beside
+``torch.sparse.mm`` of the (m, U) CSR weights against the stacked (U, 2T)
+[dev | mask] tile, its bound and its no-FMA floor (4 operations for
+each rated element of a weighted neighbor row, the terms the data needs,
+at half the f32 peak; an unrated element adds ±0).  ``--only cluster`` times
+``fused_centroid_distances`` on seeded unit rows at (6040, 256) × (78,
+256), one k-means block (2048, 256) × (78, 256) and the U = 32768
+index's (2048, 512) × (182, 512), the same two ways, beside
+``torch.cdist(x, c).square()``; both hold the kernel to its plain
+version bit for bit (kernel 3 also on a row subset).  ``--only exact`` also
 times the exact fit's candidate loop on the host's clock, as shipped
 and, where the tree has the fit's shared ``n_bad`` counter, with a wait
 after every launch instead.  ``--only`` may repeat.
 ``--src DIR`` imports ``repro_torch`` from DIR (an unpacked parent tree,
 to time two designs in one call).  Times are CUDA events over
-back-to-back calls, the host's enqueue included.
+back-to-back calls, the host's enqueue included, except where a line says
+"device" (the calls queued behind a spin kernel, so a launch shorter than
+its host work is timed on the device alone).
 """
 
 from __future__ import annotations
@@ -47,7 +65,8 @@ import sys
 _ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 _ARGS.add_argument("--src", default=os.path.join(os.path.dirname(
     os.path.abspath(__file__)), "..", "src"))
-_ARGS.add_argument("--only", choices=("index", "exact", "support"),
+_ARGS.add_argument("--only", choices=("index", "exact", "support",
+                                      "predict", "cluster"),
                    action="append", default=None)
 ARGS = _ARGS.parse_args()
 sys.path.insert(0, os.path.abspath(ARGS.src))
@@ -62,6 +81,23 @@ def time_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_ms_queued(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls
+    enqueued behind a ~20 ms spin kernel (CUDA events), so the host's
+    enqueue is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -266,6 +302,109 @@ def support_kernels(dev) -> bool:
     return ok
 
 
+def predict_kernels(dev) -> bool:
+    """Kernel 2 at the exact recommend's shapes; False on any
+    mismatch."""
+    from repro_torch.core import predict as pr
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.kernels.predict import (fused_tile_predict,
+                                             tile_predict_plain)
+    train, _, _ = load_ml1m_synthetic()
+    eng = CFEngine(train, measure="pcc", k=40, backend="kernel",
+                   device=dev).fit()
+    ratings, scores, idx, means = eng.snapshot()
+    u, n_items = ratings.shape
+    m = 1024
+    src = pr.make_gather_source(ratings)
+    ids = torch.where(idx[:m] >= 0, idx[:m], 0).to(torch.int32).contiguous()
+    w = torch.where((scores[:m] > 0) & (idx[:m] >= 0), scores[:m],
+                    torch.zeros_like(scores[:m])).contiguous()
+    nbm = means[ids.long()].contiguous()
+    qm = means[:m].contiguous()
+    k = ids.shape[1]
+    rows_read = int(torch.unique(ids).numel())
+    crow = torch.arange(0, m * k + 1, k, dtype=torch.int64, device=dev)
+    wmat = torch.sparse_csr_tensor(crow, ids.reshape(-1).long(),
+                                   w.reshape(-1), size=(m, u))
+    ok = True
+    for lo, hi in ((0, 512), (0, n_items)):
+        t = hi - lo
+
+        def call():
+            return fused_tile_predict(src, ids, w, nbm, qm, lo, hi)
+
+        same = bitwise(call(), tile_predict_plain(src, ids, w, nbm, qm, lo,
+                                                  hi))
+        ok &= same
+        r = ratings[:, lo:hi]
+        stacked = torch.cat([torch.where(r > 0, r - means[:, None], 0.0),
+                             (r > 0).float()], dim=1).contiguous()
+        n_bytes = rows_read * t + m * k * 12.0 + m * 4.0 + m * t * 4.0
+        terms = int(((src[:, lo:hi] > 0).sum(1)[ids.long()] * (w != 0))
+                    .sum())
+        bound = max(n_bytes / 3.35e12,
+                    (4.0 * terms + 5.0 * m * t) / 67e12) * 1e3
+        print(f"tile_predict m={m} k={k} items[{lo},{hi}) int8 bitwise "
+              f"{same} device ms {time_ms_queued(call)!r} call ms "
+              f"{time_ms(call, 50)!r} sparse.mm device ms "
+              f"{time_ms_queued(lambda: torch.sparse.mm(wmat, stacked), 20)!r}"
+              f" bound ms {bound!r} nofma floor ms "
+              f"{4.0 * terms / (67e12 / 2) * 1e3!r} rated terms {terms} "
+              f"of {m * k * t} routes "
+              f"{getattr(fused_tile_predict, 'routes', None)}", flush=True)
+
+    def path():
+        return pr.predict_from_neighbors_blocked(
+            ratings, scores[:m], idx[:m], means=means, query_means=qm,
+            item_block=512, gather_src=src, use_kernel=True)
+
+    before = fused_tile_predict.launches
+    got = path()
+    launches = fused_tile_predict.launches - before
+    same = bitwise(got, tile_predict_plain(src, ids, w, nbm, qm, 0, n_items))
+    ok &= same
+    print(f"predict_from_neighbors_blocked m={m} item_block 512 "
+          f"({launches} launches a call) bitwise {same} device ms "
+          f"{time_ms_queued(path, 20)!r} call ms {time_ms(path, 20)!r}",
+          flush=True)
+    return ok
+
+
+def cluster_kernels(dev) -> bool:
+    """Kernel 3 at the index's shapes; False on any mismatch."""
+    from repro_torch.kernels.cluster import (centroid_distances_plain,
+                                             fused_centroid_distances)
+    rng = np.random.default_rng(0)
+    ok = True
+    for m, n, d in ((6040, 78, 256), (2048, 78, 256), (2048, 182, 512)):
+        xs = []
+        for rows in (m, n):
+            a = rng.normal(size=(rows, d)).astype(np.float32)
+            xs.append(torch.from_numpy(
+                a / np.linalg.norm(a, axis=1, keepdims=True)).to(dev))
+        x, c = xs
+
+        def call():
+            return fused_centroid_distances(x, c)
+
+        got = call()
+        sub = torch.arange(0, m, 7, device=dev)
+        same = bitwise(got, centroid_distances_plain(x, c)) and bitwise(
+            fused_centroid_distances(x[sub].contiguous(), c), got[sub])
+        ok &= same
+        n_bytes = ((m + n) * d + m * n) * 4.0
+        n_ops = 2.0 * m * n * d + 2.0 * (m + n) * d + 3.0 * m * n
+        bound = max(n_bytes / 3.35e12, n_ops / 67e12) * 1e3
+        print(f"centroid_distances ({m},{d})x({n},{d}) bitwise {same} "
+              f"device ms {time_ms_queued(call)!r} call ms "
+              f"{time_ms(call, 50)!r} cdist^2 device ms "
+              f"{time_ms_queued(lambda: torch.cdist(x, c).square())!r} "
+              f"bound ms {bound!r} nofma floor ms "
+              f"{2.0 * m * n * d / (67e12 / 2) * 1e3!r}", flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
@@ -274,7 +413,8 @@ def main() -> int:
     print(f"repro_torch from {os.path.abspath(ARGS.src)}")
     if ARGS.only:
         runs = {"index": index_kernels, "exact": exact_kernels,
-                "support": support_kernels}
+                "support": support_kernels, "predict": predict_kernels,
+                "cluster": cluster_kernels}
         ok = all([runs[name](dev) for name in ARGS.only])
         print(torch.cuda.get_device_name(0))
         return 0 if ok else 1
