@@ -146,8 +146,10 @@ runs:
 14. the embedding-bag kernel against its plain version on the card:
     B = L = 1 at D = 1 / 10 / 128, all-padding bags (mean exactly 0), −1
     spread through the bags, f32 and bf16 tables, sum and mean, int32 and
-    int64 ids, one launch on a bf16 table of 2.18e9 elements (max abs
-    diff 0.0 required);
+    int64 ids, both routes ("warp", "slots") taken, one
+    launch on a bf16 table of 2.18e9 elements (max abs diff 0.0
+    required); the check launch's and the bag launch's counts of ids
+    past the table == the plain count, and the wrapper raises on them;
 15. DLRM-MLPerf at its published widths (26 fields, embed 128, bottom
     13-512-256-128, top 1024-1024-512-256-1), every field capped at 20 M
     rows (104,064,204 rows, 13.32 B parameters, 49.6 GiB f32 on the card;
@@ -160,18 +162,23 @@ runs:
     multi-hot bags × L = 100 over the fused table (zipf ids, ~10 %
     padding), sum and mean, through ``ops.embedding_bag``, == plain; the
     launch counts zeroed before the steps, kernel 9's read after the bags
-    (> 0);
-16. kernel 9's time at the multi-hot launch (the launch alone, the
+    (> 0, every one on the "warp" route);
+16. kernel 9's time at (a) that multi-hot launch, (b) those L = 1 bags
+    beside the serve step's own gather, and the multi-hot bags over FM's
+    (c) D = 10 factor and (d) D = 1 linear tables: the launch alone, the
     plain version and ``F.embedding_bag`` as the library yardstick, with
-    the L2 cache flushed before each call; the launch and the library
-    with a warm L2; the wrapper with its id check; the bound) and
-    ``torch.profiler`` over one DLRM serve_p99 and one serve_bulk step;
-    then the DLRM is dropped;
+    the L2 cache flushed before each call, and warm on the device alone;
+    the wrapper with its id check back to back and one call's host wall;
+    the bound) and ``torch.profiler`` over one DLRM serve_p99 and one
+    serve_bulk step; then the DLRM is dropped;
 17. FM and xDeepFM at their full configs (Criteo-39 vocabularies, embed
     10, CIN 200-200-200, DNN 400-400): serve_p99, serve_bulk (xDeepFM cut
     to 16,384 rows, logged) and retrieval_cand (1,048,576 candidates;
     xDeepFM in 128 chunks of 8192); FM's factorised retrieval == its
-    forward on the substituted batch (1e-5);
+    forward on the substituted batch (1e-5); the multi-hot bags over FM's
+    factor and linear tables through ``ops.embedding_bag`` == plain, the
+    launch counts zeroed before the path and read after it (four
+    launches, all on the "slots" route);
 18. the three models' smoke configs on a small input, the CPU path
     against the card (1e-5).
 
@@ -289,23 +296,39 @@ def time_ms_queued(fn, reps: int = 50) -> float:
 
 
 def time_ms_cold(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` with the 50 MB L2 cache flushed before
-    each call (a 512 MB buffer rewritten just before the start event, so
-    the device is still busy when ``fn`` is enqueued)."""
+    """Median device time of ``fn`` over ``reps`` calls with the 50 MB L2
+    cache flushed before each (a 512 MB buffer rewritten, then a ~0.2 ms
+    spin, just before the start event, so the device is still busy when
+    ``fn`` is enqueued even if the host stalls)."""
     flush = torch.empty(2**27, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(400_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_wall_ms(fn, reps: int = 30) -> float:
+    """Median host-clock ms of one call of ``fn`` from an idle device to
+    its return (what its caller waits for)."""
+    fn()
+    lat = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(lat))
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -598,6 +621,15 @@ def index_wrappers():
     from repro_torch.kernels.select import fused_scan_topm, select_topm
     return {"cluster": fused_centroid_distances, "scan": fused_scan_topm,
             "select": select_topm, "rerank": fused_rerank_scores}
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count, and the embedding bag's route
+    counts, set to 0."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    for fn in all_wrappers().values():
+        fn.launches = 0
+    embedding_bag.routes = dict.fromkeys(embedding_bag.routes, 0)
 
 
 def all_wrappers():
@@ -2021,10 +2053,15 @@ def phase_bag_kernel(dev):
     """Phase 14: kernel 9 (embedding bag) against its plain version on the
     card — B = L = 1 at D = 1 / 10 / 128, all-padding bags (mean exactly
     0), −1 spread through the bags, f32 and bf16 tables, sum and mean,
-    int32 and int64 ids, one launch on a bf16 table of more than 2^31
-    elements (64-bit offsets)."""
+    int32 and int64 ids, both routes ("warp", "slots") taken, one
+    launch on a bf16 table of more than 2^31 elements (64-bit offsets);
+    the check launch's and the bag launch's counts of ids past the table
+    against the plain count, and the wrapper raising on them.  Returns (max diff, cases, launches
+    by route)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, launch
     gen = torch.Generator(device=dev).manual_seed(14)
     err, cases = 0.0, 0
+    routes = dict(embedding_bag.routes)
     shapes = [(50, 1, 1, 1), (50, 10, 1, 1), (300, 128, 1, 1),
               (1000, 1, 37, 9), (1000, 10, 37, 9), (5000, 128, 513, 100),
               (777, 12, 5, 33), (64, 300, 7, 40)]
@@ -2047,6 +2084,28 @@ def phase_bag_kernel(dev):
                     if b > 2:
                         check(bool((got[2] == 0).all()),
                               "all-padding bag is exactly 0")
+    routes = {k: v - routes[k] for k, v in embedding_bag.routes.items()}
+    check(min(routes.values()) > 0, f"every bag route taken: {routes}")
+    # the wrapper's check launch and the bag launch's own count of ids
+    # past the table against the plain count, and the wrapper raising
+    ids = torch.randint(-1, 1200, (300, 70), generator=gen, device=dev,
+                        dtype=torch.int32)
+    table = torch.randn((1000, 16), generator=gen, device=dev)
+    n_bad = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for id_t in (ids, ids.long()):
+        want = int((id_t >= 1000).sum())
+        n_bad.zero_()
+        launch(table, id_t, n_bad)
+        check(int(n_bad.item()) == want > 0,
+              "the launch counts the ids past the table as the plain "
+              "count does")
+        try:
+            embedding_bag(table, id_t)
+            check(False, "the wrapper raises on ids past the table")
+        except ValueError as e:
+            check(str(e).startswith(f"{want} id(s) "),
+                  f"the check launch counts them as the plain count does: "
+                  f"{e}")
     big_rows, d = BAG_BIG_ROWS, 128
     table = torch.empty((big_rows, d), dtype=torch.bfloat16, device=dev)
     table.normal_(generator=gen)
@@ -2062,7 +2121,7 @@ def phase_bag_kernel(dev):
     del table
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return err, cases
+    return err, cases, routes
 
 
 def serve_latencies(step, model, batch, n, warm=3):
@@ -2167,8 +2226,7 @@ def phase_dlrm(dev):
     ctx = recsys_inputs(cfg, 1, 2)
     cand = candidates(ret_n, cfg.field_sizes[cfg.candidate_field], seed=3)
 
-    for fn in all_wrappers().values():
-        fn.launches = 0
+    zero_counts()
     lat, logits = serve_latencies(serve, model, b_p99, 60)
     out["p99_lat"] = lat
     check(tuple(logits.shape) == (len(b_p99["sparse"]),)
@@ -2214,8 +2272,13 @@ def phase_dlrm(dev):
                         f"plain diff {e} (0.0 required)")
         out["bag_err"] = max(out["bag_err"], e)
     out["launches"] = embedding_bag.launches
+    out["routes"] = dict(embedding_bag.routes)
     check(out["launches"] > 0, "embedding-bag kernel launched on the path")
+    check(out["routes"]["warp"] == out["launches"],
+          f"every DLRM bag launch on the one-bag-a-warp route: "
+          f"{out['routes']}")
     out["model"], out["multi_hot"] = model, mh
+    out["l1_ids"] = ids.contiguous()
     out["steps"] = (serve, bulk, b_p99, b_bulk)
     torch.cuda.synchronize()
     return out
@@ -2228,15 +2291,23 @@ def phase_fm_xdeepfm(dev):
     serve_p99 (≥ 50 timed steps), serve_bulk (FM 262,144 rows; xDeepFM
     cut to 16,384) and retrieval_cand (1,048,576 candidates; xDeepFM in
     128 chunks of 8192); FM's factorised retrieval == its forward on the
-    substituted batch within 1e-5."""
+    substituted batch within 1e-5; phase 15's multi-hot bag shape over
+    FM's factor (D = 10) and linear (D = 1) tables through
+    ``ops.embedding_bag``, sum and mean, == the plain version bit for bit,
+    with every launch count zeroed before the path and kernel 9's launch
+    and route counts read after it (every launch on the slots route)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.data.batches import candidates
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
     from repro_torch.launch.steps import build_step
     from repro_torch.models import common as cm
     from repro_torch.models import fm, xdeepfm
 
+    zero_counts()
     res = {}
     for name, mod, cls in (("fm", fm, fm.FM),
                            ("xdeepfm", xdeepfm, xdeepfm.XDeepFM)):
@@ -2284,10 +2355,30 @@ def phase_fm_xdeepfm(dev):
                 ctx, cand, cfg.candidate_field)))
             check(out["ret_vs_fwd"] <= 1e-5,
                   f"FM factorised retrieval == forward ({out['ret_vs_fwd']})")
+            mh = torch.from_numpy(multi_hot_ids(cfg.layout(), BAG_SHAPE, 4)
+                                  ).to(dev)
+            tree = model.tree()
+            res["bag_err"] = 0.0
+            for what in ("factors", "linear"):
+                table = tree[what]["sharded"]
+                for combiner in ("sum", "mean"):
+                    with torch.inference_mode():
+                        got = ops.embedding_bag(table, mh, combiner=combiner)
+                        want = embedding_bag_plain(table, mh,
+                                                   combiner=combiner)
+                    e = max_diff(got, want)
+                    check(e == 0.0, f"FM {what} multi-hot bags {BAG_SHAPE} "
+                                    f"{combiner}: kernel vs plain diff {e}")
+                    res["bag_err"] = max(res["bag_err"], e)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res[name] = out
         del model
         torch.cuda.empty_cache()
+    res["bag_launches"] = embedding_bag.launches
+    res["bag_routes"] = dict(embedding_bag.routes)
+    check(res["bag_launches"] == 4 and res["bag_routes"]["slots"] == 4,
+          f"FM's narrow bags (D = 10 and D = 1) on the slots route: "
+          f"{res['bag_launches']} launches, {res['bag_routes']}")
     torch.cuda.synchronize()
     return res
 
@@ -2324,21 +2415,23 @@ def phase_recsys_small(dev):
     return worst
 
 
-def phase_bag_timings(dl, err):
-    """Phase 16 (kernel 9): the multi-hot launch of phase 15 (2048 bags ×
-    L = 100 over the fused 104 M × 128 f32 table), sum: the launch alone,
-    the plain version and the library yardstick ``F.embedding_bag`` with
-    the validity mask as ``per_sample_weights`` on clamped ids (never
-    called by the port), each with the L2 cache flushed before every call
-    (a serving caller finds the rows cold; CUDA events), and the launch
-    and library with a warm L2, and the wrapper with its id check."""
+def bag_timing(name, table, ids, gather=None):
+    """Kernel 9 at one shape of phase 16, held to its plain version bit
+    for bit: the launch alone with the L2 cache flushed before every call
+    (a serving caller finds the rows cold; CUDA events) and warm on the
+    device alone, the wrapper with its id check back to back (CUDA
+    events) and one call's host wall, the plain version, the library
+    yardstick ``F.embedding_bag`` with the validity mask as
+    ``per_sample_weights`` on clamped ids (never called by the port), cold
+    and warm, ``gather`` (a gather of the same rows, for L = 1) cold and
+    warm, and the bound (each distinct row, the ids and the output once).
+    The timing launches leave the path's launch and route counts as they
+    were."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_plain,
                                                    launch)
-    table = dl["model"].tree()["tables"]["sharded"]
-    ids = dl["multi_hot"]
     b, l = ids.shape
     d = table.shape[1]
     n_bad = torch.zeros((1,), dtype=torch.int32, device=ids.device)
@@ -2346,36 +2439,79 @@ def phase_bag_timings(dl, err):
     safe = ids.clamp_min(0)
     weights = valid.to(table.dtype)
     with torch.inference_mode():
-        before = embedding_bag.launches
-        ms = time_ms_cold(lambda: launch(table, ids, n_bad), reps=50)
-        warm_ms = time_ms(lambda: launch(table, ids, n_bad), reps=50)
-        wrapper_ms = time_ms(lambda: embedding_bag(table, ids), reps=20)
-        embedding_bag.launches = before
-        plain_ms = time_ms_cold(lambda: embedding_bag_plain(table, ids),
-                                reps=5)
+        want = embedding_bag_plain(table, ids)
+        err = max_diff(launch(table, ids, n_bad), want)
+        check(err == 0.0, f"bag {name}: kernel vs plain diff {err}")
+        launches, routes = embedding_bag.launches, dict(embedding_bag.routes)
+        out = {"name": name, "err": err,
+               "ms": time_ms_cold(lambda: launch(table, ids, n_bad), 50),
+               "warm_ms": time_ms_queued(lambda: launch(table, ids, n_bad)),
+               "wrapper_ms": time_ms(lambda: embedding_bag(table, ids), 50),
+               "wrapper_host_ms": host_wall_ms(
+                   lambda: embedding_bag(table, ids))}
+        embedding_bag.launches, embedding_bag.routes = launches, routes
+        out["plain_ms"] = time_ms_cold(
+            lambda: embedding_bag_plain(table, ids), reps=5)
 
         def library_call():
             return F.embedding_bag(safe, table, mode="sum",
                                    per_sample_weights=weights)
-        library = time_ms_cold(library_call, reps=50)
-        library_warm = time_ms(library_call, reps=50)
-        lib_err = max_diff(library_call(), embedding_bag_plain(table, ids))
+        out["library_ms"] = time_ms_cold(library_call, reps=50)
+        out["library_warm_ms"] = time_ms_queued(library_call)
+        out["library_diff"] = max_diff(library_call(), want)
+        if gather is not None:
+            rows = gather(table, ids[:, 0])
+            check(torch.equal(rows, want), f"bag {name}: gather == bags")
+            out["gather_ms"] = time_ms_cold(lambda: gather(table, ids[:, 0]),
+                                            50)
+            out["gather_warm_ms"] = time_ms_queued(
+                lambda: gather(table, ids[:, 0]))
     check(int(n_bad.item()) == 0, "no id past the table in the timing runs")
     distinct = int(torch.unique(ids[valid]).numel())
     n_valid = int(valid.sum())
-    bound, by = bound_ms(distinct * d * 4.0 + b * l * 4.0 + b * d * 4.0,
-                         float(n_valid * d))
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        (distinct * d + b * d) * table.element_size() + b * l * 4.0,
+        float(n_valid * d))
+    out["shape"] = (f"B={b} L={l} ({n_valid} valid, {distinct} distinct "
+                    f"rows) over {tuple(table.shape)} "
+                    f"{str(table.dtype)[6:]}, sum")
     torch.cuda.synchronize()
+    return out
+
+
+def phase_bag_timings(dl, err):
+    """Phase 16 (kernel 9) at the recsys paths' shapes: (a) phase 15's
+    multi-hot launch (2048 bags × L = 100 over the fused 104 M × 128 f32
+    table), (b) its L = 1 bags of serve_p99's lookups beside the serve
+    step's own gather (``models/embedding.py::_take``), and the same
+    multi-hot bags over FM's sharded (c) factor (D = 10) and (d) linear
+    (D = 1) tables, made here as phase 17 makes them (seed 0); see
+    :func:`bag_timing`.  Returns the kernels-line row (shape (a)'s
+    numbers) with every shape's under ``shapes``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import fm
+    fm_cfg = get_arch("fm").config
+    fm_tables = fm.init_params(fm_cfg, torch.Generator(
+        device=dl["multi_hot"].device).manual_seed(0))
+    fm_ids = torch.from_numpy(multi_hot_ids(fm_cfg.layout(), BAG_SHAPE, 4)
+                              ).to(dl["multi_hot"].device)
+    table = dl["model"].tree()["tables"]["sharded"]
+    shapes = [bag_timing("(a) multi-hot DLRM", table, dl["multi_hot"]),
+              bag_timing("(b) L = 1 DLRM", table, dl["l1_ids"],
+                         gather=emb._take),
+              bag_timing("(c) multi-hot FM factors",
+                         fm_tables["factors"]["sharded"], fm_ids),
+              bag_timing("(d) multi-hot FM linear",
+                         fm_tables["linear"]["sharded"], fm_ids)]
+    a = shapes[0]
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:49",
-            "launches": dl["launches"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library, "wrapper_ms": wrapper_ms,
-            "warm_ms": warm_ms, "library_warm_ms": library_warm,
-            "library_diff": lib_err,
-            "shape": f"B={b} L={l} ({n_valid} valid, {distinct} distinct "
-                     f"rows) over {tuple(table.shape)} f32, sum"}
+            "launches": dl["launches"], "max_abs_err": err, "ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+            "shape": a["shape"], "shapes": shapes}
 
 
 def log_serving(name, out) -> None:
@@ -2657,8 +2793,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[14] embedding-bag kernel vs plain version on the card")
-    berr, bcases = phase_bag_kernel(dev)
-    log(f"    ok: {bcases} cases, max_abs_diff={berr!r} (0.0 required)")
+    berr, bcases, broutes = phase_bag_kernel(dev)
+    log(f"    ok: {bcases} cases, max_abs_diff={berr!r} (0.0 required); "
+        f"launches by route {broutes}; the check launch's and the bag "
+        f"launch's counts of ids past the table == the plain count, and "
+        f"the wrapper raises on them")
 
     log(f"[15] DLRM-MLPerf at published widths (fields capped at "
         f"{DLRM_ROW_CAP} rows): build_step serve_p99 / serve_bulk / "
@@ -2675,18 +2814,25 @@ def main() -> int:
         f"through ops.embedding_bag == the step's lookups bit for bit; "
         f"multi-hot {BAG_SHAPE} sum / mean: kernel == plain "
         f"(max_abs_diff {dl['bag_err']!r}); embedding_bag launches "
-        f"{dl['launches']}")
+        f"{dl['launches']} by route {dl['routes']}")
 
     log("[16] embedding-bag timing (CUDA events) and DLRM profile")
     bag_row = phase_bag_timings(dl, max(berr, dl["bag_err"]))
     kernels.append(bag_row)
-    log(f"    {bag_row['name']}: {bag_row['ms']:.4f} ms with a cold L2 "
-        f"(warm {bag_row['warm_ms']:.4f}; the wrapper with its id check, "
-        f"warm, {bag_row['wrapper_ms']:.4f}), plain "
-        f"{bag_row['plain_ms']:.4f}, library {bag_row['library_ms']:.4f} "
-        f"(warm {bag_row['library_warm_ms']:.4f}; diff "
-        f"{bag_row['library_diff']!r}), bound {bag_row['bound_ms']:.4f} ms "
-        f"by {bag_row['bound_by']} at {bag_row['shape']}")
+    for sh in bag_row["shapes"]:
+        line = (f"    embedding_bag {sh['name']}: launch {sh['ms']:.4f} ms "
+                f"with a cold L2 (warm, device alone, {sh['warm_ms']:.4f}; "
+                f"the wrapper with its id check back to back "
+                f"{sh['wrapper_ms']:.4f}, one call's host wall "
+                f"{sh['wrapper_host_ms']:.4f}), plain "
+                f"{sh['plain_ms']:.4f}, F.embedding_bag "
+                f"{sh['library_ms']:.4f} (warm {sh['library_warm_ms']:.4f}; "
+                f"diff {sh['library_diff']!r}), ")
+        if "gather_ms" in sh:
+            line += (f"the serve step's gather {sh['gather_ms']:.4f} (warm "
+                     f"{sh['gather_warm_ms']:.4f}), ")
+        log(line + f"bound {sh['bound_ms']:.4f} ms by {sh['bound_by']} at "
+            f"{sh['shape']}; kernel == plain")
     serve, bulk, b_p99, b_bulk = dl["steps"]
     profile_each((("DLRM serve_p99 step", lambda: serve.fn(dl["model"],
                                                            b_p99)),
@@ -2700,6 +2846,13 @@ def main() -> int:
     log("[17] FM and xDeepFM at full config: serve_p99 / serve_bulk / "
         "retrieval_cand")
     fx = phase_fm_xdeepfm(dev)
+    bag_row["launches"] += fx.pop("bag_launches")
+    bag_routes = fx.pop("bag_routes")
+    log(f"    FM multi-hot {BAG_SHAPE} bags over the factor and linear "
+        f"tables, sum / mean: kernel == plain (max_abs_diff "
+        f"{fx.pop('bag_err')!r}); embedding_bag launches on this path by "
+        f"route {bag_routes}; on the DLRM and FM paths together "
+        f"{bag_row['launches']}")
     for name, out in fx.items():
         log(f"    {name}: {out['params']} parameters; reduced: "
             f"{out['reduced'] or 'none'}")

@@ -132,6 +132,17 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+def source_constant(name: str, constant: str) -> int:
+    """The value of ``constexpr int <constant> = <value>;`` in
+    ``csrc/<name>.cu`` (read from the source: nothing is built), so that a
+    launch plan chosen in Python and the kernel share one definition."""
+    text = (CSRC / f"{name}.cu").read_text()
+    found = re.search(rf"constexpr int {constant} = (\d+);", text)
+    if found is None:
+        raise LookupError(f"no constexpr int {constant} in {name}.cu")
+    return int(found.group(1))
+
+
 def padded_rows(x, width: int):
     """2-D ``x`` as rows of ``width`` elements at a 16-byte aligned
     address, for kernels that stage rows in 16-byte copies: zero-padded

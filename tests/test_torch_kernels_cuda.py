@@ -983,6 +983,7 @@ def _bag_inputs(seed, v, d, b, l, dtype, cuda, pad=0.3):
     (1000, 1, 37, 9), (1000, 10, 37, 9),                 # FM / xDeepFM D
     (5000, 128, 513, 100), (777, 12, 5, 33),             # multi-hot; D % 8
     (64, 300, 7, 40), (64, 36, 3, 70),                   # D > 32 lanes · 8
+    (3000, 10, 2051, 100), (3000, 1, 2051, 17),          # slots, 4 warps
 ])
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
 def test_bag_kernel_matches_plain(cuda, dtype, v, d, b, l, combiner):
@@ -1024,3 +1025,134 @@ def test_bag_kernel_rejects_ids_past_the_table(cuda):
     from repro_torch.kernels import ops
     with pytest.raises(ValueError):
         ops.embedding_bag(table.cpu(), idx.cpu(), impl="kernel")
+
+
+def _bag_expected_routes(before, route):
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    return embedding_bag.routes == {k: v + (k == route)
+                                    for k, v in before.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 10, 12, 36, 128, 300])
+@pytest.mark.parametrize("b,l", [(37, 1), (2051, 1), (37, 17), (2051, 100),
+                                 (5, 33)])
+def test_bag_routes_bitwise(cuda, dtype, d, b, l):
+    """Each route of the plan (the warp kernel, the slot kernel) against
+    the plain version bit for bit: B of one and of four warps a block and
+    off a block, L = 1 and L off the prefetch depth, an all-padding bag
+    (exactly 0), a padded last slot, sum and mean, int32 and int64 ids;
+    the route counted once a launch."""
+    from repro_torch.kernels.embedding_bag import (_align, embedding_bag,
+                                                   embedding_bag_plain,
+                                                   plan)
+    table, idx = _bag_inputs(d * b + l, 4000, d, b, l, dtype, cuda, pad=0.1)
+    idx[0, -1] = -1                                    # a padded last slot
+    idx[2] = -1                                        # an all-padding bag
+    route = plan(d, table.element_size(), l, _align(table)).route
+    for combiner in ("sum", "mean"):
+        for ids in (idx, idx.long()):
+            before = dict(embedding_bag.routes)
+            got = embedding_bag(table, ids, combiner=combiner)
+            assert _bag_expected_routes(before, route)
+            want = embedding_bag_plain(table, ids, combiner=combiner)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (b, d)
+            assert torch.equal(got.float().view(torch.int32),
+                               want.float().view(torch.int32)), \
+                (d, b, l, combiner)
+            assert bool((got[2] == 0).all())
+
+
+def _bag_plans(d, elem):
+    """Every plan the kernel takes for rows of ``d`` elements: each word
+    width that divides the row, the warp kernel at each depth, and the
+    slot kernel where the row has at most SLOT_WORDS words."""
+    from repro_torch.kernels.embedding_bag import DEPTH, SLOT_WORDS, Plan
+    out = []
+    for word in (16, 8, 4, 2):
+        if word < elem or (d * elem) % word:
+            continue
+        out += [Plan(word, depth) for depth in (1, 4, DEPTH)]
+        if d * elem // word <= SLOT_WORDS:
+            out.append(Plan(word, DEPTH, slots=True))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 4, 10, 36, 128, 300])
+@pytest.mark.parametrize("b", [45, 300, 700])
+def test_bag_every_plan_bitwise(cuda, dtype, d, b):
+    """The kernel under every plan it accepts (word widths, depths, both
+    kernels) == the plain version bit for bit, mean, int32 ids with
+    padding, L off every depth, B of one, two and four warps a block; the
+    route follows the plan."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain,
+                                                   launch)
+    table, idx = _bag_inputs(d + b, 500, d, b, 21, dtype, cuda)
+    idx[7] = -1
+    want = embedding_bag_plain(table, idx, combiner="mean")
+    n_bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for how in _bag_plans(d, table.element_size()):
+        before = dict(embedding_bag.routes)
+        got = launch(table, idx, n_bad, combiner="mean", how=how)
+        assert _bag_expected_routes(before, how.route)
+        torch.cuda.synchronize()
+        assert torch.equal(got.float().view(torch.int32),
+                           want.float().view(torch.int32)), how
+    assert int(n_bad.item()) == 0
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.float32), (10, torch.float32),
+                                     (1, torch.float32),
+                                     (128, torch.bfloat16)])
+@pytest.mark.parametrize("slot", [0, 5, 7, 8, 16, 31, 32, 39])
+def test_bag_ids_past_the_table_in_the_window(cuda, d, dtype, slot):
+    """An id ≥ V in the first ring window (depth 8), at its edge, one and
+    two windows ahead, at the slot kernel's chunk edge (32) and at the
+    last slot: the wrapper raises, its check launch counting them as the
+    plain count does; the launch alone skips that slot (== the plain
+    version with the slot padded) and adds one to its counter a bad
+    slot."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain,
+                                                   launch)
+    table, idx = _bag_inputs(slot + d, 300, d, 70, 40, dtype, cuda)
+    bad = torch.zeros_like(idx, dtype=torch.bool)
+    bad[3, slot] = bad[64, slot] = bad[69, 39 - slot] = True
+    ids = torch.where(bad, torch.full_like(idx, 300), idx)
+    ids[64, slot] = 2**31 - 1
+    for id_t in (ids, ids.long()):
+        with pytest.raises(ValueError, match="^3 id.* ≥ the table's 300 rows"):
+            embedding_bag(table, id_t)
+        n_bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+        for combiner in ("sum", "mean"):
+            got = launch(table, id_t, n_bad, combiner=combiner)
+            want = embedding_bag_plain(
+                table, torch.where(bad, torch.full_like(id_t, -1), id_t),
+                combiner=combiner)
+            torch.cuda.synchronize()
+            assert torch.equal(got.float().view(torch.int32),
+                               want.float().view(torch.int32))
+        assert int(n_bad.item()) == 2 * int((id_t >= 300).sum()) == 6
+
+
+def test_bag_wrapper_does_not_wait_for_the_bags(cuda):
+    """The wrapper waits for its id check, not for the bag launch: after
+    it returns from a launch of several milliseconds the stream still has
+    work, and the result is right once it ends."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((1 << 20, 128), generator=g, device=cuda)
+    ids = torch.randint(0, 1 << 20, (32768, 256), generator=g, device=cuda,
+                        dtype=torch.int32)
+    embedding_bag(table, ids[:8])                      # build and load
+    torch.cuda.synchronize()
+    got = embedding_bag(table, ids)
+    pending = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert pending
+    want = embedding_bag_plain(table, ids[:512])
+    assert torch.equal(got[:512], want)

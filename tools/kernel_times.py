@@ -1,8 +1,8 @@
-"""Time kernels 8, 5, 4, 6, 1, 7, 2 and 3 of the PyTorch/CUDA port at
+"""Time kernels 8, 5, 4, 6, 1, 7, 2, 3 and 9 of the PyTorch/CUDA port at
 their path shapes on seeded inputs, beside their library yardsticks.
 
     python3 tools/kernel_times.py [--src DIR]
-        [--only index|exact|support|predict|cluster]...
+        [--only index|exact|support|predict|cluster|bag]...
 
 Run from the repository root on a machine with a CUDA card.  Prints one
 line each: the flash-attention prefill launch (Llama-3.2-1B's layer
@@ -43,7 +43,31 @@ at half the f32 peak; an unrated element adds ±0).  ``--only cluster`` times
 256), one k-means block (2048, 256) × (78, 256) and the U = 32768
 index's (2048, 512) × (182, 512), the same two ways, beside
 ``torch.cdist(x, c).square()``; both hold the kernel to its plain
-version bit for bit (kernel 3 also on a row subset).  ``--only exact`` also
+version bit for bit (kernel 3 also on a row subset).  ``--only bag`` times
+the embedding bag (kernel 9) at the recsys paths' shapes, each held to its
+plain version bit for bit: (a) 2048 multi-hot bags × L 100 over
+DLRM-MLPerf's fused f32 D = 128 table (fields capped at 20 M rows, as
+``chip_smoke.py`` phase 15), (b) serve_p99's 6656 sharded-field lookups
+as L = 1 bags over it, beside the serve step's own gather
+(``models/embedding.py::_take``), and the multi-hot bags over FM's (c)
+f32 D = 10 factor table and (d) D = 1 linear table; the launch with the
+L2 flushed before each call (``chip_smoke.py``'s cold timer: a spin
+between the flush and the start event, the median of the calls) and warm
+on the device alone, three rounds in turns (median [min, max]), the
+wrapper with its id check back to back and as one call's host wall
+(``chip_smoke.py``'s timer; its id check runs before the launch, and it
+waits for the count alone) in five rounds in turns beside the same
+wrapper with the check after the launch, waiting for it,
+``F.embedding_bag`` (the validity
+mask as ``per_sample_weights``) and the plain version.  On a tree with a
+launch plan it also times the design's variants on the same inputs: the
+plan's alternatives (ring depth 4 or 8; for narrow rows the warp kernel
+in place of the slot kernel), patched copies of ``csrc/embedding_bag.cu``
+(register ring depths 16 and 32, a ring of 1-D bulk copies —
+``cp.async.bulk`` into shared memory, completing on an ``mbarrier``, at
+D = 128 — in place of the registers, the L1 preferred over shared
+memory, and the diagnostic that reads the rows through the L2 alone).
+``--only exact`` also
 times the exact fit's candidate loop on the host's clock, as shipped
 and, where the tree has the fit's shared ``n_bad`` counter, with a wait
 after every launch instead.  ``--only`` may repeat.
@@ -57,6 +81,8 @@ its host work is timed on the device alone).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import importlib
 import inspect
 import os
@@ -66,7 +92,7 @@ _ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 _ARGS.add_argument("--src", default=os.path.join(os.path.dirname(
     os.path.abspath(__file__)), "..", "src"))
 _ARGS.add_argument("--only", choices=("index", "exact", "support",
-                                      "predict", "cluster"),
+                                      "predict", "cluster", "bag"),
                    action="append", default=None)
 ARGS = _ARGS.parse_args()
 sys.path.insert(0, os.path.abspath(ARGS.src))
@@ -405,6 +431,273 @@ def cluster_kernels(dev) -> bool:
     return ok
 
 
+# patched copies of csrc/embedding_bag.cu: the register ring's depth for
+# long bags, and a ring of 1-D bulk copies into shared memory in place of
+# the registers (one copy a row by lane 0, completing on an mbarrier;
+# right for rows of 16-byte words that fit one column chunk); each with
+# the depth its plan passes
+BAG_DEPTH = "constexpr int DEPTH = 8;"
+BAG_RING = [
+    ("    Word v[P];\n", """\
+    __shared__ alignas(128) Word ring[MAX_WARPS][P][32];
+    __shared__ alignas(8) unsigned long long bar[MAX_WARPS][P];
+    const int wib = threadIdx.x >> 5;
+    const unsigned gmask = stride < 32 ? (1u << stride) - 1u : FULL;
+    unsigned phase = 0, live = 0;
+    if (lane == 0) {
+      for (int j = 0; j < P; ++j)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(
+            static_cast<unsigned>(__cvta_generic_to_shared(&bar[wib][j]))));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    __syncwarp(gmask);
+"""),
+    ("""\
+      v[j] = Word{};
+      if (static_cast<unsigned long long>(i) < limit) {
+        v[j] = col[i * stride];
+""", """\
+      live &= ~(1u << j);
+      if (static_cast<unsigned long long>(i) < limit) {
+        live |= 1u << j;
+        if (lane == 0) {
+          const unsigned b = static_cast<unsigned>(
+              __cvta_generic_to_shared(&bar[wib][j]));
+          const unsigned dst = static_cast<unsigned>(
+              __cvta_generic_to_shared(&ring[wib][j][0]));
+          const unsigned bytes = static_cast<unsigned>(stride * sizeof(Word));
+          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                       :: "r"(b), "r"(bytes) : "memory");
+          asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                       "complete_tx::bytes [%0], [%1], %2, [%3];"
+                       :: "r"(dst), "l"(reinterpret_cast<const Word*>(table)
+                                        + i * stride),
+                          "r"(bytes), "r"(b) : "memory");
+        }
+"""),
+    ("        add_word<T>(acc, v[j]);\n", """\
+        if ((live >> j) & 1u) {
+          const unsigned b = static_cast<unsigned>(
+              __cvta_generic_to_shared(&bar[wib][j]));
+          unsigned done;
+          do {
+            asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta"
+                         ".b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+                         : "=r"(done) : "r"(b), "r"((phase >> j) & 1u)
+                         : "memory");
+          } while (!done);
+          phase ^= 1u << j;
+          add_word<T>(acc, ring[wib][j][lane]);
+        }
+"""),
+    ("        issue(j, next[j]);                  // slot l0 + P + j\n",
+     "        __syncwarp(gmask);                  // stage j read\n"
+     "        issue(j, next[j]);                  // slot l0 + P + j\n"),
+]
+BAG_VARIANTS = {   # name: (patches, depth its plan passes for long bags)
+    "register ring depth 16": ([(BAG_DEPTH, BAG_DEPTH.replace("8", "16"))],
+                               16),
+    "register ring depth 32": ([(BAG_DEPTH, BAG_DEPTH.replace("8", "32"))],
+                               32),
+    "bulk-copy ring, depth 8": (BAG_RING, 8),
+    "L1 preferred over shared memory (carveout 0)": ([(
+        "  switch (depth) {\n    case 1: BAG_LAUNCH(1); break;",
+        "  cudaFuncSetAttribute(bag_kernel<T, I, Word, DEPTH>,\n"
+        "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
+        " 0);\n  switch (depth) {\n    case 1: BAG_LAUNCH(1); break;")], 8),
+    "diagnostic: rows read through the L2 alone (__ldcg)": ([(
+        "        v[j] = col[i * stride];\n",
+        "        v[j] = __ldcg(col + i * stride);\n")], 8),
+}
+def bag_checks(kb, table, ids):
+    """The checks ``embedding_bag`` makes before it launches, which
+    :func:`bag_check_after` makes too, so that the two differ only in the
+    id check."""
+    kb._check(table, ids, "sum")
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    if table.dtype not in kb._DTYPES:
+        raise TypeError(f"table must be f32 or bf16, got {table.dtype}")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("table and ids must be contiguous")
+
+
+def bag_check_after(kb):
+    """The wrapper with its id check after the launch (the previous
+    design's): a torch counter zeroed, the launch, and the bag kernel's
+    own count of ids ≥ V read back, which waits for the launch."""
+    def call(table, ids):
+        bag_checks(kb, table, ids)
+        n_bad = torch.zeros((1,), dtype=torch.int32, device=table.device)
+        out = kb.launch(table, ids, n_bad)
+        if int(n_bad.item()):
+            raise ValueError("id(s) past the table")
+        return out
+    return call
+
+
+def bag_shapes(dev):
+    """(name, table, ids) of shapes (a)-(d): the DLRM fused table and the
+    FM tables made on the card from seeded generators, the multi-hot ids
+    as ``chip_smoke.py`` makes them (seed 4) and serve_p99's sharded-field
+    lookups (batch seed 0) as L = 1 bags."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import recsys_batch
+    from chip_smoke import BAG_SHAPE, DLRM_ROW_CAP, multi_hot_ids
+    cfg = get_arch("dlrm_mlperf").config
+    cfg = dataclasses.replace(cfg, field_sizes=tuple(
+        min(s, DLRM_ROW_CAP) for s in cfg.field_sizes))
+    layout = cfg.layout()
+    g = torch.Generator(device=dev).manual_seed(0)
+    dlrm = torch.empty((layout.sharded_rows, cfg.embed_dim),
+                       device=dev).normal_(generator=g)
+    sf = list(layout.sharded_fields)
+    sparse = torch.from_numpy(recsys_batch(512, cfg.field_sizes,
+                                           cfg.n_dense, seed=0)["sparse"])
+    l1 = layout.global_ids(sparse[:, sf].to(dev), sf).reshape(-1, 1)
+    fm = get_arch("fm").config
+    fm_ids = torch.from_numpy(multi_hot_ids(fm.layout(), BAG_SHAPE, 4)).to(dev)
+    out = [("(a) multi-hot DLRM", dlrm, torch.from_numpy(
+               multi_hot_ids(layout, BAG_SHAPE, 4)).to(dev)),
+           ("(b) L = 1 DLRM", dlrm, l1.contiguous())]
+    for name, lay in (("(c) multi-hot FM factors", fm.layout()),
+                      ("(d) multi-hot FM linear", fm.linear_layout())):
+        table = torch.empty((lay.sharded_rows, lay.embed_dim), device=dev)
+        out.append((name, table.normal_(generator=g), fm_ids))
+    return out
+
+
+def in_rounds(forms: dict, measures: dict, rounds: int = 3) -> dict:
+    """Each measure of each form, the forms taken in turns (forward,
+    backward, forward, ...): form → measure → the rounds' readings."""
+    out = {f: {m: [] for m in measures} for f in forms}
+    for r in range(rounds):
+        for f in (forms if r % 2 == 0 else reversed(list(forms))):
+            for m, timer in measures.items():
+                out[f][m].append(timer(forms[f]))
+    return out
+
+
+def spread(xs) -> str:
+    """'median [min, max]' of readings."""
+    return f"{sorted(xs)[len(xs) // 2]!r} [{min(xs)!r}, {max(xs)!r}]"
+
+
+def bag_kernels(dev) -> bool:
+    """Kernel 9 at shapes (a)-(d), and on a tree with a launch plan its
+    variants, each held to the plain version bit for bit; False on any
+    mismatch.  Launches: cold (L2 flushed before each; ``chip_smoke.py``'s
+    timer) and warm on the device alone (queued behind a spin kernel),
+    three rounds in turns; the wrapper and the same with its id check
+    after the launch: back to back (CUDA events) and one call's host
+    wall, five rounds in turns."""
+    from repro_torch.models.embedding import _take
+    kb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    # chip_smoke.py (the repository root) puts its own src first on
+    # sys.path; repro_torch is imported by now, from --src
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), ".."))
+    from chip_smoke import host_wall_ms, time_ms_cold
+    planned = hasattr(kb, "plan")
+    ok = True
+    variants = {}
+    if planned:
+        from index_variants import build
+        patches = {k: v[0] for k, v in BAG_VARIANTS.items()}
+        built = build("embedding_bag", patches)
+        variants = {k: (built[k][0], BAG_VARIANTS[k][1])
+                    for k in BAG_VARIANTS}
+        for k, (_, regs) in built.items():
+            print(f"bag variant {k} ptxas: " + "; ".join(regs), flush=True)
+    launch_measures = {"cold": time_ms_cold,
+                       "warm device": lambda fn: time_ms_queued(fn, 30)}
+    shipped_lib = kb._lib
+
+    def with_lib(lib, fn, *args, **kw):
+        kb._lib = shipped_lib if lib is None else (lambda: lib)
+        try:
+            return fn(*args, **kw)
+        finally:
+            kb._lib = shipped_lib
+
+    for name, table, ids in bag_shapes(dev):
+        b, l = ids.shape
+        d = table.shape[1]
+        valid = ids >= 0
+        distinct = int(torch.unique(ids[valid]).numel())
+        n_bytes = (distinct * d + b * d) * 4.0 + b * l * 4.0
+        want = kb.embedding_bag_plain(table, ids)
+        n_bad = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def run(how=None, lib=None):
+            kw = {"how": how} if how is not None else {}
+            return with_lib(lib, kb.launch, table, ids, n_bad, **kw)
+
+        forms = {"shipped": run}
+        if planned:
+            shipped = kb.plan(d, table.element_size(), l, kb._align(table))
+            print(f"bag {name} shipped plan {shipped}", flush=True)
+            if shipped.slots:   # the warp kernel on the same rows
+                alts = [("the warp kernel", dataclasses.replace(
+                    shipped, slots=False))]
+            else:
+                alts = [(f"depth {p}", dataclasses.replace(shipped, depth=p))
+                        for p in (4, kb.DEPTH)]
+            for label, how in alts:
+                if how != shipped:
+                    forms[f"{label} {how}"] = functools.partial(run, how)
+            for label, (lib, depth) in variants.items():
+                if shipped.slots or ("bulk" in label and d != 128):
+                    continue
+                forms[label] = functools.partial(
+                    run, dataclasses.replace(
+                        shipped, depth=depth if l > 1 else shipped.depth),
+                    kb.bind(lib))
+        for label, fn in forms.items():
+            same = bitwise(fn(), want)
+            ok &= same
+            if not same:
+                print(f"bag {name} {label} NOT bitwise equal", flush=True)
+        for label, got in in_rounds(forms, launch_measures).items():
+            print(f"bag {name} B={b} L={l} D={d} ({distinct} distinct "
+                  f"rows) {label}: " + "; ".join(
+                      f"{m} ms {spread(xs)}" for m, xs in got.items()),
+                  flush=True)
+
+        walls = {"wrapper": lambda: kb.embedding_bag(table, ids)}
+        if planned:
+            walls["check after the launch"] = functools.partial(
+                bag_check_after(kb), table, ids)
+        for label, fn in walls.items():
+            same = bitwise(fn(), want)
+            ok &= same
+            if not same:
+                print(f"bag {name} {label} NOT bitwise equal", flush=True)
+        for label, got in in_rounds(walls, {
+                "back to back": lambda fn: time_ms(fn, 50),
+                "one call's host wall": host_wall_ms}, rounds=5).items():
+            print(f"bag {name} {label}: " + "; ".join(
+                f"{m} ms {spread(xs)}" for m, xs in got.items()), flush=True)
+        safe, weights = ids.clamp_min(0), valid.to(table.dtype)
+        yard = {"F.embedding_bag": lambda: F.embedding_bag(
+            safe, table, mode="sum", per_sample_weights=weights)}
+        if l == 1:
+            yard["the serve step's gather _take"] = functools.partial(
+                _take, table, ids[:, 0])
+            ok &= bitwise(yard["the serve step's gather _take"](), want)
+        for label, got in in_rounds(yard, launch_measures).items():
+            print(f"bag {name} {label}: " + "; ".join(
+                f"{m} ms {spread(xs)}" for m, xs in got.items()), flush=True)
+        print(f"bag {name} plain cold ms "
+              f"{time_ms_cold(lambda: kb.embedding_bag_plain(table, ids), 3)!r}"
+              f" bound ms {n_bytes / 3.35e12 * 1e3!r} routes "
+              f"{getattr(kb.embedding_bag, 'routes', None)}", flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
@@ -414,7 +707,7 @@ def main() -> int:
     if ARGS.only:
         runs = {"index": index_kernels, "exact": exact_kernels,
                 "support": support_kernels, "predict": predict_kernels,
-                "cluster": cluster_kernels}
+                "cluster": cluster_kernels, "bag": bag_kernels}
         ok = all([runs[name](dev) for name in ARGS.only])
         print(torch.cuda.get_device_name(0))
         return 0 if ok else 1
