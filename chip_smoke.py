@@ -54,13 +54,19 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    route); then the same engine with
    ``IndexConfig(use_kernel=False)`` (the plain versions, on the card) must
    give equal spill ids and distances, centroids, shortlists, neighbor ids
-   and scores, and two fits must give identical centroids;
+   and scores, and two fits must give identical centroids; and the
+   index's staged pipeline (``query_mode_override="staged"``: the scan
+   kernel, shortlists through the host, the grouped rerank kernel) must
+   equal its fused chain over all 6040 users bit for bit, ids and scores,
+   with kernels 4 and 6 launched (every rerank launch "imma");
 6. the scale phase at U = 32768 (``BENCH_index.json``'s
    ``index_cosine_U32768`` row: cosine, k = 20, raw features,
    project_dim 512, rerank_frac 0.02, seed 0): index fit and full query
    against the exact kernel-backend top-k; recall@20 ≥ 0.94 and equal to
    the earlier designs' 0.9489044189453125; every rerank launch of the
-   query on the "imma" route;
+   query on the "imma" route; then the staged pipeline, as every
+   ``BENCH_index.json`` row was measured: recall@20 exactly
+   0.9489044189453125, ids and scores equal to the fused query's;
 7. the support kernel (the item index's segmented SpMM) against its
    plain versions on the card, at ragged shapes (b = 1, widths not a
    multiple of 512 or of 4, all-masked rows, k = 1) and at the full
@@ -75,8 +81,8 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    ``CFEngine(recommend_mode="approx")`` fit → ``recommend(all, n=10)``
    (bitwise equal to the exact recommend at shortlist 512 and 64) →
    ``recommend_recall_vs_exact`` (1.0) → ``update_ratings``
-   (oracle-checked, item index included) → a ``BatchingServer`` with a
-   ``DegradationLadder(staged_when_degraded=False)`` answering 256
+   (oracle-checked, item index included) → a ``BatchingServer`` with the
+   default ``DegradationLadder()`` answering 256
    requests (none returns a rated item), with the launch counts zeroed
    before and read after (kernels 3, 5 and 7 must be > 0, every support
    launch on the "int8" route, and the update patching the gather source
@@ -136,9 +142,9 @@ per source, in parallel).  Phases, each ended by a device synchronize:
     run's data needs, 4 for each rated element of a weighted neighbor
     row (an unrated one adds ±0, which the kernels skip);
 13. ``torch.profiler``: where the device time of a steady exact fit, of
-    recommend(all users), of an approx query (16 rows), of an approx
-    recommend(all users), of the LM prefill and of one LM decode step
-    goes, and the device's busy share;
+    recommend(all users), of an approx query (16 rows) and the same query
+    in the staged mode, of an approx recommend(all users), of the LM
+    prefill and of one LM decode step goes, and the device's busy share;
 
 then the CF engines and the LM are dropped, and the recsys CTR slice
 runs:
@@ -180,7 +186,18 @@ runs:
     launch counts zeroed before the path and read after it (four
     launches, all on the "slots" route);
 18. the three models' smoke configs on a small input, the CPU path
-    against the card (1e-5).
+    against the card (1e-5);
+19. chaos: the four drills of ``benchmarks/bench_chaos.py``, written
+    again on the port at that bench's full sizes (the engine: cosine,
+    k 40, both approx indexes, 32 clusters, n_probe 8, shortlist 256, at
+    2048 × 512): transient faults at batches 2, 4 and 6 of 24 waves of 8
+    under ``RecoveryPolicy(max_restarts=3)`` (0 stranded futures,
+    recoveries ≥ 3); a burst of 48 into a queue of 16 (shed + admitted =
+    48, 0 stranded); faults inside ``update_ratings`` and mid-refold,
+    recovered from the port's ``checkpoint`` (bit parity with a
+    fault-free run, the torn index inconsistent before the restore and
+    consistent after); and the DEGRADED rung's recall@20 at U = 8192,
+    d = 1024 with the staged user-index mode (≥ 0.90).
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels.
@@ -769,6 +786,51 @@ def phase_index_kernels(dev, rng, train_dev):
     return err
 
 
+def staged_vs_fused(ix, ratings, means, *, k, measure):
+    """The index's staged pipeline (the degradation ladder's query mode:
+    the scan kernel, shortlists through the host, the grouped rerank
+    kernel) against its fused chain, every user, on the same state: ids
+    and scores bit for bit.  Returns both walls, the staged query's
+    kernel launches (4 and 6 must be > 0, every rerank launch on the
+    "imma" route) and the staged ids."""
+    wrappers = index_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["rerank"].routes.update(imma=0, simt=0)
+    out = {}
+    ix.query_mode_override = "staged"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_st, i_st = ix.query(ratings, means, k=k, measure=measure)
+    torch.cuda.synchronize()
+    out["staged_s"] = time.perf_counter() - t0
+    lq = ix.last_query
+    out["staged_split_s"] = (lq.seconds_shortlist, lq.seconds_rerank)
+    check((lq.query_mode, lq.scan_mode, lq.rerank_mode)
+          == ("staged", "kernel", "grouped"),
+          f"staged query ran the scan kernel and the grouped rerank "
+          f"({lq.query_mode}, {lq.scan_mode}, {lq.rerank_mode})")
+    out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    out["rerank_routes"] = dict(wrappers["rerank"].routes)
+    ix.query_mode_override = None
+    t0 = time.perf_counter()
+    s_fu, i_fu = ix.query(ratings, means, k=k, measure=measure)
+    torch.cuda.synchronize()
+    out["fused_s"] = time.perf_counter() - t0
+    check(ix.last_query.query_mode == "fused", "fused query ran")
+    check(out["launches"]["scan"] > 0 and out["launches"]["rerank"] > 0,
+          f"kernels 4 and 6 launched on the staged path "
+          f"({out['launches']})")
+    check(out["rerank_routes"]["imma"] == out["launches"]["rerank"],
+          f"every staged rerank launch took the int8 route "
+          f"({out['rerank_routes']})")
+    check(torch.equal(i_st, i_fu) and torch.equal(s_st, s_fu),
+          f"staged == fused, ids and scores bit for bit "
+          f"({ratings.shape[0]} users)")
+    out["ids"] = i_st
+    return out
+
+
 def phase_approx(dev, train):
     """Phase 5: the approx-neighbour path through the public entry points,
     then the same engine on the plain versions."""
@@ -861,6 +923,9 @@ def phase_approx(dev, train):
     check(out["rerank_routes"]["imma"] == out["launches"]["rerank"],
           f"every rerank launch of the approx path took the int8 route "
           f"({out['rerank_routes']})")
+    out["staged"] = staged_vs_fused(ix, eng.ratings, eng.means, k=40,
+                                    measure="pcc")
+    del out["staged"]["ids"]
 
     # the same engine on the plain versions (use_kernel=False), on the card
     t0 = time.perf_counter()
@@ -956,6 +1021,13 @@ def phase_scale(dev):
     check(out["recall"] == RECALL_U32768,
           f"recall@20 {out['recall']!r} is the earlier designs' "
           f"{RECALL_U32768!r} (the kernels are exact)")
+    # the staged pipeline, as every BENCH_index.json row was measured
+    st = staged_vs_fused(ix, r, means, k=20, measure="cosine")
+    hits = (ex[:, :, None] == st.pop("ids")[:, None, :]).any(-1) & (ex >= 0)
+    st["recall"] = float(hits.sum()) / max(int((ex >= 0).sum()), 1)
+    check(st["recall"] == RECALL_U32768,
+          f"staged recall@20 {st['recall']!r} is {RECALL_U32768!r}")
+    out["staged"] = st
     check(bool(torch.isfinite(exact.scores).all()), "finite exact scores")
     torch.cuda.synchronize()
     return out
@@ -1141,9 +1213,8 @@ def phase_recommend(dev, train):
     check(torch.equal(i_ap, i_ex) and torch.equal(s_ap, s_ex),
           "approx == exact after the update, bitwise")
 
-    server = BatchingServer(
-        eng, max_batch=32, topn=10, device=dev,
-        ladder=DegradationLadder(staged_when_degraded=False))
+    server = BatchingServer(eng, max_batch=32, topn=10, device=dev,
+                            ladder=DegradationLadder())
     server.start()
     req = np.random.default_rng(2).integers(0, train.shape[0], 256)
     t0 = time.perf_counter()
@@ -1967,7 +2038,8 @@ def phase_flash_timings(lm, err):
 
 def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
     """Phase 13: where the device time of a steady exact fit, of
-    recommend(all users), of an approx query (all users), of an approx
+    recommend(all users), of an approx query (all users; fused, then
+    staged), of an approx
     recommend (all users), of the LM prefill (4 × 2048) and of one LM
     decode step (4 rows at ~2065 cached positions) goes (device-side
     events only: kernels and copies, so no operator's time is counted
@@ -1975,6 +2047,13 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
     approx_query = (lambda: eng_approx.index.query(
         eng_approx.ratings, eng_approx.means, k=eng_approx.k,
         measure=eng_approx.measure))
+
+    def staged_query():
+        eng_approx.index.query_mode_override = "staged"
+        try:
+            approx_query()
+        finally:
+            eng_approx.index.query_mode_override = None
     prefill, decode = lm["steps"]
     model, toks = lm["model"], lm["toks"]
     state = {"cache": lm["plain_cache"]}
@@ -1990,6 +2069,7 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
     profile_each((("fit", eng.fit),
                   ("recommend", lambda: eng.recommend(n=10)),
                   ("approx query", approx_query, 16),
+                  ("approx query, staged", staged_query, 10),
                   ("approx recommend", lambda: eng_rec.recommend(n=10)),
                   ("LM prefill", lm_prefill),
                   ("LM decode step", lm_decode)))
@@ -2526,6 +2606,234 @@ def log_serving(name, out) -> None:
         f"{np.median(out['ret_ms']):.2f} ms")
 
 
+# the chaos bench's sizes (benchmarks/bench_chaos.py, full run)
+CHAOS_U, CHAOS_D = 2048, 512
+CHAOS_RECALL_U, CHAOS_RECALL_D = 8192, 1024
+# BENCH_chaos.json: the reference's DEGRADED recall@20 at U = 8192
+CHAOS_REF_RECALL = 1.0
+
+
+def chaos_engine(dev, u, d, *, seed=0, n_clusters=32, n_probe=8,
+                 shortlist=256):
+    """The chaos bench's engine: cosine, k 40, block 256, both approx
+    indexes, on the card."""
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.index import IndexConfig, ItemIndexConfig
+    train, _, _ = load_ml1m_synthetic(n_users=u, n_items=d)
+    return CFEngine(train, measure="cosine", k=40, block_size=256,
+                    neighbor_mode="approx", recommend_mode="approx",
+                    index_cfg=IndexConfig(n_clusters=n_clusters,
+                                          n_probe=n_probe, seed=seed,
+                                          features="raw"),
+                    item_index_cfg=ItemIndexConfig(shortlist=shortlist),
+                    device=dev).fit()
+
+
+def drain(futures, timeout=60.0):
+    """(results, stranded): a future that neither resolves nor errors
+    within the timeout is stranded."""
+    out, stranded = [], 0
+    for f in futures:
+        try:
+            out.append(f.result(timeout=timeout))
+        except TimeoutError:
+            out.append(None)
+            stranded += 1
+        except Exception as e:          # noqa: BLE001 - drill bookkeeping
+            out.append(e)
+    return out, stranded
+
+
+def drill_serving(dev, u, d, *, waves, fail_batches):
+    """Transient faults at configured batches under live traffic.  The
+    reference bench's last wave runs under JAX's RetraceSentinel (a
+    recompile check); the port compiles nothing per request, so that
+    wave and its check are left out."""
+    from repro_torch.distributed.fault_tolerance import (FaultInjector,
+                                                         RecoveryPolicy)
+    from repro_torch.serving.engine import BatchingServer
+    eng = chaos_engine(dev, u, d)
+    inj = FaultInjector(fail_at_steps=fail_batches)
+    server = BatchingServer(
+        eng, max_batch=8, max_wait_ms=5.0, topn=10,
+        recovery=RecoveryPolicy(max_restarts=3, backoff_base_s=1e-3),
+        fault_injector=inj, device=dev)
+    server.start()
+    rng = np.random.default_rng(0)
+    wave_walls = []
+    stranded = 0
+    for _ in range(waves):
+        t0 = time.perf_counter()
+        futs = [server.submit(int(x)) for x in rng.integers(0, u, 8)]
+        res, n_lost = drain(futs)
+        stranded += n_lost
+        wave_walls.append((time.perf_counter() - t0) * 1e3)
+        stranded += sum(1 for r in res if isinstance(r, Exception))
+    server.stop()
+    st = server.stats()
+    faulted = [wave_walls[b - 1] for b in fail_batches
+               if b - 1 < len(wave_walls)]
+    clean = [w for i, w in enumerate(wave_walls)
+             if (i + 1) not in fail_batches]
+    rec_ms = (float(np.mean(faulted) - np.mean(clean))
+              if faulted and clean else 0.0)
+    return {
+        "requests": st["n_requests"],
+        "injected_transient_faults": len(inj.fired),
+        "failures": st["n_failures"],
+        "retries": st["n_retries"],
+        "recoveries": st["n_recoveries"],
+        "stranded_futures": stranded,
+        "recovery_latency_ms": max(rec_ms, 0.0),
+        "p99_ms": st["latency_p99_ms"],
+        "health": st["health"],
+    }
+
+
+def drill_admission(dev, u, d, *, max_queue, burst):
+    """A burst past the high-water mark before the batcher starts: the
+    overflow sheds, the admitted remainder serves."""
+    from repro_torch.serving.engine import BatchingServer, Overloaded
+    eng = chaos_engine(dev, u, d)
+    server = BatchingServer(eng, max_batch=8, max_wait_ms=5.0, topn=10,
+                            max_queue=max_queue, device=dev)
+    rng = np.random.default_rng(1)
+    futs, shed = [], 0
+    for x in rng.integers(0, u, burst):
+        try:
+            futs.append(server.submit(int(x)))
+        except Overloaded:
+            shed += 1
+    server.start()
+    res, stranded = drain(futs)
+    server.stop()
+    stranded += sum(1 for r in res if isinstance(r, Exception))
+    return {"burst": burst, "admitted": len(futs), "shed": shed,
+            "shed_fraction": shed / burst, "stranded_futures": stranded,
+            "health": server.stats()["health"]}
+
+
+def drill_engine_recovery(dev, u, d, tmp):
+    """Faults inside update_ratings and mid-refold; the last committed
+    checkpoint (the port's ``checkpoint``) restores, and the re-applied
+    update recommends bit for bit what a fault-free run does."""
+    from repro_torch.distributed import checkpoint
+    from repro_torch.distributed.fault_tolerance import (FaultInjector,
+                                                         InjectedFault)
+    rng = np.random.default_rng(2)
+    users = np.arange(0, min(u, 64), dtype=np.int32)
+
+    def recs(eng):
+        s, i = eng.recommend(users, n=10)
+        return s.cpu().numpy(), i.cpu().numpy()
+
+    out = {}
+    for name, hook in (("update", "engine"), ("refold", "index")):
+        eng = chaos_engine(dev, u, d)
+        upd = ([int(rng.integers(0, u))], [int(rng.integers(0, d))],
+               [float(rng.integers(1, 6))])
+        checkpoint.save(tmp, 1, eng.state())
+        tpl = eng.state_template()
+        eng.load_state(checkpoint.restore(tmp, 1, tpl))
+        eng.update_ratings(*upd)
+        ref_s, ref_i = recs(eng)
+        eng.load_state(checkpoint.restore(tmp, 1, tpl))
+        target = eng if hook == "engine" else eng.index
+        seq = eng._update_seq if hook == "engine" else eng.index._refold_seq
+        target.fault_injector = FaultInjector(fail_at_steps=(seq + 1,))
+        t0 = time.perf_counter()
+        try:
+            eng.update_ratings(*upd)
+            raise AssertionError("injected fault did not fire")
+        except InjectedFault:
+            pass
+        target.fault_injector = None
+        if hook == "index":
+            try:
+                eng.index.check_consistent(eng.ratings, eng.means)
+                torn = False
+            except RuntimeError:
+                torn = True
+            out["index_torn_before_restore"] = torn
+        eng.load_state(checkpoint.restore(tmp, 1, tpl))
+        if hook == "index":
+            out["index_consistent_after_recovery"] = bool(
+                eng.index.check_consistent(eng.ratings, eng.means))
+        eng.update_ratings(*upd)
+        torch.cuda.synchronize()
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        got_s, got_i = recs(eng)
+        out[f"bit_parity_{name}"] = bool(
+            np.array_equal(got_i, ref_i) and np.array_equal(got_s, ref_s))
+        out[f"recovery_latency_{name}_ms"] = rec_ms
+    return out
+
+
+def drill_degraded_recall(dev, u, d, *, topn=20):
+    """Recall@n of the DEGRADED rung (the staged user-index mode and the
+    budgets the ladder hands the batcher) against the full budget."""
+    from repro_torch.serving.engine import DEGRADED, DegradationLadder
+    eng = chaos_engine(dev, u, d)
+    users = np.arange(u, dtype=np.int32)
+    ref_i = eng.recommend(users, n=topn)[1].cpu().numpy()
+    budget = DegradationLadder().budget(DEGRADED, eng.item_index.n_probe,
+                                        eng.item_index.cfg.shortlist, topn)
+    eng.index.query_mode_override = "staged"
+    got_i = eng.recommend(users, n=topn, **budget)[1].cpu().numpy()
+    eng.index.query_mode_override = None
+    hits = total = 0
+    for row in range(ref_i.shape[0]):
+        ref = set(int(j) for j in ref_i[row] if j >= 0)
+        hits += len(ref & set(int(j) for j in got_i[row]))
+        total += len(ref)
+    return {"users": u, "budget": budget,
+            "recall_at20": hits / max(total, 1)}
+
+
+def phase_chaos(dev):
+    """Phase 19: the chaos bench's four drills on the port, at its full
+    sizes, with the kernels' launch counts zeroed before and read
+    after."""
+    import tempfile
+    zero_counts()
+    t0 = time.perf_counter()
+    out = {"serving": drill_serving(dev, CHAOS_U, CHAOS_D, waves=24,
+                                    fail_batches=(2, 4, 6))}
+    out["admission"] = drill_admission(dev, CHAOS_U, CHAOS_D, max_queue=16,
+                                       burst=48)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["engine"] = drill_engine_recovery(dev, CHAOS_U, CHAOS_D, tmp)
+    out["degraded"] = drill_degraded_recall(dev, CHAOS_RECALL_U,
+                                            CHAOS_RECALL_D)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {name: fn.launches
+                       for name, fn in all_wrappers().items()}
+    sv, ad, en, dg = (out["serving"], out["admission"], out["engine"],
+                      out["degraded"])
+    check(sv["stranded_futures"] == 0 and ad["stranded_futures"] == 0,
+          f"no stranded futures ({sv['stranded_futures']}, "
+          f"{ad['stranded_futures']})")
+    check(sv["injected_transient_faults"] == 3
+          and sv["recoveries"] >= sv["injected_transient_faults"],
+          f"recoveries {sv['recoveries']} >= injected "
+          f"{sv['injected_transient_faults']} (3)")
+    check(ad["shed"] + ad["admitted"] == 48, f"shed + admitted == 48 ({ad})")
+    check(en["bit_parity_update"] and en["bit_parity_refold"],
+          f"bit parity through restore ({en})")
+    check(en["index_torn_before_restore"]
+          and en["index_consistent_after_recovery"],
+          f"the mid-refold fault tore the index and the restore repaired "
+          f"it ({en})")
+    check(dg["recall_at20"] >= 0.90,
+          f"DEGRADED recall@20 {dg['recall_at20']} >= 0.90")
+    for name in ("cluster", "scan", "select", "rerank", "support"):
+        check(out["launches"][name] > 0,
+              f"{name} kernel launched in the chaos drills")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2615,6 +2923,13 @@ def main() -> int:
         f"p50 {ap['p50_ms']:.2f} ms, p99 {ap['p99_ms']:.2f} ms")
     log(f"    launches on the approx path: {ap['launches']}; rerank by "
         f"route {ap['rerank_routes']}")
+    sg = ap["staged"]
+    log(f"    staged query (query_mode_override='staged', 6040 users): "
+        f"{sg['staged_s']:.4f}s (shortlist / rerank stages "
+        f"{sg['staged_split_s'][0]:.4f} / {sg['staged_split_s'][1]:.4f}s), "
+        f"fused {sg['fused_s']:.4f}s on {card}; "
+        f"ids and scores bit for bit; launches on the staged path "
+        f"{sg['launches']}, rerank by route {sg['rerank_routes']}")
     log("    kernel == plain versions (spill ids/dist, centroids, proxies, "
         "shortlists, neighbor ids and scores, cluster query) and two fits "
         "identical")
@@ -2631,6 +2946,13 @@ def main() -> int:
     log(f"    recall@20 {sc['recall']!r} (floor 0.94); peak device memory "
         f"{sc['peak_gib']:.2f} GiB (index fit + query); rerank by route "
         f"{sc['rerank_routes']}")
+    sg = sc["staged"]
+    log(f"    staged query: recall@20 {sg['recall']!r}, {sg['staged_s']:.4f}s"
+        f" (shortlist / rerank stages {sg['staged_split_s'][0]:.4f} / "
+        f"{sg['staged_split_s'][1]:.4f}s; fused {sg['fused_s']:.4f}s) on "
+        f"{card}; ids and scores == fused "
+        f"bit for bit; launches on the staged path {sg['launches']}, "
+        f"rerank by route {sg['rerank_routes']}")
 
     log("[7] support kernel vs plain version on the card; support score "
         "== exact prediction")
@@ -2785,7 +3107,8 @@ def main() -> int:
         "(ms): "
         + "; ".join(f"{k} {PREVIOUS_MS[k]} -> {now[k]:.4f}" for k in now))
     log("[13] torch.profiler: device time of a steady fit / recommend / "
-        "approx query / approx recommend / LM prefill / LM decode step")
+        "approx query (fused, staged) / approx recommend / LM prefill / LM "
+        "decode step")
     phase_profile(eng, eng_ap, eng_rec, lm)
     # the CF engines and the LM leave the card to the DLRM tables
     del eng, eng_ap, eng_rec, lm, train_dev
@@ -2867,6 +3190,16 @@ def main() -> int:
     rs_e = phase_recsys_small(dev)
     log(f"    forward and retrieval, 3 models: max_abs_diff {rs_e!r} "
         f"(tolerance 1e-5)")
+
+    log("[19] chaos: the chaos bench's four drills on the port "
+        "(serving, admission, engine recovery, DEGRADED recall)")
+    ch = phase_chaos(dev)
+    for name in ("serving", "admission", "engine", "degraded"):
+        log(f"    {name} drill: {ch[name]}")
+    log(f"    DEGRADED recall@20 {ch['degraded']['recall_at20']!r} at "
+        f"U={CHAOS_RECALL_U} (floor 0.90; the reference's "
+        f"{CHAOS_REF_RECALL}); phase wall {ch['wall_s']:.2f}s on {card}; "
+        f"launches in the drills {ch['launches']}")
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

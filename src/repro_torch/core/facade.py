@@ -310,6 +310,11 @@ class CFEngine:
         self.ratings_version = 0
         self.fit_seconds = 0.0
         self.last_update: Optional[UpdateStats] = None
+        # chaos hook: a FaultInjector armed here fires inside
+        # update_ratings after the ratings swap but before any derived
+        # state is repaired — the torn-engine drill; None in production
+        self.fault_injector = None
+        self._update_seq = 0
 
     # -- properties --------------------------------------------------------
     @property
@@ -457,6 +462,18 @@ class CFEngine:
             torch.as_tensor(values, device=dev)
         self.ratings = ratings
         self.ratings_version += 1
+        self._update_seq += 1
+        if self.fault_injector is not None:
+            # chaos hook: the ratings are swapped and the version bumped,
+            # but stats, caches and the snapshot are stale — the torn
+            # state a restore must repair.  The failure is counted before
+            # the raise; readers keep the previous snapshot, which is
+            # republished only at the end of a successful update
+            try:
+                self.fault_injector.check(self._update_seq)
+            except Exception:
+                obs.registry().counter("engine.update.failures").inc()
+                raise
 
         # 1. refold the touched rows' sufficient statistics
         s_pad = _bucket(len(touched), self.n_users)

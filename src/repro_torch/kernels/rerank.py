@@ -14,8 +14,9 @@ and kernel and plain version keep the reference's epilogue order with
 IEEE square roots and divisions, so the kernel, the plain version
 (``ref.rerank_scores_ref``, which stands in for the reference's
 ``rerank_scores_xla`` twin) and the reference's oracle agree bit for bit.
-The reference's host BLAS twin ``rerank_scores_host`` belongs to the
-staged query mode, which is not ported.
+The index's staged grouped rerank runs the plain version where the
+reference runs its host BLAS twin ``rerank_scores_host``: on integer
+ratings the two agree bit for bit.
 
 Two routes on the card, chosen before the launch from the operands'
 dtypes and counted in ``fused_rerank_scores.routes``: ``"imma"`` (query

@@ -36,11 +36,11 @@ queue depth and on ``StragglerWatchdog`` escalation; in SHEDDING, bulk
 traffic is refused at admission.  Under degradation an approx-recommend
 engine runs each request class at its own candidate budget
 (``DegradationLadder.budget``: ``n_probe`` and ``shortlist`` shrink
-multiplicatively per level, bulk one level worse than interactive).  The
-reference's other degraded step — forcing the user index's staged query
-mode (``staged_when_degraded``) — needs that unported mode: a ladder
-asking for it in front of an approx-recommend engine with a user index
-raises ``NotImplementedError`` at construction.
+multiplicatively per level, bulk one level worse than interactive), and
+with ``staged_when_degraded`` every move above HEALTHY switches the
+engine's user index to its staged query pipeline
+(``index.query_mode_override = "staged"``); recovery to HEALTHY hands the
+choice back to the index's config.
 
 Telemetry goes through a :class:`repro_torch.obs.MetricsRegistry`:
 per-request latency splits into queue wait and compute wait, each a
@@ -114,9 +114,9 @@ class DegradationLadder:
     approx-recommend engine runs ``n_probe ≈ base·n_probe_frac**L`` and
     ``shortlist ≈ base·shortlist_frac**L`` (floored at 1 / top-n), and
     ``bulk`` requests are served one level worse than ``interactive``.
-    ``staged_when_degraded`` is the reference's user-index staged-mode
-    switch (not ported: see the module docstring).  The instance is owned
-    by one server and mutated only on its batcher thread.
+    ``staged_when_degraded`` forces the approx engine's user index onto
+    its staged query pipeline while degraded.  The instance is owned by
+    one server and mutated only on its batcher thread.
     """
     degrade_p99_ms: float = 50.0
     shed_p99_ms: float = 200.0
@@ -210,13 +210,6 @@ class BatchingServer:
         self._base_n_probe = 0
         self._base_shortlist = 0
         if getattr(cf_model, "recommend_mode", "exact") == "approx":
-            if ladder is not None and ladder.staged_when_degraded \
-                    and getattr(cf_model, "index", None) is not None:
-                raise NotImplementedError(
-                    "DegradationLadder(staged_when_degraded=True) switches "
-                    "the user index to its staged query mode, which is not "
-                    "ported (ROADMAP Queue 1 item 7); pass "
-                    "staged_when_degraded=False")
             self._approx_engine = cf_model
             self._base_n_probe = int(cf_model.item_index.n_probe)
             self._base_shortlist = int(cf_model.item_index.cfg.shortlist)
@@ -566,12 +559,19 @@ class BatchingServer:
             self._health = new
         self._g_health.set(new)
         self._c_transitions.inc()
-        # zero-length span: the chrome trace marks when and why
         with obs.span("serve.health.transition",
                       from_state=HEALTH_STATES[old],
                       to_state=HEALTH_STATES[new], reason=reason,
                       p99_ms=round(p99_ms, 3), queue_depth=round(depth, 2)):
-            pass
+            # engine-side knob: the cheaper staged user-index pipeline
+            # while degraded, the index's own resolution on recovery (the
+            # per-class candidate budgets ride on each recommend call —
+            # see _plan)
+            eng = self._approx_engine
+            if eng is not None and getattr(eng, "index", None) is not None \
+                    and self._ladder.staged_when_degraded:
+                eng.index.query_mode_override = \
+                    "staged" if new > HEALTHY else None
 
     # -- telemetry ---------------------------------------------------------
     def stats(self) -> dict:

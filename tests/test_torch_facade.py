@@ -295,9 +295,9 @@ def test_missing_card_raises_and_unported_options(monkeypatch):
     for bad in ("sharded", "ring", "pallas"):
         with pytest.raises(NotImplementedError):
             CFEngine(r, backend=bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CFEngine(r, neighbor_mode="approx", device="cpu",
-                 index_cfg=IndexConfig(query_mode="staged"))
+    staged = CFEngine(r, neighbor_mode="approx", device="cpu",
+                      index_cfg=IndexConfig(query_mode="staged"))
+    assert staged.index._query_mode() == "staged"
     from repro_torch.index import ItemIndexConfig
     with pytest.raises(NotImplementedError, match="item 8"):
         CFEngine(r, recommend_mode="approx", device="cpu",
@@ -358,7 +358,8 @@ def test_approx_update_passes_oracle(ml_small, measure, backend):
     train = ml_small[0]
     u, d = train.shape
     eng = _port(train, measure, backend, neighbor_mode="approx",
-                index_cfg=IndexConfig(n_clusters=16, project_dim=32))
+                index_cfg=IndexConfig(n_clusters=16, project_dim=32,
+                                      query_mode="fused"))
     assert eng.index.last_query.query_mode == "fused"
     rng = np.random.default_rng(3)
     for _ in range(3):

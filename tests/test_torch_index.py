@@ -355,7 +355,8 @@ def test_state_round_trip():
 def test_query_stats_partition_and_fractions():
     r, rt, means = _data(10, 120, 40)
     ix = ClusteredIndex(IndexConfig(n_clusters=8, project_dim=12,
-                                    rerank_frac=0.25)).fit(rt, means)
+                                    rerank_frac=0.25, query_mode="fused")
+                        ).fit(rt, means)
     ix.query(rt, means, k=4, measure="cosine")
     st = ix.last_query
     assert st.seconds_total == st.seconds_shortlist + st.seconds_rerank
@@ -373,16 +374,24 @@ def test_config_validation():
         ClusteredIndex(IndexConfig(spill=0))
     with pytest.raises(ValueError, match="query_mode"):
         ClusteredIndex(IndexConfig(query_mode="magic"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ClusteredIndex(IndexConfig(query_mode="staged"))
+    assert ClusteredIndex(IndexConfig(query_mode="staged")
+                          )._query_mode() == "staged"
     with pytest.raises(NotImplementedError, match="item 9"):
         ClusteredIndex(IndexConfig(), mesh=object())
     ix = ClusteredIndex(IndexConfig(n_clusters=4))
     with pytest.raises(RuntimeError):
         ix.query(rt, means, k=3)
+    # a forced symmetric scan raises under the fused chain and runs under
+    # the staged pipeline (the CPU's auto mode)
     forced = ClusteredIndex(IndexConfig(n_clusters=4, project_dim=4,
-                                        scan_symmetric=True)).fit(rt, means)
+                                        scan_symmetric=True,
+                                        query_mode="fused")).fit(rt, means)
     with pytest.raises(ValueError, match="scan_symmetric"):
         forced.query(rt, means, k=3)
+    forced.query_mode_override = "staged"
+    forced.query(rt, means, k=3)
+    assert forced.last_query.scan_gate.startswith("sym:on")
     auto = ClusteredIndex(dataclasses.replace(IndexConfig(), n_clusters=4))
+    assert auto._query_mode() == "staged"
+    auto.query_mode_override = "fused"
     assert auto._query_mode() == "fused"

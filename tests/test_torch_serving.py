@@ -335,21 +335,33 @@ def test_degraded_server_plans_per_class_budgets():
 
 
 def test_staged_override_is_refused():
-    """The reference's degraded step forces the user index's staged query
-    mode, which is not ported: a ladder asking for it in front of an
-    approx-recommend engine with a user index raises at construction."""
+    """No longer refused: the default ladder (``staged_when_degraded``)
+    constructs in front of an approx-recommend engine with a user index,
+    a degraded transition switches the user index to its staged pipeline
+    and recovery hands the choice back to its config; with
+    ``staged_when_degraded=False`` the index is left alone."""
     from repro_torch.index import IndexConfig
+    from repro_torch.serving.engine import DEGRADED, HEALTHY
     eng = _approx_engine(neighbor_mode="approx",
-                         index_cfg=IndexConfig(n_clusters=4, project_dim=8))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _server(eng, ladder=DegradationLadder())
-    server = _server(eng, topn=5,
-                     ladder=DegradationLadder(staged_when_degraded=False))
+                         index_cfg=IndexConfig(n_clusters=4, project_dim=8,
+                                               query_mode="fused"))
+    server = _server(eng, topn=5, ladder=DegradationLadder())
     server.start()
     assert server.submit(2).result(timeout=30).user == 2
     server.stop()
+    assert eng.index._query_mode() == "fused"
+    server._transition(HEALTHY, DEGRADED, "test", 0.0, 0.0)
+    assert eng.index.query_mode_override == "staged"
+    assert eng.index._query_mode() == "staged"
+    server._transition(DEGRADED, HEALTHY, "test", 0.0, 0.0)
+    assert eng.index.query_mode_override is None
+    assert eng.index._query_mode() == "fused"
+    off = _server(eng, ladder=DegradationLadder(staged_when_degraded=False))
+    off._transition(HEALTHY, DEGRADED, "test", 0.0, 0.0)
+    assert eng.index.query_mode_override is None
     # no user index: nothing to switch, the default ladder is accepted
-    _server(_approx_engine(), ladder=DegradationLadder())
+    plain = _server(_approx_engine(), ladder=DegradationLadder())
+    plain._transition(HEALTHY, DEGRADED, "test", 0.0, 0.0)
 
 
 def test_approx_serving_is_race_clean_under_updates():
