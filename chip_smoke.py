@@ -197,7 +197,22 @@ runs:
     recovered from the port's ``checkpoint`` (bit parity with a
     fault-free run, the torn index inconsistent before the restore and
     consistent after); and the DEGRADED rung's recall@20 at U = 8192,
-    d = 1024 with the staged user-index mode (≥ 0.90).
+    d = 1024 with the staged user-index mode (≥ 0.90);
+20. sharded execution on a one-rank NCCL mesh (``torch.distributed``'s
+    default group, created by the port over a file store, no network) at
+    the paper's size: ``CFEngine(backend="sharded")`` and ``"ring"`` fit
+    bitwise equal to ``backend="kernel"`` (every similarity launch on
+    "imma", recommend through the tile-predict kernel, recommend ids
+    equal), ``sharded_predict`` (the tile-predict kernel) and
+    ``ring_sharded_predict`` within 1e-5 of ``predict()``, a
+    ``ClusteredIndex`` fitted through the mesh bit-identical to the
+    unsharded fit (kernel 3 launched), the item index's host support
+    scorer's ``recommend(all, n=10)`` bitwise equal to the kernel
+    scorer's and the exact recommend, FM's factor table through
+    ``sharded_lookup(mesh=)`` == ``mesh=None``, and the sharded engine's
+    state restored onto the CUDA mesh as DTensors whose ``full_tensor()``
+    equals the numpy restore; each path's walls, and its launch counts
+    (zeroed before, read after; added to the kernel line's counts).
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels.
@@ -2834,6 +2849,176 @@ def phase_chaos(dev):
     return out
 
 
+def phase_sharded(dev, train):
+    """Phase 20: sharded execution on a one-rank NCCL mesh (the default
+    mesh: a one-rank NCCL group over a file store, no network) at the
+    paper's size (6040 × 3952, pcc, k = 40): ``CFEngine(backend=
+    "sharded" | "ring")`` fits bitwise equal to ``backend="kernel"`` with
+    every similarity launch on "imma", ``sharded_predict`` /
+    ``ring_sharded_predict`` within 1e-5 of ``predict()`` (the first
+    through the tile-predict kernel), recommend ids equal; a
+    ``ClusteredIndex`` fitted through the mesh bit-identical to the
+    unsharded fit with kernel 3 launched; the host support scorer's
+    ``recommend(all, n=10)`` bitwise equal to the kernel scorer's and to
+    the exact recommend at shortlist 512; FM's factor table (phase 17's
+    config) through ``sharded_lookup(mesh=)`` == ``mesh=None``; and
+    ``restore(shardings=)`` of the sharded engine's state onto the CUDA
+    mesh == the numpy restore.  Each path's launch counts are zeroed just
+    before it and read just after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import engine as E
+    from repro_torch.core import similarity as sim
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.distributed import checkpoint as ck
+    from repro_torch.distributed.sharding import PartitionSpec, to_shardings
+    from repro_torch.index import ClusteredIndex, IndexConfig, ItemIndexConfig
+    from repro_torch.kernels.similarity import fused_similarity
+    from repro_torch.models import fm
+    from repro_torch.models.embedding import sharded_lookup
+
+    out = {"walls": {}, "launches": {}}
+    wrappers = all_wrappers()
+    mesh = E.default_mesh(dev)
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+          and mesh.size() == 1, f"a one-rank NCCL mesh ({dist.get_backend()}"
+          f", {mesh.device_type}, {mesh.size()} ranks)")
+    out["mesh"] = (f"{dist.get_backend()} world {dist.get_world_size()}, "
+                   f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["walls"][name] = time.perf_counter() - t0
+        return res
+
+    def engine(backend, **kw):
+        return CFEngine(train, measure="pcc", k=40, backend=backend,
+                        device=dev, **kw).fit()
+
+    ref = timed("kernel fit", lambda: engine("kernel"))
+    ref_rec = ref.recommend(n=10)
+    ref_pred = ref.predict()
+    for backend in ("sharded", "ring"):
+        zero_counts()
+        fused_similarity.routes = dict.fromkeys(fused_similarity.routes, 0)
+        eng = timed(f"{backend} fit",
+                    lambda: engine(backend, mesh=mesh))
+        rec = eng.recommend(n=10)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        out["launches"][backend] = launches
+        routes = dict(fused_similarity.routes)
+        check(launches["similarity"] > 0
+              and routes["imma"] == launches["similarity"],
+              f"{backend}: every similarity launch on imma ({routes})")
+        check(launches["predict"] > 0, f"{backend}: recommend through the "
+                                       f"tile-predict kernel")
+        check(torch.equal(eng.idx, ref.idx) and torch.equal(eng.scores,
+                                                            ref.scores),
+              f"{backend} fit == kernel fit, ids and scores bit for bit")
+        check(torch.equal(rec[1], ref_rec[1]),
+              f"{backend} recommend(n=10) ids == kernel backend's")
+    r = ref.ratings
+    zero_counts()
+    p_sh = timed("sharded_predict",
+                 lambda: E.sharded_predict(r, ref.scores, ref.idx, mesh))
+    out["launches"]["sharded_predict"] = wrappers["predict"].launches
+    check(wrappers["predict"].launches > 0,
+          "sharded_predict through the tile-predict kernel")
+    p_ring = timed("ring_sharded_predict", lambda: E.ring_sharded_predict(
+        r, ref.scores, ref.idx, mesh))
+    out["predict_err"] = (max_diff(p_sh, ref_pred), max_diff(p_ring,
+                                                             ref_pred))
+    check(max(out["predict_err"]) <= 1e-5,
+          f"sharded / ring predict vs predict() {out['predict_err']}")
+    del p_sh, p_ring, ref_pred
+
+    # the user index fitted through the mesh
+    means = sim.user_stats(r)[2]
+    cfg = IndexConfig(features="centered")
+    plain = ClusteredIndex(cfg).fit(r, means)
+    zero_counts()
+    meshed = timed("index fit through the mesh",
+                   lambda: ClusteredIndex(cfg, mesh=mesh).fit(r, means))
+    out["launches"]["index_fit"] = wrappers["cluster"].launches
+    check(wrappers["cluster"].launches > 0,
+          "the sharded k-means sweep launched kernel 3")
+    check(torch.equal(meshed.centroids, plain.centroids)
+          and np.array_equal(meshed.spill_ids, plain.spill_ids)
+          and np.array_equal(meshed.spill_dist, plain.spill_dist),
+          "index fit through the mesh == unsharded: centroids, spill ids "
+          "and distances bit for bit")
+    del plain, meshed
+
+    # the host support scorer against the kernel scorer and exact
+    rec = {}
+    for mode in ("kernel", "support"):
+        eng = engine("kernel", recommend_mode="approx",
+                     item_index_cfg=ItemIndexConfig(shortlist_mode=mode))
+        eng.recommend(n=10)                          # warm
+        rec[mode] = timed(f"recommend(all, n=10) {mode} scorer",
+                          lambda: eng.recommend(n=10))
+    exact = eng.recommend(n=10, mode="exact")
+    for name, want in (("kernel scorer", rec["kernel"]), ("exact", exact)):
+        check(torch.equal(rec["support"][0], want[0])
+              and torch.equal(rec["support"][1], want[1]),
+              f"support scorer recommend(all, n=10) == {name}, bitwise")
+    del eng, exact, rec
+
+    # FM's factor table (phase 17's config) through the sharded lookup
+    arch = get_arch("fm")
+    cfg_fm = arch.config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    factors = fm.init_params(cfg_fm, gen)["factors"]
+    ids = torch.from_numpy(recsys_inputs(cfg_fm, 512, 0)["sparse"]).to(dev)
+    zero_counts()
+    got = sharded_lookup(cfg_fm.layout(), factors, ids, mesh=mesh)
+    want = sharded_lookup(cfg_fm.layout(), factors, ids)
+    check(torch.equal(got, want), "FM sharded_lookup(mesh=) == mesh=None "
+                                  "bit for bit")
+    out["lookup"] = f"{tuple(ids.shape)} ids -> {tuple(got.shape)}"
+    del factors, got, want
+
+    # restore onto the CUDA mesh
+    state = ref.state()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck.save(tmp, 1, state)
+        like = ref.state_template()
+        host = ck.restore(tmp, 1, like)
+        specs = {k: (PartitionSpec("data", *[None] * (v.ndim - 1))
+                     if isinstance(v, np.ndarray) and v.ndim else
+                     PartitionSpec()) for k, v in state.items()
+                 if not isinstance(v, dict)}
+        specs.update({k: {} for k, v in state.items() if isinstance(v, dict)})
+        placed = timed("restore onto the mesh", lambda: ck.restore(
+            tmp, 1, like, shardings=to_shardings(mesh, specs)))
+    n_leaves = 0
+    for key, val in placed.items():
+        if isinstance(val, dict):
+            continue
+        check(val.device_mesh is mesh and val.to_local().is_cuda,
+              f"restored {key} is a DTensor on the CUDA mesh")
+        check(np.array_equal(val.full_tensor().cpu().numpy(), host[key]),
+              f"restored {key}: full_tensor() == the numpy restore")
+        n_leaves += 1
+    out["restored_leaves"] = n_leaves
+    la = out["launches"]
+    out["kernel_launches"] = {
+        "fused_similarity": la["sharded"]["similarity"]
+        + la["ring"]["similarity"],
+        "fused_tile_predict": la["sharded"]["predict"]
+        + la["ring"]["predict"] + la["sharded_predict"],
+        "fused_centroid_distances": la["index_fit"]}
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3200,6 +3385,21 @@ def main() -> int:
         f"U={CHAOS_RECALL_U} (floor 0.90; the reference's "
         f"{CHAOS_REF_RECALL}); phase wall {ch['wall_s']:.2f}s on {card}; "
         f"launches in the drills {ch['launches']}")
+
+    log("[20] sharded execution on a one-rank NCCL mesh: sharded / ring "
+        "engines, sharded index fit, host support scorer, sharded lookup, "
+        "restore onto the mesh")
+    sh = phase_sharded(dev, train)
+    log(f"    {sh['mesh']}; on {card}")
+    log("    walls (s): " + "; ".join(f"{k} {v:.4f}"
+                                      for k, v in sh["walls"].items()))
+    log(f"    launches: {sh['launches']}")
+    log(f"    sharded / ring predict vs predict(): max_abs_diff "
+        f"{sh['predict_err']!r} (tolerance 1e-5); sharded lookup "
+        f"{sh['lookup']} bit for bit; {sh['restored_leaves']} leaves "
+        f"restored onto the mesh bit for bit")
+    for k in kernels:
+        k["launches"] += sh["kernel_launches"].get(k["name"], 0)
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

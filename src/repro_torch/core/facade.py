@@ -3,7 +3,7 @@ approximate-neighbor modes.
 
 ``CFEngine`` owns the rating matrix and the fitted neighbor state — cached
 ``(U, k)`` scores/ids, per-user rating statistics, and means — and fits
-with one of two backends:
+with one of four backends:
 
 * ``sequential`` — ``topk_neighbors`` over ``torch.matmul`` Gram terms
   (the paper's baseline);
@@ -13,11 +13,23 @@ with one of two backends:
   round-trips through int8 inside the route's exact domain
   (:func:`_similarity_operand`), on its f32 route otherwise;
   ``recommend`` and the serving batch predictor predict each user block
-  through the CUDA tile-predict kernel, one launch over every item.
+  through the CUDA tile-predict kernel, one launch over every item;
+* ``sharded``    — query users sharded over a mesh axis
+  (:func:`repro_torch.core.engine.sharded_topk` on ``torch.distributed``);
+* ``ring``       — candidate shards rotating around the axis
+  (:func:`repro_torch.core.engine.ring_sharded_topk`).
 
-Both are exact on integer ratings: the Gram sums are exact integers and
-the kernels keep the plain version's operation order, so the two backends
-give identical neighbor ids and scores.
+The two mesh backends take ``mesh`` (a ``DeviceMesh``) and ``axis``; with
+no mesh they use :func:`repro_torch.core.engine.default_mesh`, a one-axis
+mesh over the default process group (a one-rank NCCL group on the card,
+gloo on the CPU, when none is initialised).  On the card their rank
+blocks go through the CUDA similarity kernel and they predict through the
+tile-predict kernel, as the ``kernel`` backend does.  The mesh and axis
+also reach both indexes, whose k-means fits then shard over it.
+
+All are exact on integer ratings: the Gram sums are exact integers, the
+kernels keep the plain version's operation order and the top-k merge is
+canonical, so every backend gives identical neighbor ids and scores.
 
 Incremental maintenance (``update_ratings``) follows the reference step
 for step: refold the touched rows' statistics, one (U, |S|) Gram pass
@@ -47,9 +59,6 @@ exact prediction — so with the kernel scorer the result equals the exact
 recommend bit for bit.  An update refolds the item index too, and
 ``oracle_check`` asserts its invariant; ``recommend_recall_vs_exact``
 holds approx against exact recommendations.
-
-The sharded/ring backends are a later slice of the port and raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,21 +71,21 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import engine as dist_engine
 from repro_torch.core import neighbors as nb
 from repro_torch.core import predict as pred_mod
 from repro_torch.core import similarity as sim
+from repro_torch.core.engine import _similarity_operand
 from repro_torch.device import resolve_device
-from repro_torch.kernels import similarity as ksim
+from repro_torch.kernels import similarity as ksim  # noqa: F401
 from repro_torch.state import from_reference_state
 
-BACKENDS = ("sequential", "kernel")
+BACKENDS = ("sequential", "sharded", "ring", "kernel")
 NEIGHBOR_MODES = ("exact", "approx")
 RECOMMEND_MODES = ("exact", "approx")
 
-# where the reference's other options land in the port (ROADMAP Queue 1)
+# the reference's Pallas backend is the port's CUDA kernel backend
 _NOT_PORTED = {
-    "sharded": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
-    "ring": "ROADMAP Queue 1 item 9 (core/engine.py on torch.distributed)",
     "pallas": "the 'kernel' backend (the CUDA port of the Pallas kernel)",
 }
 
@@ -124,19 +133,6 @@ def _cross_scores(ratings, cand_ids, *, measure, beta=None):
               (cand_ids[None, :] == rows[:, None])
     s = s.masked_fill(invalid, nb.NEG_INF)
     return s, cand_ids.to(torch.int32)[None, :].expand(n_users, -1)
-
-
-def _similarity_operand(ratings, gather_src):
-    """The similarity kernel's operand and ``max_value`` for a fit: the
-    int8 gather source when the matrix round-trips through int8 (integer
-    ratings in [0, 127]) and every Gram sum stays exact (``max_value² ·
-    D ≤ 2^24``), with its largest rating as ``max_value`` (one device
-    sync); else the f32 matrix and None."""
-    if gather_src.dtype == torch.int8 and gather_src.numel():
-        bound = int(gather_src.max())
-        if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
-            return gather_src, bound
-    return ratings, None
 
 
 def _repair_rows(scores, idx, cross_s, cross_i, touch_ids, *, k):
@@ -205,7 +201,12 @@ class CFEngine:
     Parameters
     ----------
     ratings : (U, I) dense rating matrix (numpy or tensor), 0 = unrated.
-    backend : ``"sequential"`` or ``"kernel"`` (see the module docstring).
+    backend : ``"sequential"``, ``"sharded"``, ``"ring"`` or ``"kernel"``
+        (see the module docstring).
+    mesh : the ``DeviceMesh`` the mesh backends and the indexes' k-means
+        fits shard over (default: :func:`repro_torch.core.engine.
+        default_mesh` for ``sharded`` / ``ring``, none otherwise).
+    axis : the mesh axis they shard over.
     neighbor_mode : ``"exact"`` (default) or ``"approx"`` — fit a
         :class:`repro_torch.index.ClusteredIndex` and fill the neighbor
         cache through its two-stage query.  With ``index_cfg`` at
@@ -254,8 +255,9 @@ class CFEngine:
     }
 
     def __init__(self, ratings, *, measure: str = "pcc", k: int = 40,
-                 backend: str = "kernel", block_size: int = 1024,
-                 neighbor_mode: str = "exact", index_cfg=None,
+                 backend: str = "kernel", mesh=None, axis: str = "data",
+                 block_size: int = 1024, neighbor_mode: str = "exact",
+                 index_cfg=None,
                  recommend_mode: str = "exact", item_index_cfg=None,
                  pcc_sig_beta: Optional[float] = None, device="cuda"):
         if measure not in sim.SIMILARITY_MEASURES:
@@ -263,7 +265,7 @@ class CFEngine:
                              f"{sim.SIMILARITY_MEASURES}")
         if backend in _NOT_PORTED:
             raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: see "
+                f"backend {backend!r} has no port of its own: use "
                 f"{_NOT_PORTED[backend]}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; want one of "
@@ -281,6 +283,10 @@ class CFEngine:
         self.measure = measure
         self.k = int(k)
         self.backend = backend
+        self.axis = axis
+        if backend in ("sharded", "ring") and mesh is None:
+            mesh = dist_engine.default_mesh(self.device, axis)
+        self.mesh = mesh
         self.block_size = int(block_size)
         self.neighbor_mode = neighbor_mode
         self.recommend_mode = recommend_mode
@@ -292,13 +298,14 @@ class CFEngine:
                 index_cfg = IndexConfig(
                     features="centered" if measure in ("pcc", "pcc_sig")
                     else "raw")
-            self.index = ClusteredIndex(index_cfg)
+            self.index = ClusteredIndex(index_cfg, mesh=self.mesh,
+                                        mesh_axis=self.axis)
         self.item_index = None
         if recommend_mode == "approx":
             from repro_torch.index import ItemClusteredIndex, ItemIndexConfig
             self.item_index = ItemClusteredIndex(
                 item_index_cfg if item_index_cfg is not None
-                else ItemIndexConfig())
+                else ItemIndexConfig(), mesh=self.mesh, mesh_axis=self.axis)
 
         self.scores: Optional[torch.Tensor] = None   # (U, k) f32
         self.idx: Optional[torch.Tensor] = None      # (U, k) int32
@@ -331,8 +338,9 @@ class CFEngine:
 
     @property
     def use_kernel(self) -> bool:
-        """Whether prediction tiles go through the CUDA tile kernel."""
-        return self.backend == "kernel"
+        """Whether prediction tiles go through the CUDA tile kernel: every
+        backend but the plain ``sequential`` one."""
+        return self.backend != "sequential"
 
     def _publish(self) -> None:
         """Fence the device work, then publish the model in one reference
@@ -367,41 +375,35 @@ class CFEngine:
         return self
 
     def _topk(self, ratings) -> Tuple[torch.Tensor, torch.Tensor]:
+        bs = min(self.block_size, ratings.shape[0])
         if self.backend == "sequential":
             return nb.topk_neighbors(ratings, self.k, measure=self.measure,
-                                     block_size=self.block_size,
-                                     beta=self.pcc_sig_beta)
+                                     block_size=bs, beta=self.pcc_sig_beta)
+        if self.backend == "sharded":
+            return dist_engine.sharded_topk(
+                ratings, self.k, self.mesh, measure=self.measure,
+                axis=self.axis, block_size=bs, beta=self.pcc_sig_beta)
+        if self.backend == "ring":
+            return dist_engine.ring_sharded_topk(
+                ratings, self.k, self.mesh, measure=self.measure,
+                axis=self.axis, block_size=bs, beta=self.pcc_sig_beta)
         return self._kernel_topk(ratings)
 
     def _kernel_topk(self, ratings) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streaming top-k over candidate blocks scored by the fused
         similarity kernel (the counterpart of the reference's
         ``_pallas_topk``)."""
-        n_users = ratings.shape[0]
-        dev = ratings.device
-        bs = min(self.block_size, n_users)
         src, max_value = _similarity_operand(ratings,
                                              self._gather_source(ratings))
-        best_s = torch.full((n_users, self.k), nb.NEG_INF,
-                            dtype=torch.float32, device=dev)
-        best_i = torch.full((n_users, self.k), -1, dtype=torch.int32,
-                            device=dev)
-        q_ids = torch.arange(n_users, device=dev)
         # rows past max_value, counted on the device; read once, after
         # the last launch, so no launch waits for the one before
-        n_bad = torch.zeros((1,), dtype=torch.int32, device=dev)
-        for b0 in range(0, n_users, bs):
-            block = src[b0:b0 + bs]
-            s = ksim.fused_similarity(src, block, measure=self.measure,
-                                      beta=self.pcc_sig_beta,
-                                      max_value=max_value, n_bad=n_bad)
-            cand = b0 + torch.arange(block.shape[0], device=dev)
-            s = s.masked_fill(cand[None, :] == q_ids[:, None], nb.NEG_INF)
-            ids = cand.to(torch.int32)[None, :].expand(n_users, -1)
-            best_s, best_i = nb.merge_topk(best_s, best_i, s, ids, self.k)
-        if int(n_bad.item()):
-            raise ValueError(f"ratings past the fit's max_value {max_value}")
-        return best_s, best_i
+        n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
+        best = dist_engine.kernel_block_topk(
+            src, src, self.k, measure=self.measure, q_offset=0,
+            cand_offset=0, block_size=min(self.block_size, src.shape[0]),
+            beta=self.pcc_sig_beta, max_value=max_value, n_bad=n_bad)
+        dist_engine.check_bad(n_bad, max_value)
+        return best
 
     def _obs_update(self, stats: UpdateStats) -> UpdateStats:
         """Publish one ``update_ratings`` outcome to the registry."""

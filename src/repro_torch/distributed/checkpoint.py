@@ -27,8 +27,13 @@ The two packages read each other's checkpoints bit for bit:
   the shard holds the real dtype, and ``restore`` reads only the
   shard's.  ``treedef`` is a readable structure string nothing reads.
 
-Leaves are stored whole (unsharded), so a checkpoint restores onto any
-device; :func:`restore` hands back numpy arrays.
+Leaves are stored whole (unsharded), so a checkpoint written on any mesh
+restores onto any other: :func:`restore` hands back numpy arrays, or,
+given ``shardings`` (a tree of
+:class:`repro_torch.distributed.sharding.NamedSharding`, as
+``to_shardings`` makes), one ``DTensor`` a leaf built from this rank's
+slice alone — every rank reads the committed leaves and keeps the slice
+its placements name, so no collective runs.
 """
 
 from __future__ import annotations
@@ -339,15 +344,42 @@ def read_shard(path: str | os.PathLike) -> Tuple[dict, bytes]:
     return unpack_record(payload), payload
 
 
+def _local_slice(arr: np.ndarray, mesh, placements) -> np.ndarray:
+    """This rank's slice of ``arr`` under ``placements``: each mesh
+    dimension that shards a tensor dimension splits it, outermost first,
+    into ``torch.chunk``'s pieces (ceil-sized, the last ones short or
+    empty) — DTensor's layout."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for md, pl in enumerate(placements):
+        if not isinstance(pl, Shard):
+            continue
+        size, n = arr.shape[pl.dim], mesh.size(md)
+        step = -(-size // n)
+        lo = min(coord[md] * step, size)
+        index = [slice(None)] * arr.ndim
+        index[pl.dim] = slice(lo, min(lo + step, size))
+        arr = arr[tuple(index)]
+    return arr
+
+
+def _place(arr: np.ndarray, sharding):
+    """``arr`` as a DTensor on ``sharding``'s mesh, from this rank's
+    slice (on the mesh's device type; no collective)."""
+    from torch.distributed.tensor import DTensor
+    mesh, placements = sharding.mesh, sharding.placements
+    local = torch.as_tensor(np.array(_local_slice(arr, mesh, placements),
+                                     order="C"), device=mesh.device_type)
+    full = torch.empty(arr.shape, dtype=local.dtype, device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
 def restore(ckpt_dir: str | os.PathLike, step: int, like: Any,
             shardings: Any = None) -> Any:
-    """Restore into the structure of ``like`` (values ignored) as numpy
-    arrays.  ``shardings`` (the reference's placement onto a device mesh)
-    is not ported."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves onto a sharded mesh, "
-            "which is not ported yet: see ROADMAP Queue 1 item 9, part 2")
+    """Restore into the structure of ``like`` (values ignored): numpy
+    arrays, or with ``shardings`` (a tree of ``NamedSharding`` matching
+    ``like``) DTensors holding this rank's slices."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     if not (d / _FLAG).exists():
         raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -361,4 +393,9 @@ def restore(ckpt_dir: str | os.PathLike, step: int, like: Any,
         rec, _ = read_shard(d / f"shard_{i:05d}.msgpack.zst")
         out.append(np.frombuffer(rec["data"], dtype=rec["dtype"]).reshape(
             rec["shape"]))
+    if shardings is not None:
+        placed = tree_flatten(shardings)
+        if len(placed) != n:
+            raise ValueError(f"{len(placed)} shardings for {n} leaves")
+        out = [_place(arr, sh) for arr, sh in zip(out, placed)]
     return tree_unflatten(like, out)

@@ -643,7 +643,7 @@ class _SpillClusterCore:
     the mass ledger are host (numpy) arrays, as in the reference.
     """
 
-    def __init__(self, cfg, mesh=None):
+    def __init__(self, cfg, mesh=None, mesh_axis: str = "data"):
         if cfg.features not in ("centered", "raw"):
             raise ValueError(f"unknown features {cfg.features!r}; "
                              "want 'centered' or 'raw'")
@@ -659,11 +659,9 @@ class _SpillClusterCore:
         if getattr(cfg, "query_mode", "auto") not in QUERY_MODES:
             raise ValueError(f"unknown query_mode {cfg.query_mode!r}; "
                              f"want one of {QUERY_MODES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded index fit (mesh=) is not ported yet: see "
-                "ROADMAP Queue 1 item 9")
         self.cfg = cfg
+        self.mesh = mesh              # the k-means fit shards over this mesh
+        self.mesh_axis = mesh_axis
         self.device = torch.device("cpu")
         self.n_rows = 0
         self.n_clusters = 0
@@ -902,7 +900,8 @@ class _SpillClusterCore:
         self.centroids, _, _, self.kmeans_stats = kmeans(
             self.proxies, self.n_clusters, seed=self.cfg.seed,
             iters=self.cfg.iters, block_size=self.cfg.kmeans_block,
-            use_kernel=self._use_kernel())
+            use_kernel=self._use_kernel(), mesh=self.mesh,
+            axis=self.mesh_axis)
         ids, dist = _spill_assign(
             self.proxies, self.centroids, spill=spill,
             block_size=min(self.cfg.kmeans_block, self.n_rows),
@@ -1157,8 +1156,9 @@ class ClusteredIndex(_SpillClusterCore):
                      "check)",
     }
 
-    def __init__(self, cfg: IndexConfig = IndexConfig(), mesh=None):
-        super().__init__(cfg, mesh=mesh)
+    def __init__(self, cfg: IndexConfig = IndexConfig(), mesh=None,
+                 mesh_axis: str = "data"):
+        super().__init__(cfg, mesh=mesh, mesh_axis=mesh_axis)
         self.last_query: Optional[QueryStats] = None
         # per-index runtime override of the frozen cfg.query_mode: the
         # serving degradation ladder steps fused → staged under pressure

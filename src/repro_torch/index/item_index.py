@@ -12,10 +12,23 @@ item axis:
    each item spill-assigns to its nearest clusters (all bookkeeping in
    ``_SpillClusterCore``).
 3. **Shortlist** — a full-width scorer ranks the unseen items per query
-   user and the canonical top ``shortlist`` go forward.  Two scorers
+   user and the canonical top ``shortlist`` go forward.  Three scorers
    (``shortlist_mode``):
 
-   * ``"kernel"`` (what ``"auto"`` resolves to on every device) — the
+   * ``"support"`` — the reference's item-major host pass: the predictor
+     ``r̄_u + Σ w·dev / Σ w·mask`` for every item as one scipy sparse
+     product ``W @ [DEV | MASK]`` between the k-sparse neighbor-weight
+     matrix and the stacked deviation / rated-mask CSR table (cached per
+     ratings tensor, its rows spliced on a delta), in f32 with the clip
+     epilogue, then a row-wise argpartition with the canonical tie
+     repair at the cut (:meth:`ItemClusteredIndex._select_shortlist`).
+     The reference's numpy and scipy calls on the same arrays, so the
+     shortlists equal the reference's bit for bit.  Chunks of
+     ``score_block`` users are scored on two host threads while the
+     device reranks the chunk before (the reference's pipeline; results
+     are consumed in order).
+   * ``"kernel"`` (what ``"auto"`` resolves to on every device; the
+     reference's ``"auto"`` picks ``"support"`` on a CPU host) — the
      exact predictor num/den form for every item, as one segmented SpMM
      between the k-sparse neighbor weights and the deviation / rated-mask
      tables: the CUDA support kernel on the card
@@ -32,9 +45,6 @@ item axis:
      ``n_probe`` nearest item clusters (the CUDA centroid-distance
      kernel) and the probed members are ranked by proxy score.
 
-   The reference's host pass (``"support"``: a scipy CSR ``W @ [DEV|MASK]``
-   with its argpartition tie repair and CSR row splice) is not ported and
-   raises ``NotImplementedError`` (ROADMAP Queue 1 item 8).
 4. **Rerank** — only the shortlist is scored with the true prediction
    (``repro_torch.core.predict.predict_items``, the exact path's ordered
    arithmetic), masked to unseen items, and sorted canonically by
@@ -54,9 +64,9 @@ columns' proxies, repairs spill assignments exactly through the shared
 certificate, and maintains the user profiles by a rank-deficient
 correction (untouched users take ``Σ w_col · Δproxy`` over the touched
 columns; touched users are recomputed in full), with a periodic cold
-re-fold; the dense scorer tables (f32 route) are patched copy-on-write
-along the ratings version chain, so a serving snapshot's tables stay
-valid.
+re-fold; the dense scorer tables (f32 route) and the support CSR are
+patched copy-on-write along the ratings version chain, so a serving
+snapshot's tables stay valid.
 ``check_consistent`` asserts all of it against a cold rebuild.
 """
 
@@ -71,7 +81,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import predict as pred_mod
 from repro_torch.core import similarity as sim
-from repro_torch.index.clustered import (RefoldStats, _bucket, _project,
+from repro_torch.index.clustered import (RefoldStats, _argpartition_rows,
+                                         _bucket, _patch_csr, _project,
                                          _SpillClusterCore, _svd_basis)
 from repro_torch.index.kmeans import center_rows, normalize_rows
 from repro_torch.kernels import select as sel_mod
@@ -82,11 +93,6 @@ from repro_torch.kernels.support import (fused_support_scores,
                                          support_tables, support_width)
 
 SHORTLIST_MODES = ("support", "kernel", "proxy", "auto")
-
-_SUPPORT = ("shortlist_mode='support' (the reference's host scipy CSR pass "
-            "with its argpartition tie repair and CSR row splice) is not "
-            "ported: see ROADMAP Queue 1 item 8; 'kernel' scores the same "
-            "exact num/den form on the device")
 
 _NEG_INF = float("-inf")
 
@@ -103,8 +109,8 @@ class ItemIndexConfig:
     count; ``0`` disables the projection.  ``features="centered"``
     clusters columns of the user-mean deviation matrix, ``"raw"`` raw
     rating columns (a rating write then touches only its own column).
-    ``shortlist_mode="auto"`` resolves to ``"kernel"``; ``"support"``
-    raises ``NotImplementedError``.  ``use_kernel=None`` runs the CUDA
+    ``shortlist_mode="auto"`` resolves to ``"kernel"``; ``"support"`` is
+    the host scipy pass.  ``use_kernel=None`` runs the CUDA
     kernels on CUDA tensors, ``False`` their plain versions on any device;
     ``interpret`` (the reference's Pallas interpret mode) is kept for
     config parity and has no effect.
@@ -117,8 +123,8 @@ class ItemIndexConfig:
     project_dim: int = 128
     spill: int = 2
     shortlist: int = 512
-    shortlist_mode: str = "auto"          # "kernel" | "proxy" | "auto"
-                                          # (→ "kernel"); "support" raises
+    shortlist_mode: str = "auto"          # "support" | "kernel" | "proxy" |
+                                          # "auto" (→ "kernel")
     item_block: int = 512                 # rerank/predict tile width
     kmeans_block: int = 2048
     query_block: int = 256                # proxy-path users per block
@@ -206,6 +212,33 @@ def _shortlist_scores_all(prof, proxies, seen_rows):
     return proxy_scores_ref(prof, proxies).masked_fill(seen_rows, _NEG_INF)
 
 
+def _support_rows(rows: np.ndarray, row_means: np.ndarray) -> np.ndarray:
+    """(b, I) rating rows → (b, 2I) stacked [deviation | rated-mask] (the
+    rows the support CSR's splice writes)."""
+    mask = rows > 0
+    dev = np.where(mask, rows - row_means[:, None], 0.0).astype(np.float32)
+    return np.concatenate([dev, mask.astype(np.float32)], axis=1)
+
+
+def _support_csr(rnp: np.ndarray, means_np: np.ndarray):
+    """Sparse (U, 2I) stacked [deviation | rated-mask] in scipy CSR.  Both
+    channels share the rating matrix's sparsity pattern, so the structure
+    comes from one ``np.nonzero`` scan."""
+    from scipy import sparse
+    n_users, n_items = rnp.shape
+    rows, cols = np.nonzero(rnp)
+    counts = np.bincount(rows, minlength=n_users)
+    indptr = np.zeros(n_users + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    dev_vals = (rnp[rows, cols] - means_np[rows]).astype(np.float32)
+    dev = sparse.csr_matrix((dev_vals, cols.astype(np.int32), indptr),
+                            shape=(n_users, n_items))
+    mask = sparse.csr_matrix(
+        (np.ones(len(cols), np.float32), cols.astype(np.int32), indptr),
+        shape=(n_users, n_items))
+    return sparse.hstack([dev, mask], format="csr")
+
+
 def _rerank_items(ratings, gather_src, nb_scores, nb_idx, means, q_means,
                   q_ids, cand_items, *, n, item_block):
     """Exact top-n over per-query candidate item lists.
@@ -255,6 +288,9 @@ class ItemClusteredIndex(_SpillClusterCore):
         "_support_dense_cache": "same contract as _gather_cache: the "
                                 "scorer tables are patched copy-on-write "
                                 "and published as one tuple",
+        "_support_cache": "same contract as _gather_cache: the support "
+                          "CSR is spliced into a new matrix and published "
+                          "as one tuple",
         "centroids": "replaced by one reference swap in refold/fit; the "
                      "kernel-scorer path reads it only through fitted "
                      "(a None check)",
@@ -267,16 +303,16 @@ class ItemClusteredIndex(_SpillClusterCore):
                    "item count",
     }
 
-    def __init__(self, cfg: ItemIndexConfig = ItemIndexConfig(), mesh=None):
+    def __init__(self, cfg: ItemIndexConfig = ItemIndexConfig(), mesh=None,
+                 mesh_axis: str = "data"):
         if cfg.shortlist_mode not in SHORTLIST_MODES:
             raise ValueError(f"unknown shortlist_mode {cfg.shortlist_mode!r}"
                              f"; want one of {SHORTLIST_MODES}")
-        if cfg.shortlist_mode == "support":
-            raise NotImplementedError(_SUPPORT)
-        super().__init__(cfg, mesh=mesh)
+        super().__init__(cfg, mesh=mesh, mesh_axis=mesh_axis)
         self.n_users = 0
         self.profiles: Optional[torch.Tensor] = None   # (U, p) taste mass
         self._has_pos: Optional[torch.Tensor] = None   # (U,) bool
+        self._support_cache: Optional[tuple] = None    # host [dev|mask] CSR
         self._support_dense_cache: Optional[tuple] = None  # scorer tables
         self._touched_since_profile = 0                # profile-refold drift
         self.last_recommend: Optional[RecommendStats] = None
@@ -287,7 +323,8 @@ class ItemClusteredIndex(_SpillClusterCore):
 
     def _shortlist_mode(self) -> str:
         """``"auto"`` resolves to the kernel scorer on every device (the
-        CUDA kernel on the card, its plain version on the CPU)."""
+        CUDA kernel on the card, its plain version on the CPU; the
+        reference's resolves to the host pass on a CPU host)."""
         mode = self.cfg.shortlist_mode
         return "kernel" if mode == "auto" else mode
 
@@ -303,6 +340,18 @@ class ItemClusteredIndex(_SpillClusterCore):
         pair = support_tables(ratings, means, support_width(ratings.shape[1]))
         self._support_dense_cache = (ratings, pair)
         return pair
+
+    def _support_table(self, ratings, means):
+        """The host support scorer's stacked [deviation | mask] CSR,
+        cached per ratings tensor (an update replaces the tensor, which
+        invalidates by identity; ``refold`` splices it instead).  The
+        cache reference is read once, as ``_support_dense`` reads its."""
+        cache = self._support_cache
+        if cache is not None and cache[0] is ratings:
+            return cache[1]
+        tbl = _support_csr(ratings.cpu().numpy(), means.cpu().numpy())
+        self._support_cache = (ratings, tbl)
+        return tbl
 
     def _proxy_rows(self, cols, means):
         """(U, T) column slice → (T, p) unit proxies."""
@@ -340,8 +389,11 @@ class ItemClusteredIndex(_SpillClusterCore):
             w, has_pos = _affinity_weights(ratings, means)
             self.profiles = _fold_profiles(w, self.proxies)
             self._has_pos = has_pos
+            self._support_cache = None
             self._support_dense_cache = None
             self._touched_since_profile = 0
+            if self._shortlist_mode() == "support":
+                self._support_table(ratings, means)     # pre-warm
             sp.track(self.profiles)
         obs.histogram("item_index.fit.seconds").observe(sp.duration)
         return self
@@ -376,13 +428,14 @@ class ItemClusteredIndex(_SpillClusterCore):
         shortlist = self.cfg.shortlist if shortlist is None \
             else max(int(shortlist), n)
         scorer = self._shortlist_mode()
-        if shortlist and scorer == "kernel" \
+        if shortlist and scorer in ("support", "kernel") \
                 and max(n, shortlist) < self.n_items:
+            run = (self._recommend_support if scorer == "support"
+                   else self._recommend_kernel)
             with obs.span("item_index.recommend", n_queries=len(uids), n=n,
-                          scorer="kernel") as sp:
-                out = self._recommend_support(ratings, means, nb_scores,
-                                              nb_idx, uids, n=n,
-                                              shortlist=shortlist)
+                          scorer=scorer) as sp:
+                out = run(ratings, means, nb_scores, nb_idx, uids, n=n,
+                          shortlist=shortlist)
         else:
             with obs.span("item_index.recommend", n_queries=len(uids), n=n,
                           scorer="proxy") as sp:
@@ -442,9 +495,9 @@ class ItemClusteredIndex(_SpillClusterCore):
         # −inf slots already carry the sentinel id n_items (= num's width)
         return torch.sort(self._select(num, m_short)[1], dim=1).values
 
-    def _recommend_support(self, ratings, means, nb_scores, nb_idx,
-                           uids: np.ndarray, *, n: int, shortlist: int):
-        """Support-scorer path: every item scored with the exact num/den
+    def _recommend_kernel(self, ratings, means, nb_scores, nb_idx,
+                          uids: np.ndarray, *, n: int, shortlist: int):
+        """Kernel-scorer path: every item scored with the exact num/den
         predictor form in chunks of ``score_block`` users, the canonical
         top ``shortlist`` unseen items per user selected on the device,
         then the exact rerank in batches of ``rerank_block``."""
@@ -471,6 +524,128 @@ class ItemClusteredIndex(_SpillClusterCore):
                         item_block=self.cfg.item_block)
                 out_s.append(s)
                 out_i.append(i)
+        self.last_recommend = RecommendStats(
+            n_queries=len(uids), n_items=n_items,
+            n_probed=len(uids) * n_items, n_reranked=n_reranked)
+        return torch.cat(out_s), torch.cat(out_i)
+
+    def _score_select_rows(self, stacked, w, safe_idx, q_means, seen_rows,
+                           m_short: int) -> np.ndarray:
+        """Score one row chunk on the host (exact f32 num/den, clip
+        epilogue, seen → −inf) and select its canonical top-``m_short``
+        items: (b, m_short) ascending ids, ``n_items`` on empty slots.
+        Runs on one thread; :meth:`_recommend_support` fans chunks over
+        two (scipy's product and numpy's selection release the GIL)."""
+        with obs.span("recommend.score", rows=int(w.shape[0])):
+            return self._score_select_rows_body(stacked, w, safe_idx,
+                                                q_means, seen_rows, m_short)
+
+    def _score_select_rows_body(self, stacked, w, safe_idx, q_means,
+                                seen_rows, m_short: int) -> np.ndarray:
+        from scipy import sparse
+        n_items = self.n_items
+        rows = np.repeat(np.arange(w.shape[0]), w.shape[1])
+        W = sparse.csr_matrix((w.reshape(-1), (rows, safe_idx.reshape(-1))),
+                              shape=(w.shape[0], self.n_users))
+        nd = (W @ stacked).toarray()                  # (b, 2I)
+        num, den = nd[:, :n_items], nd[:, n_items:]
+        qm = q_means[:, None]
+        fallback = den <= 1e-8
+        np.maximum(den, 1e-8, out=den)
+        np.divide(num, den, out=num)
+        num += qm
+        np.clip(num, 1.0, 5.0, out=num)
+        np.copyto(num, np.broadcast_to(qm, num.shape), where=fallback)
+        num[seen_rows] = -np.inf
+        return self._select_shortlist(num, m_short)
+
+    def _select_shortlist(self, num: np.ndarray, m_short: int) -> np.ndarray:
+        """Canonical top-``m_short`` selection over scored rows (seen items
+        already −inf).  A plain argpartition is canonical except where the
+        cut value is tied beyond the cap — the 5.0 clip group, or the
+        query-mean fallback group — and those rows are repaired one by
+        one: every item strictly above the cut stays and the tie group
+        gives its lowest item ids, the exact path's tie order."""
+        with obs.span("recommend.select", rows=int(num.shape[0])):
+            return self._select_shortlist_body(num, m_short)
+
+    def _select_shortlist_body(self, num: np.ndarray,
+                               m_short: int) -> np.ndarray:
+        n_items = self.n_items
+        sel = _argpartition_rows(num, m_short)
+        selv = np.take_along_axis(num, sel, 1)
+        shorts = np.where(selv == -np.inf, n_items, sel).astype(np.int32)
+        vb = np.min(np.where(selv == -np.inf, np.inf, selv), axis=1)
+        vb = np.where(np.isfinite(vb), vb, np.inf)
+        row_cnt = np.count_nonzero(num == vb[:, None], axis=1)
+        sel_cnt = np.count_nonzero(selv == vb[:, None], axis=1)
+        for row in np.nonzero(row_cnt > sel_cnt)[0]:
+            v = vb[row]
+            above = np.nonzero(num[row] > v)[0]
+            tied = np.nonzero(num[row] == v)[0][:m_short - len(above)]
+            merged = np.concatenate([above, tied]).astype(np.int32)
+            shorts[row, :len(merged)] = merged
+            shorts[row, len(merged):] = n_items
+        return np.sort(shorts, axis=1)
+
+    def _recommend_support(self, ratings, means, nb_scores, nb_idx,
+                           uids: np.ndarray, *, n: int, shortlist: int):
+        """Host support-scorer path: every item scored with the exact
+        num/den form by the ``W @ [DEV|MASK]`` sparse product, the
+        canonical top ``shortlist`` unseen items per user, then the exact
+        rerank on the ratings' device.  Two host threads score chunk i+1
+        (each chunk halved over them) while the device reranks chunk i;
+        chunks are consumed in order."""
+        from concurrent.futures import ThreadPoolExecutor
+        stacked = self._support_table(ratings, means)
+        n_items = self.n_items
+        m_short = min(max(n, shortlist), n_items)
+        dev = ratings.device
+        gather_src = self._gather_source(ratings)
+        rnp = ratings.cpu().numpy()
+        means_np = means.cpu().numpy()
+        sc_np = nb_scores.cpu().numpy()
+        idx_np = nb_idx.cpu().numpy()
+        out_s, out_i = [], []
+        n_reranked = 0
+        sb, bq = self.cfg.score_block, self.cfg.rerank_block
+
+        def score_chunk(pool, ids):
+            """Futures of one chunk's shortlists, halved over the pool."""
+            w = np.where((sc_np[ids] > 0) & (idx_np[ids] >= 0),
+                         sc_np[ids], 0.0).astype(np.float32)
+            safe = np.where(idx_np[ids] >= 0, idx_np[ids], 0)
+            seen = rnp[ids] > 0
+            half = (len(ids) + 1) // 2 if len(ids) >= 64 else len(ids)
+            return [pool.submit(self._score_select_rows, stacked,
+                                w[h0:h0 + half], safe[h0:h0 + half],
+                                means_np[ids[h0:h0 + half]],
+                                seen[h0:h0 + half], m_short)
+                    for h0 in range(0, len(ids), half)]
+
+        starts = list(range(0, len(uids), sb))
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            pending = score_chunk(pool, uids[:sb])
+            for ci, lo in enumerate(starts):
+                ids = uids[lo:lo + sb]
+                shorts = np.concatenate([f.result() for f in pending])
+                if ci + 1 < len(starts):
+                    nxt = starts[ci + 1]
+                    pending = score_chunk(pool, uids[nxt:nxt + sb])
+                n_reranked += int((shorts < n_items).sum())
+                shorts_t = torch.as_tensor(shorts, device=dev)
+                ids_t = torch.as_tensor(ids, device=dev)
+                for b0 in range(0, len(ids), bq):
+                    sub = ids_t[b0:b0 + bq]
+                    with obs.span("recommend.rerank", chunk=ci,
+                                  rows=len(sub)):
+                        s, i = _rerank_items(
+                            ratings, gather_src, nb_scores[sub],
+                            nb_idx[sub], means, means[sub], sub,
+                            shorts_t[b0:b0 + bq], n=n,
+                            item_block=self.cfg.item_block)
+                    out_s.append(s)
+                    out_i.append(i)
         self.last_recommend = RecommendStats(
             n_queries=len(uids), n_items=n_items,
             n_probed=len(uids) * n_items, n_reranked=n_reranked)
@@ -543,25 +718,43 @@ class ItemClusteredIndex(_SpillClusterCore):
 
     # -- delta-aware cache maintenance -------------------------------------
     def _patch_extra_row_caches(self, ratings, means, touched, old) -> int:
-        """Patch the dense scorer tables for a user-row delta: the touched
-        users' rows re-derive from their moved means, scattered into fresh
-        copies (copy-on-write — a reader holding the old tables keeps
-        them valid)."""
-        cache = self._support_dense_cache
-        if cache is None or cache[0] is not old or means is None:
-            self._support_dense_cache = None
-            return 0
-        dev_t, msk_t = cache[1]
+        """Patch the scorer operands for a user-row delta, copy-on-write
+        (a reader holding the old ones keeps them valid): the support CSR
+        gets a row splice (the touched users' rows re-derive from their
+        moved means, every other row's span is bulk-copied), the dense
+        tables a row scatter into fresh copies."""
+        patched = 0
         rows = torch.as_tensor(touched, device=ratings.device).long()
-        d_rows, m_rows = support_tables(ratings[rows], means[rows],
-                                        dev_t.shape[1])
-        dev_t, msk_t = dev_t.clone(), msk_t.clone()
-        dev_t[rows] = d_rows
-        msk_t[rows] = m_rows
-        self._support_dense_cache = (ratings, (dev_t, msk_t))
-        return 1
+        cache = self._support_cache
+        if cache is not None and cache[0] is old and means is not None:
+            from scipy import sparse
+            tbl = cache[1]
+            stacked_rows = _support_rows(ratings[rows].cpu().numpy(),
+                                         means[rows].cpu().numpy())
+            indptr, idx, data = _patch_csr(
+                (tbl.indptr.astype(np.int64), tbl.indices, tbl.data),
+                touched, stacked_rows)
+            self._support_cache = (ratings, sparse.csr_matrix(
+                (data, idx, indptr), shape=(self.n_users, 2 * self.n_items)))
+            patched += 1
+        else:
+            self._support_cache = None
+        cache = self._support_dense_cache
+        if cache is not None and cache[0] is old and means is not None:
+            dev_t, msk_t = cache[1]
+            d_rows, m_rows = support_tables(ratings[rows], means[rows],
+                                            dev_t.shape[1])
+            dev_t, msk_t = dev_t.clone(), msk_t.clone()
+            dev_t[rows] = d_rows
+            msk_t[rows] = m_rows
+            self._support_dense_cache = (ratings, (dev_t, msk_t))
+            patched += 1
+        else:
+            self._support_dense_cache = None
+        return patched
 
     def _drop_extra_row_caches(self) -> None:
+        self._support_cache = None
         self._support_dense_cache = None
 
     # -- incremental maintenance ------------------------------------------
@@ -702,4 +895,5 @@ class ItemClusteredIndex(_SpillClusterCore):
         self._has_pos = torch.as_tensor(
             np.asarray(tree["has_pos"]).astype(bool), device=self.device)
         # the scorer tables are derived data, rebuilt lazily per ratings
+        self._support_cache = None
         self._support_dense_cache = None

@@ -6,9 +6,13 @@ recommendations on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --users 256 --items 128            # the plain CPU path
     PYTHONPATH=src python -m repro_torch.launch.serve --recommend-mode approx
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend sharded
 
 ``--backend kernel`` (default) fits with the CUDA similarity kernel and
-serves through the CUDA tile-predict kernel; ``--recommend-mode approx``
+serves through the CUDA tile-predict kernel; ``--backend sharded`` /
+``ring`` fit through the mesh engines (``repro_torch.core.engine``) on the
+default mesh — a one-rank NCCL group on the card (gloo with ``--device
+cpu``) unless the process already joined a group; ``--recommend-mode approx``
 serves through the two-stage item index (the CUDA support and select
 kernels, then the exact rerank).  ``--device`` defaults to ``cuda`` and a
 missing card is an error.  ``--stats-interval`` logs a

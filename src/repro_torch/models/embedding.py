@@ -1,6 +1,5 @@
 """Embedding tables of the recsys family (port of
-``repro.models.embedding``): the fused-table layout and its lookups at
-world size 1.
+``repro.models.embedding``): the fused-table layout and its lookups.
 
 * ``embedding_bag_xla`` — the reference's XLA formulation of the embedding
   bag (gather, mask, sum in the table's dtype); it has no caller there
@@ -8,8 +7,7 @@ world size 1.
 * ``TableLayout`` — fields of ``replicate_threshold`` ids or more share one
   fused "sharded" table, the smaller ones one "replicated" table, each
   field at a fixed row offset; the sharded table's rows are padded to a
-  multiple of ``n_shards``.  The port runs on one card and keeps that
-  padding as the row granularity, so its row ids equal the reference's.
+  multiple of ``n_shards``, so its row ids equal the reference's.
 * ``sharded_lookup`` with ``mesh=None`` — the reference's single-device
   path: per-field ids become fused-table row ids and are gathered, as
   the reference's ``jnp.take`` gathers them.  The gather keeps
@@ -17,9 +15,19 @@ world size 1.
   id wraps (−1 is the last row), and one outside [−V, V) gives a NaN row.
   It is not the bag kernel, which treats a negative id as padding.
 
-The sharded all-to-all lookup (a non-``None`` mesh,
-``_bucketed_exchange_lookup``) is not ported yet: it raises
-``NotImplementedError`` (ROADMAP Queue 1 item 9).
+* ``sharded_lookup`` with a mesh — the DLRM / FBGEMM model-parallel
+  lookup, SPMD over every rank of the mesh: each rank holds its
+  ``(sharded_rows / P, D)`` block of the sharded table (rank order along
+  the flattened mesh) and its batch shard of the ids, routes each
+  sharded-field lookup to the rank that owns the row and gets the row
+  back (``_bucketed_exchange_lookup``: two ``dist.all_to_all_single``
+  calls over a group of every mesh rank, tensors on the mesh's device
+  type).  The bucket capacity, ``max(int(l_loc / P · bucket_slack),
+  min(l_loc, 64))`` for ``l_loc`` lookups a rank, and the drop rule — a
+  lookup past its bucket's capacity returns zeros, never another row —
+  are the reference's.  Replicated fields are local gathers.  Ids must
+  be rows of the table.  Gradients through the exchange belong to the
+  training slice.
 """
 
 from __future__ import annotations
@@ -28,10 +36,10 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 REPLICATE_THRESHOLD = 8192      # tables smaller than this are replicated
-_MESH = ("the sharded all-to-all embedding lookup is not ported yet "
-         "(ROADMAP Queue 1 item 9); pass mesh=None")
 
 
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -68,7 +76,7 @@ class TableLayout:
     embed_dim: int
     n_shards: int                          # row padding granularity
     replicate_threshold: int = REPLICATE_THRESHOLD
-    bucket_slack: float = 2.0              # read by the sharded lookup only
+    bucket_slack: float = 2.0              # the sharded lookup's buckets
 
     @property
     def sharded_fields(self) -> Tuple[int, ...]:
@@ -133,22 +141,66 @@ def init_tables(layout: TableLayout, generator: torch.Generator,
     return out
 
 
-def _bucketed_exchange_lookup(*args, **kwargs):
-    """The all-to-all exchange of the sharded lookup (reference
-    ``embedding.py:126``): not ported."""
-    raise NotImplementedError(_MESH)
+def _bucketed_exchange_lookup(local_table: torch.Tensor, owner: torch.Tensor,
+                              local_row: torch.Tensor, n_shards: int,
+                              capacity: int, group) -> torch.Tensor:
+    """Route this rank's L lookups to their owner ranks and back
+    (reference ``embedding.py:126``).
+
+    ``owner`` / ``local_row``: (L,) owner rank and row within its block.
+    Each lookup takes the next slot of its owner's bucket of
+    ``capacity``; the (P, C) row ids go out with one all-to-all, every
+    owner gathers the rows asked of it, and a second all-to-all brings
+    the (P, C, D) values back.  A lookup past its bucket's capacity gets
+    zeros.  Returns (L, D)."""
+    d = local_table.shape[1]
+    dev = local_table.device
+    onehot = F.one_hot(owner.long(), n_shards)                  # (L, P)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1               # (L,)
+    keep = pos < capacity
+    slot_o = torch.where(keep, owner.long(), n_shards)           # drop row
+    slot_p = torch.where(keep, pos, 0)
+    send = torch.zeros((n_shards + 1, capacity), dtype=torch.int64,
+                       device=dev)
+    send[slot_o, slot_p] = local_row.long()
+    send = send[:n_shards].contiguous()                          # (P, C)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    rows = recv.reshape(-1).clamp(0, local_table.shape[0] - 1)
+    vals = local_table[rows].reshape(n_shards, capacity, d)
+    back = torch.empty_like(vals)
+    dist.all_to_all_single(back, vals, group=group)              # (P, C, D)
+    out = back[slot_o.clamp(0, n_shards - 1), slot_p]            # (L, D)
+    return out.masked_fill(~keep[:, None], 0.0)
+
+
+def _mesh_group(mesh):
+    """The group of every mesh rank: the mesh's own group when it has one
+    axis, else the default group, which must hold the mesh's ranks in
+    rank order (the order of the table blocks and batch shards)."""
+    if mesh.ndim == 1:
+        return mesh.get_group(0)
+    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise ValueError("a multi-axis mesh's exchange runs over the "
+                         "default group: the mesh must hold every rank, "
+                         "in rank order")
+    return dist.group.WORLD
 
 
 def sharded_lookup(layout: TableLayout, tables: Dict[str, torch.Tensor],
                    indices: torch.Tensor, mesh=None, *,
                    fields: Sequence[int] | None = None) -> torch.Tensor:
     """(B, F) per-field ids → (B, F, D) embeddings (reference
-    ``embedding.py:158`` with ``mesh=None``): replicated and sharded
-    fields gathered from their fused tables at their absolute offsets.
-    ``fields`` names the layout fields of the index columns (default: all,
-    in order).  A mesh raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    ``embedding.py:158``): replicated and sharded fields gathered from
+    their fused tables at their absolute offsets.  ``fields`` names the
+    layout fields of the index columns (default: all, in order).
+
+    With ``mesh`` (SPMD, every rank of the mesh calls): ``indices`` is
+    this rank's batch shard (the same B on every rank),
+    ``tables["sharded"]`` its ``(sharded_rows / P, D)`` block and
+    ``tables["replicated"]`` the whole replicated table; the sharded
+    fields go through the all-to-all exchange and the result is this
+    rank's (B, F, D) shard."""
     all_fields = tuple(fields) if fields is not None \
         else tuple(range(len(layout.field_sizes)))
     b, f = indices.shape
@@ -159,10 +211,15 @@ def sharded_lookup(layout: TableLayout, tables: Dict[str, torch.Tensor],
     for name, home in (("replicated", False), ("sharded", True)):
         pos = [i for i, fl in enumerate(all_fields)
                if (fl in sharded) == home]
-        if pos:
-            ids = layout.global_ids(indices[:, pos],
-                                    [all_fields[i] for i in pos])
-            groups.append((pos, _take(tables[name], ids)))
+        if not pos:
+            continue
+        ids = layout.global_ids(indices[:, pos],
+                                [all_fields[i] for i in pos])
+        if home and mesh is not None:
+            vals = _exchange(layout, tables[name], ids, mesh)
+        else:
+            vals = _take(tables[name], ids)
+        groups.append((pos, vals))
     if len(groups) == 1:                 # one table: already in order
         return groups[0][1]
     out = torch.empty((b, f, layout.embed_dim),
@@ -170,3 +227,29 @@ def sharded_lookup(layout: TableLayout, tables: Dict[str, torch.Tensor],
     for pos, vals in groups:
         out[:, pos] = vals
     return out
+
+
+def _exchange(layout: TableLayout, block: torch.Tensor, ids: torch.Tensor,
+              mesh) -> torch.Tensor:
+    """The sharded fields' (B, Fs) fused-table ids of this rank's batch
+    shard → (B, Fs, D) rows through the all-to-all exchange."""
+    if ids.device.type != mesh.device_type or \
+            block.device.type != mesh.device_type:
+        raise ValueError(f"ids on {ids.device.type} and the table block on "
+                         f"{block.device.type}, but the mesh's collectives "
+                         f"take {mesh.device_type} tensors")
+    group, n = _mesh_group(mesh), mesh.size()
+    if layout.sharded_rows % n:
+        raise ValueError(f"{layout.sharded_rows} sharded rows do not divide "
+                         f"over {n} ranks")
+    rows_per_shard = layout.sharded_rows // n
+    if block.shape[0] != rows_per_shard:
+        raise ValueError(f"each rank passes its ({rows_per_shard}, D) block "
+                         f"of the sharded table, got {tuple(block.shape)}")
+    l_loc = ids.numel()
+    capacity = max(int(l_loc / n * layout.bucket_slack), min(l_loc, 64))
+    flat = ids.reshape(-1).long()
+    got = _bucketed_exchange_lookup(block, flat // rows_per_shard,
+                                    flat % rows_per_shard, n, capacity,
+                                    group)
+    return got.reshape(ids.shape + (block.shape[1],))

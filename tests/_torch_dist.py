@@ -1,0 +1,202 @@
+"""Rank launcher for the port's multi-rank parity tests.
+
+:func:`launch` starts ``world`` processes (the ``spawn`` start method, so
+the workers import this module afresh), each joins a gloo process group
+over a file store in the test's temporary directory — no network — runs
+one task of :data:`TASKS` and pickles its result to that directory.  The
+launch has a deadline (``TIMEOUT_S``, at most 120 s): stragglers are
+killed and the launch raises, so a hung collective fails one test instead
+of the run.  Every group has a 60 s timeout of its own.
+
+The tasks import only the port; the tests hold their results against the
+reference computed in the pytest process.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import pickle
+import time
+import traceback
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+
+TIMEOUT_S = 120
+
+
+def launch(task: str, world: int, out_dir, payload=None,
+           timeout: float = TIMEOUT_S) -> list:
+    """Run ``TASKS[task]`` on ``world`` gloo ranks; returns the ranks'
+    results in rank order."""
+    out_dir = Path(out_dir)
+    store = out_dir / f"store_{task}_{world}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_run_rank, daemon=True,
+                         args=(task, rank, world, str(store), str(out_dir),
+                               payload))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [p for p in procs if p.is_alive()]
+        for p in late:
+            p.kill()
+        for p in late:
+            p.join(10)
+    errors = [(out_dir / f"{task}_{world}_{r}.err") for r in range(world)]
+    msgs = [e.read_text() for e in errors if e.exists()]
+    if late:
+        raise TimeoutError(f"{task} on {world} ranks: {len(late)} rank(s) "
+                           f"still running after {timeout} s; killed\n"
+                           + "\n".join(msgs))
+    codes = [p.exitcode for p in procs]
+    if any(codes) or msgs:
+        raise RuntimeError(f"{task} on {world} ranks: exit codes {codes}\n"
+                           + "\n".join(msgs))
+    out = []
+    for r in range(world):
+        with open(out_dir / f"{task}_{world}_{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _run_rank(task, rank, world, store, out_dir, payload):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    base = Path(out_dir) / f"{task}_{world}_{rank}"
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=60))
+        try:
+            result = TASKS[task](rank, world, payload)
+        finally:
+            dist.destroy_process_group()
+        with open(base.with_suffix(".pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        base.with_suffix(".err").write_text(
+            f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def _np(x):
+    """Tensors (also inside tuples, lists and dicts) as numpy arrays."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_np(v) for v in x)
+    return x
+
+
+# -- tasks -----------------------------------------------------------------
+
+MEASURES = ("jaccard", "cosine", "pcc", "pcc_sig")
+
+
+def engine_task(rank, world, p):
+    """Both top-k engines under every measure, both predictors, the two
+    facade backends (fit, recommend, an oracle-checked update) and the
+    indivisible-U error, on a one-axis mesh of every rank."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(device="cpu")
+    r = torch.from_numpy(p["ratings"])
+    k, bs = p["k"], p["block_size"]
+    out = {}
+    for m in MEASURES:
+        out[("sharded", m)] = E.sharded_topk(r, k, mesh, measure=m,
+                                             block_size=bs)
+        out[("ring", m)] = E.ring_sharded_topk(r, k, mesh, measure=m,
+                                               block_size=bs)
+    s, i = out[("sharded", "pcc")]
+    out["predict_sharded"] = E.sharded_predict(r, s, i, mesh)
+    out["predict_ring"] = E.ring_sharded_predict(r, s, i, mesh)
+    for backend in ("sharded", "ring"):
+        eng = CFEngine(p["ratings"], measure="pcc", k=k, block_size=bs,
+                       backend=backend, mesh=mesh, device="cpu").fit()
+        out[("recommend", backend)] = eng.recommend(n=10)
+        st = eng.update_ratings(*p["delta"], oracle_check=True)
+        out[("update", backend)] = (st.oracle_ok, eng.scores, eng.idx)
+    if world > 1:
+        for fn in (E.sharded_topk, E.ring_sharded_topk):
+            try:
+                fn(r[:-1], k, mesh, block_size=bs)
+            except ValueError as e:
+                out[("indivisible", fn.__name__)] = str(e)
+    return _np(out)
+
+
+def kmeans_task(rank, world, p):
+    """Two sharded k-means fits of the blobs, and an index fitted through
+    the mesh and queried."""
+    import torch
+    from repro_torch.core import similarity as sim
+    from repro_torch.index import ClusteredIndex, IndexConfig
+    from repro_torch.index.kmeans import kmeans
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(device="cpu")
+    z = torch.from_numpy(p["z"])
+    runs = []
+    for _ in range(2):
+        c, a, d, st = kmeans(z, 8, seed=0, iters=5, block_size=16,
+                             mesh=mesh)
+        runs.append((c, a, d, st.inertia))
+    r = torch.from_numpy(p["ratings"])
+    means = sim.user_stats(r)[2]
+    ix = ClusteredIndex(IndexConfig(n_clusters=8, seed=0, features="raw"),
+                        mesh=mesh).fit(r, means)
+    s, i = ix.query(r, means, k=5, measure="cosine")
+    return _np({"runs": runs, "query": (s, i),
+                "centroids": ix.centroids, "spill_ids": ix.spill_ids})
+
+
+def embedding_task(rank, world, p):
+    """This rank's batch shard of ``sharded_lookup`` on a (2, 2) mesh,
+    each rank holding its block of the sharded table."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.embedding import TableLayout, sharded_lookup
+    mesh = make_local_mesh((2, 2), ("data", "model"), device="cpu")
+    layout = TableLayout(**p["layout"])
+    rows = layout.sharded_rows // world
+    tables = {"sharded": torch.from_numpy(
+                  p["sharded"][rank * rows:(rank + 1) * rows]),
+              "replicated": torch.from_numpy(p["replicated"])}
+    out = {}
+    for name, ids in p["batches"].items():
+        b = ids.shape[0] // world
+        mine = torch.from_numpy(ids[rank * b:(rank + 1) * b])
+        out[name] = sharded_lookup(layout, tables, mine, mesh)
+    return _np(out)
+
+
+def restore_task(rank, world, p):
+    """``restore(shardings=)`` of a checkpoint onto a mesh: each leaf's
+    local slice and its ``full_tensor()``."""
+    from repro_torch.distributed import checkpoint as ck
+    from repro_torch.distributed.sharding import PartitionSpec, to_shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(p["shape"], p["axes"], device="cpu")
+    specs = {key: PartitionSpec(*spec) for key, spec in p["specs"].items()}
+    tree = ck.restore(p["dir"], p["step"], {key: 0 for key in specs},
+                      shardings=to_shardings(mesh, specs))
+    return {key: (np.asarray(t.to_local()), np.asarray(t.full_tensor()),
+                  [repr(pl) for pl in t.placements])
+            for key, t in tree.items()}
+
+
+TASKS = {"engine": engine_task, "kmeans": kmeans_task,
+         "embedding": embedding_task, "restore": restore_task}

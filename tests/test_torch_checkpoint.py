@@ -14,6 +14,10 @@ the reference's ``repro.distributed.checkpoint``, on the CPU.
 * The shard codec is ``msgpack.packb`` byte for byte and round-trips; a
   raw shard and a zstd shard both restore; an uncommitted ``step_*`` is
   ignored; ``AsyncCheckpointer`` keeps 3 and surfaces a writer error.
+* ``restore(shardings=)`` of a reference-written checkpoint onto a mesh:
+  on a one-rank mesh here, and on 2 and 4 gloo ranks (``_torch_dist``),
+  each rank holds the slice its spec names and ``full_tensor()`` equals
+  the numpy restore bit for bit.
 """
 
 import json
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist as td
 from _torch_parity import assert_parity, int_ratings
 from _torch_parity import torch_single_thread  # noqa: F401
 from repro.core import CFEngine as JaxEngine
@@ -33,6 +38,8 @@ from repro.index import IndexConfig as JaxConfig
 from repro.index import ItemIndexConfig as JaxItemConfig
 from repro_torch.core.facade import CFEngine
 from repro_torch.distributed import checkpoint as ck
+from repro_torch.distributed.sharding import PartitionSpec, to_shardings
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.index import IndexConfig, ItemIndexConfig
 
 USERS = np.arange(0, 72, 5).astype(np.int32)
@@ -207,8 +214,13 @@ def test_latest_step_and_async_checkpointer(tmp_path):
         ck.restore(tmp_path, 9, tree)
     with pytest.raises(ValueError, match="leaves"):
         ck.restore(tmp_path, 5, {"w": 0, "v": 0})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ck.restore(tmp_path, 5, tree, shardings=object())
+    # onto a one-rank mesh: DTensors whose full tensor is the restore
+    placed = ck.restore(tmp_path, 5, tree, shardings=to_shardings(
+        make_local_mesh(device="cpu"), {"w": PartitionSpec("data")}))
+    np.testing.assert_array_equal(placed["w"].full_tensor().numpy(),
+                                  np.full(4, 5.0, np.float32))
+    with pytest.raises(ValueError, match="shardings"):
+        ck.restore(tmp_path, 5, tree, shardings={})
     # a writer error surfaces on the next wait()
     (tmp_path / "blocked").write_text("a file, not a directory")
     bad = ck.AsyncCheckpointer(tmp_path / "blocked")
@@ -216,3 +228,59 @@ def test_latest_step_and_async_checkpointer(tmp_path):
     with pytest.raises(OSError):
         bad.wait()
     bad.wait()                          # reported once
+
+
+# -- restore onto a mesh of gloo ranks ----------------------------------------
+
+RESTORE_TREE = {"a": np.arange(48, dtype=np.float32).reshape(8, 6),
+                "b": np.arange(5, dtype=np.int32),
+                "c": np.arange(14, dtype=np.float32).reshape(2, 7) / 3,
+                "s": np.float32(2.5)}
+# (mesh shape, axes, specs) at each world size; "pod" is not in either
+# mesh, so to_shardings drops it
+RESTORE_MESHES = {
+    2: ((2,), ("data",), {"a": ("data", None), "b": ("data",),
+                          "c": (None, "data"), "s": ()}),
+    4: ((2, 2), ("data", "model"), {"a": (("data", "model"), None),
+                                    "b": ("data",),
+                                    "c": (("pod", "data"), "model"),
+                                    "s": ()}),
+}
+
+
+def _chunk(n, parts, i):
+    """torch.chunk's i-th piece of range(n) (ceil-sized pieces)."""
+    step = -(-n // parts)
+    lo = min(i * step, n)
+    return slice(lo, min(lo + step, n))
+
+
+def _expected_slices(world, rank):
+    t = RESTORE_TREE
+    if world == 2:
+        return {"a": t["a"][_chunk(8, 2, rank)],
+                "b": t["b"][_chunk(5, 2, rank)],
+                "c": t["c"][:, _chunk(7, 2, rank)], "s": t["s"]}
+    d, m = divmod(rank, 2)
+    return {"a": t["a"][_chunk(8, 4, rank)], "b": t["b"][_chunk(5, 2, d)],
+            "c": t["c"][_chunk(2, 2, d), _chunk(7, 2, m)], "s": t["s"]}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_restore_onto_gloo_mesh(tmp_path, world):
+    jck.save(tmp_path / "ckpt", 3, {k: jnp.asarray(v)
+                                     for k, v in RESTORE_TREE.items()})
+    want = ck.restore(tmp_path / "ckpt", 3, {k: 0 for k in RESTORE_TREE})
+    shape, axes, specs = RESTORE_MESHES[world]
+    outs = td.launch("restore", world, tmp_path,
+                     {"dir": str(tmp_path / "ckpt"), "step": 3,
+                      "shape": shape, "axes": axes, "specs": specs})
+    for rank, out in enumerate(outs):
+        exp = _expected_slices(world, rank)
+        for key, (local, full, placements) in out.items():
+            np.testing.assert_array_equal(local, exp[key],
+                                          err_msg=f"{rank} {key}")
+            assert local.dtype == want[key].dtype
+            assert_parity(f"checkpoint.restore.P{world}.rank{rank}.{key}",
+                          full, want[key])
+        assert out["s"][2] == ["Replicate()"] * len(shape)

@@ -147,8 +147,10 @@ def test_kmeans_rejects_bad_input():
         kmeans(z, 0)
     with pytest.raises(ValueError):
         kmeans(z, 17)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        kmeans(z, 4, mesh=object())
+    # a mesh whose collectives take another device type than z's
+    from types import SimpleNamespace
+    with pytest.raises(ValueError, match="collectives"):
+        kmeans(z, 4, mesh=SimpleNamespace(device_type="cuda"))
 
 
 def test_ref_oracle_is_the_plain_version():

@@ -292,16 +292,23 @@ def test_missing_card_raises_and_unported_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CFEngine(r)
-    for bad in ("sharded", "ring", "pallas"):
-        with pytest.raises(NotImplementedError):
-            CFEngine(r, backend=bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="'kernel' backend"):
+        CFEngine(r, backend="pallas", device="cpu")
+    # the mesh backends build on the default one-rank mesh; the indexes
+    # get the engine's mesh and axis
+    for backend in ("sharded", "ring"):
+        eng = CFEngine(r, backend=backend, device="cpu",
+                       neighbor_mode="approx")
+        assert eng.mesh.size() == 1 and eng.mesh.device_type == "cpu"
+        assert eng.index.mesh is eng.mesh and eng.index.mesh_axis == "data"
     staged = CFEngine(r, neighbor_mode="approx", device="cpu",
                       index_cfg=IndexConfig(query_mode="staged"))
     assert staged.index._query_mode() == "staged"
+    assert staged.mesh is None and staged.index.mesh is None
     from repro_torch.index import ItemIndexConfig
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CFEngine(r, recommend_mode="approx", device="cpu",
-                 item_index_cfg=ItemIndexConfig(shortlist_mode="support"))
+    host = CFEngine(r, recommend_mode="approx", device="cpu",
+                    item_index_cfg=ItemIndexConfig(shortlist_mode="support"))
+    assert host.item_index._shortlist_mode() == "support"
     assert CFEngine(r, recommend_mode="approx", device="cpu"
                     ).item_index is not None
     with pytest.raises(ValueError):

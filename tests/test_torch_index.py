@@ -376,8 +376,11 @@ def test_config_validation():
         ClusteredIndex(IndexConfig(query_mode="magic"))
     assert ClusteredIndex(IndexConfig(query_mode="staged")
                           )._query_mode() == "staged"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ClusteredIndex(IndexConfig(), mesh=object())
+    from types import SimpleNamespace
+    meshed = ClusteredIndex(IndexConfig(n_clusters=4),
+                            mesh=SimpleNamespace(device_type="cuda"))
+    with pytest.raises(ValueError, match="collectives"):
+        meshed.fit(rt, means)
     ix = ClusteredIndex(IndexConfig(n_clusters=4))
     with pytest.raises(RuntimeError):
         ix.query(rt, means, k=3)

@@ -443,13 +443,21 @@ def test_validation():
         CFEngine(r, recommend_mode="sparse", device="cpu")
     with pytest.raises(ValueError, match="shortlist_mode"):
         ItemClusteredIndex(ItemIndexConfig(shortlist_mode="psychic"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ItemClusteredIndex(ItemIndexConfig(shortlist_mode="support"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CFEngine(r, recommend_mode="approx", device="cpu",
-                 item_index_cfg=ItemIndexConfig(shortlist_mode="support"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ItemClusteredIndex(ItemIndexConfig(), mesh=object())
+    assert ItemClusteredIndex(ItemIndexConfig(shortlist_mode="support")
+                              )._shortlist_mode() == "support"
+    host = CFEngine(r, k=3, block_size=8, recommend_mode="approx",
+                    device="cpu", item_index_cfg=ItemIndexConfig(
+                        n_clusters=3, shortlist=4, shortlist_mode="support"))
+    host.fit()
+    assert host.item_index._support_cache is not None   # pre-warmed
+    s, i = host.recommend(n=3)
+    assert torch.equal(i, host.recommend(n=3, mode="exact")[1])
+    # a mesh on another device type than the ratings is refused at fit
+    from types import SimpleNamespace
+    meshed = ItemClusteredIndex(ItemIndexConfig(n_clusters=3),
+                                mesh=SimpleNamespace(device_type="cuda"))
+    with pytest.raises(ValueError, match="collectives"):
+        meshed.fit(torch.from_numpy(r))
     with pytest.raises(ValueError):
         ItemClusteredIndex(ItemIndexConfig(features="whitened"))
     eng = CFEngine(r, k=3, block_size=8, device="cpu").fit()

@@ -264,11 +264,21 @@ def test_unported_paths_raise():
     from repro_torch.models import dlrm
     params = dlrm.init_params(cfg, gen)
     ids = torch.zeros((2, cfg.n_sparse), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        temb.sharded_lookup(cfg.layout(), params["tables"], ids,
-                            mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        temb._bucketed_exchange_lookup()
+    # the sharded lookup is ported: on the default one-rank mesh it equals
+    # the mesh=None lookup bit for bit, and it refuses a wrong-size block
+    from repro_torch.core.engine import default_mesh
+    mesh = default_mesh("cpu")
+    layout = cfg.layout()
+    ids = torch.from_numpy(np.stack(
+        [np.random.default_rng(f).integers(0, s, 8)
+         for f, s in enumerate(cfg.field_sizes)], axis=1))
+    assert torch.equal(
+        temb.sharded_lookup(layout, params["tables"], ids, mesh=mesh),
+        temb.sharded_lookup(layout, params["tables"], ids))
+    half = dict(params["tables"], sharded=params["tables"]["sharded"][:1])
+    assert layout.sharded_fields
+    with pytest.raises(ValueError, match="block"):
+        temb.sharded_lookup(layout, half, ids, mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 11"):
         build_step(arch, arch.cell("train_batch"))
     with pytest.raises(NotImplementedError, match="BERT4Rec"):
