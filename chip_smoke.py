@@ -212,7 +212,26 @@ runs:
     ``sharded_lookup(mesh=)`` == ``mesh=None``, and the sharded engine's
     state restored onto the CUDA mesh as DTensors whose ``full_tensor()``
     equals the numpy restore; each path's walls, and its launch counts
-    (zeroed before, read after; added to the kernel line's counts).
+    (zeroed before, read after; added to the kernel line's counts);
+21. the paper's pipeline through the legacy path, each step's launch
+    counts zeroed before it and read after it (added to the kernel
+    line's): ``UserCF(CFConfig(pcc, k 40))`` on the sequential engine at
+    6040 × 3952 (the fit on kernel 1, every launch "imma", bit for bit
+    ``CFEngine(backend="kernel")``; ``predict`` one kernel-2 launch on
+    "int8", bit for bit the plain blocked predict; ``evaluate``); the
+    paper's Figs. 3-6 (``BENCH_topk.json``: 1024 × 768, seed 0, jaccard /
+    cosine / pcc × top-N 5 / 10 / 20 / 40 / 80) with precision, recall,
+    F1 and MAE within 1e-6 of the file; the legacy ``BatchingServer(cf,
+    ratings)`` answering 512 requests through kernel 2, ids equal to the
+    facade server's; ``UserCF`` on the sharded and ring engines over the
+    one-rank NCCL mesh, bit for bit the sequential engine; Slope One's
+    deviations on the card bit for bit the CPU's and
+    ``sharded_deviation``'s, its prediction within 2e-6 of the CPU's
+    (384 × 300), its MAE; ``cf_movielens``'s ``fit_ml1m`` step (the ring
+    engine, the surrogate padded with 104 zero users to 6144) bit for bit
+    ``UserCF``'s sequential fit and its ``cf_predict`` step within 1e-5
+    of ``UserCF.predict``; the plans of ``fit_1m_users`` and
+    ``predict_bulk`` (256 GiB of f32 ratings) built, not run.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels.
@@ -3019,6 +3038,272 @@ def phase_sharded(dev, train):
     return out
 
 
+# BENCH_topk.json: the paper's Figs. 3-6 sweep (benchmarks/run.py: the
+# ML-1M surrogate cut to 1024 x 768, seed 0, UserCF at block 256)
+TOPK_FIG_SIZE = (1024, 768)
+TOPK_FIG_MEASURES = ("jaccard", "cosine", "pcc")
+TOPK_FIG_NS = (5, 10, 20, 40, 80)
+# the cells of configs/cf_movielens.py that one card cannot hold: their
+# f32 ratings alone are 1048576 x 65536 x 4 bytes = 256 GiB
+CF_UNRUN_CELLS = ("fit_1m_users", "predict_bulk")
+
+
+def phase_legacy(dev, train, test):
+    """Phase 21: the paper's pipeline through the legacy path.  Each step
+    zeroes the kernel launch counts before it and reads them after:
+
+    1. ``UserCF(CFConfig(pcc, k 40))`` on the sequential engine at 6040 ×
+       3952: the fit on kernel 1 ("imma"), bit for bit the facade's
+       kernel fit; ``predict`` one kernel-2 launch ("int8") bit for bit
+       the plain blocked predict on the card; ``evaluate``;
+    2. the paper's Figs. 3-6 at ``BENCH_topk.json``'s size: 15 fits and
+       evaluations held to the file (precision, recall, F1 and MAE within
+       1e-6);
+    3. the legacy ``BatchingServer(cf, ratings)``: 512 requests through
+       kernel 2, ids equal to the facade server's;
+    4. ``UserCF`` on the sharded and ring engines over the one-rank NCCL
+       mesh: fits bit for bit the sequential one, kernels 1 and 2;
+    5. Slope One: the deviations on the card bit for bit the CPU's at
+       full size and through ``sharded_deviation``; ``predict`` within
+       2e-6 of the CPU on a small input; ``evaluate``;
+    6. ``cf_movielens``'s ``fit_ml1m`` through ``build_step`` (the ring
+       engine, the users padded to 6144 with zero rows) bit for bit
+       ``UserCF``'s sequential fit; its ``cf_predict`` step within 1e-5
+       of ``UserCF.predict``; the plans of the two cells one card cannot
+       hold, built and not run."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import engine as E
+    from repro_torch.core import predict as pr
+    from repro_torch.core import slope_one as so
+    from repro_torch.core.cf_model import CFConfig, UserCF
+    from repro_torch.core.facade import CFEngine
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.kernels.predict import fused_tile_predict
+    from repro_torch.kernels.similarity import fused_similarity
+    from repro_torch.launch.steps import build_step
+    from repro_torch.serving.engine import BatchingServer
+
+    out = {"walls": {}, "launches": {}}
+    wrappers = all_wrappers()
+    train_t = torch.from_numpy(train).to(dev)
+    test_t = torch.from_numpy(test).to(dev)
+
+    def counted(step, fn):
+        """``fn()`` with every count zeroed before and read after; the
+        similarity and tile-predict counts (and routes) are kept."""
+        zero_counts()
+        fused_similarity.routes = dict.fromkeys(fused_similarity.routes, 0)
+        fused_tile_predict.routes = dict.fromkeys(fused_tile_predict.routes,
+                                                  0)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["walls"][step] = time.perf_counter() - t0
+        la = {n: f.launches for n, f in wrappers.items() if f.launches}
+        la["similarity_routes"] = {k: v for k, v in
+                                   fused_similarity.routes.items() if v}
+        la["predict_routes"] = {k: v for k, v in
+                                fused_tile_predict.routes.items() if v}
+        out["launches"][step] = la
+        return res, la
+
+    def on_routes(la, what, sim=True, pred=True):
+        if sim:
+            check(la.get("similarity", 0) > 0
+                  and la["similarity_routes"] == {
+                      "imma": la["similarity"]},
+                  f"{what}: kernel 1 launched, every launch on imma ({la})")
+        if pred:
+            check(la.get("predict", 0) > 0
+                  and la["predict_routes"] == {"int8": la["predict"]},
+                  f"{what}: kernel 2 launched, every launch on int8 ({la})")
+
+    # 1. the sequential engine at the paper's size
+    cf = UserCF(CFConfig(measure="pcc", top_k=40), device=dev)
+    st, la = counted("sequential fit", lambda: cf.fit(train_t))
+    on_routes(la, "UserCF sequential fit", pred=False)
+    check(set(la) == {"similarity", "similarity_routes", "predict_routes"},
+          f"the fit launches kernel 1 only ({la})")
+    out["fit_s"] = st.fit_seconds
+    out["fit_warm_s"] = cf.fit(train_t).fit_seconds
+    st = cf.state
+    ref = CFEngine(train, measure="pcc", k=40, backend="kernel", device=dev)
+    ref.fit()
+    check(torch.equal(st.idx, ref.idx) and torch.equal(st.scores,
+                                                       ref.scores),
+          "UserCF sequential fit == CFEngine(backend='kernel') fit, ids and "
+          "scores bit for bit")
+    pred, la = counted("predict", lambda: cf.predict(train_t))
+    on_routes(la, "UserCF predict", sim=False)
+    check(la.get("predict") == 1, f"predict is one kernel-2 launch ({la})")
+    plain = pr.predict_from_neighbors_blocked(
+        train_t, st.scores, st.idx, means=st.means,
+        gather_src=pr.make_gather_source(train_t), use_kernel=False)
+    check(torch.equal(pred.view(torch.int32), plain.view(torch.int32)),
+          "UserCF predict == the plain blocked predict, bit for bit")
+    del plain
+    ev, la = counted("evaluate", lambda: cf.evaluate(train_t, test_t))
+    on_routes(la, "UserCF evaluate", sim=False)
+    out["evaluate"] = ev
+    check(0.3 < ev["mae"] < 1.5 and all(math.isfinite(v)
+                                        for v in ev.values()),
+          f"evaluate: finite, MAE in range ({ev})")
+
+    # 2. the paper's Figs. 3-6 against BENCH_topk.json
+    with open(os.path.join(ROOT, "BENCH_topk.json")) as f:
+        want = {row["name"]: row for row in json.load(f)}
+    ftr, fte, _ = load_ml1m_synthetic(n_users=TOPK_FIG_SIZE[0],
+                                      n_items=TOPK_FIG_SIZE[1], seed=0)
+    ftr, fte = torch.from_numpy(ftr).to(dev), torch.from_numpy(fte).to(dev)
+
+    def sweep():
+        rows = {}
+        for measure in TOPK_FIG_MEASURES:
+            for k in TOPK_FIG_NS:
+                m = UserCF(CFConfig(measure=measure, top_k=k,
+                                    block_size=256), device=dev)
+                m.fit(ftr)
+                rows[f"topn_{measure}_k{k}"] = m.evaluate(ftr, fte)
+        return rows
+    rows, la = counted("figs 3-6 sweep", sweep)
+    on_routes(la, "the Figs. 3-6 sweep")
+    fig_err = {key: 0.0 for key in ("mae", "precision", "recall", "f1")}
+    for name, got in rows.items():
+        for key in fig_err:
+            fig_err[key] = max(fig_err[key], abs(got[key] - want[name][key]))
+    out["figs"] = {name: {key: rows[name][key] for key in fig_err}
+                   for name in rows}
+    out["figs_err"] = fig_err
+    check(len(rows) == 15 and max(fig_err.values()) <= TOL,
+          f"Figs. 3-6 against BENCH_topk.json: max |diff| {fig_err} "
+          f"(tolerance {TOL})")
+    del ftr, fte
+
+    # 3. the legacy server against the facade server
+    req = np.random.default_rng(0).integers(0, train.shape[0], 512)
+
+    def serve(server):
+        server.start()
+        t0 = time.perf_counter()
+        futs = [server.submit(int(u)) for u in req]
+        res = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        server.stop()
+        st_ = server.stats()
+        check(len(res) == 512 and st_["n_failures"] == 0,
+              "every served future resolves")
+        return res, {"req_per_s": 512 / wall,
+                     "p50_ms": st_["latency_p50_ms"],
+                     "p99_ms": st_["latency_p99_ms"],
+                     "batches": st_["n_batches"]}
+    (legacy, out["legacy_serving"]), la = counted(
+        "legacy server", lambda: serve(BatchingServer(
+            cf, train_t, max_batch=32, topn=10, device=dev)))
+    on_routes(la, "the legacy server", sim=False)
+    facade, out["facade_serving"] = serve(BatchingServer(
+        ref, max_batch=32, topn=10, device=dev))
+    check(all(a.user == b.user and np.array_equal(a.items, b.items)
+              for a, b in zip(legacy, facade)),
+          "legacy server ids == facade server ids, every request")
+    want_rec = cf.recommend(train_t, n=10)[1][torch.as_tensor(
+        req, device=dev)]
+    check(all(np.array_equal(a.items, w) for a, w in
+              zip(legacy, want_rec.cpu().numpy())),
+          "legacy server ids == UserCF.recommend")
+    del ref, want_rec
+
+    # 4. the mesh engines on the one-rank NCCL mesh
+    mesh = E.default_mesh(dev)
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+          "a one-rank NCCL mesh")
+    for engine in ("sharded", "ring"):
+        mcf = UserCF(CFConfig(measure="pcc", top_k=40, engine=engine),
+                     mesh, device=dev)
+        (mst, mpred), la = counted(
+            f"{engine} fit + predict",
+            lambda: (mcf.fit(train_t), mcf.predict(train_t)))
+        on_routes(la, f"UserCF {engine}")
+        check(torch.equal(mst.idx, st.idx) and torch.equal(mst.scores,
+                                                           st.scores),
+              f"UserCF {engine} fit == sequential, bit for bit")
+        check(torch.equal(mpred.view(torch.int32), pred.view(torch.int32)),
+              f"UserCF {engine} predict (sharded_predict) == sequential")
+        out[f"{engine}_fit_s"] = mst.fit_seconds
+    del pred, mpred
+
+    # 5. Slope One
+    (dev_c, cnt_c), la = counted("slope one deviation",
+                                 lambda: so.deviation_matrix(train_t))
+    dev_h, cnt_h = so.deviation_matrix(torch.from_numpy(train))
+    check(torch.equal(dev_c.cpu(), dev_h) and torch.equal(cnt_c.cpu(),
+                                                          cnt_h),
+          "Slope One deviation_matrix: card == CPU, bit for bit, at full "
+          "size")
+    sd, sc = so.sharded_deviation(train_t, mesh)
+    check(torch.equal(sd, dev_c) and torch.equal(sc, cnt_c),
+          "sharded_deviation on the mesh == deviation_matrix")
+    del dev_h, cnt_h, sd, sc, dev_c, cnt_c
+    small, small_te, _ = load_ml1m_synthetic(n_users=384, n_items=300,
+                                             seed=0)
+    cpu_m = so.SlopeOne(device="cpu").fit(small)
+    card_m = so.SlopeOne(device=dev).fit(small)
+    out["slope_small_err"] = max_diff(card_m.predict(small).cpu(),
+                                      cpu_m.predict(small))
+    check(out["slope_small_err"] <= 2e-6,
+          f"Slope One predict card vs CPU {out['slope_small_err']}")
+    t0 = time.perf_counter()
+    slope = so.SlopeOne(device=dev).fit(train_t)
+    out["slope_eval"] = slope.evaluate(train_t, test_t)
+    torch.cuda.synchronize()
+    out["slope_s"] = time.perf_counter() - t0
+    check(0.3 < out["slope_eval"]["mae"] < 1.5,
+          f"Slope One MAE {out['slope_eval']}")
+    del slope, cpu_m, card_m
+
+    # 6. the cf_movielens steps
+    arch = get_arch("cf_movielens")
+    cell = arch.cell("fit_ml1m")
+    users, items = cell.dims["users"], cell.dims["items"]
+    check(items == train.shape[1] and users >= train.shape[0],
+          f"fit_ml1m {users} x {items} holds the surrogate")
+    padded = torch.cat([train_t, torch.zeros(
+        (users - train.shape[0], items), device=dev)])
+    (s, i), la = counted("cf_fit step", lambda: build_step(
+        arch, cell, mesh).fn({"ratings": padded}))
+    on_routes(la, "the cf_fit step (ring)", pred=False)
+    seq = UserCF(dataclasses.replace(arch.config, engine="sequential"),
+                 device=dev)
+    pst = seq.fit(padded)
+    check(torch.equal(i, pst.idx) and torch.equal(s, pst.scores),
+          f"cf_fit step at {users} x {items} == UserCF sequential, bit for "
+          f"bit")
+    step_pred, la = counted("cf_predict step", lambda: build_step(
+        arch, arch.cell("predict_bulk"), mesh).fn({"ratings": padded}, s, i))
+    out["step_predict_err"] = max_diff(step_pred, seq.predict(padded))
+    check(out["step_predict_err"] <= 1e-5,
+          f"cf_predict step vs UserCF.predict {out['step_predict_err']}")
+    out["step_shape"] = f"{users} x {items} ({users - train.shape[0]} zero " \
+                        f"users padded)"
+    out["unrun"] = {}
+    for name in CF_UNRUN_CELLS:
+        plan = build_step(arch, arch.cell(name), mesh)
+        spec = plan.example_args["ratings"]
+        gib = math.prod(spec.shape) * 4 / 2**30
+        out["unrun"][name] = (f"{plan.name}: {dict(plan.example_args)}; "
+                              f"not run (f32 ratings {gib:.0f} GiB)")
+    del padded, s, i, step_pred, seq, pst
+    la = out["launches"]
+    out["kernel_launches"] = {
+        "fused_similarity": sum(v.get("similarity", 0) for v in la.values()),
+        "fused_tile_predict": sum(v.get("predict", 0) for v in la.values())}
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3400,6 +3685,49 @@ def main() -> int:
         f"restored onto the mesh bit for bit")
     for k in kernels:
         k["launches"] += sh["kernel_launches"].get(k["name"], 0)
+
+    log("[21] the paper's pipeline through the legacy path: UserCF "
+        "(sequential, sharded, ring), the Figs. 3-6 sweep, the legacy "
+        "server, Slope One, the cf_movielens steps")
+    lg = phase_legacy(dev, train, test)
+    ev = lg["evaluate"]
+    log(f"    UserCF sequential fit at {train.shape[0]}x{train.shape[1]}: "
+        f"{lg['fit_s']:.4f}s (first), {lg['fit_warm_s']:.4f}s (again) on "
+        f"{card}; == CFEngine(kernel) bit for bit; predict == plain "
+        f"blocked predict bit for bit")
+    log("    evaluate: " + ", ".join(f"{k} {ev[k]!r}" for k in (
+        "mae", "rmse", "precision", "recall", "f1", "top10_precision",
+        "top10_recall", "top10_f1")))
+    log(f"    Figs. 3-6 vs BENCH_topk.json ({TOPK_FIG_SIZE[0]}x"
+        f"{TOPK_FIG_SIZE[1]}, 15 fits): max |diff| {lg['figs_err']} "
+        f"(tolerance {TOL})")
+    for name, row in lg["figs"].items():
+        log(f"      {name}: " + ", ".join(f"{k} {v!r}"
+                                         for k, v in row.items()))
+    for name in ("legacy", "facade"):
+        sv = lg[f"{name}_serving"]
+        log(f"    {name} server: 512 requests, {sv['req_per_s']:.1f} req/s, "
+            f"p50 {sv['p50_ms']:.2f} ms, p99 {sv['p99_ms']:.2f} ms, "
+            f"{sv['batches']} batches")
+    log(f"    legacy ids == facade ids == UserCF.recommend; sharded fit "
+        f"{lg['sharded_fit_s']:.4f}s, ring fit {lg['ring_fit_s']:.4f}s, "
+        f"both == sequential bit for bit")
+    log(f"    Slope One: deviations card == CPU == sharded bit for bit at "
+        f"{train.shape[0]}x{train.shape[1]}; predict card vs CPU (384x300) "
+        f"{lg['slope_small_err']!r}; fit + evaluate {lg['slope_s']:.4f}s: "
+        f"MAE {lg['slope_eval']['mae']!r}, RMSE {lg['slope_eval']['rmse']!r}"
+        f", precision {lg['slope_eval']['precision']!r}, recall "
+        f"{lg['slope_eval']['recall']!r}")
+    log(f"    cf_movielens fit_ml1m at {lg['step_shape']}: ring step == "
+        f"UserCF sequential bit for bit; cf_predict step vs UserCF.predict "
+        f"{lg['step_predict_err']!r} (tolerance 1e-5)")
+    for name, line in lg["unrun"].items():
+        log(f"    reduced: {name} plan only — {line}")
+    log("    walls (s): " + "; ".join(f"{k} {v:.4f}"
+                                      for k, v in lg["walls"].items()))
+    log(f"    launches: {lg['launches']}")
+    for k in kernels:
+        k["launches"] += lg["kernel_launches"].get(k["name"], 0)
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

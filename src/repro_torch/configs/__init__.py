@@ -1,7 +1,8 @@
 """Per-architecture configs of the port (the reference's published
 numbers) and the shape registry."""
 
-from repro_torch.configs.registry import (ArchSpec, ShapeCell, TensorSpec,
-                                          get_arch, input_specs)
+from repro_torch.configs.registry import (ASSIGNED, ArchSpec, ShapeCell,
+                                          TensorSpec, get_arch, input_specs)
 
-__all__ = ["ArchSpec", "ShapeCell", "TensorSpec", "get_arch", "input_specs"]
+__all__ = ["ASSIGNED", "ArchSpec", "ShapeCell", "TensorSpec", "get_arch",
+           "input_specs"]

@@ -4,11 +4,13 @@ reference's fields, the LM and recsys shape sets, and ``input_specs`` as
 shapes.
 
 Ported: the dense LM configs (``llama3_2_1b``, ``codeqwen1_5_7b``,
-``qwen1_5_110b``) and the recsys CTR configs (``dlrm_mlperf``, ``fm``,
-``xdeepfm``); the other families, BERT4Rec and the MoE / MLA LMs raise
+``qwen1_5_110b``), the recsys CTR configs (``dlrm_mlperf``, ``fm``,
+``xdeepfm``) and the paper's CF config (``cf_movielens``, with the CF
+shape set); the GNN family, BERT4Rec and the MoE / MLA LMs raise
 ``NotImplementedError`` naming their ROADMAP item.  ``input_specs`` gives
 ``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
-``jax.ShapeDtypeStruct``s: nothing is allocated.
+``jax.ShapeDtypeStruct``s: nothing is allocated.  ``ASSIGNED`` names the
+reference's 40-cell pool (``cf_movielens`` is extra).
 """
 
 from __future__ import annotations
@@ -74,13 +76,23 @@ RECSYS_SHAPES = (
 )
 
 
+CF_SHAPES = (
+    ShapeCell("fit_ml1m", "cf_fit", {"users": 6144, "items": 3952}),
+    ShapeCell("fit_1m_users", "cf_fit", {"users": 1048576, "items": 65536}),
+    ShapeCell("predict_bulk", "cf_predict",
+              {"users": 1048576, "items": 65536}),
+)
+
+
 def input_specs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
-    """Model inputs of ``cell`` as ``TensorSpec``s (the LM and recsys
+    """Model inputs of ``cell`` as ``TensorSpec``s (the LM, recsys and CF
     families)."""
     if arch.kind == "lm":
         return _lm_inputs(arch.config, cell)
     if arch.kind == "recsys":
         return _recsys_inputs(arch, cell)
+    if arch.kind == "cf":
+        return _cf_inputs(arch.config, cell)
     raise NotImplementedError(
         f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
         f"11: side workloads)")
@@ -121,15 +133,26 @@ def _recsys_inputs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
     return base
 
 
+def _cf_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    """The (users, items) f32 rating matrix (reference ``registry.py:180``)."""
+    u, i = cell.dims["users"], cell.dims["items"]
+    return {"ratings": TensorSpec((u, i), torch.float32)}
+
+
+# the reference's 40-cell pool (its ``_ARCH_MODULES[:10]``); cf_movielens
+# is extra
+ASSIGNED = (
+    "qwen1_5_110b", "llama3_2_1b", "codeqwen1_5_7b", "qwen3_moe_30b_a3b",
+    "deepseek_v2_236b", "egnn", "dlrm_mlperf", "fm", "xdeepfm", "bert4rec",
+)
+
 _PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b", "dlrm_mlperf",
-           "fm", "xdeepfm")
+           "fm", "xdeepfm", "cf_movielens")
 _WAITING = {
     "qwen3_moe_30b_a3b": "MoE (ROADMAP Queue 1 item 11)",
     "deepseek_v2_236b": "MoE + MLA (ROADMAP Queue 1 item 11)",
     "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
     "bert4rec": "BERT4Rec (ROADMAP Queue 1 item 11)",
-    "cf_movielens": "the CF config (ROADMAP Queue 1 item 10; the engine "
-                    "itself is repro_torch.core.facade.CFEngine)",
 }
 
 

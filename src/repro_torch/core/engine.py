@@ -31,9 +31,11 @@ The running top-k merge is ``merge_topk``'s canonical order (descending
 score, lower id on ties), so the order in which candidate blocks arrive
 cannot change a result: both top-k engines equal the sequential engine
 bit for bit.  On CUDA tensors each rank's query block × candidate block
-goes through the fused similarity kernel, exactly as the facade's kernel
-fit does (the int8 operand with its ``max_value`` bound, the self pair
-knocked out by global ids, the rows-past-bound count read once), and
+goes through the fused similarity kernel: ``sharded_topk`` calls
+:func:`kernel_topk`, the one kernel fit that the facade's ``kernel``
+backend and ``UserCF``'s ``sequential`` engine call too (the int8
+operand with its ``max_value`` bound, the self pair knocked out by global
+ids, the rows-past-bound count read once), and
 ``sharded_predict`` through the tile-predict kernel; CPU ranks run the
 plain ``block_topk`` and the plain item tiles.
 
@@ -112,6 +114,30 @@ def check_bad(n_bad, max_value) -> None:
         raise ValueError(f"ratings past the fit's max_value {max_value}")
 
 
+def kernel_topk(ratings: torch.Tensor, k: int, *, measure: str,
+                block_size: int, beta=None, gather_src=None, q0: int = 0,
+                n_query: int | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact top-k of the query users ``[q0, q0 + n_query)`` (default:
+    every user) over all users, every candidate block of ``block_size``
+    scored by the fused similarity kernel: on its int8 route when
+    ``gather_src`` (default :func:`make_gather_source` of ``ratings``) is
+    int8 inside the exact domain, else on its f32 route.  Rows past the
+    operand's ``max_value`` are counted on the device and read once, after
+    the last launch, so no launch waits for the one before."""
+    if gather_src is None:
+        gather_src = pred_mod.make_gather_source(ratings)
+    src, max_value = _similarity_operand(ratings, gather_src)
+    n_query = src.shape[0] - q0 if n_query is None else n_query
+    n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
+    best = kernel_block_topk(src[q0:q0 + n_query], src, k, measure=measure,
+                             q_offset=q0, cand_offset=0,
+                             block_size=block_size, beta=beta,
+                             max_value=max_value, n_bad=n_bad)
+    check_bad(n_bad, max_value)
+    return best
+
+
 def mesh_axis(mesh, axis: str, x: torch.Tensor):
     """(group, this rank's index on ``axis``, the axis size) — with the
     device check every collective on ``x``'s device relies on."""
@@ -184,14 +210,8 @@ def sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,
     q0 = me * shard
     bs = min(block_size, n_users)
     if ratings.is_cuda:
-        src, max_value = _similarity_operand(
-            ratings, pred_mod.make_gather_source(ratings))
-        n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
-        s, i = kernel_block_topk(src[q0:q0 + shard], src, k,
-                                 measure=measure, q_offset=q0,
-                                 cand_offset=0, block_size=bs, beta=beta,
-                                 max_value=max_value, n_bad=n_bad)
-        check_bad(n_bad, max_value)
+        s, i = kernel_topk(ratings, k, measure=measure, block_size=bs,
+                           beta=beta, q0=q0, n_query=shard)
     else:
         s, i = nb.block_topk(ratings[q0:q0 + shard], ratings, k,
                              measure=measure, q_offset=q0, block_size=bs,

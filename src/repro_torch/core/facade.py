@@ -11,7 +11,8 @@ with one of four backends:
   backend, each candidate block scored by the hand-written CUDA
   similarity kernel — on its int8 tensor-core route when the matrix
   round-trips through int8 inside the route's exact domain
-  (:func:`_similarity_operand`), on its f32 route otherwise;
+  (:func:`repro_torch.core.engine.kernel_topk`, which ``sharded_topk``
+  and ``UserCF`` call too), on its f32 route otherwise;
   ``recommend`` and the serving batch predictor predict each user block
   through the CUDA tile-predict kernel, one launch over every item;
 * ``sharded``    — query users sharded over a mesh axis
@@ -75,7 +76,6 @@ from repro_torch.core import engine as dist_engine
 from repro_torch.core import neighbors as nb
 from repro_torch.core import predict as pred_mod
 from repro_torch.core import similarity as sim
-from repro_torch.core.engine import _similarity_operand
 from repro_torch.device import resolve_device
 from repro_torch.kernels import similarity as ksim  # noqa: F401
 from repro_torch.state import from_reference_state
@@ -392,18 +392,12 @@ class CFEngine:
     def _kernel_topk(self, ratings) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streaming top-k over candidate blocks scored by the fused
         similarity kernel (the counterpart of the reference's
-        ``_pallas_topk``)."""
-        src, max_value = _similarity_operand(ratings,
-                                             self._gather_source(ratings))
-        # rows past max_value, counted on the device; read once, after
-        # the last launch, so no launch waits for the one before
-        n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
-        best = dist_engine.kernel_block_topk(
-            src, src, self.k, measure=self.measure, q_offset=0,
-            cand_offset=0, block_size=min(self.block_size, src.shape[0]),
-            beta=self.pcc_sig_beta, max_value=max_value, n_bad=n_bad)
-        dist_engine.check_bad(n_bad, max_value)
-        return best
+        ``_pallas_topk``), on the engine's cached gather source."""
+        return dist_engine.kernel_topk(
+            ratings, self.k, measure=self.measure,
+            block_size=min(self.block_size, ratings.shape[0]),
+            beta=self.pcc_sig_beta,
+            gather_src=self._gather_source(ratings))
 
     def _obs_update(self, stats: UpdateStats) -> UpdateStats:
         """Publish one ``update_ratings`` outcome to the registry."""

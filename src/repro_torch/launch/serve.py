@@ -1,14 +1,22 @@
-"""Serving launcher of the port: fit the CF engine and serve batched
+"""Serving launcher of the port: fit the CF model and serve batched
 recommendations on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 128
-    PYTHONPATH=src python -m repro_torch.launch.serve --backend sequential
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --users 256 --items 128            # the plain CPU path
-    PYTHONPATH=src python -m repro_torch.launch.serve --recommend-mode approx
-    PYTHONPATH=src python -m repro_torch.launch.serve --backend sharded
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine facade
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine facade \\
+        --recommend-mode approx            # two-stage item-index serving
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine facade \\
+        --backend sharded
 
-``--backend kernel`` (default) fits with the CUDA similarity kernel and
+``--engine legacy`` (default, as in the reference) fits the paper's
+``UserCF(CFConfig(measure, top_k=40, block_size=256))`` (its sequential
+engine: the CUDA similarity kernel) and serves it through the legacy
+``BatchingServer(cf_model, ratings)`` form (the CUDA tile-predict kernel).
+``--engine facade`` fits a ``CFEngine`` and takes ``--backend`` and
+``--recommend-mode``, which apply to it only: ``--backend kernel``
+(default) fits with the CUDA similarity kernel and
 serves through the CUDA tile-predict kernel; ``--backend sharded`` /
 ``ring`` fit through the mesh engines (``repro_torch.core.engine``) on the
 default mesh — a one-rank NCCL group on the card (gloo with ``--device
@@ -30,8 +38,10 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import obs
+from repro_torch.core.cf_model import CFConfig, UserCF
 from repro_torch.core.facade import BACKENDS, CFEngine
 from repro_torch.core.similarity import SIMILARITY_MEASURES
 from repro_torch.data import load_ml1m_synthetic
@@ -64,15 +74,18 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=128)
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--topn", type=int, default=10)
-    ap.add_argument("--engine", choices=("facade",), default="facade",
-                    help="the CFEngine facade (the reference's legacy "
-                         "UserCF form is not ported)")
-    ap.add_argument("--backend", choices=BACKENDS, default="kernel")
+    ap.add_argument("--engine", choices=("legacy", "facade"),
+                    default="legacy",
+                    help="legacy: UserCF + BatchingServer(cf_model, "
+                         "ratings); facade: CFEngine")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="facade engine only (default kernel)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--measure", default="pcc", choices=SIMILARITY_MEASURES)
     ap.add_argument("--recommend-mode", choices=("exact", "approx"),
-                    default="exact",
-                    help="approx serves through the two-stage item index")
+                    default=None,
+                    help="facade engine only (default exact): approx "
+                         "serves through the two-stage item index")
     ap.add_argument("--stats-interval", type=float, default=0.0,
                     help="seconds between periodic stats() log lines "
                          "(0 disables)")
@@ -93,19 +106,13 @@ def main(argv=None):
     ap.add_argument("--max-restarts", type=int, default=3,
                     help="retry budget per faulted batch")
     args = ap.parse_args(argv)
+    if args.engine == "legacy" and (args.backend or args.recommend_mode):
+        ap.error("--backend and --recommend-mode apply to --engine facade "
+                 "only")
 
-    train, _, _ = load_ml1m_synthetic(n_users=args.users,
-                                      n_items=args.items)
-    engine = CFEngine(train, measure=args.measure, k=40, block_size=256,
-                      backend=args.backend,
-                      recommend_mode=args.recommend_mode,
-                      device=args.device).fit()
-    print(f"fit {engine.n_users}x{engine.n_items} backend={args.backend} "
-          f"recommend_mode={args.recommend_mode} device={engine.device} "
-          f"in {engine.fit_seconds:.3f}s")
-    server = BatchingServer(
-        engine, max_batch=args.max_batch, topn=args.topn,
-        registry=obs.registry(), max_queue=args.max_queue,
+    ft_kw = dict(
+        max_batch=args.max_batch, topn=args.topn, registry=obs.registry(),
+        max_queue=args.max_queue,
         recovery=RecoveryPolicy(max_restarts=args.max_restarts),
         fault_injector=(FaultInjector(fail_at_steps=(args.chaos_at_batch,))
                         if args.chaos_at_batch > 0 else None),
@@ -113,6 +120,26 @@ def main(argv=None):
                                   shed_p99_ms=args.shed_p99_ms)
                 if args.ladder else None),
         device=args.device)
+    train, _, _ = load_ml1m_synthetic(n_users=args.users,
+                                      n_items=args.items)
+    if args.engine == "facade":
+        backend = args.backend or "kernel"
+        mode = args.recommend_mode or "exact"
+        engine = CFEngine(train, measure=args.measure, k=40, block_size=256,
+                          backend=backend, recommend_mode=mode,
+                          device=args.device).fit()
+        print(f"fit {engine.n_users}x{engine.n_items} engine=facade "
+              f"backend={backend} recommend_mode={mode} "
+              f"device={engine.device} in {engine.fit_seconds:.3f}s")
+        server = BatchingServer(engine, **ft_kw)
+    else:
+        cf = UserCF(CFConfig(measure=args.measure, top_k=40,
+                             block_size=256), device=args.device)
+        ratings = torch.from_numpy(train).to(cf.device)
+        st = cf.fit(ratings)
+        print(f"fit {train.shape[0]}x{train.shape[1]} engine=legacy "
+              f"device={cf.device} in {st.fit_seconds:.3f}s")
+        server = BatchingServer(cf, ratings, **ft_kw)
     server.start()
 
     stop_log = threading.Event()
@@ -125,7 +152,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     deadline = args.deadline_ms if args.deadline_ms > 0 else None
     futs, shed = [], 0
-    for u in np.random.default_rng(0).integers(0, engine.n_users,
+    for u in np.random.default_rng(0).integers(0, train.shape[0],
                                                args.requests):
         try:
             futs.append(server.submit(int(u), deadline_ms=deadline))

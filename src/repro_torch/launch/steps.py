@@ -1,16 +1,20 @@
 """Step builders of the port (counterpart of ``repro.launch.steps``):
-(arch × shape cell) → a ``StepPlan`` with the step function and its
-example input shapes.
+(arch × shape cell [× mesh]) → a ``StepPlan`` with the step function and
+its example input shapes.
 
 The LM serving steps of the reference's ``_lm_step`` (``steps.py:59``:
 prefill at :115, decode at :128) and the recsys CTR steps of its
 ``_recsys_step`` (``steps.py:199``: serve at :236, retrieval at :250)
-without a mesh: the port runs at world size 1, so there are no shardings
-to state.  The step functions take the model
+without a mesh: the port runs them at world size 1, so there are no
+shardings to state.  The step functions take the model
 (``repro_torch.models.transformer.Transformer``, ``models.dlrm.DLRM``,
 ``models.fm.FM``, ``models.xdeepfm.XDeepFM``) where the reference takes
-its parameter tree.  Training and the other families raise
-``NotImplementedError`` naming their ROADMAP item.
+its parameter tree.  The CF steps of ``_cf_step`` (``steps.py:265``) run
+the mesh engines of :mod:`repro_torch.core.engine` on ``torch.distributed``
+over the mesh given to ``build_step`` (None: the engine's
+``default_mesh`` on the batch's device), sharding over its first axis.
+Training and the other families raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict
 
-from repro_torch.configs.registry import ArchSpec, ShapeCell, input_specs
+import torch
+
+from repro_torch.configs.registry import (ArchSpec, ShapeCell, TensorSpec,
+                                          input_specs)
 
 
 @dataclasses.dataclass
@@ -28,14 +35,18 @@ class StepPlan:
     example_args: Dict[str, Any]     # input name → TensorSpec (or a tree)
 
 
-def build_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
+def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
+    """``mesh``: the ``DeviceMesh`` of the CF steps (the other families
+    run at world size 1 and do not read it)."""
     if arch.kind == "lm":
         return _lm_step(arch, cell)
     if arch.kind == "recsys":
         return _recsys_step(arch, cell)
+    if arch.kind == "cf":
+        return _cf_step(arch, cell, mesh)
     raise NotImplementedError(
         f"{arch.kind} steps are not ported yet (ROADMAP Queue 1 item 11: "
-        f"side workloads{'; CF: item 10' if arch.kind == 'cf' else ''})")
+        f"side workloads)")
 
 
 def _lm_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
@@ -75,4 +86,43 @@ def _recsys_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
             """Scores (N,) of ``batch["candidates"]`` for one context."""
             return model.retrieval_score(batch)
         return StepPlan(name=name, fn=step, example_args=inputs)
+    raise ValueError(cell.step)
+
+
+def _cf_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:
+    """The paper's own architecture on a one-axis mesh: ``cf_fit`` through
+    ``sharded_topk`` or ``ring_sharded_topk`` by ``config.engine`` (any
+    engine but ``"sharded"`` takes the ring, as in the reference),
+    ``cf_predict`` through ``ring_sharded_predict``."""
+    from repro_torch.core import engine as E
+    cfg = arch.config
+    inputs = input_specs(arch, cell)
+    name = f"{arch.name}:{cell.name}"
+
+    def mesh_of(ratings):
+        m = mesh if mesh is not None else E.default_mesh(ratings.device)
+        return m, m.mesh_dim_names[0]
+
+    if cell.step == "cf_fit":
+        fit_engine = E.sharded_topk if cfg.engine == "sharded" \
+            else E.ring_sharded_topk
+
+        def step(batch):
+            """(scores, ids), each (U, k), of ``batch["ratings"]``."""
+            m, axis = mesh_of(batch["ratings"])
+            return fit_engine(batch["ratings"], cfg.top_k, m,
+                              measure=cfg.measure, axis=axis,
+                              block_size=cfg.block_size)
+        return StepPlan(name=name, fn=step, example_args=inputs)
+    if cell.step == "cf_predict":
+        u, k = cell.dims["users"], cfg.top_k
+
+        def step(batch, scores, idx):
+            """(U, I) predictions from the fitted (U, k) neighbors."""
+            m, axis = mesh_of(batch["ratings"])
+            return E.ring_sharded_predict(batch["ratings"], scores, idx, m,
+                                          axis=axis)
+        return StepPlan(name=name, fn=step, example_args={
+            **inputs, "scores": TensorSpec((u, k), torch.float32),
+            "idx": TensorSpec((u, k), torch.int32)})
     raise ValueError(cell.step)

@@ -1,18 +1,23 @@
 """Batched serving tier for recommendation requests, supervised (port of
-``repro.serving.engine`` for the ``CFEngine`` facade).
+``repro.serving.engine``).
 
 Requests enqueue individually; a background batcher drains up to
 ``max_batch`` (or waits ``max_wait_ms``), pads user indices into a fixed
 batch, runs the predictor once, and resolves per-request futures with
-top-n items.  The server fronts a :class:`repro_torch.core.facade.CFEngine`:
-each batch reads the engine's atomically published snapshot, so an
-``update_ratings`` between batches is picked up by the very next batch.
-An engine built with ``backend="kernel"`` serves every item tile through
-the CUDA tile-predict kernel, exactly as its ``recommend`` does, so a
-served answer equals ``engine.recommend`` for that user.  An engine built
-with ``recommend_mode="approx"`` is served through ``engine.recommend``
-itself: the item index's two-stage path (support kernel → select kernel →
-exact rerank), updates landing between batches.
+top-n items.  The server fronts a :class:`repro_torch.core.facade.CFEngine`
+(``BatchingServer(engine)``): each batch reads the engine's atomically
+published snapshot, so an ``update_ratings`` between batches is picked up
+by the very next batch.  An engine built with ``backend="kernel"`` serves
+every item tile through the CUDA tile-predict kernel, exactly as its
+``recommend`` does, so a served answer equals ``engine.recommend`` for
+that user.  An engine built with ``recommend_mode="approx"`` is served
+through ``engine.recommend`` itself: the item index's two-stage path
+(support kernel → select kernel → exact rerank), updates landing between
+batches.  The legacy form ``BatchingServer(cf_model, ratings)`` fronts a
+fitted :class:`repro_torch.core.cf_model.UserCF` and its rating matrix
+as a static model: one snapshot, one gather source built at
+construction, every batch through the CUDA tile-predict kernel on the
+card (the plain item tiles on the CPU).
 
 **Failure model.**  Every batch runs isolated: an exception resolves that
 batch's futures with the error (``serve.failures``) and the batcher
@@ -45,8 +50,7 @@ choice back to the index's config.
 Telemetry goes through a :class:`repro_torch.obs.MetricsRegistry`:
 per-request latency splits into queue wait and compute wait, each a
 fixed-bucket histogram, so ``stats()`` reads one lock-consistent snapshot.
-Percentiles are histogram bucket *upper bounds*.  The legacy ``UserCF`` +
-ratings form of the reference is not ported.
+Percentiles are histogram bucket *upper bounds*.
 """
 
 from __future__ import annotations
@@ -62,7 +66,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.predict import (predict_from_neighbors_blocked,
+from repro_torch.core.cf_model import as_model_tensor
+from repro_torch.core.predict import (make_gather_source,
+                                      predict_from_neighbors_blocked,
                                       topn_unseen)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import (RecoveryPolicy,
@@ -182,7 +188,7 @@ def _predict_users(users, ratings, scores, idx, means, *, topn,
 
 
 class BatchingServer:
-    def __init__(self, cf_model, *, max_batch: int = 16,
+    def __init__(self, cf_model, ratings=None, *, max_batch: int = 16,
                  max_wait_ms: float = 20.0, topn: int = 10,
                  registry: Optional[obs.MetricsRegistry] = None,
                  max_queue: int = 0,
@@ -191,28 +197,14 @@ class BatchingServer:
                  ladder: Optional[DegradationLadder] = None,
                  watchdog: Optional[StragglerWatchdog] = None,
                  device="cuda"):
-        # snapshot() hands a consistent model view even while
-        # update_ratings runs on another thread
-        if getattr(cf_model, "scores", None) is None:
-            raise ValueError("fit the engine first")
         self.device = resolve_device(device)
-        if cf_model.device.type != self.device.type:
-            raise ValueError(f"engine lives on {cf_model.device} but the "
-                             f"server was asked for {self.device}")
-        self._snapshot = cf_model.snapshot
-        self._n_users = int(cf_model.n_users)
-        self._gather = cf_model._gather_source
-        self._use_kernel = bool(cf_model.use_kernel)
-        # two-stage serving: candidate items from the item index, exact
-        # rerank, through engine.recommend (the batcher is the only
-        # recommend caller, so it sees each update whole)
         self._approx_engine = None
         self._base_n_probe = 0
         self._base_shortlist = 0
-        if getattr(cf_model, "recommend_mode", "exact") == "approx":
-            self._approx_engine = cf_model
-            self._base_n_probe = int(cf_model.item_index.n_probe)
-            self._base_shortlist = int(cf_model.item_index.cfg.shortlist)
+        if ratings is not None:
+            self._init_legacy(cf_model, ratings)
+        else:
+            self._init_facade(cf_model)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.topn = topn
@@ -265,6 +257,43 @@ class BatchingServer:
         self._g_health.set(HEALTHY)
         # warm the predictor (and build/load the kernels) at the batch shape
         self._run_padded(np.zeros((self.max_batch,), np.int64))
+
+    def _init_facade(self, engine) -> None:
+        """A ``CFEngine``: snapshot() hands a consistent model view even
+        while update_ratings runs on another thread."""
+        if getattr(engine, "scores", None) is None:
+            raise ValueError("fit the engine first")
+        if engine.device.type != self.device.type:
+            raise ValueError(f"engine lives on {engine.device} but the "
+                             f"server was asked for {self.device}")
+        self._snapshot = engine.snapshot
+        self._n_users = int(engine.n_users)
+        self._gather = engine._gather_source
+        self._use_kernel = bool(engine.use_kernel)
+        # two-stage serving: candidate items from the item index, exact
+        # rerank, through engine.recommend (the batcher is the only
+        # recommend caller, so it sees each update whole)
+        if getattr(engine, "recommend_mode", "exact") == "approx":
+            self._approx_engine = engine
+            self._base_n_probe = int(engine.item_index.n_probe)
+            self._base_shortlist = int(engine.item_index.cfg.shortlist)
+
+    def _init_legacy(self, cf_model, ratings) -> None:
+        """A fitted ``UserCF`` and its (U, I) ratings: a static model, so
+        one snapshot and one gather source serve every batch."""
+        if cf_model.state is None:
+            raise ValueError("fit the model first")
+        st = cf_model.state
+        if st.scores.device.type != self.device.type:
+            raise ValueError(f"model on {st.scores.device} but the server "
+                             f"was asked for {self.device}")
+        ratings = as_model_tensor(ratings, self.device)
+        snap = (ratings, st.scores, st.idx, st.means)
+        src = make_gather_source(ratings)
+        self._snapshot = lambda: snap
+        self._n_users = int(ratings.shape[0])
+        self._gather = lambda _ratings: src
+        self._use_kernel = True
 
     def _run_padded(self, users: np.ndarray, budget: Optional[dict] = None):
         if self._approx_engine is not None:

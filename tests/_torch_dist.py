@@ -198,5 +198,59 @@ def restore_task(rank, world, p):
             for key, t in tree.items()}
 
 
+def usercf_task(rank, world, p):
+    """``UserCF`` on the ``sharded`` and ``ring`` engines under every
+    measure: the fitted state, ``predict`` (``sharded_predict``) and
+    ``evaluate``; and the ``cf_movielens`` steps through ``build_step``
+    with the mesh."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.cf_model import CFConfig, UserCF
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_step
+    mesh = make_local_mesh(device="cpu")
+    r = torch.from_numpy(p["ratings"])
+    out = {}
+    for engine in ("sharded", "ring"):
+        for m in MEASURES:
+            cf = UserCF(CFConfig(measure=m, top_k=p["k"], engine=engine,
+                                 block_size=p["block_size"]), mesh,
+                        device="cpu")
+            st = cf.fit(r)
+            out[(engine, m)] = (st.scores, st.idx, st.means)
+        out[(engine, "predict")] = cf.predict(r)
+        out[(engine, "evaluate")] = cf.evaluate(r, p["test"])
+    arch = get_arch("cf_movielens")
+    arch = dataclasses.replace(arch, config=dataclasses.replace(
+        arch.config, top_k=p["k"], block_size=p["block_size"]))
+    s, i = build_step(arch, arch.cell("fit_ml1m"), mesh).fn({"ratings": r})
+    out["step_fit"] = (s, i)
+    out["step_predict"] = build_step(arch, arch.cell("predict_bulk"),
+                                     mesh).fn({"ratings": r}, s, i)
+    return _np(out)
+
+
+def slope_task(rank, world, p):
+    """``sharded_deviation`` and a meshed ``SlopeOne`` fit over every
+    rank; with I not divisible by the axis, the error."""
+    import torch
+    from repro_torch.core import slope_one as so
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(device="cpu")
+    r = torch.from_numpy(p["ratings"])
+    out = {"dev": so.sharded_deviation(r, mesh)}
+    model = so.SlopeOne(mesh, device="cpu").fit(r)
+    out["fit"] = (model.dev, model.counts)
+    out["predict"] = model.predict(r)
+    try:
+        so.sharded_deviation(r[:, :-1], mesh)
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return _np(out)
+
+
 TASKS = {"engine": engine_task, "kmeans": kmeans_task,
-         "embedding": embedding_task, "restore": restore_task}
+         "embedding": embedding_task, "restore": restore_task,
+         "usercf": usercf_task, "slope": slope_task}

@@ -8,9 +8,8 @@ import pytest
 
 # reference names whose code the port has not ported (yet)
 NOT_PORTED = {
-    "configs": {"ASSIGNED", "all_archs", "all_cells"},
-    "core": {"CFConfig", "CFState", "SlopeOne", "UserCF",
-             "topn_precision_recall"},
+    "configs": {"all_archs", "all_cells"},
+    "core": set(),
     "data": {"GraphSpec", "NeighborSampler", "molecules_batch",
              "synthetic_graph", "bert4rec_batch"},
     "index": set(),

@@ -13,6 +13,7 @@ from _torch_parity import assert_parity, to_np
 from _torch_parity import torch_single_thread  # noqa: F401
 from repro.core import metrics as ref_metrics
 from repro.core.facade import CFEngine as RefEngine
+from repro_torch.core import engine as tengine
 from repro_torch.core import metrics
 from repro_torch.core import facade as tfacade
 from repro_torch.core.facade import BACKENDS, CFEngine
@@ -116,7 +117,7 @@ def test_similarity_operand_choice(top, width, want):
     r = torch.zeros((3, width))
     r[1, 2] = float(top)
     src = r.to(torch.int8)
-    op, max_value = tfacade._similarity_operand(r, src)
+    op, max_value = tengine._similarity_operand(r, src)
     if want == "int8":
         assert op is src and max_value == top
     else:

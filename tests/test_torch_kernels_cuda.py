@@ -1156,3 +1156,53 @@ def test_bag_wrapper_does_not_wait_for_the_bags(cuda):
     assert pending
     want = embedding_bag_plain(table, ids[:512])
     assert torch.equal(got[:512], want)
+
+
+def test_usercf_runs_kernels_1_and_2(cuda):
+    """``UserCF``'s sequential engine on the card: the fit launches the
+    similarity kernel on "imma" and equals the facade's kernel backend bit
+    for bit; ``predict`` is one tile-predict launch on "int8", bit for
+    bit the CPU path; the legacy server answers as ``recommend``."""
+    from repro_torch.core.cf_model import CFConfig, UserCF
+    r = int_ratings(np.random.default_rng(11), 300, 257, density=0.2)
+    cf = UserCF(CFConfig(measure="pcc", top_k=12, block_size=128),
+                device=cuda)
+    sim0, routes0 = fused_similarity.launches, dict(fused_similarity.routes)
+    st = cf.fit(r)
+    assert fused_similarity.launches - sim0 == 3
+    assert fused_similarity.routes["imma"] - routes0["imma"] == 3
+    eng = CFEngine(r, measure="pcc", k=12, block_size=128, device=cuda).fit()
+    assert torch.equal(st.idx, eng.idx) and torch.equal(st.scores,
+                                                        eng.scores)
+    pred0 = fused_tile_predict.launches
+    got = cf.predict(r)
+    assert fused_tile_predict.launches - pred0 == 1
+    cpu = UserCF(CFConfig(measure="pcc", top_k=12, block_size=128),
+                 device="cpu")
+    cpu.fit(r)
+    torch.cuda.synchronize()
+    assert torch.equal(cpu.state.idx, st.idx.cpu())
+    assert torch.equal(got.cpu().view(torch.int32),
+                       cpu.predict(r).view(torch.int32))
+    ratings = torch.from_numpy(r).to(cuda)
+    server = BatchingServer(cf, ratings, device=cuda, max_batch=8, topn=5)
+    server.start()
+    res = [f.result(timeout=60) for f in [server.submit(u)
+                                          for u in range(0, 300, 7)]]
+    server.stop()
+    want = cf.recommend(ratings, n=5)[1].cpu().numpy()
+    for a in res:
+        np.testing.assert_array_equal(a.items, want[a.user])
+
+
+def test_slope_one_deviation_on_the_card(cuda):
+    """The deviation build's matmuls on exact integers: bit for bit the
+    CPU's; the prediction within 2e-6."""
+    from repro_torch.core import slope_one as so
+    r = torch.from_numpy(int_ratings(np.random.default_rng(12), 500, 300,
+                                     density=0.1))
+    d, c = so.deviation_matrix(r.to(cuda))
+    want_d, want_c = so.deviation_matrix(r)
+    assert torch.equal(d.cpu(), want_d) and torch.equal(c.cpu(), want_c)
+    assert_parity("slope_one.card.predict", so.predict(r.to(cuda), d, c),
+                  so.predict(r, want_d, want_c), atol=2e-6)

@@ -2,7 +2,9 @@
 resolves, served answers equal ``engine.recommend``, transient faults are
 retried, deadlines and admission bounds hold, ``stop()`` strands nothing,
 and a stress run with concurrent rating updates is race-clean under the
-reference's ``RaceTracer``."""
+reference's ``RaceTracer``.  The legacy form ``BatchingServer(cf_model,
+ratings)`` answers as ``UserCF.recommend``, as the facade form and as the
+reference's legacy server; the serve CLI runs both engines on the CPU."""
 
 import threading
 import time
@@ -390,3 +392,138 @@ def test_approx_serving_is_race_clean_under_updates():
     assert all(r.items.shape == (5,) for r in done)
     tracer.assert_clean()
     assert eng.item_index.check_consistent(eng.ratings, eng.means)
+
+
+# -- the legacy form: BatchingServer(cf_model, ratings) ----------------------
+
+def _usercf(seed=0, u=64, d=32):
+    from repro_torch.core.cf_model import CFConfig, UserCF
+    r = int_ratings(np.random.default_rng(seed), u, d, density=0.5)
+    cf = UserCF(CFConfig(measure="cosine", top_k=5, block_size=16),
+                device="cpu")
+    cf.fit(r)
+    return cf, torch.from_numpy(r)
+
+
+def test_legacy_server_answers_equal_usercf_recommend():
+    """The legacy form serves the fitted ``UserCF`` over its ratings: each
+    answer equals ``UserCF.recommend`` for that user and the facade
+    server's answer on an engine with the same neighbors."""
+    cf, r = _usercf()
+    server = BatchingServer(cf, r, device="cpu", max_batch=4,
+                            max_wait_ms=2.0, topn=3)
+    server.start()
+    users = list(range(0, 64, 3)) + [5, 5]
+    futs = [server.submit(u) for u in users]
+    res = [f.result(timeout=30) for f in futs]
+    server.stop()
+    _, want = cf.recommend(r, n=3)
+    for got, u in zip(res, users):
+        assert got.user == u
+        np.testing.assert_array_equal(got.items, want[u].numpy())
+    eng = CFEngine(r.numpy(), measure="cosine", k=5, block_size=16,
+                   backend="sequential", device="cpu").fit()
+    assert torch.equal(eng.idx, cf.state.idx)
+    facade = _server(eng)
+    facade.start()
+    futs = [facade.submit(u) for u in users]
+    other = [f.result(timeout=30) for f in futs]
+    facade.stop()
+    for a, b in zip(res, other):
+        np.testing.assert_array_equal(a.items, b.items)
+    st = server.stats()
+    assert st["n_requests"] == len(users) and st["n_failures"] == 0
+
+
+def test_legacy_server_matches_reference_legacy_server():
+    """The reference's legacy server on the reference's fitted model
+    answers as the port's on the port's (cosine neighbors bit for bit)."""
+    import jax.numpy as jnp
+    from repro.core import CFConfig as RefConfig
+    from repro.core import UserCF as RefUserCF
+    from repro.serving.engine import BatchingServer as RefServer
+    cf, r = _usercf(seed=3)
+    ref = RefUserCF(RefConfig(measure="cosine", top_k=5, block_size=16))
+    ref.fit(jnp.asarray(r.numpy()))
+    users = [0, 9, 17, 40, 63]
+    answers = []
+    for srv in (RefServer(ref, jnp.asarray(r.numpy()), max_batch=4,
+                          max_wait_ms=2.0, topn=3),
+                BatchingServer(cf, r, device="cpu", max_batch=4,
+                               max_wait_ms=2.0, topn=3)):
+        srv.start()
+        futs = [srv.submit(u) for u in users]
+        answers.append([np.asarray(f.result(timeout=60).items)
+                        for f in futs])
+        srv.stop()
+    for a, b in zip(*answers):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_legacy_server_refuses_unfitted_model_and_other_devices(
+        monkeypatch):
+    from repro_torch.core.cf_model import CFConfig, UserCF
+    cf, r = _usercf()
+    unfitted = UserCF(CFConfig(), device="cpu")
+    with pytest.raises(ValueError, match="fit the model first"):
+        BatchingServer(unfitted, r, device="cpu")
+    with pytest.raises(ValueError, match="ratings on meta"):
+        BatchingServer(cf, torch.zeros((64, 32), device="meta"),
+                       device="cpu")
+    # numpy ratings go to the server's device
+    srv = BatchingServer(cf, r.numpy(), device="cpu", max_batch=2, topn=3)
+    assert srv.n_batches == 0
+    with pytest.raises(ValueError, match="out of range"):
+        srv.submit(64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchingServer(cf, r)
+
+
+def test_legacy_server_retries_a_transient_fault():
+    cf, r = _usercf()
+    server = BatchingServer(
+        cf, r, device="cpu", max_batch=4, max_wait_ms=2.0, topn=3,
+        fault_injector=FaultInjector(fail_at_steps=(1,)),
+        recovery=RecoveryPolicy(max_restarts=2))
+    server.start()
+    res = [f.result(timeout=30) for f in [server.submit(u)
+                                          for u in range(4)]]
+    server.stop()
+    assert len(res) == 4
+    st = server.stats()
+    assert st["n_retries"] == 1 and st["n_recoveries"] == 1
+
+
+# -- the serve CLI ------------------------------------------------------------
+
+@pytest.mark.parametrize("argv,want", [
+    ([], "engine=legacy"),
+    (["--engine", "facade"], "engine=facade backend=kernel"),
+    (["--engine", "facade", "--recommend-mode", "approx"],
+     "recommend_mode=approx"),
+])
+def test_serve_cli_on_the_cpu(capsys, argv, want):
+    """``python -m repro_torch.launch.serve --device cpu``: the default
+    ``legacy`` engine (as in the reference) and the facade serve the
+    sample user the exact engine's top-10."""
+    from repro_torch.data import load_ml1m_synthetic
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--users", "128", "--items", "64",
+                "--requests", "16", "--max-batch", "8"] + argv)
+    out = capsys.readouterr().out
+    assert want in out and "16 requests" in out and "health=HEALTHY" in out
+    sample = [line for line in out.splitlines()
+              if line.startswith("sample:")]
+    train = load_ml1m_synthetic(n_users=128, n_items=64)[0]
+    eng = CFEngine(train, k=40, block_size=256, device="cpu").fit()
+    items = eng.recommend([108], n=10)[1][0].tolist()
+    assert sample == [f"sample: user 108 → items {items}"], sample
+
+
+def test_serve_cli_refuses_facade_options_on_legacy(capsys):
+    from repro_torch.launch import serve
+    for flag in (["--backend", "ring"], ["--recommend-mode", "approx"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--device", "cpu"] + flag)
+        assert "--engine facade only" in capsys.readouterr().err
