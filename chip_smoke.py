@@ -231,10 +231,44 @@ runs:
     engine, the surrogate padded with 104 zero users to 6144) bit for bit
     ``UserCF``'s sequential fit and its ``cf_predict`` step within 1e-5
     of ``UserCF.predict``; the plans of ``fit_1m_users`` and
-    ``predict_bulk`` (256 GiB of f32 ratings) built, not run.
+    ``predict_bulk`` (256 GiB of f32 ratings) built, not run;
+
+then the training slice:
+
+22. kernel 8's backward (``csrc/flash_attention_bwd.cu``) against its
+    plain version at Llama-3.2-1B's prefill shapes (B 4, Hq 32, Hkv 8,
+    S 2048, d 64), bf16 and f32 (dQ, dK, dV each within 1e-2 / 2e-5 of
+    its largest |gradient|); its time beside the plain version, autograd
+    of ``scaled_dot_product_attention(enable_gqa=True)``'s backward and
+    its bound (five of the forward's two matmuls, half masked, at the
+    bf16 peak);
+23. Llama-3.2-1B trained at full width (f32 master weights, bf16
+    compute, AdamW, remat), train_4k's seq 4096 with the batch cut to 4
+    in 2 µbatches: one step's loss and per-leaf gradients through kernel
+    8's forward and backward against the plain attention on the same
+    weights and batch — in f32 compute (the kernels' f32 routes) loss
+    within 1e-3 relative and each leaf's ‖Δg‖/‖g‖ ≤ 1e-2; in the
+    trained bf16 config loss within 1e-3 and each leaf's distance to the
+    f32 gradient at most 1.5 × the plain path's, since bf16's own
+    rounding puts two correct bf16 gradients ~2 % apart — then 4
+    ``build_step`` train steps (the loss of
+    each, the first and warm step seconds, tokens/s, peak GiB) with the
+    launch counts zeroed before and read after (one backward launch a
+    layer and µbatch, two forward launches with the remat recompute),
+    then one more step under ``torch.profiler`` (device busy share, the
+    largest device-time entries);
+24. DLRM (every field capped at 2 M rows, so that parameters, gradients
+    and the Adagrad accumulator fit), FM and xDeepFM (train_batch cut to
+    8192 rows) three Adagrad steps each at train_batch; BERT4Rec at its
+    published config: serve_p99 and retrieval_cand (2^20 candidates)
+    uncut, serve_bulk cut to 32768 rows and train_batch to 2048, three
+    AdamW steps; a ``train_loop.run`` on BERT4Rec with a checkpoint
+    directory and a fault injected at step 3 (one recovery, to step 2),
+    then a second run on the directory that resumes at step 6; every cut
+    listed.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
-for all nine kernels.
+for all nine kernels and kernel 8's backward.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -686,13 +720,15 @@ def zero_counts() -> None:
 def all_wrappers():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.predict import fused_tile_predict
     from repro_torch.kernels.similarity import fused_similarity
     from repro_torch.kernels.support import fused_support_scores
     return {"similarity": fused_similarity, "predict": fused_tile_predict,
             **index_wrappers(), "support": fused_support_scores,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "embedding_bag": embedding_bag}
 
 
@@ -1959,7 +1995,7 @@ def phase_lm(dev):
         p0 = model._layers[0]
         h = cm.rmsnorm(p0["ln1"], model._embed[toks.long()])
         pos = torch.arange(s, device=dev)[None].expand(b, s)
-        q, k, v = model._gqa_qkv(p0["attn"], h, pos)
+        q, k, v = tx._gqa_qkv(cfg, p0["attn"], h, pos)
         out["layer0_err"] = flash_close(
             "flash at layer 0 of the prefill", flash_attention(q, k, v), q,
             k, v, causal=True)
@@ -3304,6 +3340,398 @@ def phase_legacy(dev, train, test):
     return out
 
 
+# kernel 8's backward and the training slice (phases 22-24)
+FLASH_BWD_SHAPE = (4, 32, 8, 2048, 64)   # Llama-3.2-1B's prefill: B, Hq,
+#                                          Hkv, S, d
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+LM_TRAIN_SHAPE = (4, 4096)      # train_4k's seq 4096, batch cut from 256
+LM_TRAIN_MICROBATCH = 2
+LM_TRAIN_STEPS = 4
+DLRM_TRAIN_ROW_CAP = 2_000_000  # rows per DLRM field for training
+XDEEPFM_TRAIN_ROWS = 8192       # xDeepFM train_batch rows (cut from 65536)
+B4R_BULK_ROWS = 32_768          # BERT4Rec serve_bulk rows (cut from 262144)
+B4R_TRAIN_ROWS = 2048           # BERT4Rec train_batch rows (cut from 65536)
+RECSYS_TRAIN_STEPS = 3
+
+
+def bwd_close(name, q, k, v, seed=7):
+    """Kernel 8's forward, then its backward kernel against the plain
+    backward on f32 copies of the same inputs: each of dQ, dK, dV within
+    ``BWD_TOL[dtype]`` of the largest |gradient| of that tensor (the
+    kernel sums in f32 in another order; bf16 gradients are rounded
+    once, ≤ 2⁻⁸ of each value).  Returns (max abs diff, max relative
+    diff, o, do)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    o = flash_attention(q, k, v)
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    do = torch.randn(o.shape, generator=gen, device=q.device).to(q.dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do)
+    check(flash_attention_bwd.launches == before + 1,
+          f"{name}: one backward launch")
+    want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)))
+    err = rel = 0.0
+    for tag, g, w, x in zip("qkv", got, want, (q, k, v)):
+        check(g.dtype == x.dtype and g.shape == x.shape,
+              f"{name} d{tag} dtype / shape")
+        e = max_diff(g, w)
+        r = e / max(1.0, float(w.abs().max()))
+        check(r <= BWD_TOL[q.dtype],
+              f"{name} d{tag}: diff {e} ({r} of the largest |grad|)")
+        err, rel = max(err, e), max(rel, r)
+    return err, rel, o, do
+
+
+def phase_flash_bwd(dev):
+    """Phase 22: kernel 8's backward (``csrc/flash_attention_bwd.cu``)
+    against its plain version at Llama-3.2-1B's prefill shapes, in bf16
+    and f32; its time against the plain version, autograd of
+    ``scaled_dot_product_attention(enable_gqa=True)``'s backward (never
+    called by the port) and its bound: five of the forward's two
+    matmuls, half of them causal-masked, at the bf16 peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    b, hq, hkv, s, d = FLASH_BWD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {"errs": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        err, rel, o, do = bwd_close(f"flash bwd {dtype}", q, k, v)
+        out["errs"][str(dtype)[6:]] = (err, rel)
+        if dtype == torch.bfloat16:
+            out["max_abs_err"] = err
+            out["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, do),
+                                reps=5)
+            out["plain_ms"] = time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, do), reps=2)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=True)
+            out["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do, retain_graph=True), reps=5)
+            del ql, kl, vl, lib_out
+        else:
+            out["f32_ms"] = time_ms(
+                lambda: flash_attention_bwd(q, k, v, o, do), reps=3)
+        del q, k, v, o, do
+    n_ops = 5 * 2.0 * b * hq * s * (s + 1) / 2 * d
+    n_bytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2.0
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops,
+                                                PEAK_BF16_OPS_PER_S)
+    out["shape"] = (f"B={b} Hq={hq} Hkv={hkv} S={s} d={d} bf16 causal")
+    torch.cuda.synchronize()
+    return out
+
+
+def grad_readings(kern, plain):
+    """Per-leaf ‖Δg‖ / ‖g‖ of two gradient trees (sorted leaf order)."""
+    from repro_torch.distributed.checkpoint import tree_flatten
+    out = []
+    for a, b in zip(tree_flatten(kern), tree_flatten(plain)):
+        a, b = a.double(), b.double()
+        out.append(float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    return out
+
+
+def phase_lm_train(dev):
+    """Phase 23: Llama-3.2-1B trained at full width (f32 master weights,
+    bf16 compute, AdamW, remat, the tied embedding), train_4k's seq 4096
+    with the batch cut to 4 in 2 µbatches: first one step's loss and
+    per-leaf gradients through kernel 8 (forward and backward) against
+    the plain attention on the same weights and batch, then 4
+    ``build_step`` train steps with the launch counts zeroed before and
+    read after."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tx
+    from repro_torch.training.train_loop import take_grads, trainable
+
+    b, s = LM_TRAIN_SHAPE
+    arch = get_arch("llama3_2_1b")
+    cfg = dataclasses.replace(arch.config, microbatch=LM_TRAIN_MICROBATCH,
+                              remat=True)
+    arch = dataclasses.replace(arch, config=cfg)
+    plan = build_step(arch, dataclasses.replace(
+        arch.cell("train_4k"), name=f"train_4k_b{b}",
+        dims={"batch": b, "seq": s}))
+    out = {"reduced": [f"train_4k batch {arch.cell('train_4k').dims['batch']}"
+                       f" -> {b} ({LM_TRAIN_MICROBATCH} µbatches of "
+                       f"{b // LM_TRAIN_MICROBATCH})",
+                       f"{LM_TRAIN_STEPS} steps"]}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+    out["params"] = cm.count_params(model)
+    check(out["params"] == cfg.param_count(), "parameter count")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                lm_batch(b, s, cfg.vocab, seed=i).items()}
+               for i in range(LM_TRAIN_STEPS)]
+
+    # one step's loss and gradients, kernel path vs plain attention, on
+    # the same weights and batch: in f32 compute (the kernels' "simt"
+    # forward route and the f32 backward) against the 1e-2 limit, and in
+    # the trained bf16 config each path against the f32 plain gradient
+    tree = trainable(model.tree())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def grads_of(c, use_kernel):
+        t0 = time.perf_counter()
+        loss = float(tx.backward(c, tree, batches[0], use_kernel=use_kernel))
+        grads = take_grads(tree)
+        torch.cuda.synchronize()
+        return loss, grads, time.perf_counter() - t0
+
+    lt, gt, out["grad_s_f32_plain"] = grads_of(cfg32, False)
+    lk, gk, out["grad_s_f32_kernel"] = grads_of(cfg32, True)
+    out["f32_loss"] = (lk, lt)
+    out["f32_loss_rel"] = abs(lk - lt) / abs(lt)
+    out["f32_grad_rel"] = grad_readings(gk, gt)
+    del gk
+    check(math.isfinite(lk) and out["f32_loss_rel"] <= 1e-3,
+          f"f32 compute: loss kernel {lk} vs plain {lt} "
+          f"({out['f32_loss_rel']} relative)")
+    check(max(out["f32_grad_rel"]) <= 1e-2,
+          f"f32 compute: per-leaf ‖Δg‖/‖g‖ {out['f32_grad_rel']} ≤ 1e-2")
+    lk, gk, out["grad_s_kernel"] = grads_of(cfg, True)
+    lp, gp, out["grad_s_plain"] = grads_of(cfg, False)
+    out["loss_kernel"], out["loss_plain"] = lk, lp
+    out["loss_rel"] = abs(lk - lp) / abs(lp)
+    out["grad_rel"] = grad_readings(gk, gp)
+    out["kernel_vs_f32"] = grad_readings(gk, gt)
+    out["plain_vs_f32"] = grad_readings(gp, gt)
+    del gk, gp, gt
+    check(math.isfinite(lk) and out["loss_rel"] <= 1e-3,
+          f"loss kernel {lk} vs plain {lp}: {out['loss_rel']} relative")
+    check(all(k <= 1.5 * p + 1e-5 for k, p in zip(out["kernel_vs_f32"],
+                                                  out["plain_vs_f32"])),
+          f"bf16: the kernel path's per-leaf distance to the f32 gradient "
+          f"{out['kernel_vs_f32']} ≤ 1.5 × the plain path's + 1e-5 "
+          f"{out['plain_vs_f32']}")
+
+    state = plan.optimizer.init(model.tree())
+    zero_counts()
+    losses, walls = [], []
+    for i in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        model, state, loss = plan.fn(model, state, batches[i])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["losses"], out["walls"] = losses, walls
+    out["first_s"] = walls[0]
+    out["warm_s"] = float(np.mean(walls[1:]))
+    out["tokens_per_s"] = b * s / out["warm_s"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = {"forward": flash_attention.launches,
+                       "backward": flash_attention_bwd.launches}
+    per_step = cfg.n_layers * LM_TRAIN_MICROBATCH
+    check(out["launches"]["backward"] == per_step * LM_TRAIN_STEPS,
+          f"one backward launch a layer and µbatch: {out['launches']}")
+    check(out["launches"]["forward"] == 2 * per_step * LM_TRAIN_STEPS,
+          f"forward and remat recompute launches: {out['launches']}")
+    check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    check(int(state["step"]) == LM_TRAIN_STEPS, "optimizer step count")
+    out["profile"] = profile_each(((
+        f"LM train step ({b} x {s}, {LM_TRAIN_MICROBATCH} µbatches)",
+        lambda: plan.fn(model, state, batches[0]), 10),))[0]
+    del model, state, tree, batches
+    torch.cuda.synchronize()
+    return out
+
+
+def train_steps(plan, model, batches):
+    """``plan``'s train step over ``batches`` from a fresh optimizer
+    state: (losses, host-clock seconds a step, the loss on the first
+    batch before and after)."""
+    state = plan.optimizer.init(model.tree())
+    with torch.no_grad():
+        before = float(model.loss_fn(model.cfg, model.tree(), batches[0]))
+    losses, walls = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        model, state, loss = plan.fn(model, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        after = float(model.loss_fn(model.cfg, model.tree(), batches[0]))
+    check(all(math.isfinite(x) for x in losses + [before, after]),
+          f"{plan.name}: finite losses {losses}, {before} -> {after}")
+    check(int(state["step"]) == len(batches), f"{plan.name}: step count")
+    return {"losses": losses, "walls": walls, "before": before,
+            "after": after}
+
+
+def phase_recsys_train(dev):
+    """Phase 24: DLRM (fields capped at ``DLRM_TRAIN_ROW_CAP`` rows), FM
+    and xDeepFM (train_batch cut to ``XDEEPFM_TRAIN_ROWS``) a few Adagrad
+    steps each; BERT4Rec at its published config: serve_p99 and
+    retrieval_cand uncut, serve_bulk and train_batch cut, a few AdamW
+    steps; then a short ``train_loop.run`` on BERT4Rec with a checkpoint
+    directory and an injected fault (one recovery), and a second run on
+    the same directory that resumes."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import (bert4rec_batch, candidates,
+                                          recsys_batch)
+    from repro_torch.distributed.fault_tolerance import FaultInjector
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import bert4rec, dlrm, fm, xdeepfm
+    from repro_torch.models import common as cm
+    from repro_torch.training.train_loop import (TrainLoopConfig,
+                                                 make_train_step, run)
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    res = {}
+    for name, mod, cls in (("dlrm_mlperf", dlrm, dlrm.DLRM),
+                           ("fm", fm, fm.FM),
+                           ("xdeepfm", xdeepfm, xdeepfm.XDeepFM)):
+        arch = get_arch(name)
+        cfg, reduced = arch.config, []
+        if name == "dlrm_mlperf":
+            reduced = [f"field {i}: {s} -> {DLRM_TRAIN_ROW_CAP} rows"
+                       for i, s in enumerate(cfg.field_sizes)
+                       if s > DLRM_TRAIN_ROW_CAP]
+            cfg = dataclasses.replace(cfg, field_sizes=tuple(
+                min(s, DLRM_TRAIN_ROW_CAP) for s in cfg.field_sizes))
+            arch = dataclasses.replace(arch, config=cfg)
+        cell = arch.cell("train_batch")
+        rows = cell.dims["batch"]
+        if name == "xdeepfm":
+            reduced.append(f"train_batch {rows} -> {XDEEPFM_TRAIN_ROWS} "
+                           f"rows (the CIN's saved outer products)")
+            rows = XDEEPFM_TRAIN_ROWS
+            cell = dataclasses.replace(cell, dims={"batch": rows})
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cls(cfg, mod.init_params(cfg, gen))
+        plan = build_step(arch, cell)
+        batches = [on_dev(recsys_batch(rows, cfg.field_sizes,
+                                       getattr(cfg, "n_dense", 0),
+                                       seed=10 + i))
+                   for i in range(RECSYS_TRAIN_STEPS)]
+        out = train_steps(plan, model, batches)
+        out.update(params=cm.count_params(model), rows=rows,
+                   reduced=reduced, optimizer=arch.optimizer,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        res[name] = out
+        del model, plan, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    arch = get_arch("bert4rec")
+    cfg = arch.config
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = bert4rec.BERT4Rec(cfg, bert4rec.init_params(cfg, gen))
+    out = {"params": cm.count_params(model), "reduced": []}
+    check(out["params"] == cfg.param_count(), "BERT4Rec parameter count")
+
+    def items(rows, seed):
+        return bert4rec_batch(rows, cfg.seq_len, cfg.n_items,
+                              cfg.mask_token, seed=seed)
+
+    serve = build_step(arch, arch.cell("serve_p99"))
+    p99 = {"items": items(arch.cell("serve_p99").dims["batch"], 0)["items"]}
+    lat, scores = serve_latencies(serve, model, p99, 30)
+    check(tuple(scores.shape) == (len(p99["items"]), cfg.vocab)
+          and bool(torch.isfinite(scores).all()),
+          "BERT4Rec serve_p99 scores finite (B, vocab)")
+    out["p99_lat"] = lat
+    bulk_cell = arch.cell("serve_bulk")
+    out["reduced"].append(
+        f"serve_bulk {bulk_cell.dims['batch']} -> {B4R_BULK_ROWS} rows (the "
+        f"(B, 2, 200, 200) f32 attention of 262144 rows is 84 GB)")
+    bulk_cell = dataclasses.replace(bulk_cell, dims={"batch": B4R_BULK_ROWS})
+    bulk = build_step(arch, bulk_cell)
+    lat, scores = serve_latencies(bulk, model, {"items": items(
+        B4R_BULK_ROWS, 1)["items"]}, 3, warm=1)
+    check(bool(torch.isfinite(scores).all()), "BERT4Rec serve_bulk finite")
+    out["bulk_ms"], out["bulk_rows"] = lat, B4R_BULK_ROWS
+    ret_cell = arch.cell("retrieval_cand")
+    n = ret_cell.dims["n_candidates"]
+    ret = build_step(arch, ret_cell)
+    one = {"items": p99["items"][:1],
+           "candidates": candidates(n, cfg.vocab, seed=3)}
+    lat, scores = serve_latencies(ret, model, one, 3, warm=1)
+    check(tuple(scores.shape) == (n,) and bool(torch.isfinite(scores).all()),
+          f"BERT4Rec retrieval scores finite ({n},)")
+    want = model({"items": one["items"]})[0, torch.from_numpy(
+        one["candidates"]).long().to(dev)]
+    out["ret_vs_serve"] = max_diff(scores, want)
+    check(out["ret_vs_serve"] <= 1e-5,
+          f"BERT4Rec retrieval == serve scores ({out['ret_vs_serve']})")
+    out["ret_ms"], out["ret_n"] = lat, n
+    train_cell = arch.cell("train_batch")
+    out["reduced"].append(
+        f"train_batch {train_cell.dims['batch']} -> {B4R_TRAIN_ROWS} rows "
+        f"(the (B, 200, {cfg.vocab}) f32 logits of 65536 rows are 194 GB)")
+    plan = build_step(arch, dataclasses.replace(
+        train_cell, dims={"batch": B4R_TRAIN_ROWS}))
+    out.update(train_steps(plan, model, [
+        on_dev(items(B4R_TRAIN_ROWS, 20 + i))
+        for i in range(RECSYS_TRAIN_STEPS)]))
+    out["rows"], out["optimizer"] = B4R_TRAIN_ROWS, arch.optimizer
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["bert4rec"] = out
+
+    # the fault-tolerant loop: one injected fault, one recovery, a resume
+    opt = plan.optimizer
+    params = model.tree()
+    step = make_train_step(lambda p, bt: bert4rec.loss_fn(cfg, p, bt), opt)
+
+    def batches(i):
+        return on_dev(items(256, 100 + i))
+
+    reg = obs.registry()
+    before = {k: reg.counter(k).value for k in ("train.failures",
+                                                "train.recoveries")}
+    with tempfile.TemporaryDirectory() as tmp:
+        first = run(step, params, opt.init(params), batches,
+                    TrainLoopConfig(total_steps=6, checkpoint_every=2,
+                                    checkpoint_dir=tmp),
+                    injector=FaultInjector(fail_at_steps=(3,)))
+        seen = []
+        second = run(step, params, opt.init(params), batches,
+                     TrainLoopConfig(total_steps=8, checkpoint_every=2,
+                                     checkpoint_dir=tmp),
+                     on_step=lambda s, l: seen.append(s))
+    loop = {"restarts": first.restarts, "final_step": first.final_step,
+            "losses": first.losses, "resumed_at": seen[0] if seen else None,
+            "second_final": second.final_step,
+            "failures": reg.counter("train.failures").value
+            - before["train.failures"],
+            "recoveries": reg.counter("train.recoveries").value
+            - before["train.recoveries"],
+            "last_failure_step": reg.gauge("train.last_failure_step").value}
+    check(loop["restarts"] == 1 and loop["recoveries"] == 1
+          and loop["failures"] == 1 and loop["final_step"] == 6,
+          f"one fault, one recovery: {loop}")
+    check(seen == [6, 7] and second.final_step == 8,
+          f"the second run resumes at step 6: {seen}")
+    res["loop"] = loop
+    del model, plan, params
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3728,6 +4156,80 @@ def main() -> int:
     log(f"    launches: {lg['launches']}")
     for k in kernels:
         k["launches"] += lg["kernel_launches"].get(k["name"], 0)
+
+    # the training slice gets the card to itself
+    del sh, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[22] flash-attention backward kernel vs plain version on the "
+        "card; timing at Llama-3.2-1B's prefill shapes")
+    t_phase = time.perf_counter()
+    fb = phase_flash_bwd(dev)
+    fb["wall_s"] = time.perf_counter() - t_phase
+    log(f"    dQ, dK, dV vs the plain backward (max abs diff, relative to "
+        f"the largest |grad|): {fb['errs']} (tolerance "
+        f"{ {str(k)[6:]: v for k, v in BWD_TOL.items()} } relative)")
+    log(f"    flash_attention_bwd at {fb['shape']}: {fb['ms']:.4f} ms (f32 "
+        f"{fb['f32_ms']:.4f}), plain {fb['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention backward {fb['library_ms']:.4f} ms, "
+        f"bound {fb['bound_ms']:.4f} ms by {fb['bound_by']} on {card}; "
+        f"phase wall {fb['wall_s']:.1f}s")
+
+    log(f"[23] LM training: Llama-3.2-1B at full width, train_4k cut to "
+        f"{LM_TRAIN_SHAPE[0]} x {LM_TRAIN_SHAPE[1]} ({LM_TRAIN_MICROBATCH} "
+        f"µbatches, remat, AdamW), {LM_TRAIN_STEPS} build_step train steps")
+    t_phase = time.perf_counter()
+    lt = phase_lm_train(dev)
+    lt["wall_s"] = time.perf_counter() - t_phase
+    log(f"    {lt['params']} parameters; reduced: {lt['reduced']}")
+    log(f"    one step, kernel vs plain attention, f32 compute: loss "
+        f"{lt['f32_loss']} ({lt['f32_loss_rel']!r} relative, limit 1e-3); "
+        f"per-leaf ‖Δg‖/‖g‖ {[round(x, 8) for x in lt['f32_grad_rel']]} "
+        f"(limit 1e-2); gradient walls kernel {lt['grad_s_f32_kernel']:.3f}"
+        f"s, plain {lt['grad_s_f32_plain']:.3f}s")
+    log(f"    bf16 compute (the trained config): loss {lt['loss_kernel']!r} "
+        f"vs {lt['loss_plain']!r} ({lt['loss_rel']!r} relative, limit "
+        f"1e-3); per-leaf ‖Δg‖/‖g‖ kernel vs plain "
+        f"{[round(x, 6) for x in lt['grad_rel']]}; to the f32 gradient: "
+        f"kernel {[round(x, 6) for x in lt['kernel_vs_f32']]}, plain "
+        f"{[round(x, 6) for x in lt['plain_vs_f32']]} (limit 1.5 × "
+        f"plain's + 1e-5); gradient walls kernel {lt['grad_s_kernel']:.3f}s, "
+        f"plain {lt['grad_s_plain']:.3f}s")
+    log(f"    losses {lt['losses']}; first step {lt['first_s']:.3f}s, warm "
+        f"step {lt['warm_s']:.3f}s ({lt['tokens_per_s']:.1f} tokens/s); "
+        f"peak device memory {lt['peak_gib']:.2f} GiB on {card}")
+    log(f"    kernel 8 launches on the training path: {lt['launches']}; "
+        f"phase wall {lt['wall_s']:.1f}s")
+
+    log("[24] recsys training (DLRM, FM, xDeepFM: Adagrad; BERT4Rec: "
+        "AdamW), BERT4Rec serving, the fault-tolerant train loop")
+    t_phase = time.perf_counter()
+    rt = phase_recsys_train(dev)
+    rt["wall_s"] = time.perf_counter() - t_phase
+    for name in ("dlrm_mlperf", "fm", "xdeepfm", "bert4rec"):
+        o = rt[name]
+        log(f"    {name}: {o['params']} parameters, {o['optimizer']}, "
+            f"{o['rows']} rows a step; losses {o['losses']}, step walls "
+            f"{[round(x, 4) for x in o['walls']]} s; loss on the first "
+            f"batch {o['before']!r} -> {o['after']!r}; peak "
+            f"{o['peak_gib']:.2f} GiB; reduced: {o['reduced'] or 'none'}")
+    bo = rt["bert4rec"]
+    log_serving("BERT4Rec", bo)
+    log(f"    BERT4Rec retrieval == serve_scores at the candidates: "
+        f"max_abs_diff {bo['ret_vs_serve']!r} (tolerance 1e-5)")
+    log(f"    train loop: {rt['loop']}; phase wall {rt['wall_s']:.1f}s")
+
+    flash_row["launches"] += lt["launches"]["forward"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/common.py:126",
+        "launches": lt["launches"]["backward"],
+        "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+        "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+        "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
+        "shape": fb["shape"]})
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

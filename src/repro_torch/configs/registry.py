@@ -4,9 +4,9 @@ reference's fields, the LM and recsys shape sets, and ``input_specs`` as
 shapes.
 
 Ported: the dense LM configs (``llama3_2_1b``, ``codeqwen1_5_7b``,
-``qwen1_5_110b``), the recsys CTR configs (``dlrm_mlperf``, ``fm``,
-``xdeepfm``) and the paper's CF config (``cf_movielens``, with the CF
-shape set); the GNN family, BERT4Rec and the MoE / MLA LMs raise
+``qwen1_5_110b``), the recsys configs (``dlrm_mlperf``, ``fm``,
+``xdeepfm``, ``bert4rec``) and the paper's CF config (``cf_movielens``,
+with the CF shape set); the GNN family and the MoE / MLA LMs raise
 ``NotImplementedError`` naming their ROADMAP item.  ``input_specs`` gives
 ``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
 ``jax.ShapeDtypeStruct``s: nothing is allocated.  ``ASSIGNED`` names the
@@ -116,12 +116,19 @@ def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
 
 
 def _recsys_inputs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
-    """The CTR models' inputs (reference ``registry.py:160``): sparse ids,
-    DLRM's dense features, labels to train, candidates to retrieve."""
-    if arch.model == "bert4rec":
-        raise NotImplementedError(f"{arch.name}: {_WAITING['bert4rec']}")
+    """The recsys models' inputs (reference ``registry.py:160``): sparse
+    ids (BERT4Rec: item sequences), DLRM's dense features, labels to
+    train, candidates to retrieve."""
     cfg = arch.config
     b = cell.dims["batch"]
+    if arch.model == "bert4rec":
+        base = {"items": TensorSpec((b, cfg.seq_len), torch.int32)}
+        if cell.step == "train":
+            base["labels"] = TensorSpec((b, cfg.seq_len), torch.int32)
+        if cell.step == "retrieval":
+            base["candidates"] = TensorSpec((cell.dims["n_candidates"],),
+                                            torch.int32)
+        return base
     base = {"sparse": TensorSpec((b, cfg.n_sparse), torch.int32)}
     if arch.model == "dlrm":
         base["dense"] = TensorSpec((b, cfg.n_dense), torch.float32)
@@ -147,12 +154,11 @@ ASSIGNED = (
 )
 
 _PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b", "dlrm_mlperf",
-           "fm", "xdeepfm", "cf_movielens")
+           "fm", "xdeepfm", "bert4rec", "cf_movielens")
 _WAITING = {
     "qwen3_moe_30b_a3b": "MoE (ROADMAP Queue 1 item 11)",
     "deepseek_v2_236b": "MoE + MLA (ROADMAP Queue 1 item 11)",
     "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
-    "bert4rec": "BERT4Rec (ROADMAP Queue 1 item 11)",
 }
 
 

@@ -1,5 +1,5 @@
 """Synthetic batches (port of ``repro.data.batches``: ``lm_batch``,
-``recsys_batch``, ``candidates``): host-side numpy, deterministic per
+``recsys_batch``, ``bert4rec_batch``, ``candidates``): host-side numpy, deterministic per
 seed, byte-identical to the reference's generators."""
 
 from __future__ import annotations
@@ -39,6 +39,21 @@ def recsys_batch(batch: int, field_sizes: Sequence[int], n_dense: int = 0,
     if n_dense:
         out["dense"] = rng.normal(0, 1, (batch, n_dense)).astype(np.float32)
     return out
+
+
+def bert4rec_batch(batch: int, seq_len: int, n_items: int,
+                   mask_token: int, mask_prob: float = 0.15, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """Masked-item batch: {"items": (batch, seq_len) int32 ids in [1,
+    n_items) with ``mask_token`` at the masked positions, "labels": the
+    original id there and −1 elsewhere}; each position is masked with
+    probability ``mask_prob``."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(1, n_items, (batch, seq_len), dtype=np.int32)
+    mask = rng.random((batch, seq_len)) < mask_prob
+    labels = np.where(mask, items, -1).astype(np.int32)
+    masked = np.where(mask, mask_token, items).astype(np.int32)
+    return {"items": masked, "labels": labels}
 
 
 def candidates(n: int, vocab: int, seed: int = 0) -> np.ndarray:

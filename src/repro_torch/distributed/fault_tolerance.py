@@ -4,9 +4,10 @@ Failures surface as raised exceptions from the runtime (a device fault,
 a lost host) or as missing heartbeats.  The serving batcher
 (``repro_torch.serving.engine``) retries transient failures under a
 ``RecoveryPolicy``, and the recovery logic is exercised in tests via
-deterministic fault injection.  A copy of
-``repro.distributed.fault_tolerance`` without the training loop's
-legacy hooks (standard library only).
+deterministic fault injection, and the training loop
+(``repro_torch.training.train_loop``) restores from its latest committed
+checkpoint under the same policy.  A copy of
+``repro.distributed.fault_tolerance`` (standard library only).
 
 Straggler policy: synchronous SPMD can't skip a slow worker, so mitigation
 is detection + escalation: an EWMA watchdog flags steps slower than
@@ -18,7 +19,7 @@ between a 2% and a 40% throughput loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 
 class TransientServeError(RuntimeError):
@@ -92,8 +93,13 @@ class RecoveryPolicy:
     serving tier sleeps between attempts — attempt 0 waits
     ``backoff_base_s``, each further attempt multiplies by
     ``backoff_factor``, capped at ``backoff_max_s``.
+
+    ``on_restore`` (the reference's training hook) is a callable of the
+    step restored to; nothing in either package calls it, and it is kept
+    so that a policy built for the reference builds here.
     """
     max_restarts: int = 3
+    on_restore: Optional[Callable[[int], None]] = None
     restarts: int = 0
     failures: int = 0
     backoff_base_s: float = 0.005
@@ -117,3 +123,13 @@ class RecoveryPolicy:
         """Retry delay before attempt ``attempt + 1`` (0-indexed)."""
         return min(self.backoff_base_s * self.backoff_factor ** max(attempt, 0),
                    self.backoff_max_s)
+
+    def should_restart(self) -> bool:
+        """Deprecated fused probe-and-consume (legacy callers only):
+        records the failure and, if budget remains, consumes a restart.
+        Return values match the old per-call increment semantics."""
+        self.record_failure()
+        if not self.can_restart:
+            return False
+        self.record_restart()
+        return True

@@ -21,6 +21,13 @@ bf16 with R > 16 → ``"mma"`` (tensor-core prefill); bf16 with R ≤ 16 →
 ``"split"`` (split-K decode, two launches and an f32 workspace).  It
 launches that route or raises — it never falls back; on a CPU tensor it
 runs the plain version.
+
+The gradient (no TPU counterpart: the reference differentiates its XLA
+``chunked_attention`` under ``jax.checkpoint``) is
+:class:`FlashAttentionFn`, whose forward is the kernel above and whose
+backward is :func:`flash_attention_bwd`: the hand-written CUDA kernel of
+``csrc/flash_attention_bwd.cu`` on a CUDA tensor,
+:func:`flash_attention_bwd_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -200,3 +207,143 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = dict.fromkeys(_ROUTES, 0)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              scale: float | None = None,
+                              block_q: int = 1024):
+    """Plain PyTorch gradient of the attention (no ``kv_len``): for each
+    chunk of ``block_q`` query rows, P is recomputed in f32 (``NEG_INF``
+    where masked, 0 on a row with no visible key), then dV = Pᵀ·dO,
+    dP = dO·Vᵀ, Δ = rowsum(dO ∘ O), dS = P ∘ (dP − Δ), dQ = scale·dS·K
+    and dK = scale·dSᵀ·Q, dK and dV summed over each kv head's group.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    _check(q, k, v, None)
+    b, hq, sq, d = q.shape
+    hkv, skv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    of = o.float().reshape(b, hkv, g, sq, dv_dim)
+    dof = do.float().reshape(b, hkv, g, sq, dv_dim)
+    kpos = torch.arange(skv, device=dev)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, max(block_q, 1)):
+        qc = qf[:, :, :, q0:q0 + block_q]
+        doc = dof[:, :, :, q0:q0 + block_q]
+        qpos = skv - sq + q0 + torch.arange(qc.shape[3], device=dev)
+        valid = kpos[None, :] <= qpos[:, None] if causal \
+            else torch.ones((qc.shape[3], skv), dtype=torch.bool, device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        delta = (doc * of[:, :, :, q0:q0 + block_q]).sum(-1, keepdim=True)
+        dv += torch.einsum("bhgqk,bhgqe->bhke", p, doc)
+        ds = p * (torch.einsum("bhgqe,bhke->bhgqk", doc, vf) - delta)
+        dq[:, :, :, q0:q0 + block_q] = scale * torch.einsum(
+            "bhgqk,bhkd->bhgqd", ds, kf)
+        dk += scale * torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [ctypes.POINTER(ctypes.c_longlong)] \
+            + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, scale: float | None = None):
+    """(dq, dk, dv) of :func:`flash_attention` (``kv_len=None``) at its
+    output ``o`` for the output gradient ``do``.
+
+    CUDA tensors (all f32 or all bf16, unit stride on the last axis; d,
+    dv ≤ 256) launch ``csrc/flash_attention_bwd.cu`` (three kernels: row
+    statistics, dK/dV, dQ; an f32 workspace of 3 floats a query row) on
+    the current stream and add one to ``flash_attention_bwd.launches``;
+    the gradients are allocated contiguous.  CPU tensors run
+    :func:`flash_attention_bwd_plain`."""
+    _check(q, k, v, None)
+    if o.shape != q.shape[:3] + v.shape[3:] or do.shape != o.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape[:3])} + "
+                         f"({v.shape[3]},), got {tuple(o.shape)} and "
+                         f"{tuple(do.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    tensors = (q, k, v, o, do)
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"need q, k, v, o, do all f32 or all bf16, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if any(t.stride(3) != 1 for t in tensors):
+        raise ValueError("q, k, v, o, do need unit stride on the head dim")
+    b, hq, sq, d = q.shape
+    hkv, skv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    if d > MAX_HEAD_DIM or dv_dim > MAX_HEAD_DIM:
+        raise ValueError(f"d={d}, dv={dv_dim}: the kernel takes at most "
+                         f"{MAX_HEAD_DIM}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    if b * hq * max(sq, skv):
+        stats = torch.empty((b, hq, sq, 3), dtype=torch.float32,
+                            device=q.device)
+        strides = (ctypes.c_longlong * 24)(*(
+            s for t in (*tensors, dq, dk, dv) for s in t.stride()[:3]))
+        with torch.cuda.device(q.device):
+            lib = _bwd_lib()
+            stream = torch.cuda.current_stream().cuda_stream
+            status = lib.repro_flash_attention_bwd(
+                *(t.data_ptr() for t in (*tensors, dq, dk, dv, stats)),
+                strides, b, hq, hkv, sq, skv, d, dv_dim, scale, int(causal),
+                _DTYPES[q.dtype], stream)
+        _build.check(status, "flash_attention_bwd")
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable :func:`flash_attention` (``kv_len=None``):
+    ``FlashAttentionFn.apply(q, k, v, causal, scale)``.  The forward is
+    the forward kernel (its plain version on the CPU) and saves q, k, v
+    and the output; the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None):
+        out = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None

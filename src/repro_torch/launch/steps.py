@@ -2,19 +2,25 @@
 (arch × shape cell [× mesh]) → a ``StepPlan`` with the step function and
 its example input shapes.
 
-The LM serving steps of the reference's ``_lm_step`` (``steps.py:59``:
-prefill at :115, decode at :128) and the recsys CTR steps of its
-``_recsys_step`` (``steps.py:199``: serve at :236, retrieval at :250)
-without a mesh: the port runs them at world size 1, so there are no
-shardings to state.  The step functions take the model
+The LM steps of the reference's ``_lm_step`` (``steps.py:59``: train at
+:72, prefill at :115, decode at :128) and the recsys steps of its
+``_recsys_step`` (``steps.py:199``: train at :218, serve at :236 —
+BERT4Rec's through ``serve_scores`` — and retrieval at :250) without a
+mesh: the port runs them at world size 1, so there are no shardings to
+state.  The step functions take the model
 (``repro_torch.models.transformer.Transformer``, ``models.dlrm.DLRM``,
-``models.fm.FM``, ``models.xdeepfm.XDeepFM``) where the reference takes
-its parameter tree.  The CF steps of ``_cf_step`` (``steps.py:265``) run
-the mesh engines of :mod:`repro_torch.core.engine` on ``torch.distributed``
-over the mesh given to ``build_step`` (None: the engine's
-``default_mesh`` on the batch's device), sharding over its first axis.
-Training and the other families raise ``NotImplementedError`` naming
-their ROADMAP item.
+``models.fm.FM``, ``models.xdeepfm.XDeepFM``, ``models.bert4rec.
+BERT4Rec``) where the reference takes its parameter tree.  A train step
+is ``fn(model, opt_state, batch) → (model, opt_state, loss)``: the
+gradient of the model's parameter tree (the LM's mean over
+``cfg.microbatch`` µbatches), then ``plan.optimizer``'s update written
+into the model's parameters (build the state with
+``plan.optimizer.init(model.tree())``).  The CF steps of ``_cf_step``
+(``steps.py:265``) run the mesh engines of :mod:`repro_torch.core.engine`
+on ``torch.distributed`` over the mesh given to ``build_step`` (None: the
+engine's ``default_mesh`` on the batch's device), sharding over its
+first axis.  The GNN family raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,6 +32,10 @@ import torch
 
 from repro_torch.configs.registry import (ArchSpec, ShapeCell, TensorSpec,
                                           input_specs)
+from repro_torch.distributed.checkpoint import tree_flatten
+from repro_torch.training.optimizer import get_optimizer
+from repro_torch.training.train_loop import (make_train_step, take_grads,
+                                             trainable)
 
 
 @dataclasses.dataclass
@@ -33,6 +43,12 @@ class StepPlan:
     name: str
     fn: Callable
     example_args: Dict[str, Any]     # input name → TensorSpec (or a tree)
+    optimizer: Any = None            # a train step's optimizer
+
+
+def _on(model, batch) -> Dict[str, torch.Tensor]:
+    return {key: torch.as_tensor(val, device=model.device)
+            for key, val in batch.items()}
 
 
 def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
@@ -51,11 +67,24 @@ def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
 
 def _lm_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
     name = f"{arch.name}:{cell.name}"
-    if cell.step == "train":
-        raise NotImplementedError(
-            f"{name}: LM training (loss, backward, optimizer) is not ported "
-            f"yet (ROADMAP Queue 1 item 11)")
     inputs = input_specs(arch, cell)
+    if cell.step == "train":
+        from repro_torch.models import transformer as tx
+        opt = get_optimizer(arch.optimizer)
+
+        def step(model, opt_state, batch):
+            """One AdamW step on ``batch`` {tokens, labels} (B, S); the
+            model's compute copy is cast again after the update."""
+            params = trainable(model.tree())
+            for leaf in tree_flatten(params):
+                leaf.grad = None
+            loss = tx.backward(model.cfg, params, _on(model, batch),
+                               use_kernel=model.use_kernel)
+            opt.update(params, take_grads(params), opt_state)
+            model.refresh()
+            return model, opt_state, loss
+        return StepPlan(name=name, fn=step, example_args=inputs,
+                        optimizer=opt)
     if cell.step == "prefill":
         def step(model, batch, max_len=None):
             """(logits (B, V), cache) for ``batch["tokens"]`` (B, S)."""
@@ -71,14 +100,21 @@ def _lm_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
 
 def _recsys_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
     name = f"{arch.name}:{cell.name}"
-    if cell.step == "train":
-        raise NotImplementedError(
-            f"{name}: recsys training (loss, adagrad, train step) is not "
-            f"ported yet (ROADMAP Queue 1 item 11)")
     inputs = input_specs(arch, cell)
+    if cell.step == "train":
+        opt = get_optimizer(arch.optimizer)
+
+        def step(model, opt_state, batch):
+            """One step of the arch's optimizer on the model's loss."""
+            fn = make_train_step(lambda p, b: model.loss(b), opt)
+            _, opt_state, loss = fn(model.tree(), opt_state, batch)
+            return model, opt_state, loss
+        return StepPlan(name=name, fn=step, example_args=inputs,
+                        optimizer=opt)
     if cell.step == "serve":
         def step(model, batch):
-            """Logits (B,) for ``batch`` (sparse ids, DLRM's dense)."""
+            """Logits (B,) for ``batch`` (sparse ids, DLRM's dense);
+            BERT4Rec's next-item scores (B, vocab) for its items."""
             return model(batch)
         return StepPlan(name=name, fn=step, example_args=inputs)
     if cell.step == "retrieval":

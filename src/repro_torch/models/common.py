@@ -1,14 +1,17 @@
 """Shared building blocks (port of ``repro.models.common``): dense layers
-and MLPs (with their initialisers, for the recsys family), RMSNorm,
-rotary embeddings, SwiGLU and the two attention entry points.
+and MLPs (with their initialisers, for the recsys family), RMSNorm and
+LayerNorm, rotary embeddings, SwiGLU and GELU, the two attention entry
+points and the chunked cross-entropy of LM training.
 
 The reference's ``chunked_attention`` (an XLA online softmax over KV
 chunks) is what its Pallas flash kernel replaces on the chip ("same math,
 same oracle"); here both ``chunked_attention`` and ``decode_attention``
 route through ``repro_torch.kernels.flash_attention``: the CUDA kernel on
 a CUDA tensor, its plain version on a CPU tensor or when the caller
-passes ``use_kernel=False``.  There is no sharding context: the port runs
-at world size 1.
+passes ``use_kernel=False``.  When a gradient is needed,
+``chunked_attention`` goes through ``FlashAttentionFn``, whose backward is
+the hand-written backward kernel on the card.  There is no sharding
+context: the port runs at world size 1.
 """
 
 from __future__ import annotations
@@ -19,12 +22,17 @@ from typing import Any, Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+from repro_torch.kernels.flash_attention import (NEG_INF, FlashAttentionFn,
+                                                 flash_attention,
                                                  flash_attention_plain)
 
-__all__ = ["NEG_INF", "ParamTree", "CTRModel", "dense_init", "dense", "mlp_init", "mlp", "rmsnorm", "rope_freqs", "apply_rope",
-           "chunked_attention", "decode_attention", "swiglu",
+__all__ = ["NEG_INF", "ParamTree", "CTRModel", "dense_init", "dense",
+           "mlp_init", "mlp", "rmsnorm", "layernorm_init", "layernorm",
+           "rope_freqs", "apply_rope", "chunked_attention",
+           "decode_attention", "chunked_softmax_xent", "bce_with_logits",
+           "swiglu", "gelu",
            "count_params"]
 
 
@@ -55,14 +63,17 @@ class ParamTree(nn.Module):
 
 
 class CTRModel(ParamTree):
-    """A recsys CTR model for serving: the reference's parameter tree as
-    parameters, ``forward`` and ``retrieval_score`` on a batch of numpy
-    arrays or tensors (moved to the parameters' device) under
-    ``torch.inference_mode()``.  A subclass names its module's functions
-    as ``forward_fn`` and ``retrieval_fn`` (``fn(cfg, params, batch)``)."""
+    """A recsys CTR model: the reference's parameter tree as parameters,
+    ``forward`` and ``retrieval_score`` on a batch of numpy arrays or
+    tensors (moved to the parameters' device) under
+    ``torch.inference_mode()``, and ``loss`` with grad enabled (the
+    training steps take the gradient of the parameter tree).  A subclass
+    names its module's functions as ``forward_fn``, ``retrieval_fn`` and
+    ``loss_fn`` (``fn(cfg, params, batch)``)."""
 
     forward_fn = None
     retrieval_fn = None
+    loss_fn = None
 
     def __init__(self, cfg, params: Dict[str, Any]):
         super().__init__(params)
@@ -83,6 +94,12 @@ class CTRModel(ParamTree):
     @torch.inference_mode()
     def retrieval_score(self, batch: Dict[str, Any]) -> torch.Tensor:
         return self.retrieval_fn(self.cfg, self.tree(), self._batch(batch))
+
+    @torch.enable_grad()
+    def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The training loss (a 0-d f32 tensor) on the parameters as they
+        are; a gradient reaches the leaves that require one."""
+        return self.loss_fn(self.cfg, self.tree(), self._batch(batch))
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
@@ -142,6 +159,23 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((x * torch.rsqrt(var + eps)) * p["scale"]).to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    """{"scale": ones (d,), "bias": zeros (d,)} (reference ``common.py:93``)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in f32 with the reference's eps 1e-6 (torch's default is
+    1e-5), cast back to x's dtype (reference ``common.py:97``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     """(head_dim/2,) inverse frequencies in f32 (reference ``common.py:107``)."""
@@ -170,8 +204,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     queries aligned to the end of the keys (reference ``common.py:126``).
     ``chunk_q`` / ``chunk_kv`` are the plain version's query chunk and KV
     block, as they are the reference's XLA path's; the kernel tiles on its
-    own, as the reference's Pallas kernel does."""
+    own, as the reference's Pallas kernel does.  When a gradient is
+    needed (grad enabled and q, k or v requiring one) the kernel goes
+    through ``FlashAttentionFn``, whose backward is the backward kernel;
+    the plain version is differentiated by autograd."""
     if use_kernel:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal, scale)
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                  block_q=chunk_q, block_kv=chunk_kv)
@@ -189,8 +229,63 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
               kv_len=cache_len.to(torch.int32).contiguous())
 
 
+def _xent_chunk(hh: torch.Tensor, w32: torch.Tensor, ll: torch.Tensor):
+    """(Σ NLL, count) of one chunk: f32 logits, labels −1 ignored."""
+    logits = hh.float() @ w32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+    valid = (ll >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_softmax_xent(h: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, *,
+                         chunk: int = 256) -> torch.Tensor:
+    """Mean token NLL without materialising (B, S, V) logits (reference
+    ``common.py:227``).  ``h``: (B, S, D) final hidden states; ``w_out``:
+    (D, V); ``labels``: (B, S) int with −1 = ignore.  S is taken in
+    chunks of ``chunk`` positions, each with f32 logits (TF32 off, as the
+    package pins it) under ``torch.utils.checkpoint``, so a chunk's
+    logits are recomputed in the backward and never stored, as the
+    reference's ``jax.checkpoint`` ensures."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"S={s} must divide chunk={c}")
+    w32 = w_out.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, s, c):
+        hh, ll = h[:, s0:s0 + c], labels[:, s0:s0 + c]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_xent_chunk, hh, w32, ll,
+                                 use_reentrant=False)
+        else:
+            part, n = _xent_chunk(hh, w32, ll)
+        tot = tot + part
+        cnt = cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy in the recsys models' stable form,
+    max(z, 0) − z·y + log1p(exp(−|z|)) (reference ``dlrm.py:112``), not
+    ``F.binary_cross_entropy_with_logits``, whose rounding differs."""
+    y = labels.float()
+    loss = torch.clamp_min(logits, 0) - logits * y \
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    return torch.mean(loss)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (not torch's
+    default erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def count_params(params) -> int:

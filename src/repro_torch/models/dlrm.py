@@ -1,13 +1,12 @@
 """DLRM (Naumov et al., arXiv:1906.00091), MLPerf Criteo-1TB config (port
-of ``repro.models.dlrm``): the serving ``forward`` and the batched
-``retrieval_score``.
+of ``repro.models.dlrm``): the serving ``forward``, the batched
+``retrieval_score`` and the training ``loss_fn``.
 
 bottom-MLP(dense 13) ∥ 26 embedding lookups → dot interaction → top-MLP.
 ``DLRM`` is an ``nn.Module`` holding the reference's parameter tree
 (``tables.{sharded,replicated}``, ``bot.l{i}.{w,b}``, ``top.l{i}.{w,b}``)
 in f32; the functions take that tree as the reference's do.  The port
-runs at world size 1 (``mesh=None``); training (``loss_fn``) is not
-ported yet (ROADMAP Queue 1 item 11).
+runs at world size 1 (``mesh=None``).
 """
 
 from __future__ import annotations
@@ -119,8 +118,17 @@ def retrieval_score(cfg: DLRMConfig, params, batch: Dict,
     return forward(cfg, params, {"dense": dense, "sparse": sparse}, mesh)
 
 
+
+def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    (reference ``dlrm.py:108``), in the reference's own stable
+    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    return cm.bce_with_logits(forward(cfg, params, batch, mesh),
+                              batch["labels"])
+
 class DLRM(cm.CTRModel):
-    """DLRM for serving (``forward``, ``retrieval_score``)."""
+    """DLRM (``forward``, ``retrieval_score``, ``loss``)."""
 
     forward_fn = staticmethod(forward)
     retrieval_fn = staticmethod(retrieval_score)
+    loss_fn = staticmethod(loss_fn)

@@ -1,14 +1,13 @@
 """Factorization Machines (Rendle, ICDM 2010), 2-way interactions (port of
-``repro.models.fm``): the serving ``forward`` and the factorised
-``retrieval_score``.
+``repro.models.fm``): the serving ``forward``, the factorised
+``retrieval_score`` and the training ``loss_fn``.
 
 The O(nk) sum-square identity  Σᵢ<ⱼ⟨vᵢ,vⱼ⟩ = ½‖Σᵢvᵢ‖² − ½Σᵢ‖vᵢ‖²  gives
 the pairwise term; ``retrieval_score`` splits it over the user fields and
 the candidate field, so scoring N candidates is one (N, k) · (k,) product.
 ``FM`` is an ``nn.Module`` holding the reference's parameter tree (``w0``,
 ``linear.{sharded,replicated}``, ``factors.{sharded,replicated}``) in
-f32; the functions take that tree as the reference's do.  Training
-(``loss_fn``) is not ported yet (ROADMAP Queue 1 item 11).
+f32; the functions take that tree as the reference's do.
 """
 
 from __future__ import annotations
@@ -118,8 +117,17 @@ def retrieval_score(cfg: FMConfig, params, batch: Dict,
     return user_const + lin_c + v_c @ v_sum_u
 
 
+
+def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    (reference ``fm.py:95``), in the reference's own stable
+    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    return cm.bce_with_logits(forward(cfg, params, batch, mesh),
+                              batch["labels"])
+
 class FM(cm.CTRModel):
-    """The FM for serving (``forward``, ``retrieval_score``)."""
+    """The FM (``forward``, ``retrieval_score``, ``loss``)."""
 
     forward_fn = staticmethod(forward)
     retrieval_fn = staticmethod(retrieval_score)
+    loss_fn = staticmethod(loss_fn)

@@ -1,28 +1,37 @@
-"""LM-family transformer, dense GQA path: prefill → decode serving (port of
-``repro.models.transformer``).
+"""LM-family transformer, dense GQA path: prefill → decode serving and
+training (port of ``repro.models.transformer``).
 
 ``Transformer`` is an ``nn.Module`` whose parameter names are the
 reference's pytree paths (``embed``, ``final_norm.scale``, ``w_out`` when
 untied, ``dense_layers.attn.wq.w``, ... with the layers stacked on axis
 0), stored in f32 as the reference stores them, so a reference parameter
 tree carries across as a flat map (``repro_torch.state.
-transformer_from_reference``).  The reference casts the layer weights and
-the embedding to ``cfg.dtype`` at every use (``_bf16``, reference
-``transformer.py:334``); the port casts them once, when the module is
-built, which gives the same values (so changing the parameters of a
-built module does not reach its compute copy).
-``final_norm.scale`` stays f32 and the logits are
-``last.f32 @ embed.T.to(cfg.dtype).f32`` as in the reference.
+transformer_from_reference``).
+
+Serving (``prefill``, ``decode_step``) runs under
+``torch.inference_mode()`` on a compute copy of the weights that the
+module casts to ``cfg.dtype`` once, when it is built, and again on
+``refresh()`` (the training steps call it after each update): the same
+values as the reference's cast at every use (``_bf16``, reference
+``transformer.py:334``).  ``final_norm.scale`` stays f32 and the logits
+are ``last.f32 @ embed.T.to(cfg.dtype).f32`` as in the reference.
+``decode_step`` returns an updated copy of the cache and leaves the one
+it was given as it was, as the reference does (its decode step donates
+nothing), so two decodes from one cache branch.
+
+Training (``loss_fn``, ``backward``) is functional on the parameter tree
+and casts the f32 parameters to ``cfg.dtype`` at each use, as the
+reference does, so a gradient reaches every f32 leaf (the tied
+embedding's two uses sum into one).  ``cfg.remat`` runs each layer
+under ``torch.utils.checkpoint``; ``cfg.microbatch`` splits the batch
+and accumulates the mean gradient; ``cfg.xent_chunk`` is the chunk of
+``models.common.chunked_softmax_xent``.
 
 Attention runs through ``models.common.chunked_attention`` /
 ``decode_attention``, i.e. the flash-attention kernel on the card (its
-plain version on the CPU, or everywhere with ``use_kernel=False``).
-Serving (``prefill``, ``decode_step``) runs under
-``torch.inference_mode()``.  ``decode_step`` returns an updated copy of
-the cache and leaves the one it was given as it was, as the reference
-does (its decode step donates nothing), so two decodes from one cache
-branch.  MoE and MLA configs raise ``NotImplementedError`` (ROADMAP Queue
-1 item 11).
+plain version on the CPU, or everywhere with ``use_kernel=False``); with
+a gradient, through ``FlashAttentionFn`` and the backward kernel.  MoE
+and MLA configs raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -32,22 +41,27 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.checkpoint import tree_flatten
 from repro_torch.models import common as cm
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's ``TransformerConfig`` (same fields; ``dtype`` is a
-    torch dtype).  The port serves the dense GQA path only: ``moe`` /
+    torch dtype).  The port runs the dense GQA path only: ``moe`` /
     ``mla`` raise.  ``attn_chunk_q`` / ``attn_chunk_kv`` are the plain
     attention's query chunk and KV block (``models.common.
-    chunked_attention``).  The rest are read by no serving step, here or
-    in the reference: ``first_k_dense`` counts dense layers before MoE
-    ones; ``gather_weights_at_use`` gathers sharded weights (world size 1
-    has none); ``microbatch``, ``remat``, ``remat_policy`` and
-    ``xent_chunk`` shape the training step, which ``launch.steps.
-    build_step`` refuses (ROADMAP Queue 1 item 11)."""
+    chunked_attention``).  Training reads ``microbatch`` (µbatches whose
+    mean gradient a step takes), ``remat`` (each layer recomputed in the
+    backward) and ``xent_chunk`` (the loss's chunk of positions).
+    ``remat_policy`` names what a remat'd layer may keep: ``"nothing"``,
+    or the reference's ``"offload_psum"``, which offloads the layers'
+    tensor-parallel psum outputs to the host; at world size 1 there is no
+    psum to name, so it is taken as ``"nothing"``.  ``first_k_dense``
+    counts dense layers before MoE ones and ``gather_weights_at_use``
+    gathers sharded weights (world size 1 has none): read by no step."""
     name: str
     n_layers: int
     d_model: int
@@ -191,6 +205,124 @@ def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _gqa_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, Hq, S, dh) and k (B, Hkv, S, dh) after RoPE, v (B, Hkv, S,
+    dh): the first half of the reference's ``_gqa_attention``."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = cm.dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
+    k = cm.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    v = cm.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(p["q_norm"], q)
+        k = cm.rmsnorm(p["k_norm"], k)
+    q = cm.apply_rope(q.transpose(1, 2), positions[:, None, :],
+                      cfg.rope_theta)
+    k = cm.apply_rope(k.transpose(1, 2), positions[:, None, :],
+                      cfg.rope_theta)
+    return q, k, v.transpose(1, 2)
+
+
+def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
+                   positions: torch.Tensor, use_kernel: bool
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training / prefill attention (reference ``transformer.py:362``):
+    returns (out, {"k", "v"}) with the kv for the cache."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    out = cm.chunked_attention(q, k, v, causal=True,
+                               chunk_q=min(cfg.attn_chunk_q, s),
+                               chunk_kv=min(cfg.attn_chunk_kv, s),
+                               use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return cm.dense(p["wo"], out), {"k": k, "v": v}
+
+
+def _layer_fwd(cfg: TransformerConfig, p, x: torch.Tensor,
+               positions: torch.Tensor, use_kernel: bool):
+    """One pre-norm layer (reference ``transformer.py:535``)."""
+    h, kv = _gqa_attention(cfg, p["attn"], cm.rmsnorm(p["ln1"], x),
+                           positions, use_kernel)
+    x = x + h
+    x = x + _dense_ffn(p["ffn"], cm.rmsnorm(p["ln2"], x))
+    return x, kv
+
+
+def _layer_train(cfg: TransformerConfig, p, x: torch.Tensor,
+                 positions: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    return _layer_fwd(cfg, p, x, positions, use_kernel)[0]
+
+
+def hidden(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
+           use_kernel: bool = True) -> torch.Tensor:
+    """The training forward (reference ``transformer.py:578`` without the
+    cache): tokens (B, S) → final hidden (B, S, D) in ``cfg.dtype``, the
+    f32 parameters cast to ``cfg.dtype`` at each use (one cast of the
+    stacked layers, unbound into per-layer views), each layer under
+    ``torch.utils.checkpoint`` when ``cfg.remat``."""
+    _require_dense(cfg)
+    dt = cfg.dtype
+    b, s = tokens.shape
+    x = params["embed"].to(dt)[tokens.long()]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    layers = _map(lambda t: t.to(dt).unbind(0), params["dense_layers"])
+    for i in range(cfg.n_layers):
+        p = _map(lambda t, i=i: t[i], layers)
+        if cfg.remat:
+            x = checkpoint(_layer_train, cfg, p, x, positions, use_kernel,
+                           use_reentrant=False)
+        else:
+            x = _layer_train(cfg, p, x, positions, use_kernel)
+    return cm.rmsnorm(params["final_norm"], x)
+
+
+def _output_weights(cfg: TransformerConfig, params) -> torch.Tensor:
+    """(D, V) output weights in ``cfg.dtype`` (reference
+    ``transformer.py:605``)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["w_out"]
+    return w.to(cfg.dtype)
+
+
+def loss_fn(cfg: TransformerConfig, params, batch, *,
+            use_kernel: bool = True) -> torch.Tensor:
+    """Mean token NLL (reference ``transformer.py:614``): batch {"tokens":
+    (B, S), "labels": (B, S) with −1 ignored}."""
+    h = hidden(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    return cm.chunked_softmax_xent(h, _output_weights(cfg, params),
+                                   batch["labels"], chunk=cfg.xent_chunk)
+
+
+def backward(cfg: TransformerConfig, params, batch, *,
+             use_kernel: bool = True) -> torch.Tensor:
+    """The loss of a train step, its gradient left in the leaves' ``.grad``
+    (added to what they hold): with ``cfg.microbatch`` = m > 1 the batch
+    is split into m µbatches, each one's gradient accumulated, and the
+    sum and the loss divided by m (reference ``steps.py:77-101``)."""
+    mb = cfg.microbatch
+    with torch.enable_grad():
+        if mb == 1:
+            loss = loss_fn(cfg, params, batch, use_kernel=use_kernel)
+            loss.backward()
+            return loss.detach()
+        bsz, seq = batch["tokens"].shape
+        toks = batch["tokens"].reshape(mb, bsz // mb, seq)
+        labs = batch["labels"].reshape(mb, bsz // mb, seq)
+        total = torch.zeros((), dtype=torch.float32,
+                            device=params["embed"].device)
+        for t, lab in zip(toks, labs):
+            loss = loss_fn(cfg, params, {"tokens": t, "labels": lab},
+                           use_kernel=use_kernel)
+            loss.backward()
+            total = total + loss.detach()
+    with torch.no_grad():
+        for leaf in tree_flatten(params):
+            if leaf.grad is not None:
+                leaf.grad.div_(mb)
+    return total / mb
+
+
 class Transformer(cm.ParamTree):
     """The dense GQA transformer for serving: ``prefill`` and
     ``decode_step`` (see the module docstring)."""
@@ -207,6 +339,11 @@ class Transformer(cm.ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def refresh(self) -> None:
+        """Cast the compute copy again from the parameters (after a
+        training update)."""
+        self._cast_weights()
+
     @torch.no_grad()
     def _cast_weights(self) -> None:
         """The compute-dtype copy of the weights: the embedding and every
@@ -214,10 +351,12 @@ class Transformer(cm.ParamTree):
         the output weights as the f32 image of their ``cfg.dtype``
         rounding."""
         dt = self.cfg.dtype
-        self._embed = self.embed.to(dt)
+        # detached: with dtype f32 ``.to`` would hand back the Parameter
+        # itself, which assigning here would register a second time
+        self._embed = self.embed.detach().to(dt)
         w_out = self.embed.T if self.cfg.tie_embeddings else self.w_out
-        self._w_out = w_out.to(dt).float()
-        stacked = _map(lambda t: t.to(dt), self.dense_layers.tree())
+        self._w_out = w_out.detach().to(dt).float()
+        stacked = _map(lambda t: t.detach().to(dt), self.dense_layers.tree())
         self._layers = [_map(lambda t, i=i: t[i], stacked)
                         for i in range(self.cfg.n_layers)]
 
@@ -225,48 +364,6 @@ class Transformer(cm.ParamTree):
         """(D, V) output weights in ``cfg.dtype`` (reference
         ``transformer.py:605``), here as their f32 image."""
         return self._w_out
-
-    # -- forward pieces ----------------------------------------------------
-
-    def _gqa_qkv(self, p, x: torch.Tensor, positions: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """q (B, Hq, S, dh) and k (B, Hkv, S, dh) after RoPE, v (B, Hkv, S,
-        dh): the first half of the reference's ``_gqa_attention``."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        dh = cfg.dh
-        q = cm.dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
-        k = cm.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
-        v = cm.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
-        if cfg.qk_norm:
-            q = cm.rmsnorm(p["q_norm"], q)
-            k = cm.rmsnorm(p["k_norm"], k)
-        q = cm.apply_rope(q.transpose(1, 2), positions[:, None, :],
-                          cfg.rope_theta)
-        k = cm.apply_rope(k.transpose(1, 2), positions[:, None, :],
-                          cfg.rope_theta)
-        return q, k, v.transpose(1, 2)
-
-    def _gqa_attention(self, p, x: torch.Tensor, positions: torch.Tensor
-                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Prefill attention (reference ``transformer.py:362``): returns
-        (out, {"k", "v"}) with the kv for the cache."""
-        b, s, _ = x.shape
-        q, k, v = self._gqa_qkv(p, x, positions)
-        out = cm.chunked_attention(q, k, v, causal=True,
-                                   chunk_q=min(self.cfg.attn_chunk_q, s),
-                                   chunk_kv=min(self.cfg.attn_chunk_kv, s),
-                                   use_kernel=self.use_kernel)
-        out = out.transpose(1, 2).reshape(b, s, -1)
-        return cm.dense(p["wo"], out), {"k": k, "v": v}
-
-    def _layer_fwd(self, p, x: torch.Tensor, positions: torch.Tensor):
-        """One pre-norm layer (reference ``transformer.py:535``)."""
-        h, kv = self._gqa_attention(p["attn"], cm.rmsnorm(p["ln1"], x),
-                                    positions)
-        x = x + h
-        x = x + _dense_ffn(p["ffn"], cm.rmsnorm(p["ln2"], x))
-        return x, kv
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None
@@ -280,7 +377,7 @@ class Transformer(cm.ParamTree):
         x = self._embed[tokens.long()]
         positions = torch.arange(s, device=self.device)[None].expand(b, s)
         for i, p in enumerate(self._layers):
-            x, kv = self._layer_fwd(p, x, positions)
+            x, kv = _layer_fwd(self.cfg, p, x, positions, self.use_kernel)
             if cache is not None:
                 cache["k"][i, :, :, :s] = kv["k"]
                 cache["v"][i, :, :, :s] = kv["v"]

@@ -1,6 +1,6 @@
 """xDeepFM (Lian et al., arXiv:1803.05170) — CIN + DNN + linear (port of
-``repro.models.xdeepfm``): the serving ``forward`` and the chunked
-``retrieval_score``.
+``repro.models.xdeepfm``): the serving ``forward``, the chunked
+``retrieval_score`` and the training ``loss_fn``.
 
 CIN layer:  x^{k+1}_h = Σ_{i,j} W^{k,h}_{ij} (x^k_i ∘ x^0_j) + b_h, ReLU;
 each layer's feature map is sum-pooled over the embedding dim into the
@@ -9,7 +9,6 @@ compression is one (B·D, Hk·F) × (Hk·F, H) product (the reference's two
 einsums; same terms, summed in another order).  ``XDeepFM`` is an
 ``nn.Module`` holding the reference's parameter tree (``linear``,
 ``factors``, ``cin`` — a list of {w, b} — ``cin_out``, ``dnn``) in f32.
-Training (``loss_fn``) is not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -139,8 +138,17 @@ def retrieval_score(cfg: XDeepFMConfig, params, batch: Dict,
     return torch.cat([score_chunk(chunk) for chunk in cand.split(c)])
 
 
+
+def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    (reference ``xdeepfm.py:125``), in the reference's own stable
+    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    return cm.bce_with_logits(forward(cfg, params, batch, mesh),
+                              batch["labels"])
+
 class XDeepFM(cm.CTRModel):
-    """xDeepFM for serving (``forward``, ``retrieval_score``)."""
+    """xDeepFM (``forward``, ``retrieval_score``, ``loss``)."""
 
     forward_fn = staticmethod(forward)
     retrieval_fn = staticmethod(retrieval_score)
+    loss_fn = staticmethod(loss_fn)

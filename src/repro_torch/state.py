@@ -17,8 +17,12 @@ arrays, and a subtree that lacks a key raises.
 reference's ``repro.models.transformer.init_params`` tree (host arrays)
 becomes the port's ``Transformer`` module on a device, so both packages
 compute on the same weights.  :func:`recsys_from_reference` does it for
-the recsys CTR models (DLRM, FM, xDeepFM), whose trees hold lists too
-(xDeepFM's ``"cin"``).
+the recsys models (DLRM, FM, xDeepFM and BERT4Rec — also
+:func:`bert4rec_from_reference`), whose trees hold lists too (xDeepFM's
+``"cin"``, BERT4Rec's ``"blocks"``).  :func:`opt_state_from_reference`
+and :func:`opt_state_to_numpy` carry an optimizer state tree across
+(``{"step", "m", "v"}``, ``{"step", "acc"}``, ``{"step"[, "mu"]}``), so
+both packages train from one state.
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ def _tensor_tree(tree, dev):
     arr = _host(tree)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)       # bf16 host arrays (ml_dtypes)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return torch.from_numpy(np.array(arr, order="C")).to(dev)  # keeps 0-d
 
 
 def transformer_from_reference(cfg, params: dict, device="cuda",
@@ -111,12 +115,45 @@ def transformer_from_reference(cfg, params: dict, device="cuda",
 def recsys_from_reference(cfg, params: dict, device="cuda"):
     """Reference recsys parameter tree (nested dicts and lists of host or
     jax arrays, f32) → the port's model for ``cfg`` (``DLRMConfig`` →
-    ``DLRM``, ``FMConfig`` → ``FM``, ``XDeepFMConfig`` → ``XDeepFM``) on
-    ``device`` with the same parameter paths and values."""
-    from repro_torch.models import dlrm, fm, xdeepfm
+    ``DLRM``, ``FMConfig`` → ``FM``, ``XDeepFMConfig`` → ``XDeepFM``,
+    ``BERT4RecConfig`` → ``BERT4Rec``) on ``device`` with the same
+    parameter paths and values."""
+    from repro_torch.models import bert4rec, dlrm, fm, xdeepfm
     models = {dlrm.DLRMConfig: dlrm.DLRM, fm.FMConfig: fm.FM,
-              xdeepfm.XDeepFMConfig: xdeepfm.XDeepFM}
+              xdeepfm.XDeepFMConfig: xdeepfm.XDeepFM,
+              bert4rec.BERT4RecConfig: bert4rec.BERT4Rec}
     if type(cfg) not in models:
         raise TypeError(f"no recsys model of the port for {type(cfg)}")
     dev = resolve_device(device)
     return models[type(cfg)](cfg, _tensor_tree(params, dev))
+
+
+def bert4rec_from_reference(cfg, params: dict, device="cuda"):
+    """Reference BERT4Rec parameter tree → the port's ``BERT4Rec`` on
+    ``device`` (:func:`recsys_from_reference` for a ``BERT4RecConfig``)."""
+    from repro_torch.models.bert4rec import BERT4RecConfig
+    if not isinstance(cfg, BERT4RecConfig):
+        raise TypeError(f"need a BERT4RecConfig, got {type(cfg)}")
+    return recsys_from_reference(cfg, params, device)
+
+
+_OPT_KEYS = ({"step", "m", "v"}, {"step", "acc"}, {"step"},
+             {"step", "mu"})
+
+
+def opt_state_from_reference(state: dict, device="cuda"):
+    """A reference optimizer state tree (host or jax arrays) → tensors on
+    ``device`` in the same structure (``step`` an int32 0-d tensor)."""
+    if set(state) not in _OPT_KEYS:
+        raise ValueError(f"not an optimizer state: keys {sorted(state)}")
+    return _tensor_tree(state, resolve_device(device))
+
+
+def opt_state_to_numpy(state):
+    """An optimizer state tree (or any tree of tensors) → numpy arrays in
+    the same structure, for the reference's ``update``."""
+    if isinstance(state, dict):
+        return {key: opt_state_to_numpy(val) for key, val in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [opt_state_to_numpy(val) for val in state]
+    return _host(state)

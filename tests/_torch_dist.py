@@ -251,6 +251,17 @@ def slope_task(rank, world, p):
     return _np(out)
 
 
+def compressed_psum_task(rank, world, p):
+    """``compressed_psum`` of this rank's row of ``p["x"]`` over the
+    default group, in f32 and bf16."""
+    import torch
+    from repro_torch.training.compression import compressed_psum
+    x = torch.from_numpy(p["x"][rank])
+    return {"f32": compressed_psum(x).numpy(),
+            "bf16": compressed_psum(x.bfloat16()).float().numpy()}
+
+
 TASKS = {"engine": engine_task, "kmeans": kmeans_task,
          "embedding": embedding_task, "restore": restore_task,
-         "usercf": usercf_task, "slope": slope_task}
+         "usercf": usercf_task, "slope": slope_task,
+         "compressed_psum": compressed_psum_task}

@@ -197,3 +197,82 @@ def test_kernel_route_rule(dtype, hq, hkv, sq, want):
     q = torch.zeros((1, hq, sq, 8), dtype=dtype)
     k = torch.zeros((1, hkv, 4, 8), dtype=dtype)
     assert route(q, k) == want
+
+
+# -- the backward: the plain gradient and the autograd Function ---------------
+
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,chunk", [
+    (2, 2, 2, 13, 13, 8, 4),     # group 2, S not a multiple of the chunk
+    (1, 2, 4, 20, 20, 16, 8),    # group 4
+    (1, 1, 4, 7, 5, 8, 4),       # Sq > Skv: the first rows fully masked
+])
+def test_plain_backward_matches_autograd_and_reference(b, hkv, group, sq,
+                                                       skv, d, chunk):
+    """``flash_attention_bwd_plain`` against autograd of
+    ``flash_attention_plain`` and against ``jax.grad`` of the reference's
+    ``chunked_attention`` (its XLA path, the one the reference trains
+    through); ``FlashAttentionFn`` gives the plain gradients on the CPU.
+    Tolerance 2e-5 (f32; sums in another order)."""
+    import jax
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = _qkv(sq * 31 + group, b, hkv * group, hkv, sq, skv, d)
+    do = np.random.default_rng(9).normal(0, 1, q.shape).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = flash_attention_plain(tq, tk, tv, causal=True, block_kv=chunk)
+    auto = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    got = flash_attention_bwd_plain(*(t.detach() for t in (tq, tk, tv)),
+                                    out.detach(), torch.from_numpy(do),
+                                    causal=True, block_q=chunk)
+
+    def ref(qq, kk, vv):
+        o = jcm.chunked_attention(qq, kk, vv, causal=True, chunk_q=chunk,
+                                  chunk_kv=chunk)
+        return jnp.sum(o * do)
+
+    want = jax.grad(ref, argnums=(0, 1, 2))(q, k, v)
+    fn_out = FlashAttentionFn.apply(tq, tk, tv, True, None)
+    before = flash_attention_bwd.launches
+    via_fn = torch.autograd.grad(fn_out, (tq, tk, tv), torch.from_numpy(do))
+    assert flash_attention_bwd.launches == before       # CPU: no launch
+    name = f"flash_bwd.{b}x{hkv}x{group}x{sq}x{skv}x{d}"
+    for tag, g, a, w, f in zip("qkv", got, auto, want, via_fn):
+        assert_parity(f"{name}.d{tag}.autograd", g, a, F32_TOL)
+        assert_parity(f"{name}.d{tag}.reference", g, np.asarray(w), F32_TOL)
+        assert_parity(f"{name}.d{tag}.function", f, g, F32_TOL)
+    if sq > skv:                       # rows with no visible key: dq = 0
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+def test_chunked_attention_takes_the_function_with_grad():
+    """With a gradient needed, ``chunked_attention(use_kernel=True)`` goes
+    through ``FlashAttentionFn`` (its output has that grad_fn); without,
+    it is the forward alone."""
+    q, k, v = _t(*_qkv(4, 1, 4, 2, 6, 6, 8))
+    q.requires_grad_()
+    out = tcm.chunked_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    with torch.no_grad():
+        assert tcm.chunked_attention(q, k, v).grad_fn is None
+    plain = tcm.chunked_attention(q, k, v, use_kernel=False)
+    assert type(plain.grad_fn).__name__ != "FlashAttentionFnBackward"
+    assert_parity("flash_fn.forward", out, plain, F32_TOL)
+
+
+def test_backward_kernel_source_and_wrapper():
+    """``csrc/flash_attention_bwd.cu`` is built like the other kernels
+    (a plain C entry point returning ``cudaGetLastError``, its bound
+    stated, listed in ``_build.KERNELS``); its wrapper counts launches
+    and raises on a device it does not take."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    src = (Path(_build.CSRC) / "flash_attention_bwd.cu").read_text()
+    assert 'extern "C"' in src and "cudaGetLastError" in src
+    assert "Bound." in src and "repro/models/common.py" in src
+    assert "flash_attention_bwd" in _build.KERNELS
+    assert isinstance(flash_attention_bwd.launches, int)
+    q = torch.zeros(1, 2, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)

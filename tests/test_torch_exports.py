@@ -11,7 +11,7 @@ NOT_PORTED = {
     "configs": {"all_archs", "all_cells"},
     "core": set(),
     "data": {"GraphSpec", "NeighborSampler", "molecules_batch",
-             "synthetic_graph", "bert4rec_batch"},
+             "synthetic_graph"},
     "index": set(),
     "kernels": set(),
     "obs": set(),

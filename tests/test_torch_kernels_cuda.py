@@ -1206,3 +1206,78 @@ def test_slope_one_deviation_on_the_card(cuda):
     assert torch.equal(d.cpu(), want_d) and torch.equal(c.cpu(), want_c)
     assert_parity("slope_one.card.predict", so.predict(r.to(cuda), d, c),
                   so.predict(r, want_d, want_c), atol=2e-6)
+
+
+# -- the flash-attention backward kernel (LM training) ------------------------
+
+def _bwd_close(name, q, k, v, causal=True):
+    """The backward kernel's (dq, dk, dv) against the plain backward's on
+    the same inputs (f32 copies of them for bf16), one launch a call.
+    Tolerance, relative to the largest |gradient| of each tensor: 2e-5
+    in f32 (both sum in f32, in another order, over up to S·g terms) and
+    1e-2 in bf16 (the kernel's result is rounded to bf16: ≤ 2⁻⁸ of each
+    value, plus the f32 copies' order)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    o = flash_attention(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(7)
+                     ).to(o.device, o.dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
+                                     causal=causal)
+    rel = 2e-5 if q.dtype == torch.float32 else 1e-2
+    for tag, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert_parity(f"{name}.d{tag}", g.float(), w,
+                      rel * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv,causal", [
+    (2, 2, 1, 77, 77, 64, 64, True),      # ragged tiles, Sq == Skv
+    (1, 2, 4, 50, 130, 128, 128, True),   # Sq != Skv, group 4
+    (2, 1, 2, 100, 100, 64, 64, False),   # not causal
+    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d, 32-row tiles
+    (1, 1, 2, 20, 8, 64, 64, True),       # Sq > Skv: fully masked rows
+    (1, 2, 2, 65, 65, 40, 40, True),      # d off 16
+])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, hkv, group, sq, skv,
+                                        d, dv, causal):
+    q, k, v = _attn_inputs(sq * 7 + skv, b, hkv * group, hkv, sq, skv, d,
+                           dv, dtype, cuda)
+    _bwd_close(f"cuda.flash_bwd.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}."
+               f"{str(dtype)[6:]}", q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_at_the_llama_training_shape(cuda, dtype):
+    """Llama-3.2-1B's heads (32 / 8, d 64) at a 1024-token sequence, and
+    the autograd Function: its gradients are the backward kernel's."""
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_bwd)
+    q, k, v = _attn_inputs(3, 1, 32, 8, 1024, 1024, 64, 64, dtype, cuda)
+    _bwd_close(f"cuda.flash_bwd.llama.{str(dtype)[6:]}", q, k, v)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = FlashAttentionFn.apply(*leaves, True, None)
+    before = flash_attention_bwd.launches
+    out.float().square().sum().backward()
+    assert flash_attention_bwd.launches == before + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+
+
+def test_flash_bwd_kernel_strided_and_rejects(cuda):
+    """(B, S, H, d) storage seen as (B, H, S, d), as the model passes q,
+    k, v and the output gradient; mixed dtypes and devices raise."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator().manual_seed(5)
+    qt = torch.randn(2, 70, 4, 64, generator=g).to(cuda).transpose(1, 2)
+    kt = torch.randn(2, 70, 2, 64, generator=g).to(cuda).transpose(1, 2)
+    _bwd_close("cuda.flash_bwd.strided", qt, kt, kt)
+    o = torch.zeros_like(qt)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(qt, kt.bfloat16(), kt, o, o)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(qt, kt, kt.cpu(), o, o)
