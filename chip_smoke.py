@@ -237,11 +237,15 @@ then the training slice:
 
 22. kernel 8's backward (``csrc/flash_attention_bwd.cu``) against its
     plain version at Llama-3.2-1B's prefill shapes (B 4, Hq 32, Hkv 8,
-    S 2048, d 64), bf16 and f32 (dQ, dK, dV each within 1e-2 / 2e-5 of
-    its largest |gradient|); its time beside the plain version, autograd
-    of ``scaled_dot_product_attention(enable_gqa=True)``'s backward and
-    its bound (five of the forward's two matmuls, half masked, at the
-    bf16 peak);
+    S 2048, d 64), bf16 on its "mma" route and f32 on "simt" (dQ, dK, dV
+    each within 1e-2 / 2e-5 of its largest |gradient|; a second call
+    bitwise equal); the forward's log-sum-exp on its three routes
+    against the plain version's (1e-5 / 1e-4 absolute); the backward's
+    time beside the plain version, autograd of
+    ``scaled_dot_product_attention(enable_gqa=True)``'s backward and both
+    bounds (five of the forward's two matmuls, half masked, at the bf16
+    peak; the seven the deterministic design runs); the forward's
+    prefill and decode times with lse off and on;
 23. Llama-3.2-1B trained at full width (f32 master weights, bf16
     compute, AdamW, remat), train_4k's seq 4096 with the batch cut to 4
     in 2 µbatches: one step's loss and per-leaf gradients through kernel
@@ -254,7 +258,8 @@ then the training slice:
     ``build_step`` train steps (the loss of
     each, the first and warm step seconds, tokens/s, peak GiB) with the
     launch counts zeroed before and read after (one backward launch a
-    layer and µbatch, two forward launches with the remat recompute),
+    layer and µbatch, every one on "mma", two forward launches with the
+    remat recompute),
     then one more step under ``torch.profiler`` (device busy share, the
     largest device-time entries);
 24. DLRM (every field capped at 2 M rows, so that parameters, gradients
@@ -709,12 +714,14 @@ def index_wrappers():
 
 
 def zero_counts() -> None:
-    """Every kernel wrapper's launch count, and the embedding bag's route
-    counts, set to 0."""
+    """Every kernel wrapper's launch count, and the embedding bag's and
+    the flash backward's route counts, set to 0."""
     from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     for fn in all_wrappers().values():
         fn.launches = 0
-    embedding_bag.routes = dict.fromkeys(embedding_bag.routes, 0)
+    for fn in (embedding_bag, flash_attention_bwd):
+        fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def all_wrappers():
@@ -3354,22 +3361,33 @@ B4R_TRAIN_ROWS = 2048           # BERT4Rec train_batch rows (cut from 65536)
 RECSYS_TRAIN_STEPS = 3
 
 
-def bwd_close(name, q, k, v, seed=7):
-    """Kernel 8's forward, then its backward kernel against the plain
-    backward on f32 copies of the same inputs: each of dQ, dK, dV within
+def bwd_close(name, q, k, v, route, seed=7):
+    """Kernel 8's forward (with its log-sum-exp), then its backward kernel
+    on ``route`` against the plain backward (softmax recomputed, no lse)
+    on f32 copies of the same inputs: each of dQ, dK, dV within
     ``BWD_TOL[dtype]`` of the largest |gradient| of that tensor (the
     kernel sums in f32 in another order; bf16 gradients are rounded
-    once, ≤ 2⁻⁸ of each value).  Returns (max abs diff, max relative
-    diff, o, do)."""
+    once, ≤ 2⁻⁸ of each value, and the "mma" route rounds P and dS once
+    to bf16 as an operand); then a second call must give the same bits
+    (no atomics).  Returns (max abs diff, max relative diff, o, do,
+    lse)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
-    o = flash_attention(q, k, v)
+    o, lse = flash_attention(q, k, v, return_lse=True)
     gen = torch.Generator(device=q.device).manual_seed(seed)
     do = torch.randn(o.shape, generator=gen, device=q.device).to(q.dtype)
     before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do)
+    routes = dict(flash_attention_bwd.routes)
+    got = flash_attention_bwd(q, k, v, o, do, lse)
     check(flash_attention_bwd.launches == before + 1,
           f"{name}: one backward launch")
+    check(flash_attention_bwd.routes == {
+        r: n + (r == route) for r, n in routes.items()},
+        f"{name}: route {route}, counts {flash_attention_bwd.routes}")
+    again = flash_attention_bwd(q, k, v, o, do, lse)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two calls bitwise equal")
+    del again
     want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)))
     err = rel = 0.0
     for tag, g, w, x in zip("qkv", got, want, (q, k, v)):
@@ -3380,34 +3398,68 @@ def bwd_close(name, q, k, v, seed=7):
         check(r <= BWD_TOL[q.dtype],
               f"{name} d{tag}: diff {e} ({r} of the largest |grad|)")
         err, rel = max(err, e), max(rel, r)
-    return err, rel, o, do
+    return err, rel, o, do, lse
+
+
+# the forward's log-sum-exp against the plain version's, absolute: f32
+# inputs, bf16 inputs (both sum exp in f32 from the same values)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def lse_close(name, q, k, v, route, **kw):
+    """The forward on ``route`` with ``return_lse=True``: its output equal
+    to the call without lse bit for bit, its lse within ``LSE_TOL`` of the
+    plain version's on f32 copies.  Returns the max abs diff."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    before = flash_attention.routes[route]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    check(flash_attention.routes[route] == before + 1, f"{name}: {route}")
+    check(torch.equal(out, flash_attention(q, k, v, **kw)),
+          f"{name}: the output does not depend on return_lse")
+    want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                 return_lse=True, **kw)[1]
+    e = max_diff(lse, want)
+    check(e <= LSE_TOL[q.dtype], f"{name} lse: diff {e}")
+    return e
 
 
 def phase_flash_bwd(dev):
     """Phase 22: kernel 8's backward (``csrc/flash_attention_bwd.cu``)
-    against its plain version at Llama-3.2-1B's prefill shapes, in bf16
-    and f32; its time against the plain version, autograd of
+    against its plain version at Llama-3.2-1B's prefill shapes on both
+    routes — bf16 on "mma", f32 on "simt" — each twice, bitwise equal;
+    the forward's log-sum-exp on each of its routes (prefill "simt" and
+    "mma", decode "split") against the plain version's, and its prefill
+    and decode times with lse off and on; the backward's time against
+    the plain version, autograd of
     ``scaled_dot_product_attention(enable_gqa=True)``'s backward (never
-    called by the port) and its bound: five of the forward's two
-    matmuls, half of them causal-masked, at the bf16 peak."""
+    called by the port) and both bounds at the bf16 peak: the function's
+    five products (the forward's two matmuls: S, dV, dP, dQ, dK), and the
+    seven the deterministic design runs (dQ's kernel recomputes S and
+    dP), half of each causal-masked."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
 
     b, hq, hkv, s, d = FLASH_BWD_SHAPE
     gen = torch.Generator(device=dev).manual_seed(22)
-    out = {"errs": {}}
+    out = {"errs": {}, "lse_errs": {}, "fwd": {}}
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, hkv, s, d), generator=gen,
                             device=dev).to(dtype) for _ in range(2))
-        err, rel, o, do = bwd_close(f"flash bwd {dtype}", q, k, v)
-        out["errs"][str(dtype)[6:]] = (err, rel)
+        tag = str(dtype)[6:]
+        route = "simt" if dtype == torch.float32 else "mma"
+        err, rel, o, do, lse = bwd_close(f"flash bwd {tag}", q, k, v, route)
+        out["errs"][tag] = (err, rel)
+        out["lse_errs"][f"{tag} {route}"] = lse_close(
+            f"flash {tag} prefill", q, k, v, route)
         if dtype == torch.bfloat16:
+            out["route"] = route
             out["max_abs_err"] = err
-            out["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, do),
-                                reps=5)
+            out["ms"] = time_ms(lambda: flash_attention_bwd(
+                q, k, v, o, do, lse), reps=10)
             out["plain_ms"] = time_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, do), reps=2)
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3416,14 +3468,34 @@ def phase_flash_bwd(dev):
             out["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do, retain_graph=True), reps=5)
             del ql, kl, vl, lib_out
+            # the forward with its log-sum-exp off (serving) and on
+            # (training), and a decode launch (Sq 1, kv_len 2049 of 2080)
+            kc, vc = (torch.randn((b, hkv, s + 32, d), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            qd = q[:, :, -1:].contiguous()
+            kv_len = torch.full((b,), s + 1, dtype=torch.int32, device=dev)
+            out["lse_errs"]["bf16 split"] = lse_close(
+                "flash bf16 decode", qd, kc, vc, "split", kv_len=kv_len)
+            fw = out["fwd"]
+            for lse_on in (False, True):
+                key = "lse on" if lse_on else "lse off"
+                fw[f"prefill {key}"] = time_ms(lambda: flash_attention(
+                    q, k, v, return_lse=lse_on), reps=20)
+                fw[f"decode {key} (device)"] = time_ms_queued(
+                    lambda: flash_attention(qd, kc, vc, kv_len=kv_len,
+                                            return_lse=lse_on))
+            del kc, vc, qd
         else:
+            out["f32_route"] = route
             out["f32_ms"] = time_ms(
-                lambda: flash_attention_bwd(q, k, v, o, do), reps=3)
-        del q, k, v, o, do
-    n_ops = 5 * 2.0 * b * hq * s * (s + 1) / 2 * d
+                lambda: flash_attention_bwd(q, k, v, o, do, lse), reps=3)
+        del q, k, v, o, do, lse
+    pairs = b * hq * s * (s + 1) / 2
     n_bytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2.0
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops,
-                                                PEAK_BF16_OPS_PER_S)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n_bytes, 5 * 2.0 * pairs * d, PEAK_BF16_OPS_PER_S)
+    out["floor7_ms"] = bound_ms(n_bytes, 7 * 2.0 * pairs * d,
+                                PEAK_BF16_OPS_PER_S)[0]
     out["shape"] = (f"B={b} Hq={hq} Hkv={hkv} S={s} d={d} bf16 causal")
     torch.cuda.synchronize()
     return out
@@ -3536,7 +3608,10 @@ def phase_lm_train(dev):
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["launches"] = {"forward": flash_attention.launches,
                        "backward": flash_attention_bwd.launches}
+    out["bwd_routes"] = dict(flash_attention_bwd.routes)
     per_step = cfg.n_layers * LM_TRAIN_MICROBATCH
+    check(out["bwd_routes"]["mma"] == out["launches"]["backward"],
+          f"every backward launch on \"mma\": {out['bwd_routes']}")
     check(out["launches"]["backward"] == per_step * LM_TRAIN_STEPS,
           f"one backward launch a layer and µbatch: {out['launches']}")
     check(out["launches"]["forward"] == 2 * per_step * LM_TRAIN_STEPS,
@@ -4170,11 +4245,18 @@ def main() -> int:
     log(f"    dQ, dK, dV vs the plain backward (max abs diff, relative to "
         f"the largest |grad|): {fb['errs']} (tolerance "
         f"{ {str(k)[6:]: v for k, v in BWD_TOL.items()} } relative)")
-    log(f"    flash_attention_bwd at {fb['shape']}: {fb['ms']:.4f} ms (f32 "
+    log(f"    two calls bitwise equal on both routes; the forward's lse vs "
+        f"plain (max abs diff, limits "
+        f"{ {str(k)[6:]: v for k, v in LSE_TOL.items()} }): {fb['lse_errs']}")
+    log(f"    flash_attention_bwd at {fb['shape']}: {fb['ms']:.4f} ms on "
+        f"\"{fb['route']}\" (f32 on \"{fb['f32_route']}\" "
         f"{fb['f32_ms']:.4f}), plain {fb['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention backward {fb['library_ms']:.4f} ms, "
-        f"bound {fb['bound_ms']:.4f} ms by {fb['bound_by']} on {card}; "
-        f"phase wall {fb['wall_s']:.1f}s")
+        f"bound {fb['bound_ms']:.4f} ms by {fb['bound_by']} (five "
+        f"products; the seven the deterministic design runs "
+        f"{fb['floor7_ms']:.4f}) on {card}; phase wall {fb['wall_s']:.1f}s")
+    log("    flash_attention (ms): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in fb["fwd"].items()))
 
     log(f"[23] LM training: Llama-3.2-1B at full width, train_4k cut to "
         f"{LM_TRAIN_SHAPE[0]} x {LM_TRAIN_SHAPE[1]} ({LM_TRAIN_MICROBATCH} "
@@ -4199,8 +4281,9 @@ def main() -> int:
     log(f"    losses {lt['losses']}; first step {lt['first_s']:.3f}s, warm "
         f"step {lt['warm_s']:.3f}s ({lt['tokens_per_s']:.1f} tokens/s); "
         f"peak device memory {lt['peak_gib']:.2f} GiB on {card}")
-    log(f"    kernel 8 launches on the training path: {lt['launches']}; "
-        f"phase wall {lt['wall_s']:.1f}s")
+    log(f"    kernel 8 launches on the training path: {lt['launches']}, "
+        f"the backward's by route {lt['bwd_routes']}; phase wall "
+        f"{lt['wall_s']:.1f}s")
 
     log("[24] recsys training (DLRM, FM, xDeepFM: Adagrad; BERT4Rec: "
         "AdamW), BERT4Rec serving, the fault-tolerant train loop")

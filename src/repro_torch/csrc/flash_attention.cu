@@ -57,6 +57,13 @@
 // out = acc / max(L, 1e-30) in bf16.  A split at or past a row's key end
 // is never started or read, so kv_len 0 gives exact zeros.
 //
+// Log-sum-exp (for the backward, csrc/flash_attention_bwd.cu): when the
+// caller passes an lse buffer, each route's epilogue also writes every
+// row's m + log(max(l, 1e-30)) from the m and l it already holds ("split":
+// the combine's M and L).  Without one nothing else changes: "mma" takes
+// the write as a template argument, since at 64 / 64 it costs the one
+// register (97) that would leave four blocks an SM instead of five.
+//
 // Guards, as in the TPU kernel, on every route: NEG_INF is
 // finfo(f32).min, not -inf; p = exp(s − m_new) but 0 where s == NEG_INF;
 // alpha = exp(m_prev − m_new) but 0 where m_prev == NEG_INF; the output
@@ -81,6 +88,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -92,6 +100,8 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // (B, Hq, Sq) f32 log-sum-exp of the scaled scores, or
+                      // nullptr: not written
   const int* kv_len;  // nullptr: kv_end = Skv, q_off = Skv − Sq
   long long qs[3], ks[3], vs[3], os[3];  // (batch, head, row) strides
   int Hq, Hkv, Sq, Skv, d, dv;
@@ -311,6 +321,9 @@ flash_kernel(const Args a) {
     const int qi = pr / group, h = hk * group + (pr - qi * group);
     T* orow = ob + h * a.os[1] + qi * a.os[2];
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + qi] =
+          m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < DVT; ++c) {
       const int col = tx * DVT + c;
@@ -351,78 +364,20 @@ int launch_t(const Args& a, int batch, cudaStream_t stream) {
 
 // ---- bf16 routes: shared pieces --------------------------------------------
 
-typedef __nv_bfloat16 bf16;
+using repro_mma::bf16;
 
-using repro_cp::cp_async16;
 using repro_cp::cp_async_commit;
 using repro_cp::cp_async_wait;
-using repro_cp::smem_u32;
-
-// Stage `nrows` bf16 rows of `width` columns (a multiple of 8) at row
-// stride ld: row r comes from row_ptr(r) (nullptr: zeros), columns ≥ ncols
-// are zero.  vec: 16-byte cp.async (ncols a multiple of 8, rows 16-byte
-// aligned; the caller commits and waits); else element by element.
-template <typename RowPtr>
-__device__ __forceinline__ void stage_bf16(bf16* dst, int ld, int nrows,
-                                           int ncols, int width, bool vec,
-                                           const void* any, RowPtr row_ptr) {
-  if (vec) {
-    const int cpr = width / 8;
-    for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
-      const bf16* src = row_ptr(r);
-      const bool ok = src != nullptr && c < ncols;
-      cp_async16(dst + r * ld + c, ok ? static_cast<const void*>(src + c) : any,
-                 ok ? 16 : 0);
-    }
-  } else {
-    const bf16 zero = __ushort_as_bfloat16(static_cast<unsigned short>(0));
-    for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
-      const int r = i / width, c = i - r * width;
-      const bf16* src = row_ptr(r);
-      dst[r * ld + c] = (src != nullptr && c < ncols) ? src[c] : zero;
-    }
-  }
-}
+using repro_mma::ldsm_x4;
+using repro_mma::ldsm_x4_t;
+using repro_mma::mma_bf16;
+using repro_mma::split_bf16x2;
+using repro_mma::stage_bf16;
 
 // ---- "mma": tensor-core prefill (bf16, more than 16 packed rows) -----------
 
 constexpr int MMA_BR = 64;       // packed rows a block, 16 a warp
 constexpr int MMA_THREADS = 128;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16×8 f32) += a (16×16 bf16, row) · b (16×8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) → bf16x2 hi = round(x, y) and lo = round((x, y) − hi)
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 constexpr int MMA_KEYS = 32;     // keys a K/V tile
 
 __host__ __device__ constexpr int mma_smem_bytes(int dk, int dv) {
@@ -432,8 +387,10 @@ __host__ __device__ constexpr int mma_smem_bytes(int dk, int dv) {
 
 // DK, DV: d and dv padded (64, 128 or 256).  Fragment layouts are those
 // of mma.m16n8k16: lane = 4·g + t4; an accumulator holds (row g, cols
-// 2·t4, 2·t4 + 1) in [0, 1] and row g + 8 in [2, 3].
-template <int DK, int DV>
+// 2·t4, 2·t4 + 1) in [0, 1] and row g + 8 in [2, 3].  LSE: write a.lse
+// (a template argument, so that without it the kernel keeps its
+// registers: 96 at 64 / 64, five blocks an SM).
+template <int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 mma_kernel(const Args a) {
   constexpr int BK = MMA_KEYS;
@@ -626,6 +583,9 @@ mma_kernel(const Args a) {
     const int qi = pr / group, h = hk * group + (pr - qi * group);
     bf16* orow = ob + h * a.os[1] + qi * a.os[2];
     const float den = fmaxf(half ? l1 : l0, 1e-30f);
+    if (LSE && t4 == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + qi] =
+          (half ? m1 : m0) + logf(den);
 #pragma unroll
     for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
@@ -642,7 +602,8 @@ int launch_mma(const Args& a, int batch, cudaStream_t stream) {
   const int n_rows = a.Sq * (a.Hq / a.Hkv);
   const dim3 grid((n_rows + MMA_BR - 1) / MMA_BR, a.Hkv, batch);
   constexpr int bytes = mma_smem_bytes(DK, DV);
-  auto kern = mma_kernel<DK, DV>;
+  auto kern = a.lse != nullptr ? mma_kernel<DK, DV, true>
+                               : mma_kernel<DK, DV, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -907,8 +868,12 @@ combine_kernel(const Args a, const float* __restrict__ ws, int n_split,
       acc = __fadd_rn(acc, __fmul_rn(w, ws[at * a.dv + c]));
     }
     const int qi = r / group, h = hk * group + (r - qi * group);
+    const float den = fmaxf(l, 1e-30f);
     ob[h * a.os[1] + qi * a.os[2] + c] =
-        __float2bfloat16_rn(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+        __float2bfloat16_rn(__fdiv_rn(acc, den));
+    if (a.lse != nullptr && c == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + qi] =
+          mx + logf(den);
   }
 }
 
@@ -946,14 +911,18 @@ extern "C" long long repro_flash_split_workspace(int batch, int hkv, int skv,
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq,
 // dv), each with unit stride on its last axis; strides[12] (host array)
 // holds the (batch, head, row) element strides of q, k, v and o in that
-// order.  kv_len: (B,) int32 on the device, or nullptr.  dtype 0 = f32,
+// order.  lse: (B, Hq, Sq) contiguous f32 on the device, or nullptr; when
+// set, every route writes each row's m + log(max(l, 1e-30)) (m the row's
+// max scaled score, NEG_INF on a row with no visible key, l its sum of
+// exp(s − m)) from the m and l its epilogue holds, for the backward.
+// kv_len: (B,) int32 on the device, or nullptr.  dtype 0 = f32,
 // 1 = bf16 (q, k, v and o alike); 1 ≤ d, dv ≤ 256.  route 0 = "simt"
 // (f32), 1 = "mma" (bf16, Sq·Hq/Hkv > 16), 2 = "split" (bf16, Sq·Hq/Hkv ≤
 // 16; workspace of repro_flash_split_workspace floats).  A route that does
 // not take the dtype or shape returns cudaErrorInvalidValue unlaunched.
 // Otherwise returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o,
+                                     const void* v, void* o, void* lse,
                                      const void* kv_len,
                                      const long long* strides, int batch,
                                      int hq, int hkv, int sq, int skv, int d,
@@ -968,6 +937,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.kv_len = static_cast<const int*>(kv_len);
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];

@@ -24,10 +24,12 @@ runs the plain version.
 
 The gradient (no TPU counterpart: the reference differentiates its XLA
 ``chunked_attention`` under ``jax.checkpoint``) is
-:class:`FlashAttentionFn`, whose forward is the kernel above and whose
-backward is :func:`flash_attention_bwd`: the hand-written CUDA kernel of
-``csrc/flash_attention_bwd.cu`` on a CUDA tensor,
-:func:`flash_attention_bwd_plain` on a CPU tensor.
+:class:`FlashAttentionFn`, whose forward is the kernel above (asked for
+its log-sum-exp) and whose backward is :func:`flash_attention_bwd`: the
+hand-written CUDA kernel of ``csrc/flash_attention_bwd.cu`` on a CUDA
+tensor — route ``"mma"`` (bf16 tensor cores) for bf16 with d, dv ≤ 128,
+``"simt"`` (f32 FMAs) otherwise, chosen by :func:`bwd_route` with no
+fallback — and :func:`flash_attention_bwd_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ PLAIN_BLOCK_KV = 512        # the plain version's KV block
 SPLIT_MAX_ROWS = 16         # packed rows the split-K decode route holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"simt": 0, "mma": 1, "split": 2}
+_BWD_ROUTES = {"simt": 0, "mma": 1}
+MMA_BWD_MAX_DIM = 128       # d, dv the backward's tensor-core route takes
 
 
 def _check(q, k, v, kv_len):
@@ -68,13 +72,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, scale: float | None = None,
                           kv_len: torch.Tensor | None = None,
                           block_q: int | None = None,
-                          block_kv: int = PLAIN_BLOCK_KV) -> torch.Tensor:
+                          block_kv: int = PLAIN_BLOCK_KV,
+                          return_lse: bool = False):
     """Plain PyTorch version: the online softmax of ``chunked_attention``
     over KV blocks of ``block_kv`` keys for query chunks of ``block_q``
     rows (None: all rows at once), f32 throughout, with the TPU kernel's
     guards (``NEG_INF`` = finfo(f32).min, p and alpha at 0 where their
     operand is ``NEG_INF``, division by max(l, 1e-30)); keys and values at
-    or past ``kv_len[b]`` take no part, whatever they hold."""
+    or past ``kv_len[b]`` take no part, whatever they hold.  With
+    ``return_lse`` it returns ``(out, lse)``: lse (B, Hq, Sq) f32 is each
+    row's m + log(max(l, 1e-30)) from the same loop (``NEG_INF`` on a row
+    with no visible key)."""
     _check(q, k, v, kv_len)
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -90,7 +98,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_end = kv_req.clamp(0, skv)
     qpos = (kv_req - sq)[:, None] + torch.arange(sq, device=dev)  # (B, Sq)
     bq = block_q or max(sq, 1)
-    out = []
+    out, lse = [], []
     for q0 in range(0, sq, bq):
         qc, pc = qf[:, :, :, q0:q0 + bq], qpos[:, q0:q0 + bq]
         m = torch.full(qc.shape[:-1] + (1,), NEG_INF, dtype=torch.float32,
@@ -117,8 +125,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
             m = m_new
         out.append(acc / l.clamp_min(1e-30))
+        lse.append(m + torch.log(l.clamp_min(1e-30)))
     out = torch.cat(out, 3) if out else qf.new_zeros((b, hkv, g, 0, dv))
-    return out.reshape(b, hq, sq, dv).to(q.dtype)
+    out = out.reshape(b, hq, sq, dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.cat(lse, 3) if lse else qf.new_zeros((b, hkv, g, 0, 1))
+    return out, lse.reshape(b, hq, sq)
 
 
 def _lib():
@@ -126,7 +139,7 @@ def _lib():
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
+        fn.argtypes = [p] * 6 + [ctypes.POINTER(ctypes.c_longlong),
                        i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p, p]
         fn.restype = ctypes.c_int
         ws = lib.repro_flash_split_workspace
@@ -147,10 +160,14 @@ def route(q: torch.Tensor, k: torch.Tensor) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_len: torch.Tensor | None = None,
+                    return_lse: bool = False):
     """q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv) → (B, Hq,
     Sq, dv) in q's dtype; ``kv_len`` (B,) int32 or None (see the module
-    docstring).
+    docstring).  With ``return_lse`` it returns ``(out, lse)``, lse (B,
+    Hq, Sq) f32 as :func:`flash_attention_plain` defines it, written by
+    the route's epilogue (the backward reads it in place of recomputing
+    each row's softmax statistics).
 
     CUDA tensors (f32 or bf16, unit stride on the last axis, any other
     strides; d, dv ≤ 256) launch the kernel's route (:func:`route`) on
@@ -162,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, kv_len)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     kv_len=kv_len)
+                                     kv_len=kv_len, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -178,10 +195,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"d={d}, dv={dv}: the kernel takes at most "
                          f"{MAX_HEAD_DIM}")
+    if return_lse and dv == 0:
+        raise ValueError("return_lse needs dv ≥ 1: the kernel writes lse")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel():
         path = route(q, k)
         strides = (ctypes.c_longlong * 12)(*(
@@ -195,6 +216,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             stream = torch.cuda.current_stream().cuda_stream
             status = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 None if kv_len is None else kv_len.data_ptr(), strides, b,
                 hq, hkv, sq, skv, d, dv, scale, int(causal),
                 _DTYPES[q.dtype], _ROUTES[path],
@@ -202,7 +224,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(status, f"flash_attention ({path})")
         flash_attention.launches += 1
         flash_attention.routes[path] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
@@ -211,14 +233,18 @@ flash_attention.routes = dict.fromkeys(_ROUTES, 0)
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True,
+                              do: torch.Tensor,
+                              lse: torch.Tensor | None = None, *,
+                              causal: bool = True,
                               scale: float | None = None,
                               block_q: int = 1024):
     """Plain PyTorch gradient of the attention (no ``kv_len``): for each
-    chunk of ``block_q`` query rows, P is recomputed in f32 (``NEG_INF``
-    where masked, 0 on a row with no visible key), then dV = Pᵀ·dO,
-    dP = dO·Vᵀ, Δ = rowsum(dO ∘ O), dS = P ∘ (dP − Δ), dQ = scale·dS·K
-    and dK = scale·dSᵀ·Q, dK and dV summed over each kv head's group.
+    chunk of ``block_q`` query rows, P in f32 — exp(s − lse) from the
+    forward's log-sum-exp ``lse`` (B, Hq, Sq) when given, else recomputed
+    as softmax(s) (``NEG_INF`` where masked) — at 0 where masked (so a row
+    with no visible key has none), then dV = Pᵀ·dO, dP = dO·Vᵀ,
+    Δ = rowsum(dO ∘ O), dS = P ∘ (dP − Δ), dQ = scale·dS·K and
+    dK = scale·dSᵀ·Q, dK and dV summed over each kv head's group.
     Returns (dq, dk, dv) in q's, k's and v's dtypes."""
     _check(q, k, v, None)
     b, hq, sq, d = q.shape
@@ -231,6 +257,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     qf = q.float().reshape(b, hkv, g, sq, d)
     of = o.float().reshape(b, hkv, g, sq, dv_dim)
     dof = do.float().reshape(b, hkv, g, sq, dv_dim)
+    lsef = None if lse is None else lse.float().reshape(b, hkv, g, sq, 1)
     kpos = torch.arange(skv, device=dev)
     dq = torch.zeros_like(qf)
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=dev)
@@ -242,10 +269,14 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         valid = kpos[None, :] <= qpos[:, None] if causal \
             else torch.ones((qc.shape[3], skv), dtype=torch.bool, device=dev)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
-        s = torch.where(valid, s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.where(valid, torch.exp(s - m), 0.0)
-        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        if lsef is None:
+            s = torch.where(valid, s, NEG_INF)
+            m = s.amax(-1, keepdim=True)
+            p = torch.where(valid, torch.exp(s - m), 0.0)
+            p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        else:
+            p = torch.where(valid, torch.exp(
+                s - lsef[:, :, :, q0:q0 + block_q]), 0.0)
         delta = (doc * of[:, :, :, q0:q0 + block_q]).sum(-1, keepdim=True)
         dv += torch.einsum("bhgqk,bhgqe->bhke", p, doc)
         ds = p * (torch.einsum("bhgqe,bhke->bhgqk", doc, vf) - delta)
@@ -261,31 +292,46 @@ def _bwd_lib():
     fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [ctypes.POINTER(ctypes.c_longlong)] \
-            + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] \
+            + [i] * 7 + [ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
+def bwd_route(q: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward kernel's route for a CUDA call with these q, v:
+    ``"mma"`` (bf16 tensor cores) for bf16 with d and dv ≤
+    ``MMA_BWD_MAX_DIM``, else ``"simt"`` (f32 FMAs)."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] <= MMA_BWD_MAX_DIM
+            and v.shape[3] <= MMA_BWD_MAX_DIM):
+        return "mma"
+    return "simt"
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, scale: float | None = None):
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None):
     """(dq, dk, dv) of :func:`flash_attention` (``kv_len=None``) at its
-    output ``o`` for the output gradient ``do``.
+    output ``o`` and log-sum-exp ``lse`` (``flash_attention(...,
+    return_lse=True)``) for the output gradient ``do``.
 
     CUDA tensors (all f32 or all bf16, unit stride on the last axis; d,
-    dv ≤ 256) launch ``csrc/flash_attention_bwd.cu`` (three kernels: row
-    statistics, dK/dV, dQ; an f32 workspace of 3 floats a query row) on
-    the current stream and add one to ``flash_attention_bwd.launches``;
-    the gradients are allocated contiguous.  CPU tensors run
-    :func:`flash_attention_bwd_plain`."""
+    dv ≤ 256; lse f32) launch ``csrc/flash_attention_bwd.cu`` on the
+    current stream by the route :func:`bwd_route` names (three kernels:
+    Δ = rowsum(dO ∘ O) into an f32 workspace, dK/dV, dQ; deterministic)
+    and add one to ``flash_attention_bwd.launches`` and to
+    ``flash_attention_bwd.routes[route]``; the gradients are allocated
+    contiguous.  CPU tensors run :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, None)
     if o.shape != q.shape[:3] + v.shape[3:] or do.shape != o.shape:
         raise ValueError(f"o and do must be {tuple(q.shape[:3])} + "
                          f"({v.shape[3]},), got {tuple(o.shape)} and "
                          f"{tuple(do.shape)}")
+    if lse.shape != q.shape[:3]:
+        raise ValueError(f"lse must be {tuple(q.shape[:3])}, got "
+                         f"{tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -293,7 +339,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"need q, k, v, o, do all f32 or all bf16, got "
                         f"{[t.dtype for t in tensors]}")
-    if any(t.device != q.device for t in tensors):
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be f32, got {lse.dtype}")
+    if any(t.device != q.device for t in (*tensors, lse)):
         raise ValueError("all inputs must be on one device")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError("q, k, v, o, do need unit stride on the head dim")
@@ -307,7 +355,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
     if b * hq * max(sq, skv):
-        stats = torch.empty((b, hq, sq, 3), dtype=torch.float32,
+        path = bwd_route(q, v)
+        lse = lse.contiguous()
+        delta = torch.empty((b, hq, sq), dtype=torch.float32,
                             device=q.device)
         strides = (ctypes.c_longlong * 24)(*(
             s for t in (*tensors, dq, dk, dv) for s in t.stride()[:3]))
@@ -315,35 +365,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _bwd_lib()
             stream = torch.cuda.current_stream().cuda_stream
             status = lib.repro_flash_attention_bwd(
-                *(t.data_ptr() for t in (*tensors, dq, dk, dv, stats)),
+                *(t.data_ptr() for t in (*tensors, lse, dq, dk, dv, delta)),
                 strides, b, hq, hkv, sq, skv, d, dv_dim, scale, int(causal),
-                _DTYPES[q.dtype], stream)
-        _build.check(status, "flash_attention_bwd")
+                _DTYPES[q.dtype], _BWD_ROUTES[path], stream)
+        _build.check(status, f"flash_attention_bwd ({path})")
         flash_attention_bwd.launches += 1
+        flash_attention_bwd.routes[path] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(_BWD_ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable :func:`flash_attention` (``kv_len=None``):
     ``FlashAttentionFn.apply(q, k, v, causal, scale)``.  The forward is
-    the forward kernel (its plain version on the CPU) and saves q, k, v
-    and the output; the backward is :func:`flash_attention_bwd`."""
+    the forward kernel (its plain version on the CPU) and saves q, k, v,
+    the output and its log-sum-exp (the only caller that asks for it);
+    the backward is :func:`flash_attention_bwd` (its plain version on the
+    CPU, from that log-sum-exp)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, scale=None):
-        out = flash_attention(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
-                                         scale=ctx.scale)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None

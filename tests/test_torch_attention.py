@@ -19,7 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import common as jcm
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import common as tcm
 
@@ -244,6 +244,101 @@ def test_plain_backward_matches_autograd_and_reference(b, hkv, group, sq,
         assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv,causal", [
+    (2, 1, 2, 9, 9, 8, 12, True),      # dv != d
+    (1, 2, 2, 11, 17, 16, 16, False),  # not causal, Sq < Skv
+    (1, 1, 4, 10, 6, 8, 4, True),      # dv != d, Sq > Skv: masked rows
+])
+def test_function_gradient_matches_reference(b, hkv, group, sq, skv, d, dv,
+                                             causal):
+    """``FlashAttentionFn`` (forward with its log-sum-exp, the plain
+    backward reading it) against ``jax.grad`` of the reference's
+    ``chunked_attention`` beyond the causal d == dv cases above.  Tolerance
+    2e-5 (f32; sums in another order)."""
+    import jax
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    q, k, v = _qkv(sq * 13 + skv, b, hkv * group, hkv, sq, skv, d, dv)
+    do = np.random.default_rng(3).normal(
+        0, 1, (b, hkv * group, sq, dv)).astype(np.float32)
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    out = FlashAttentionFn.apply(*leaves, causal, None)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+
+    def ref(qq, kk, vv):
+        o = jcm.chunked_attention(qq, kk, vv, causal=causal, chunk_q=4,
+                                  chunk_kv=4)
+        return jnp.sum(o * do)
+
+    want = jax.grad(ref, argnums=(0, 1, 2))(q, k, v)
+    name = f"flash_fn.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}.c{int(causal)}"
+    for tag, g, w in zip("qkv", got, want):
+        assert_parity(f"{name}.d{tag}", g, np.asarray(w), F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,block_kv", [
+    (2, 2, 2, 13, 13, 8, 4),
+    (1, 1, 4, 7, 5, 8, 2),       # Sq > Skv: the first rows see no key
+    (2, 2, 1, 3, 20, 16, 8),     # decode alignment
+])
+def test_plain_lse_is_the_masked_logsumexp(b, hkv, group, sq, skv, d,
+                                           block_kv, causal):
+    """``flash_attention_plain(..., return_lse=True)``'s lse against
+    ``torch.logsumexp`` of the masked f32 scores (``NEG_INF`` where masked,
+    so a row with no visible key gives ``NEG_INF`` on both sides); the
+    output is the one without ``return_lse``."""
+    q, k, v = _t(*_qkv(sq + skv + d, b, hkv * group, hkv, sq, skv, d))
+    out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                     block_kv=block_kv, return_lse=True)
+    assert lse.shape == (b, hkv * group, sq) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention_plain(q, k, v, causal=causal,
+                                                  block_kv=block_kv))
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.reshape(b, hkv, group, sq, d), k) / d ** 0.5
+    qpos = skv - sq + torch.arange(sq)
+    valid = (torch.arange(skv)[None, :] <= qpos[:, None] if causal
+             else torch.ones((sq, skv), dtype=torch.bool))
+    want = torch.logsumexp(torch.where(valid, s, NEG_INF), -1)
+    assert_parity(f"flash_lse.{b}x{hkv}x{group}x{sq}x{skv}.c{int(causal)}",
+                  lse, want.reshape(lse.shape), F32_TOL)
+    if causal and sq > skv:
+        assert bool((lse[:, :, :sq - skv] == NEG_INF).all())
+    # the wrapper on the CPU is the plain version, lse included
+    got = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert_parity("flash_lse.wrapper", got[1], lse, F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv,chunk", [
+    (2, 2, 2, 13, 13, 8, 8, 4),
+    (1, 1, 4, 7, 5, 8, 6, 4),    # Sq > Skv, dv != d
+    (1, 2, 2, 5, 19, 16, 16, 2),
+])
+def test_plain_backward_from_lse_matches_recomputed(b, hkv, group, sq, skv,
+                                                    d, dv, chunk, causal):
+    """``flash_attention_bwd_plain`` with the forward's ``lse`` (P =
+    exp(s − lse), masked) against itself without it (P recomputed as the
+    masked softmax), within 2e-5; rows with no visible key stay 0."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = _t(*_qkv(sq * 5 + skv, b, hkv * group, hkv, sq, skv, d, dv))
+    out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                     return_lse=True)
+    do = torch.from_numpy(np.random.default_rng(sq).normal(
+        0, 1, out.shape).astype(np.float32))
+    want = flash_attention_bwd_plain(q, k, v, out, do, causal=causal,
+                                     block_q=chunk)
+    got = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal,
+                                    block_q=chunk)
+    via = flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    name = f"flash_bwd_lse.{b}x{hkv}x{group}x{sq}x{skv}.c{int(causal)}"
+    for tag, g, w, x in zip("qkv", got, want, via):
+        assert_parity(f"{name}.d{tag}", g, w, F32_TOL)
+        assert_parity(f"{name}.d{tag}.wrapper", x, g, F32_TOL)
+    if causal and sq > skv:
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
 def test_chunked_attention_takes_the_function_with_grad():
     """With a gradient needed, ``chunked_attention(use_kernel=True)`` goes
     through ``FlashAttentionFn`` (its output has that grad_fn); without,
@@ -264,6 +359,7 @@ def test_backward_kernel_source_and_wrapper():
     (a plain C entry point returning ``cudaGetLastError``, its bound
     stated, listed in ``_build.KERNELS``); its wrapper counts launches
     and raises on a device it does not take."""
+    import re
     from pathlib import Path
 
     from repro_torch.kernels import _build
@@ -271,8 +367,33 @@ def test_backward_kernel_source_and_wrapper():
     src = (Path(_build.CSRC) / "flash_attention_bwd.cu").read_text()
     assert 'extern "C"' in src and "cudaGetLastError" in src
     assert "Bound." in src and "repro/models/common.py" in src
+    # both bounds: the function's five products, the seven it runs
+    bound = src[src.index("// Bound."):]
+    assert "0.174 ms" in bound and "0.243 ms" in bound
+    # deterministic: no gradient written with atomics; no stats pass
+    code = re.sub(r"//[^\n]*", "", src)
+    assert not re.search(r"\batomic\w*\s*\(|\bred\.", code)
+    assert "stats_kernel" not in src and "mma.sync" in src
     assert "flash_attention_bwd" in _build.KERNELS
     assert isinstance(flash_attention_bwd.launches, int)
+    assert set(flash_attention_bwd.routes) == {"simt", "mma"}
     q = torch.zeros(1, 2, 3, 8, device="meta")
+    lse = torch.zeros(1, 2, 3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)
+        flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse[:, :, :2])
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 64, 64, "mma"), (torch.bfloat16, 128, 128, "mma"),
+    (torch.bfloat16, 40, 72, "mma"), (torch.bfloat16, 192, 128, "simt"),
+    (torch.bfloat16, 64, 256, "simt"), (torch.float32, 64, 64, "simt"),
+])
+def test_backward_route_rule(dtype, d, dv, want):
+    """A CUDA backward's route: bf16 with d, dv ≤ 128 → the tensor-core
+    ``"mma"`` route; f32, or a head wider than 128 → ``"simt"``."""
+    from repro_torch.kernels.flash_attention import bwd_route
+    q = torch.zeros((1, 4, 3, d), dtype=dtype)
+    v = torch.zeros((1, 2, 5, dv), dtype=dtype)
+    assert bwd_route(q, v) == want

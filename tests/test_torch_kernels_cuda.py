@@ -1210,21 +1210,28 @@ def test_slope_one_deviation_on_the_card(cuda):
 
 # -- the flash-attention backward kernel (LM training) ------------------------
 
-def _bwd_close(name, q, k, v, causal=True):
-    """The backward kernel's (dq, dk, dv) against the plain backward's on
-    the same inputs (f32 copies of them for bf16), one launch a call.
-    Tolerance, relative to the largest |gradient| of each tensor: 2e-5
-    in f32 (both sum in f32, in another order, over up to S·g terms) and
-    1e-2 in bf16 (the kernel's result is rounded to bf16: ≤ 2⁻⁸ of each
-    value, plus the f32 copies' order)."""
+def _bwd_close(name, q, k, v, causal=True, route=None):
+    """The backward kernel's (dq, dk, dv), from the forward kernel's output
+    and log-sum-exp, against the plain backward's recomputed softmax on
+    the same inputs (f32 copies of them for bf16), one launch a call on
+    ``route`` (when given).  Tolerance, relative to the largest |gradient|
+    of each tensor: 2e-5 in f32 (both sum in f32, in another order, over
+    up to S·g terms) and 1e-2 in bf16 (the kernel's result is rounded to
+    bf16: ≤ 2⁻⁸ of each value; the "mma" route rounds P and dS once to
+    bf16 as an operand; plus the f32 copies' order).  Returns the
+    gradients, the forward's output, its lse and dO."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
-    o = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     do = torch.randn(o.shape, generator=torch.Generator().manual_seed(7)
                      ).to(o.device, o.dtype)
     before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    routes = dict(flash_attention_bwd.routes)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     assert flash_attention_bwd.launches == before + 1
+    if route is not None:
+        assert flash_attention_bwd.routes == {
+            r: n + (r == route) for r, n in routes.items()}
     want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
                                      causal=causal)
     rel = 2e-5 if q.dtype == torch.float32 else 1e-2
@@ -1232,6 +1239,7 @@ def _bwd_close(name, q, k, v, causal=True):
         assert g.dtype == x.dtype and g.shape == x.shape
         assert_parity(f"{name}.d{tag}", g.float(), w,
                       rel * max(1.0, float(w.abs().max())))
+    return got, o, lse, do
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1276,8 +1284,104 @@ def test_flash_bwd_kernel_strided_and_rejects(cuda):
     qt = torch.randn(2, 70, 4, 64, generator=g).to(cuda).transpose(1, 2)
     kt = torch.randn(2, 70, 2, 64, generator=g).to(cuda).transpose(1, 2)
     _bwd_close("cuda.flash_bwd.strided", qt, kt, kt)
+    _bwd_close("cuda.flash_bwd.strided.bf16", qt.bfloat16(), kt.bfloat16(),
+               kt.bfloat16(), route="mma")
     o = torch.zeros_like(qt)
+    lse = torch.zeros(qt.shape[:3], device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_bwd(qt, kt.bfloat16(), kt, o, o)
+        flash_attention_bwd(qt, kt.bfloat16(), kt, o, o, lse)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(qt, kt, kt, o, o, lse.bfloat16())
     with pytest.raises(ValueError):
-        flash_attention_bwd(qt, kt, kt.cpu(), o, o)
+        flash_attention_bwd(qt, kt, kt.cpu(), o, o, lse)
+
+
+BWD_SHAPES = [
+    (2, 2, 1, 77, 77, 64, 64, True),      # ragged tiles, Sq == Skv
+    (1, 2, 4, 50, 130, 128, 128, True),   # Sq != Skv, group 4
+    (2, 1, 2, 100, 100, 64, 64, False),   # not causal
+    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d: "simt" in bf16 too
+    (1, 1, 2, 20, 8, 64, 64, True),       # Sq > Skv: fully masked rows
+    (1, 2, 2, 65, 65, 40, 40, True),      # d off 16
+    (1, 8, 4, 256, 256, 64, 64, True),    # Llama-3.2-1B's heads
+    (1, 2, 2, 70, 90, 64, 128, True),     # d 64, dv 128: 32-row stages
+]
+
+
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv,causal", BWD_SHAPES)
+def test_flash_bwd_bf16_routes_and_determinism(cuda, b, hkv, group, sq, skv,
+                                               d, dv, causal):
+    """bf16 backward on the route ``bwd_route`` names ("mma" for d, dv ≤
+    128, "simt" past that), counted once, against the plain backward;
+    then the same call again gives the same bits (no atomics, fixed sum
+    order); fully masked rows give exact zeros."""
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention_bwd)
+    q, k, v = _attn_inputs(sq * 3 + skv + d, b, hkv * group, hkv, sq, skv,
+                           d, dv, torch.bfloat16, cuda)
+    route = bwd_route(q, v)
+    assert route == ("mma" if max(d, dv) <= 128 else "simt")
+    got, o, lse, do = _bwd_close(
+        f"cuda.flash_bwd.route.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}."
+        f"{route}", q, k, v, causal=causal, route=route)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+    if causal and sq > skv:
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_llama_shape_both_routes(cuda, dtype):
+    """Llama-3.2-1B's training attention (B 2, Hq 32, Hkv 8, S 2048, d
+    64, causal) in (B, S, H, d) storage seen as (B, H, S, d): f32 on
+    "simt", bf16 on "mma", each against the plain backward and bitwise
+    equal to itself on a second call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator().manual_seed(25)
+    q, k, v = (torch.randn(2, 2048, h, 64, generator=g).to(cuda, dtype)
+               .transpose(1, 2) for h in (32, 8, 8))
+    route = "simt" if dtype == torch.float32 else "mma"
+    got, o, lse, do = _bwd_close(f"cuda.flash_bwd.llama2048.{route}", q, k,
+                                 v, route=route)
+    again = flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,sq,kv,want", [
+    (torch.float32, 77, None, "simt"), (torch.float32, 1, [1, 0, 200], "simt"),
+    (torch.bfloat16, 77, None, "mma"), (torch.bfloat16, 9, [9, 40, 200],
+                                        "mma"),
+    (torch.bfloat16, 1, [1, 0, 200], "split"),
+    (torch.bfloat16, 2, [2, 130, 0], "split"),
+])
+def test_flash_forward_lse_on_every_route(cuda, dtype, sq, kv, want):
+    """Each forward route's lse (``return_lse=True``) against the plain
+    version's on f32 copies: within 1e-5 absolute for f32 inputs and 1e-4
+    for bf16 ones (both sum exp in f32 from the same inputs, in another
+    order); a row with no visible key (kv_len 0, or Sq > Skv) gives
+    ``NEG_INF`` on both sides.  The output equals the call without lse,
+    bit for bit."""
+    from repro_torch.kernels.flash_attention import (NEG_INF,
+                                                     flash_attention_plain)
+    hkv, group = 2, 4
+    skv = 200 if kv is not None else 60
+    q, k, v = _attn_inputs(sq + skv, 3, hkv * group, hkv, sq, skv, 64, 64,
+                           dtype, cuda)
+    kw = {"causal": True}
+    if kv is not None:
+        kw["kv_len"] = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    out, lse = _routed(q, k, v, want, return_lse=True, **kw)
+    plain_out = _routed(q, k, v, want, **kw)
+    assert torch.equal(out, plain_out)
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    _, want_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                        return_lse=True, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    assert_parity(f"cuda.flash.lse.{want}.{str(dtype)[6:]}.sq{sq}", lse,
+                  want_lse, tol)
+    assert torch.equal(lse == NEG_INF, want_lse == NEG_INF)
+

@@ -68,8 +68,9 @@ RING = (("  if (n_tiles > 0) load_kv(0, 0);\n",
          "  return 2 * (MMA_BR * (dk + 8) + 3 * MMA_KEYS * (dk + 8) +\n"
          "              3 * MMA_KEYS * (dv + 8));"))
 # mma_kernel with RG 16-row groups a warp: every per-row array gains a
-# row-group axis, and each K / V fragment feeds the warp's RG groups
-ROW_GROUP_KERNEL = r"""template <int DK, int DV>
+# row-group axis, and each K / V fragment feeds the warp's RG groups (it
+# writes no log-sum-exp: the variants are timed without one)
+ROW_GROUP_KERNEL = r"""template <int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 mma_kernel(const Args a) {
   constexpr int BK = MMA_KEYS;
@@ -315,7 +316,7 @@ def patch(src: str, *pairs) -> str:
 
 
 def variants(src: str) -> dict:
-    start = src.index("template <int DK, int DV>\n" + LAUNCH)
+    start = src.index("template <int DK, int DV, bool LSE>\n" + LAUNCH)
     end = src.index("template <int DK, int DV>\nint launch_mma(")
     groups = (src[:start] + ROW_GROUP_KERNEL + src[end:]).replace(
         ROWS, "constexpr int MMA_RG = 2;\nconstexpr int MMA_BR = 128;")
@@ -354,7 +355,7 @@ def build(vs: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        m = re.search(r"mma_kernelILi64ELi64E.*?Used (\d+) registers", log,
+        m = re.search(r"mma_kernelILi64ELi64ELb0E.*?Used (\d+) registers", log,
                       re.S)
         print(f"{name}: mma_kernel<64, 64> {m.group(1) if m else '?'} "
               f"registers")

@@ -2,7 +2,7 @@
 their path shapes on seeded inputs, beside their library yardsticks.
 
     python3 tools/kernel_times.py [--src DIR]
-        [--only index|exact|support|predict|cluster|bag]...
+        [--only index|exact|support|predict|cluster|bag|flash_bwd]...
 
 Run from the repository root on a machine with a CUDA card.  Prints one
 line each: the flash-attention prefill launch (Llama-3.2-1B's layer
@@ -67,6 +67,17 @@ in place of the slot kernel), patched copies of ``csrc/embedding_bag.cu``
 ``cp.async.bulk`` into shared memory, completing on an ``mbarrier``, at
 D = 128 — in place of the registers, the L1 preferred over shared
 memory, and the diagnostic that reads the rows through the L2 alone).
+``--only flash_bwd`` times kernel 8's backward alone at ``chip_smoke.py``
+phase 22's shape (B 4, Hq 32, Hkv 8, S 2048, d 64, causal; seeded
+contiguous q / k / v / dO) in bf16 and f32, each held to the plain
+backward on f32 copies (1e-2 / 2e-5 of the largest |gradient|) and to a
+second call bit for bit, beside autograd of
+``scaled_dot_product_attention``'s backward; then kernel 8's prefill
+(Llama-3.2-1B's layer shape in the model's (B, S, H, d) storage) and
+decode (Sq 1 against 2049 of 2080 cached keys) launches with the
+log-sum-exp off and, where the tree has ``return_lse``, on (decode on the
+device alone).  On a tree
+whose backward takes no lse it is called as that tree defines it.
 ``--only exact`` also
 times the exact fit's candidate loop on the host's clock, as shipped
 and, where the tree has the fit's shared ``n_bad`` counter, with a wait
@@ -92,7 +103,8 @@ _ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 _ARGS.add_argument("--src", default=os.path.join(os.path.dirname(
     os.path.abspath(__file__)), "..", "src"))
 _ARGS.add_argument("--only", choices=("index", "exact", "support",
-                                      "predict", "cluster", "bag"),
+                                      "predict", "cluster", "bag",
+                                      "flash_bwd"),
                    action="append", default=None)
 ARGS = _ARGS.parse_args()
 sys.path.insert(0, os.path.abspath(ARGS.src))
@@ -698,6 +710,64 @@ def bag_kernels(dev) -> bool:
     return ok
 
 
+def flash_bwd_kernels(dev) -> bool:
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    has_lse = "return_lse" in inspect.signature(
+        fa.flash_attention).parameters
+    b, hq, hkv, s, d = 4, 32, 8, 2048, 64
+    g = torch.Generator(device=dev).manual_seed(22)
+    ok = True
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-5)):
+        q = torch.randn((b, hq, s, d), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        if has_lse:
+            o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        else:
+            o = fa.flash_attention(q, k, v)
+        do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+        args = (q, k, v, o, do) + ((lse,) if has_lse else ())
+        got = fa.flash_attention_bwd(*args)
+        again = fa.flash_attention_bwd(*args)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        want = fa.flash_attention_bwd_plain(
+            *(t.float() for t in (q, k, v, o, do)))
+        rel = max(float((x.float() - w).abs().max())
+                  / max(1.0, float(w.abs().max()))
+                  for x, w in zip(got, want))
+        ok = ok and same and rel <= tol
+        del got, again, want
+        ms = time_ms(lambda: fa.flash_attention_bwd(*args), 10)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+        lib = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), 10)
+        print(f"flash_bwd {str(dtype)[6:]} ms {ms!r} sdpa_bwd {lib!r} "
+              f"rel {rel!r} (limit {tol}) deterministic {same} routes "
+              f"{getattr(fa.flash_attention_bwd, 'routes', None)}")
+        del q, k, v, o, do, args, leaves, lib_out
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    q = rnd(b, s, hq, d).transpose(1, 2)
+    k = rnd(b, s, hkv, d).transpose(1, 2)
+    v = rnd(b, s, hkv, d).transpose(1, 2)
+    kc, vc = rnd(b, hkv, 2080, d), rnd(b, hkv, 2080, d)
+    qd = rnd(b, hq, 1, d)
+    kv_len = torch.full((b,), 2049, dtype=torch.int32, device=dev)
+    line = (f"prefill ms lse off "
+            f"{time_ms(lambda: fa.flash_attention(q, k, v))!r} decode ms "
+            f"(device) lse off {time_ms_queued(lambda: fa.flash_attention(qd, kc, vc, kv_len=kv_len))!r}")
+    if has_lse:
+        line += (f"; lse on: prefill "
+                 f"{time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True))!r} decode "
+                 f"{time_ms_queued(lambda: fa.flash_attention(qd, kc, vc, kv_len=kv_len, return_lse=True))!r}")
+    print(line + f" routes {fa.flash_attention.routes}")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
@@ -707,7 +777,8 @@ def main() -> int:
     if ARGS.only:
         runs = {"index": index_kernels, "exact": exact_kernels,
                 "support": support_kernels, "predict": predict_kernels,
-                "cluster": cluster_kernels, "bag": bag_kernels}
+                "cluster": cluster_kernels, "bag": bag_kernels,
+                "flash_bwd": flash_bwd_kernels}
         ok = all([runs[name](dev) for name in ARGS.only])
         print(torch.cuda.get_device_name(0))
         return 0 if ok else 1
