@@ -270,10 +270,45 @@ then the training slice:
     AdamW steps; a ``train_loop.run`` on BERT4Rec with a checkpoint
     directory and a fault injected at step 3 (one recovery, to step 2),
     then a second run on the directory that resumes at step 6; every cut
-    listed.
+    listed;
+
+then the MoE and MLA LMs:
+
+25. Qwen3-30B-A3B (d 2048, 32 / 4 heads × 128, qk-norm, 128 experts
+    top-8 × 768, vocab 151,936) with its depth cut from 48 layers to 8,
+    then DeepSeek-V2 (d 5120, 128 MLA heads: kv_lora 512, q_lora 1536,
+    q·k 128 + 64, v 128; 160 experts top-6 × 1536 + 2 shared, vocab
+    102,400, the first layer dense) cut from 60 layers to 2 (1 dense + 1
+    MoE), each at full width in bf16 with seeded weights made on the card
+    (``MOE_LM_DEPTH``; f32 master weights and the bf16 copy, 6 bytes a
+    parameter, and the first model freed before the second is built):
+    ``build_step`` prefill on 4 prompts × 2048 (``lm_batch`` seed 0,
+    max_len 2080) and 16 greedy decode steps, the launch counts zeroed
+    before and read after (kernel 8 once a layer in prefill, all on
+    "mma" — MLA at q·k 192 / v 128 — and Qwen3's decode on "split", the
+    absorbed MLA decode none; kernel 5, the router's top-k, once a MoE
+    layer and call); the first MoE layer on the prefill's own input with
+    kernel 5 equal bit for bit to the same layer with the plain
+    selection; kernel 8 at layer 0's q / k / v within one bf16 ulp +
+    1e-5 of its plain version (``flash_close``); the same model on the
+    plain attention, teacher-forced, with its own selection (the (token,
+    MoE layer) pairs whose routed expert set differs, counted; a row
+    whose argmax differs where the plain top-2 margin > 0.05 must have
+    had its own token rerouted) and with the routing pinned to the kernel
+    run's (argmax equal where the margin > 0.05, the max logit diff);
+    prefill s, decode ms a
+    step, tokens/s, peak GiB, a profile of one prefill and one decode
+    step; one ``build_step`` train step of each smoke config (f32: the
+    kernels' "simt" routes); kernel 8 timed at the MLA prefill launch
+    beside ``scaled_dot_product_attention``, kernel 5 at the router
+    shapes (8192 × 128, m 8; 8192 × 160, m 6) beside ``torch.topk``, and
+    kernel 8b on "simt" at MLA width (1 × 128 × 2048, bf16) against its
+    plain version and beside SDPA's backward.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
-for all nine kernels and kernel 8's backward.
+for all nine kernels, kernel 8's backward, and kernels 8 and 5 again at
+phase 25's MLA prefill and router shapes (``flash_attention:mla_prefill``,
+``select_topm:router``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -3807,6 +3842,444 @@ def phase_recsys_train(dev):
     return res
 
 
+# -- the MoE and MLA LMs (Qwen3-30B-A3B, DeepSeek-V2) -----------------------
+
+# layers kept of each full-width model on one 80 GB card: f32 master
+# weights and their bf16 compute copy cost 6 bytes a parameter
+MOE_LM_DEPTH = {"qwen3_moe_30b_a3b": 8, "deepseek_v2_236b": 2}
+MOE_LM_SHAPE = (4, 2048, 2080, 16)   # prompts, prompt tokens, max_len, steps
+MLA_BWD_SHAPE = (1, 128, 2048, 192, 128)   # B, H, S, q·k width, v width
+ROUTER_SHAPES = {"qwen3_moe_30b_a3b": (8192, 128, 8),   # tokens, E, top-k
+                 "deepseek_v2_236b": (8192, 160, 6)}
+
+
+def recording_router(tx, calls):
+    """``tx.router_topk`` replaced by a wrapper that appends each call's
+    (T, k) expert ids to ``calls``; returns the original to restore."""
+    orig = tx.router_topk
+
+    def router(probs, k, *, use_kernel=True):
+        vals, ids = orig(probs, k, use_kernel=use_kernel)
+        calls.append(ids)
+        return vals, ids
+    tx.router_topk = router
+    return orig
+
+
+def replaying_router(tx, calls):
+    """``tx.router_topk`` replaced by one that hands back, call by call,
+    the expert ids of ``calls`` (another run's) with the gates gathered at
+    them, so that a run takes that run's routing; returns the original to
+    restore."""
+    orig = tx.router_topk
+    replay = iter(calls)
+
+    def router(probs, k, *, use_kernel=True):
+        ids = next(replay)
+        return torch.gather(probs, 1, ids.long()), ids
+    tx.router_topk = router
+    return orig
+
+
+def serve_moe_lm(name, dev):
+    """One MoE LM of phase 25 at full width, depth cut to
+    ``MOE_LM_DEPTH[name]``, weights from a seeded generator on the card:
+    ``build_step`` prefill on ``MOE_LM_SHAPE``'s prompts (``lm_batch``
+    seed 0) and greedy decode steps with the launch counts zeroed before
+    and read after; the first MoE layer on the prefill's own input with
+    the kernel selection against the plain one, bit for bit; kernel 8 at
+    layer 0's q / k / v against its plain version; the same model on the
+    plain attention, teacher-forced, once with its own selection (a
+    near-tied gate flips between the runs and the flip cascades: the
+    rerouted (token, layer) pairs are counted, and a row whose argmax
+    differs at a top-2 margin > 0.05 must have had its own token
+    rerouted) and once with the routing pinned to the kernel run's ids
+    (argmax equal on every row with a margin > 0.05); a profile of one
+    prefill and one decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tx
+
+    full = get_arch(name)
+    cfg = dataclasses.replace(full.config, n_layers=MOE_LM_DEPTH[name])
+    arch = dataclasses.replace(full, config=cfg)
+    n_dense, n_moe = cfg.layer_counts()
+    b, s, max_len, steps = MOE_LM_SHAPE
+    prefill = build_step(arch, dataclasses.replace(
+        arch.cell("prefill_32k"), name=f"prefill_{s}",
+        dims={"batch": b, "seq": s}))
+    decode = build_step(arch, dataclasses.replace(
+        arch.cell("decode_32k"), name=f"decode_{max_len}",
+        dims={"batch": b, "seq": max_len}))
+    out = {"reduced": [f"n_layers {full.config.n_layers} -> {cfg.n_layers} "
+                       f"({n_dense} dense + {n_moe} MoE)",
+                       f"prefill_32k / decode_32k -> {b} prompts x {s}, "
+                       f"max_len {max_len}, {steps} decode steps"],
+           "full_params": full.config.param_count(),
+           "active_params": cfg.active_param_count()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = cm.count_params(model)
+    check(out["params"] == cfg.param_count(), f"{name}: parameter count")
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    toks = torch.from_numpy(lm_batch(b, s, cfg.vocab, seed=0)["tokens"]
+                            ).to(dev)
+    warm, wc = prefill.fn(model, {"tokens": toks[:, :64]}, max_len=80)
+    decode.fn(model, {"tokens": warm.argmax(-1, keepdim=True).int(),
+                      "cache": wc})
+    del warm, wc
+    torch.cuda.synchronize()
+
+    zero_counts()
+    routes = flash_attention.routes
+    routes.update(dict.fromkeys(routes, 0))
+    kern_calls, plain_calls = [], []
+    orig = recording_router(tx, kern_calls)
+    try:
+        t0 = time.perf_counter()
+        logits, cache = prefill.fn(model, {"tokens": toks}, max_len=max_len)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        pre = {"flash": flash_attention.launches, "routes": dict(routes),
+               "select": select_topm.launches}
+        kern_logits, fed = [logits.clone()], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+            fed.append(nxt)
+            logits, cache = decode.fn(model, {"tokens": nxt, "cache": cache})
+            kern_logits.append(logits.clone())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        tx.router_topk = orig
+    dec_routes = {k: routes[k] - pre["routes"][k] for k in routes}
+    out["launches"] = {
+        "flash prefill": pre["flash"],
+        "flash decode": flash_attention.launches - pre["flash"],
+        "select prefill": pre["select"],
+        "select decode": select_topm.launches - pre["select"]}
+    out["routes"] = {"prefill": pre["routes"], "decode": dec_routes}
+    ln = out["launches"]
+    check(ln["flash prefill"] == cfg.n_layers
+          and pre["routes"]["mma"] == cfg.n_layers,
+          f"{name}: one prefill launch a layer, all on \"mma\": "
+          f"{out['launches']}, {pre['routes']}")
+    if cfg.mla is None:
+        check(ln["flash decode"] == cfg.n_layers * steps
+              and dec_routes["split"] == ln["flash decode"],
+              f"{name}: one decode launch a layer and step, all on "
+              f"\"split\": {out['routes']}")
+    else:
+        check(ln["flash decode"] == 0,
+              f"{name}: the absorbed MLA decode runs no attention kernel")
+    check(ln["select prefill"] == n_moe
+          and ln["select decode"] == n_moe * steps,
+          f"{name}: kernel 5 once a MoE layer and call: {ln}")
+    out["decode_ms_per_step"] = decode_s / steps * 1e3
+    out["tokens_per_s"] = b * steps / decode_s
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(cache["len"].tolist() == [s + steps] * b,
+          f"{name}: cache len {cache['len'].tolist()} == {s + steps}")
+    check(sorted(cache) == sorted(decode.example_args["cache"]),
+          f"{name}: cache keys {sorted(cache)}")
+    for lg in kern_logits:
+        check(tuple(lg.shape) == (b, cfg.vocab)
+              and bool(torch.isfinite(lg).all()),
+              f"{name}: finite logits (B, V)")
+
+    # the first MoE layer on this prefill's own input: the FFN with the
+    # kernel selection == the FFN with the plain selection, bit for bit;
+    # kernel 8 at layer 0's q / k / v against its plain version
+    with torch.inference_mode():
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        x = model._embed[toks.long()]
+        h0 = cm.rmsnorm(model._layers[0]["ln1"], x)
+        if cfg.mla is not None:
+            q, k, v, _ = tx._mla_qkv(cfg, model._layers[0]["attn"], h0, pos)
+            scale = 1.0 / cfg.mla.qk_dim ** 0.5
+        else:
+            q, k, v = tx._gqa_qkv(cfg, model._layers[0]["attn"], h0, pos)
+            scale = None
+        out["layer0_err"] = flash_close(
+            f"{name}: flash at layer 0 of the prefill",
+            flash_attention(q, k, v, scale=scale), q, k, v, causal=True,
+            scale=scale)
+        out["qkv"] = (q, k, v, scale)
+        for i in range(n_dense):
+            x, _ = tx._layer_fwd(cfg, "dense", model._layers[i], x, pos,
+                                 True)
+        p = model._layers[n_dense]
+        attn = tx._mla_attention if cfg.mla is not None \
+            else tx._gqa_attention
+        x = x + attn(cfg, p["attn"], cm.rmsnorm(p["ln1"], x), pos, True)[0]
+        ffn_in = cm.rmsnorm(p["ln2"], x)
+        before = select_topm.launches
+        y_kernel = tx._moe_ffn(cfg, p["ffn"], ffn_in, use_kernel=True)
+        check(select_topm.launches == before + 1,
+              f"{name}: the MoE check ran kernel 5")
+        y_plain = tx._moe_ffn(cfg, p["ffn"], ffn_in, use_kernel=False)
+        check(torch.equal(y_kernel, y_plain),
+              f"{name}: MoE layer {n_dense} with kernel 5 == with the plain "
+              f"selection, bit for bit")
+        del x, h0, ffn_in, y_kernel, y_plain
+
+    # the same model on the plain attention, teacher-forced on the fed
+    # tokens: once with its own (plain) selection, once with the routing
+    # pinned to the kernel run's expert ids
+    def plain_run(restore):
+        """Prefill and the decode steps on the plain attention, under the
+        router installed by the caller; ``restore`` is put back after."""
+        model.use_kernel = False
+        try:
+            with torch.inference_mode():
+                plain, pc = prefill.fn(model, {"tokens": toks},
+                                       max_len=max_len)
+                res = []
+                for step in range(steps + 1):
+                    if step:
+                        plain, pc = decode.fn(model, {
+                            "tokens": fed[step - 1], "cache": pc})
+                    res.append(plain)
+        finally:
+            tx.router_topk = restore
+            model.use_kernel = True
+        check(pc["len"].tolist() == [s + steps] * b,
+              f"{name}: plain cache len")
+        return res
+
+    plain_free = plain_run(recording_router(tx, plain_calls))
+    check(len(kern_calls) == len(plain_calls),
+          f"{name}: router calls {len(kern_calls)} vs {len(plain_calls)}")
+    flips = [(a.sort(1).values != c.sort(1).values).any(1)
+             for a, c in zip(kern_calls, plain_calls)]
+    out["routing_diff"] = (sum(int(f.sum()) for f in flips),
+                           sum(f.numel() for f in flips))
+    # per logits row: did its own token route differently in any MoE
+    # layer (the prompt's last token at step 0, the fed token after)
+    own = [torch.stack([flips[li][torch.arange(b, device=dev) * s + s - 1]
+                        for li in range(n_moe)]).any(0)]
+    own += [torch.stack([flips[n_moe * t + li] for li in range(n_moe)]
+                        ).any(0) for t in range(1, steps + 1)]
+    free = {"diffs": [], "checked": 0, "agree": 0, "rows": []}
+    for step, (kl, pl) in enumerate(zip(kern_logits, plain_free)):
+        free["diffs"].append(max_diff(kl, pl))
+        top = pl.max(-1)
+        rest = pl.scatter(-1, top.indices[:, None], float("-inf")).max(-1)
+        margin = top.values - rest.values
+        n, a = lm_margin_agree(kl, pl)
+        free["checked"] += n
+        free["agree"] += a
+        for row in range(b):
+            if margin[row] > 0.05 and kl[row].argmax() != top.indices[row]:
+                free["rows"].append((step, row, float(margin[row]),
+                                     bool(own[step][row])))
+    out["free"] = free
+    check(all(row[3] for row in free["rows"]),
+          f"{name}: with free routing, every row whose argmax differs at a "
+          f"top-2 margin > 0.05 had its own token rerouted: {free['rows']}")
+    del plain_free
+
+    plain_pinned = plain_run(replaying_router(tx, kern_calls))
+    diffs, checked, agree = [], 0, 0
+    for kl, pl in zip(kern_logits, plain_pinned):
+        diffs.append(max_diff(kl, pl))
+        n, a = lm_margin_agree(kl, pl)
+        checked, agree = checked + n, agree + a
+    out["max_logit_diff"] = max(diffs)
+    out["logit_diffs"] = diffs
+    out["argmax"] = (agree, checked)
+    check(agree == checked, f"{name}: with the routing pinned, argmax "
+                            f"agrees on rows with margin > 0.05: {agree} "
+                            f"of {checked}")
+    check(checked > 0, f"{name}: some rows have a top-2 margin above 0.05")
+    del kern_calls, plain_calls, plain_pinned, kern_logits, flips
+
+    state = {"cache": cache}
+
+    def one_prefill():
+        prefill.fn(model, {"tokens": toks}, max_len=max_len)
+
+    def one_decode():
+        state["cache"] = decode.fn(model, {"tokens": toks[:, -1:].contiguous(),
+                                           "cache": state["cache"]})[1]
+    out["profile"] = profile_each(((f"{name} prefill ({b} x {s})",
+                                    one_prefill, 8),
+                                   (f"{name} decode step ({b} rows)",
+                                    one_decode, 8)))
+    del model, cache, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_steps(dev):
+    """One ``build_step`` train step (AdamW) of each MoE smoke config on
+    the card, in f32: the forward and backward kernels on their f32
+    "simt" routes, kernel 5 once a MoE layer; a finite loss."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as tx
+
+    out = {}
+    for name in MOE_LM_DEPTH:
+        arch = get_arch(name)
+        cfg = arch.smoke_config()
+        arch = dataclasses.replace(arch, config=cfg)
+        plan = build_step(arch, dataclasses.replace(
+            arch.cell("train_4k"), dims={"batch": 4, "seq": 64}))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+        opt_state = plan.optimizer.init(model.tree())
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 lm_batch(4, 64, cfg.vocab, seed=0).items()}
+        zero_counts()
+        t0 = time.perf_counter()
+        model, opt_state, loss = plan.fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash": flash_attention.launches,
+                    "flash_bwd": flash_attention_bwd.launches,
+                    "bwd routes": dict(flash_attention_bwd.routes),
+                    "select": select_topm.launches}
+        check(math.isfinite(float(loss)), f"{name} smoke: finite loss")
+        check(launches["flash"] == launches["flash_bwd"] == cfg.n_layers
+              and launches["bwd routes"]["simt"] == cfg.n_layers
+              and launches["select"] == cfg.layer_counts()[1],
+              f"{name} smoke train step launches {launches}")
+        out[name] = {"loss": float(loss), "wall_s": wall,
+                     "launches": launches}
+        del model, opt_state
+    return out
+
+
+def moe_kernel_timings(dev, ds, qw):
+    """Phase 25's kernel rows and readings: kernel 8 at DeepSeek-V2's MLA
+    prefill launch (layer 0's q / k / v: 4 × 128 heads × 2048, q·k 192, v
+    128, bf16, causal, route "mma") beside ``scaled_dot_product_attention``
+    and its bound (2·(192 + 128) operations a visible pair at the bf16
+    peak; q, k, v read and the output written once); kernel 5 at both
+    router shapes beside ``torch.topk``; kernel 8b at ``MLA_BWD_SHAPE`` on
+    "simt" against its plain version and beside SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.select import select_topm, select_topm_twin
+
+    q, k, v, scale = ds.pop("qkv")
+    b, h, s, d = q.shape
+    dv = v.shape[3]
+    with torch.inference_mode():
+        ms = time_ms(lambda: flash_attention(q, k, v, scale=scale), reps=10)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
+                                                         scale=scale), reps=2)
+        library = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), reps=10)
+    pairs = b * h * s * (s + 1) / 2
+    bound, by = bound_ms(2.0 * b * h * s * (2 * d + 2 * dv),
+                         2.0 * (d + dv) * pairs, PEAK_BF16_OPS_PER_S)
+    mla_row = {"name": "flash_attention:mla_prefill", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:84",
+               "launches": ds["launches"]["flash prefill"],
+               "max_abs_err": ds["layer0_err"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": library,
+               "shape": f"MLA prefill B={b} H={h} S={s} d={d} dv={dv} bf16 "
+                        f"causal (route mma, d padded to 256)"}
+    del q, k, v
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    router = {}
+    for name, (t, e, m) in ROUTER_SHAPES.items():
+        probs = torch.softmax(torch.randn((t, e), generator=gen,
+                                          device=dev), -1)
+        q_ids = torch.full((t,), -1, dtype=torch.int32, device=dev)
+        got = select_topm(probs, q_ids, m=m)
+        want = select_topm_twin(probs, q_ids, m=m)
+        check(torch.equal(got[1], want[1]), f"router select {name}: ids")
+        err = max_diff(got[0], want[0])
+        check(err == 0.0, f"router select {name}: values diff {err}")
+        rb, rby = bound_ms(t * e * 4.0 + t * m * 8.0, float(t * e),
+                           PEAK_F32_OPS_PER_S)
+        router[name] = {
+            "shape": f"T={t} E={e} m={m}", "max_abs_err": err,
+            "ms": time_ms_queued(lambda: select_topm(probs, q_ids, m=m)),
+            "plain_ms": time_ms(lambda: select_topm_twin(probs, q_ids, m=m),
+                                reps=10),
+            "library_ms": time_ms_queued(lambda: torch.topk(probs, m)),
+            "bound_ms": rb, "bound_by": rby}
+    first = router["qwen3_moe_30b_a3b"]
+    router_row = {"name": "select_topm:router", "route": "cuda",
+                  "source": "src/repro_torch/csrc/select.cu",
+                  "replaces": "src/repro/kernels/select.py:164",
+                  "launches": sum(o["launches"]["select prefill"]
+                                  + o["launches"]["select decode"]
+                                  for o in (qw, ds)),
+                  "max_abs_err": max(r["max_abs_err"]
+                                     for r in router.values()),
+                  **{key: first[key] for key in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms",
+                                                 "bound_by", "shape")}}
+
+    b, h, s, d, dv = MLA_BWD_SHAPE
+    q, k = (torch.randn((b, h, s, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, h, s, dv), generator=gen, device=dev).to(
+        torch.bfloat16)
+    err, rel, o, do, lse = bwd_close("flash bwd bf16 at MLA width", q, k, v,
+                                     "simt")
+    bwd = {"shape": f"B={b} H={h} S={s} d={d} dv={dv} bf16 causal",
+           "max_abs_err": err, "rel_err": rel,
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse),
+                         reps=3),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+               q, k, v, o, do), reps=1)}
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True), reps=3)
+    pairs = b * h * s * (s + 1) / 2
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        2.0 * b * h * s * (4 * d + 4 * dv),
+        2.0 * (3 * d + 2 * dv) * pairs, PEAK_BF16_OPS_PER_S)
+    del q, k, v, o, do, lse, ql, kl, vl, lib_out
+    torch.cuda.synchronize()
+    return mla_row, router_row, router, bwd
+
+
+def phase_moe_mla(dev):
+    """Phase 25: Qwen3-30B-A3B and DeepSeek-V2 served at full width (one
+    after the other, each freed before the next), one train step of each
+    smoke config, and the kernel rows of kernel 8 at MLA's prefill shape
+    and kernel 5 at the router shapes."""
+    out = {"qwen3_moe_30b_a3b": serve_moe_lm("qwen3_moe_30b_a3b", dev)}
+    out["qwen3_moe_30b_a3b"].pop("qkv")
+    out["deepseek_v2_236b"] = serve_moe_lm("deepseek_v2_236b", dev)
+    out["train"] = moe_train_steps(dev)
+    out["rows"] = moe_kernel_timings(dev, out["deepseek_v2_236b"],
+                                     out["qwen3_moe_30b_a3b"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4313,6 +4786,75 @@ def main() -> int:
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
         "shape": fb["shape"]})
+
+    # the MoE / MLA LMs get the card to themselves
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25] MoE / MLA LM serving at full width: Qwen3-30B-A3B "
+        f"({MOE_LM_DEPTH['qwen3_moe_30b_a3b']} layers) and DeepSeek-V2 "
+        f"({MOE_LM_DEPTH['deepseek_v2_236b']} layers), build_step prefill "
+        f"({MOE_LM_SHAPE[0]} x {MOE_LM_SHAPE[1]}, max_len {MOE_LM_SHAPE[2]})"
+        f" -> {MOE_LM_SHAPE[3]} greedy decode steps; smoke train steps")
+    t_phase = time.perf_counter()
+    mo = phase_moe_mla(dev)
+    mo["wall_s"] = time.perf_counter() - t_phase
+    b, s, _, steps = MOE_LM_SHAPE
+    for name in MOE_LM_DEPTH:
+        o = mo[name]
+        log(f"    {name}: {o['params']} parameters ({o['active_params']} "
+            f"active a token; the uncut model {o['full_params']}), "
+            f"{o['weights_gib']:.2f} GiB of weights (f32 master + bf16 "
+            f"compute copy), init on the card {o['init_s']:.2f}s; reduced: "
+            f"{o['reduced']}")
+        log(f"    {name}: prefill {o['prefill_s']:.4f}s "
+            f"({b * s / o['prefill_s']:.1f} prompt tokens/s); decode "
+            f"{o['decode_ms_per_step']:.3f} ms/step ({b} rows), "
+            f"{o['tokens_per_s']:.1f} generated tokens/s; peak device "
+            f"memory {o['peak_gib']:.2f} GiB on {card}")
+        log(f"    {name}: launches {o['launches']}; flash by route "
+            f"{o['routes']}; cache len {s + steps}")
+        log(f"    {name}: layer-0 q/k/v kernel vs plain max_abs_diff "
+            f"{o['layer0_err']!r} (one bf16 ulp + 1e-5); the first MoE "
+            f"layer with kernel 5 == with the plain selection, bit for bit")
+        fr = o["free"]
+        log(f"    {name}: kernels vs plain attention and selection, "
+            f"teacher-forced: routed expert sets differ on "
+            f"{o['routing_diff'][0]} of {o['routing_diff'][1]} (token, MoE "
+            f"layer) pairs; max |logit diff| {max(fr['diffs'])!r}; argmax "
+            f"agrees on {fr['agree']} of {fr['checked']} rows with top-2 "
+            f"margin > 0.05; the others (step, row, margin, own token "
+            f"rerouted): {fr['rows']}")
+        log(f"    {name}: with the plain run's routing pinned to the kernel "
+            f"run's: max |logit diff| {o['max_logit_diff']!r} (per step "
+            f"{[round(x, 5) for x in o['logit_diffs']]}); argmax agrees on "
+            f"{o['argmax'][0]} of {o['argmax'][1]} rows with top-2 margin "
+            f"> 0.05")
+    for name, o in mo["train"].items():
+        log(f"    {name} smoke config, one build_step train step on the "
+            f"card (f32, AdamW): loss {o['loss']!r}, {o['wall_s']:.3f}s, "
+            f"launches {o['launches']}")
+    mla_row, router_row, router, mla_bwd = mo["rows"]
+    for name, r in router.items():
+        log(f"    select_topm at the {name} router shape ({r['shape']}): "
+            f"{r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f}, "
+            f"torch.topk {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}); ids and values bit for bit")
+    log(f"    flash_attention at {mla_row['shape']}: {mla_row['ms']:.4f} ms "
+        f"(plain {mla_row['plain_ms']:.4f}, scaled_dot_product_attention "
+        f"{mla_row['library_ms']:.4f}, bound {mla_row['bound_ms']:.4f} ms by "
+        f"{mla_row['bound_by']}) on {card}")
+    log(f"    flash_attention_bwd at MLA width ({mla_bwd['shape']}, route "
+        f"\"simt\"): {mla_bwd['ms']:.4f} ms (plain "
+        f"{mla_bwd['plain_ms']:.4f}, scaled_dot_product_attention backward "
+        f"{mla_bwd['library_ms']:.4f}, bound {mla_bwd['bound_ms']:.4f} ms by "
+        f"{mla_bwd['bound_by']}); dQ, dK, dV within {mla_bwd['rel_err']!r} "
+        f"of the largest |grad| (limit {BWD_TOL[torch.bfloat16]}) on {card}")
+    log(f"    phase wall {mo['wall_s']:.1f}s")
+    flash_row["launches"] += (
+        mo["qwen3_moe_30b_a3b"]["launches"]["flash prefill"]
+        + mo["qwen3_moe_30b_a3b"]["launches"]["flash decode"])
+    kernels += [mla_row, router_row]
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

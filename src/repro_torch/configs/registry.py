@@ -3,11 +3,12 @@
 reference's fields, the LM and recsys shape sets, and ``input_specs`` as
 shapes.
 
-Ported: the dense LM configs (``llama3_2_1b``, ``codeqwen1_5_7b``,
-``qwen1_5_110b``), the recsys configs (``dlrm_mlperf``, ``fm``,
+Ported: the LM configs (dense ``llama3_2_1b``, ``codeqwen1_5_7b``,
+``qwen1_5_110b``; MoE ``qwen3_moe_30b_a3b``; MoE + MLA
+``deepseek_v2_236b``), the recsys configs (``dlrm_mlperf``, ``fm``,
 ``xdeepfm``, ``bert4rec``) and the paper's CF config (``cf_movielens``,
-with the CF shape set); the GNN family and the MoE / MLA LMs raise
-``NotImplementedError`` naming their ROADMAP item.  ``input_specs`` gives
+with the CF shape set); the GNN family raises ``NotImplementedError``
+naming its ROADMAP item.  ``input_specs`` gives
 ``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
 ``jax.ShapeDtypeStruct``s: nothing is allocated.  ``ASSIGNED`` names the
 reference's 40-cell pool (``cf_movielens`` is extra).
@@ -107,11 +108,13 @@ def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     if cell.step == "prefill":
         return {"tokens": TensorSpec((b, s), i32)}
     if cell.step == "decode":
-        kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.dh)
+        # ``init_cache`` on the meta device (GQA k / v, or MLA's c_kv /
+        # k_rope latent), as the reference's eval_shape of it
+        from repro_torch.models.transformer import init_cache
+        cache = init_cache(cfg, b, s, cfg.dtype, device="meta")
         return {"tokens": TensorSpec((b, 1), i32),
-                "cache": {"k": TensorSpec(kv, cfg.dtype),
-                          "v": TensorSpec(kv, cfg.dtype),
-                          "len": TensorSpec((b,), i32)}}
+                "cache": {key: TensorSpec(tuple(val.shape), val.dtype)
+                          for key, val in cache.items()}}
     raise ValueError(cell.step)
 
 
@@ -153,11 +156,10 @@ ASSIGNED = (
     "deepseek_v2_236b", "egnn", "dlrm_mlperf", "fm", "xdeepfm", "bert4rec",
 )
 
-_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b", "dlrm_mlperf",
-           "fm", "xdeepfm", "bert4rec", "cf_movielens")
+_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b",
+           "qwen3_moe_30b_a3b", "deepseek_v2_236b", "dlrm_mlperf", "fm",
+           "xdeepfm", "bert4rec", "cf_movielens")
 _WAITING = {
-    "qwen3_moe_30b_a3b": "MoE (ROADMAP Queue 1 item 11)",
-    "deepseek_v2_236b": "MoE + MLA (ROADMAP Queue 1 item 11)",
     "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
 }
 

@@ -10,7 +10,8 @@ running merge:
   stream: the scores in the plain version's fixed order into a device
   workspace, then the radix select of :func:`select_topm` over them;
 * :func:`select_topm` (``select_topm`` / ``_select_kernel``) — the same
-  selection over precomputed (Q, N) scores.
+  selection over precomputed (Q, N) scores; the MoE router's top-k
+  (:func:`router_topk`) runs on it too.
 
 Selection policy, pinned by ``ref.select_topm_ref``: descending score,
 ties to the lower candidate id, every ``-inf`` slot carrying the sentinel
@@ -202,6 +203,24 @@ def select_topm_twin(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
     knock = col == q_ids.long()[:, None]
     return select_topm_ref(scores.masked_fill(knock, float("-inf")),
                            min(m, scores.shape[1]))
+
+
+def router_topk(probs: torch.Tensor, k: int, *, use_kernel: bool = True):
+    """A MoE router's top-``k`` experts of each token: (T, E) f32 gate
+    probabilities → ``(values (T, k), int32 ids (T, k))``, descending with
+    ties to the lower expert id — the reference's ``lax.top_k`` on them
+    (``repro/models/transformer.py:476``).  The ids come from
+    :func:`select_topm` (kernel 5 on a CUDA tensor, one launch a call; its
+    plain version on a CPU tensor) or, with ``use_kernel=False``, from
+    :func:`select_topm_twin`; the values are ``probs`` gathered at them,
+    the same bits as the selection's, so that a gradient reaches the
+    router on any device."""
+    scores = probs.detach().float().contiguous()
+    q_ids = torch.full((scores.shape[0],), -1, dtype=torch.int32,
+                       device=scores.device)
+    select = select_topm if use_kernel else select_topm_twin
+    ids = select(scores, q_ids, m=k)[1]
+    return torch.gather(probs, 1, ids.long()), ids
 
 
 def smallest_k(d: torch.Tensor, k: int):

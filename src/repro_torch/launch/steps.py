@@ -7,7 +7,9 @@ The LM steps of the reference's ``_lm_step`` (``steps.py:59``: train at
 ``_recsys_step`` (``steps.py:199``: train at :218, serve at :236 —
 BERT4Rec's through ``serve_scores`` — and retrieval at :250) without a
 mesh: the port runs them at world size 1, so there are no shardings to
-state.  The step functions take the model
+state.  The LM steps serve and train every LM config of the registry:
+dense, MoE (Qwen3-30B-A3B) and MoE + MLA (DeepSeek-V2, whose decode
+cache is the latent c_kv / k_rope).  The step functions take the model
 (``repro_torch.models.transformer.Transformer``, ``models.dlrm.DLRM``,
 ``models.fm.FM``, ``models.xdeepfm.XDeepFM``, ``models.bert4rec.
 BERT4Rec``) where the reference takes its parameter tree.  A train step

@@ -1,6 +1,7 @@
 """Training launcher of the port (counterpart of ``repro.launch.train``):
-any registered LM or recsys arch through the fault-tolerant loop, at
-world size 1, on the card unless ``--device cpu`` asks for the CPU.
+any registered LM (dense, MoE or MLA) or recsys arch through the
+fault-tolerant loop, at world size 1, on the card unless ``--device cpu``
+asks for the CPU.
 
     python -m repro_torch.launch.train --arch llama3_2_1b --smoke --steps 30
     python -m repro_torch.launch.train --arch bert4rec --smoke --steps 5 \\

@@ -1,12 +1,15 @@
-"""LM-family transformer, dense GQA path: prefill → decode serving and
-training (port of ``repro.models.transformer``).
+"""LM-family transformer: GQA / MLA attention, dense / MoE FFN, RoPE;
+prefill → decode serving and training (port of
+``repro.models.transformer``).
 
 ``Transformer`` is an ``nn.Module`` whose parameter names are the
 reference's pytree paths (``embed``, ``final_norm.scale``, ``w_out`` when
-untied, ``dense_layers.attn.wq.w``, ... with the layers stacked on axis
-0), stored in f32 as the reference stores them, so a reference parameter
-tree carries across as a flat map (``repro_torch.state.
-transformer_from_reference``).
+untied, ``dense_layers.attn.wq.w``, ``moe_layers.ffn.w_gate``, ... with
+the layers of each stack on axis 0), stored in f32 as the reference
+stores them, so a reference parameter tree carries across as a flat map
+(``repro_torch.state.transformer_from_reference``).  A MoE model has two
+stacks, ``dense_layers`` (the first ``first_k_dense``) and
+``moe_layers``, run in that order.
 
 Serving (``prefill``, ``decode_step``) runs under
 ``torch.inference_mode()`` on a compute copy of the weights that the
@@ -30,28 +33,65 @@ and accumulates the mean gradient; ``cfg.xent_chunk`` is the chunk of
 Attention runs through ``models.common.chunked_attention`` /
 ``decode_attention``, i.e. the flash-attention kernel on the card (its
 plain version on the CPU, or everywhere with ``use_kernel=False``); with
-a gradient, through ``FlashAttentionFn`` and the backward kernel.  MoE
-and MLA configs raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+a gradient, through ``FlashAttentionFn`` and the backward kernel.  MLA
+(DeepSeek-V2) runs the full-rank form through that kernel in prefill and
+training (q·k width ``qk_dim``, v width ``v_head_dim``) and decodes in
+the absorbed form, whose cache is the (c_kv, k_rope) latent and whose
+f32 products are plain torch, as the reference's are.  The MoE FFN is
+the reference's unsharded branch: the router's top-k on the selection
+kernel (``kernels.select.router_topk``), capacity slotting in flat
+(token, k) order, the experts as batched matmuls and each token's
+contributions combined in k order.  The port runs at world size 1; the
+reference's ``shard_map`` branch waits for the model-parallel forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.checkpoint import tree_flatten
+from repro_torch.kernels.select import router_topk
 from repro_torch.models import common as cm
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The reference's ``MoEConfig``: ``n_experts`` routed experts of
+    hidden ``d_ff``, ``top_k`` a token, ``n_shared`` always-on experts
+    (one dense FFN of hidden ``d_ff · n_shared``)."""
+    n_experts: int
+    top_k: int
+    d_ff: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """The reference's ``MLAConfig`` (DeepSeek-V2's multi-head latent
+    attention)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = 1536
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's ``TransformerConfig`` (same fields; ``dtype`` is a
-    torch dtype).  The port runs the dense GQA path only: ``moe`` /
-    ``mla`` raise.  ``attn_chunk_q`` / ``attn_chunk_kv`` are the plain
+    torch dtype).  ``attn_chunk_q`` / ``attn_chunk_kv`` are the plain
     attention's query chunk and KV block (``models.common.
     chunked_attention``).  Training reads ``microbatch`` (µbatches whose
     mean gradient a step takes), ``remat`` (each layer recomputed in the
@@ -60,7 +100,7 @@ class TransformerConfig:
     or the reference's ``"offload_psum"``, which offloads the layers'
     tensor-parallel psum outputs to the host; at world size 1 there is no
     psum to name, so it is taken as ``"nothing"``.  ``first_k_dense``
-    counts dense layers before MoE ones and ``gather_weights_at_use``
+    counts dense layers before MoE ones; ``gather_weights_at_use``
     gathers sharded weights (world size 1 has none): read by no step."""
     name: str
     n_layers: int
@@ -74,8 +114,8 @@ class TransformerConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     first_k_dense: int = 0
     gather_weights_at_use: bool = False
     microbatch: int = 1
@@ -90,80 +130,147 @@ class TransformerConfig:
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def layer_counts(self) -> Tuple[int, int]:
+        """(n_dense_layers, n_moe_layers)."""
+        if self.moe is None:
+            return self.n_layers, 0
+        return self.first_k_dense, self.n_layers - self.first_k_dense
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense GQA model (the reference's
-        ``param_count`` for ``moe is None and mla is None``)."""
-        _require_dense(self)
-        d, v, dh = self.d_model, self.vocab, self.dh
-        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
-            + self.n_heads * dh * d
-        if self.qkv_bias:
-            attn += (self.n_heads + 2 * self.n_kv_heads) * dh
-        if self.qk_norm:
-            attn += 2 * dh
+        """Analytic parameter count (reference ``transformer.py:104``)."""
+        d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2) + d
-        total += self.n_layers * (2 * d + attn + 3 * d * self.d_ff)
+        n_dense, n_moe = self.layer_counts()
+        total += self.n_layers * 2 * d
+        total += self.n_layers * self._attn_params()
+        total += n_dense * 3 * d * self.d_ff
+        if self.moe is not None:
+            m = self.moe
+            per_moe = d * m.n_experts + m.n_experts * 3 * d * m.d_ff \
+                + (3 * d * (m.d_ff * m.n_shared) if m.n_shared else 0)
+            total += n_moe * per_moe
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: its top-k experts and the
+        shared ones only; reference ``transformer.py:121``)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        _, n_moe = self.layer_counts()
+        routed_all = n_moe * m.n_experts * 3 * self.d_model * m.d_ff
+        routed_act = n_moe * m.top_k * 3 * self.d_model * m.d_ff
+        return int(self.param_count() - routed_all + routed_act)
 
-def _require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP Queue 1 "
-            f"item 11: MoE and MLA)")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
-            f"item 11: MoE and MLA)")
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla is not None:
+            a = self.mla
+            n = 0
+            if a.q_lora_rank:
+                n += d * a.q_lora_rank + a.q_lora_rank
+            n += (a.q_lora_rank or d) * self.n_heads * a.qk_dim
+            n += d * (a.kv_lora_rank + a.qk_rope_dim) + a.kv_lora_rank
+            n += a.kv_lora_rank * self.n_heads * (a.qk_nope_dim
+                                                  + a.v_head_dim)
+            n += self.n_heads * a.v_head_dim * d
+            return n
+        dh = self.dh
+        n = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+            + self.n_heads * dh * d
+        if self.qkv_bias:
+            n += (self.n_heads + 2 * self.n_kv_heads) * dh
+        if self.qk_norm:
+            n += 2 * dh
+        return n
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
+# (kind, parameter field) of the layer stacks, in the order they run
+STACKS = (("dense", "dense_layers"), ("moe", "moe_layers"))
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """The reference's parameter tree (``init_params``, reference
     ``transformer.py:285``) in f32, drawn from ``generator`` (whose device
     is where the tensors are made unless ``device`` says otherwise): normal
-    weights scaled by 1/√d_in, the embedding by 0.02, zero biases, unit
-    norm scales, layers stacked on axis 0.  Same shapes and scales as the
-    reference; not its numbers (a ``torch.Generator`` is not a JAX key)."""
-    _require_dense(cfg)
+    weights scaled by 1/√d_in (a MoE router and its experts' gate / up by
+    1/√d_model, their down by 1/√d_ff), the embedding by 0.02, zero biases,
+    unit norm scales, the layers of each stack on axis 0.  Same shapes and
+    scales as the reference; not its numbers (a ``torch.Generator`` is not
+    a JAX key)."""
     device = torch.device(device if device is not None
                           else generator.device)
-    L, d, dh = cfg.n_layers, cfg.d_model, cfg.dh
+    d = cfg.d_model
 
     def normal(*shape, std):
         return torch.randn(shape, generator=generator, device=device,
                            dtype=torch.float32) * std
 
-    def dense_p(d_in, d_out, bias=False):
-        p = {"w": normal(L, d_in, d_out, std=1.0 / math.sqrt(d_in))}
-        if bias:
-            p["b"] = torch.zeros((L, d_out), device=device)
-        return p
+    def stack(n, kind):
+        def dense_p(d_in, d_out, bias=False):
+            p = {"w": normal(n, d_in, d_out, std=1.0 / math.sqrt(d_in))}
+            if bias:
+                p["b"] = torch.zeros((n, d_out), device=device)
+            return p
 
-    def ones(n):
-        return {"scale": torch.ones((L, n), device=device)}
+        def ones(width):
+            return {"scale": torch.ones((n, width), device=device)}
 
-    attn = {"wq": dense_p(d, cfg.n_heads * dh, cfg.qkv_bias),
-            "wk": dense_p(d, cfg.n_kv_heads * dh, cfg.qkv_bias),
-            "wv": dense_p(d, cfg.n_kv_heads * dh, cfg.qkv_bias),
-            "wo": dense_p(cfg.n_heads * dh, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(dh)
-        attn["k_norm"] = ones(dh)
+        def ffn(d_ff):
+            return {"w_gate": dense_p(d, d_ff), "w_up": dense_p(d, d_ff),
+                    "w_down": dense_p(d_ff, d)}
+
+        if cfg.mla is not None:
+            a = cfg.mla
+            attn = {}
+            if a.q_lora_rank:
+                attn["wq_a"] = dense_p(d, a.q_lora_rank)
+                attn["q_a_norm"] = ones(a.q_lora_rank)
+            attn["wq_b"] = dense_p(a.q_lora_rank or d, cfg.n_heads * a.qk_dim)
+            attn["wkv_a"] = dense_p(d, a.kv_lora_rank + a.qk_rope_dim)
+            attn["kv_a_norm"] = ones(a.kv_lora_rank)
+            attn["wkv_b"] = dense_p(a.kv_lora_rank, cfg.n_heads
+                                    * (a.qk_nope_dim + a.v_head_dim))
+            attn["wo"] = dense_p(cfg.n_heads * a.v_head_dim, d)
+        else:
+            dh = cfg.dh
+            attn = {"wq": dense_p(d, cfg.n_heads * dh, cfg.qkv_bias),
+                    "wk": dense_p(d, cfg.n_kv_heads * dh, cfg.qkv_bias),
+                    "wv": dense_p(d, cfg.n_kv_heads * dh, cfg.qkv_bias),
+                    "wo": dense_p(cfg.n_heads * dh, d)}
+            if cfg.qk_norm:
+                attn["q_norm"] = ones(dh)
+                attn["k_norm"] = ones(dh)
+        if kind == "moe":
+            m = cfg.moe
+            std = 1.0 / math.sqrt(d)
+            layer_ffn = {
+                "router": {"w": normal(n, d, m.n_experts, std=std)},
+                "w_gate": normal(n, m.n_experts, d, m.d_ff, std=std),
+                "w_up": normal(n, m.n_experts, d, m.d_ff, std=std),
+                "w_down": normal(n, m.n_experts, m.d_ff, d,
+                                 std=1.0 / math.sqrt(m.d_ff))}
+            if m.n_shared:
+                layer_ffn["shared"] = ffn(m.d_ff * m.n_shared)
+        else:
+            layer_ffn = ffn(cfg.d_ff)
+        return {"ln1": ones(d), "ln2": ones(d), "attn": attn,
+                "ffn": layer_ffn}
+
     params: Dict[str, Any] = {
         "embed": normal(cfg.vocab, d, std=0.02),
         "final_norm": {"scale": torch.ones((d,), device=device)},
     }
     if not cfg.tie_embeddings:
         params["w_out"] = normal(d, cfg.vocab, std=1.0 / math.sqrt(d))
-    params["dense_layers"] = {
-        "ln1": ones(d), "ln2": ones(d), "attn": attn,
-        "ffn": {"w_gate": dense_p(d, cfg.d_ff), "w_up": dense_p(d, cfg.d_ff),
-                "w_down": dense_p(cfg.d_ff, d)}}
+    for (kind, field), n in zip(STACKS, cfg.layer_counts()):
+        if n:
+            params[field] = stack(n, kind)
     return params
 
 
@@ -173,21 +280,118 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _per_layer(cfg: TransformerConfig, params,
+               cast) -> List[Tuple[str, Dict[str, Any]]]:
+    """[(kind, layer parameters)] for every layer, the dense stack then
+    the MoE stack, each leaf ``cast`` once a stack and unbound into
+    per-layer views."""
+    out = []
+    for (kind, field), n in zip(STACKS, cfg.layer_counts()):
+        if n:
+            stacked = _map(lambda t: cast(t).unbind(0), params[field])
+            out += [(kind, _map(lambda t, i=i: t[i], stacked))
+                    for i in range(n)]
+    return out
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """The decode cache, layer-major (reference ``transformer.py:628``):
-    k / v (L, B, Hkv, max_len, dh) zeros and ``len`` (B,) int32."""
-    _require_dense(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.dh)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    GQA k / v (L, B, Hkv, max_len, dh); MLA the latent c_kv (L, B,
+    max_len, kv_lora_rank) and k_rope (L, B, max_len, qk_rope_dim); all
+    zeros, and ``len`` (B,) int32."""
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        a = cfg.mla
+        shapes = {"c_kv": (L, batch, max_len, a.kv_lora_rank),
+                  "k_rope": (L, batch, max_len, a.qk_rope_dim)}
+    else:
+        kv = (L, batch, cfg.n_kv_heads, max_len, cfg.dh)
+        shapes = {"k": kv, "v": kv}
+    cache = {key: torch.zeros(shape, dtype=dtype, device=device)
+             for key, shape in shapes.items()}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
 
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
 
 def _dense_ffn(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU FFN (reference ``transformer.py:434``)."""
     return cm.dense(p["w_down"],
                     cm.swiglu(cm.dense(p["w_gate"], x), cm.dense(p["w_up"], x)))
+
+
+def _expert_slots(flat_e: torch.Tensor) -> torch.Tensor:
+    """Each assignment's slot in its expert: the number of earlier
+    assignments (in flat (token, k) order) to the same expert — the
+    reference's one-hot cumsum, ``(cumsum(onehot, 0) * onehot).sum(-1) -
+    1``, as a stable sort: an assignment's rank among equal experts is
+    its index in the sorted order less the first index of its expert.
+    The same integers, without the (T·K, E + 1) scan."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    rank = torch.arange(flat_e.shape[0], device=flat_e.device) \
+        - torch.searchsorted(sorted_e, sorted_e)
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
+def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
+             use_kernel: bool = True,
+             capacity_factor: float | None = None) -> torch.Tensor:
+    """The MoE FFN, the reference's unsharded branch (``transformer.py:444``
+    with ``n_model`` = 1): x (B, S, D) → (B, S, D).
+
+    The router's f32 softmax probabilities go through
+    ``kernels.select.router_topk`` (kernel 5 on the card with
+    ``use_kernel``, its plain version otherwise: ``lax.top_k``'s ids, ties
+    to the lower expert).  Each (token, k) assignment, in flat order,
+    takes the next slot of its expert (:func:`_expert_slots`); those past
+    ``capacity`` = max(int(T·K / E · cf), 4) are dropped.  The experts'
+    SwiGLU runs as batched matmuls over an (E, C, D) buffer, and each
+    token's K gated outputs are added in k order, ((0 + c₀) + c₁) + …,
+    as the reference's scatter-add on its host, so that no atomic order
+    enters the result.  Shared experts add a dense FFN."""
+    m = cfg.moe
+    b, s, d = x.shape
+    cf = capacity_factor or m.capacity_factor
+    t = b * s
+    e = p["w_gate"].shape[0]
+    xt = x.reshape(t, d)
+
+    logits = (xt @ p["router"]["w"].to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                        # (T, E)
+    gate_vals, exp_idx = router_topk(probs, m.top_k, use_kernel=use_kernel)
+    if m.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+    gate_vals = gate_vals * m.routed_scaling_factor
+
+    flat_e = exp_idx.reshape(-1).long()                          # (T·K,)
+    flat_g = gate_vals.reshape(-1)
+    pos = _expert_slots(flat_e)
+    capacity = max(int(t * m.top_k / m.n_experts * cf), 4)
+    keep = pos < capacity
+    slot_e = torch.where(keep, flat_e, e)                 # drop → pad row
+    slot_p = torch.where(keep, pos, 0)
+
+    buf = xt.new_zeros((e + 1, capacity, d)).index_put(
+        (slot_e, slot_p), xt.repeat_interleave(m.top_k, dim=0))[:e]
+    hh = cm.swiglu(torch.bmm(buf, p["w_gate"].to(xt.dtype)),
+                   torch.bmm(buf, p["w_up"].to(xt.dtype)))
+    out = torch.bmm(hh, p["w_down"].to(xt.dtype))                # (E, C, D)
+
+    contrib = out[slot_e.clamp(0, e - 1), slot_p] \
+        * flat_g[:, None].to(out.dtype)
+    contrib = torch.where(keep[:, None], contrib, 0.0).reshape(t, m.top_k, d)
+    y = torch.zeros((t, d), dtype=out.dtype, device=x.device)
+    for k in range(m.top_k):
+        y = y + contrib[:, k]
+    y = y.reshape(b, s, d)
+    if m.n_shared:
+        y = y + _dense_ffn(p["shared"], x)
+    return y
 
 
 def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
@@ -202,6 +406,19 @@ def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
     val = torch.where((cache_len < s)[:, None, None],
                       new[:, :, 0].to(cache.dtype), cache[rows, :, pos])
     cache[rows, :, pos] = val
+    return cache
+
+
+def _cache_insert_2d(cache: torch.Tensor, new: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """cache (B, S, D) ← new (B, D) at each row's position, in place, as
+    :func:`_cache_insert` (reference ``transformer.py:769``)."""
+    s = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    pos = cache_len.long().clamp(max=s - 1)
+    val = torch.where((cache_len < s)[:, None], new.to(cache.dtype),
+                      cache[rows, pos])
+    cache[rows, pos] = val
     return cache
 
 
@@ -240,41 +457,140 @@ def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
     return cm.dense(p["wo"], out), {"k": k, "v": v}
 
 
-def _layer_fwd(cfg: TransformerConfig, p, x: torch.Tensor,
+def _mla_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
+             positions: torch.Tensor):
+    """MLA's full-rank q (B, H, S, qk_dim), k (B, H, S, qk_dim) and v (B,
+    H, S, v_head_dim), and the cache's latent {"c_kv" (B, S, rank),
+    "k_rope" (B, S, rope)}: the first half of the reference's
+    ``_mla_attention``.  k is [k_nope | the one k_rope of all heads]."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if a.q_lora_rank:
+        q_in = cm.rmsnorm(p["q_a_norm"], cm.dense(p["wq_a"], x))
+    else:
+        q_in = x
+    q = cm.dense(p["wq_b"], q_in).reshape(b, s, h, a.qk_dim)
+    q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
+    q_rope = cm.apply_rope(q_rope.transpose(1, 2), positions[:, None, :],
+                           cfg.rope_theta).transpose(1, 2)
+    c_kv, k_rope = cm.dense(p["wkv_a"], x).split(
+        [a.kv_lora_rank, a.qk_rope_dim], dim=-1)
+    c_kv = cm.rmsnorm(p["kv_a_norm"], c_kv)
+    k_rope = cm.apply_rope(k_rope[:, None], positions[:, None, :],
+                           cfg.rope_theta)                     # (B, 1, S, r)
+    kv = cm.dense(p["wkv_b"], c_kv).reshape(b, s, h, a.qk_nope_dim
+                                            + a.v_head_dim)
+    k_nope, v = kv.split([a.qk_nope_dim, a.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope.transpose(1, 2).expand(
+        b, s, h, a.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            {"c_kv": c_kv, "k_rope": k_rope[:, 0]})
+
+
+def _mla_attention(cfg: TransformerConfig, p, x: torch.Tensor,
+                   positions: torch.Tensor, use_kernel: bool
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MLA training / prefill attention in the full-rank form (reference
+    ``transformer.py:391``), scale 1/√qk_dim: returns (out, {"c_kv",
+    "k_rope"}) for the cache."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    q, k, v, latent = _mla_qkv(cfg, p, x, positions)
+    out = cm.chunked_attention(q, k, v, causal=True,
+                               scale=1.0 / (a.qk_dim ** 0.5),
+                               chunk_q=min(cfg.attn_chunk_q, s),
+                               chunk_kv=min(cfg.attn_chunk_kv, s),
+                               use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * a.v_head_dim)
+    return cm.dense(p["wo"], out), latent
+
+
+def _mla_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor,
+                      cache_len: torch.Tensor) -> torch.Tensor:
+    """One token's MLA attention in the absorbed form (reference
+    ``transformer.py:715``): x (B, 1, D) → (B, 1, D); the token's latent
+    goes into the layer's caches c_kv (B, S, rank) and k_rope (B, S, rope)
+    in place.  W_kv_b's key half is absorbed into the query, so the
+    scores and the output stay in the 576-wide latent space; the products
+    are f32 (TF32 off), as the reference's, and no kernel runs here."""
+    a = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    pos = cache_len[:, None]                                      # (B, 1)
+    if a.q_lora_rank:
+        q_in = cm.rmsnorm(p["q_a_norm"], cm.dense(p["wq_a"], x))
+    else:
+        q_in = x
+    q = cm.dense(p["wq_b"], q_in).reshape(b, h, a.qk_dim)
+    q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
+    q_rope = cm.apply_rope(q_rope[:, :, None, :], pos[:, None, :],
+                           cfg.rope_theta)[:, :, 0]
+    c_new, r_new = cm.dense(p["wkv_a"], x)[:, 0].split(
+        [a.kv_lora_rank, a.qk_rope_dim], dim=-1)
+    c_new = cm.rmsnorm(p["kv_a_norm"], c_new)
+    r_new = cm.apply_rope(r_new[:, None], pos, cfg.rope_theta)[:, 0]
+    _cache_insert_2d(c_kv, c_new, cache_len)
+    _cache_insert_2d(k_rope, r_new, cache_len)
+
+    wkv_b = p["wkv_b"]["w"].reshape(a.kv_lora_rank, h,
+                                    a.qk_nope_dim + a.v_head_dim).float()
+    wk_b, wv_b = wkv_b[..., :a.qk_nope_dim], wkv_b[..., a.qk_nope_dim:]
+    ckv = c_kv.float()
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope.float(), wk_b)
+    scores = torch.einsum("bhl,bsl->bhs", q_lat, ckv) \
+        + torch.einsum("bhr,bsr->bhs", q_rope.float(), k_rope.float())
+    scores = scores / (a.qk_dim ** 0.5)
+    mask = torch.arange(ckv.shape[1], device=x.device)[None] \
+        < (cache_len + 1)[:, None]
+    scores = torch.where(mask[:, None], scores, cm.NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", w, ckv)
+    out = torch.einsum("bhl,lhv->bhv", o_lat, wv_b)
+    out = out.reshape(b, 1, h * a.v_head_dim).to(x.dtype)
+    return cm.dense(p["wo"], out)
+
+
+def _layer_fwd(cfg: TransformerConfig, kind: str, p, x: torch.Tensor,
                positions: torch.Tensor, use_kernel: bool):
     """One pre-norm layer (reference ``transformer.py:535``)."""
-    h, kv = _gqa_attention(cfg, p["attn"], cm.rmsnorm(p["ln1"], x),
-                           positions, use_kernel)
+    attn = _mla_attention if cfg.mla is not None else _gqa_attention
+    h, kv = attn(cfg, p["attn"], cm.rmsnorm(p["ln1"], x), positions,
+                 use_kernel)
     x = x + h
-    x = x + _dense_ffn(p["ffn"], cm.rmsnorm(p["ln2"], x))
+    ffn_in = cm.rmsnorm(p["ln2"], x)
+    if kind == "moe":
+        x = x + _moe_ffn(cfg, p["ffn"], ffn_in, use_kernel=use_kernel)
+    else:
+        x = x + _dense_ffn(p["ffn"], ffn_in)
     return x, kv
 
 
-def _layer_train(cfg: TransformerConfig, p, x: torch.Tensor,
+def _layer_train(cfg: TransformerConfig, kind: str, p, x: torch.Tensor,
                  positions: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-    return _layer_fwd(cfg, p, x, positions, use_kernel)[0]
+    return _layer_fwd(cfg, kind, p, x, positions, use_kernel)[0]
 
 
 def hidden(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
            use_kernel: bool = True) -> torch.Tensor:
     """The training forward (reference ``transformer.py:578`` without the
     cache): tokens (B, S) → final hidden (B, S, D) in ``cfg.dtype``, the
-    f32 parameters cast to ``cfg.dtype`` at each use (one cast of the
-    stacked layers, unbound into per-layer views), each layer under
-    ``torch.utils.checkpoint`` when ``cfg.remat``."""
-    _require_dense(cfg)
+    f32 parameters cast to ``cfg.dtype`` at each use (one cast of each
+    stack, unbound into per-layer views), the dense stack then the MoE
+    stack, each layer under ``torch.utils.checkpoint`` when
+    ``cfg.remat``."""
     dt = cfg.dtype
     b, s = tokens.shape
     x = params["embed"].to(dt)[tokens.long()]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    layers = _map(lambda t: t.to(dt).unbind(0), params["dense_layers"])
-    for i in range(cfg.n_layers):
-        p = _map(lambda t, i=i: t[i], layers)
+    for kind, p in _per_layer(cfg, params, lambda t: t.to(dt)):
         if cfg.remat:
-            x = checkpoint(_layer_train, cfg, p, x, positions, use_kernel,
-                           use_reentrant=False)
+            x = checkpoint(_layer_train, cfg, kind, p, x, positions,
+                           use_kernel, use_reentrant=False)
         else:
-            x = _layer_train(cfg, p, x, positions, use_kernel)
+            x = _layer_train(cfg, kind, p, x, positions, use_kernel)
     return cm.rmsnorm(params["final_norm"], x)
 
 
@@ -324,12 +640,11 @@ def backward(cfg: TransformerConfig, params, batch, *,
 
 
 class Transformer(cm.ParamTree):
-    """The dense GQA transformer for serving: ``prefill`` and
-    ``decode_step`` (see the module docstring)."""
+    """The transformer for serving: ``prefill`` and ``decode_step`` (see
+    the module docstring)."""
 
     def __init__(self, cfg: TransformerConfig, params: Dict[str, Any],
                  use_kernel: bool = True):
-        _require_dense(cfg)
         super().__init__(params)
         self.cfg = cfg
         self.use_kernel = use_kernel
@@ -347,18 +662,19 @@ class Transformer(cm.ParamTree):
     @torch.no_grad()
     def _cast_weights(self) -> None:
         """The compute-dtype copy of the weights: the embedding and every
-        layer leaf in ``cfg.dtype`` (per-layer views of the stacked copy),
-        the output weights as the f32 image of their ``cfg.dtype``
-        rounding."""
+        layer leaf (the MoE layers' 3-D expert tensors too) in
+        ``cfg.dtype`` (per-layer views of each stack's copy), the output
+        weights as the f32 image of their ``cfg.dtype`` rounding."""
         dt = self.cfg.dtype
         # detached: with dtype f32 ``.to`` would hand back the Parameter
         # itself, which assigning here would register a second time
         self._embed = self.embed.detach().to(dt)
         w_out = self.embed.T if self.cfg.tie_embeddings else self.w_out
         self._w_out = w_out.detach().to(dt).float()
-        stacked = _map(lambda t: t.detach().to(dt), self.dense_layers.tree())
-        self._layers = [_map(lambda t, i=i: t[i], stacked)
-                        for i in range(self.cfg.n_layers)]
+        layers = _per_layer(self.cfg, self.tree(),
+                            lambda t: t.detach().to(dt))
+        self._kinds = [kind for kind, _ in layers]
+        self._layers = [p for _, p in layers]
 
     def output_weights(self) -> torch.Tensor:
         """(D, V) output weights in ``cfg.dtype`` (reference
@@ -369,18 +685,21 @@ class Transformer(cm.ParamTree):
                 cache: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
         """tokens (B, S) → final hidden (B, S, D) (reference
-        ``transformer.py:578``); with ``cache`` each layer's k / v go to
-        ``cache[...][layer, :, :, :S]`` (the reference collects them and
-        ``prefill`` copies them in: the same values)."""
+        ``transformer.py:578``); with ``cache`` each layer's kv (GQA k / v,
+        MLA c_kv / k_rope) goes to its first S positions, the layers in
+        stack order (the reference collects them per stack and
+        ``prefill`` concatenates the stacks on the layer axis: the same
+        values)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         x = self._embed[tokens.long()]
         positions = torch.arange(s, device=self.device)[None].expand(b, s)
-        for i, p in enumerate(self._layers):
-            x, kv = _layer_fwd(self.cfg, p, x, positions, self.use_kernel)
+        for i, (kind, p) in enumerate(zip(self._kinds, self._layers)):
+            x, kv = _layer_fwd(self.cfg, kind, p, x, positions,
+                               self.use_kernel)
             if cache is not None:
-                cache["k"][i, :, :, :s] = kv["k"]
-                cache["v"][i, :, :, :s] = kv["v"]
+                for key, val in kv.items():
+                    cache[key][i].narrow(-2, 0, s).copy_(val)
         return cm.rmsnorm({"scale": self.final_norm.scale}, x)
 
     # -- serving -----------------------------------------------------------
@@ -425,19 +744,31 @@ class Transformer(cm.ParamTree):
     def decode_step(self, tokens: torch.Tensor,
                     cache: Dict[str, torch.Tensor]):
         """One token for every sequence: tokens (B, 1) → (logits (B, V) f32,
-        a new cache holding the tokens' k / v with ``len`` advanced)
+        a new cache holding the tokens' kv with ``len`` advanced)
         (reference ``transformer.py:776``).  ``cache`` is left as it was."""
+        cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         cache_len = cache["len"]
-        new_cache = {"k": cache["k"].clone(), "v": cache["v"].clone(),
-                     "len": cache_len + 1}
+        new_cache = {key: val.clone() for key, val in cache.items()
+                     if key != "len"}
+        new_cache["len"] = cache_len + 1
         x = self._embed[tokens.long()]
-        for i, p in enumerate(self._layers):
-            att = self._gqa_decode_layer(p["attn"], cm.rmsnorm(p["ln1"], x),
-                                         new_cache["k"][i],
-                                         new_cache["v"][i], cache_len)
+        for i, (kind, p) in enumerate(zip(self._kinds, self._layers)):
+            h = cm.rmsnorm(p["ln1"], x)
+            if cfg.mla is not None:
+                att = _mla_decode_layer(cfg, p["attn"], h,
+                                        new_cache["c_kv"][i],
+                                        new_cache["k_rope"][i], cache_len)
+            else:
+                att = self._gqa_decode_layer(p["attn"], h, new_cache["k"][i],
+                                             new_cache["v"][i], cache_len)
             x = x + att
-            x = x + _dense_ffn(p["ffn"], cm.rmsnorm(p["ln2"], x))
+            ffn_in = cm.rmsnorm(p["ln2"], x)
+            if kind == "moe":
+                x = x + _moe_ffn(cfg, p["ffn"], ffn_in,
+                                 use_kernel=self.use_kernel)
+            else:
+                x = x + _dense_ffn(p["ffn"], ffn_in)
         x = cm.rmsnorm({"scale": self.final_norm.scale}, x)
         logits = x[:, 0].float() @ self.output_weights()
         return logits, new_cache

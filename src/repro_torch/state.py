@@ -104,9 +104,10 @@ def transformer_from_reference(cfg, params: dict, device="cuda",
                                use_kernel: bool = True):
     """Reference transformer parameter tree (nested dict of host or jax
     arrays, f32, layers stacked on axis 0) → the port's ``Transformer``
-    on ``device`` with the same parameter names and values.  Only the
-    dense GQA tree exists in the port; a MoE / MLA ``cfg`` raises
-    ``NotImplementedError``."""
+    on ``device`` with the same parameter names and values: the dense
+    GQA tree, the MLA attention's and the MoE FFN's (3-D expert tensors,
+    the router, the shared experts) in the ``dense_layers`` and
+    ``moe_layers`` stacks alike."""
     from repro_torch.models.transformer import Transformer
     dev = resolve_device(device)
     return Transformer(cfg, _tensor_tree(params, dev), use_kernel=use_kernel)

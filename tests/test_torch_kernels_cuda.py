@@ -457,6 +457,32 @@ def test_select_radix_at_path_shapes(cuda, q_n, n, m):
                     torch.from_numpy(s).to(cuda), q_ids.to(cuda), m)
 
 
+@pytest.mark.parametrize("t,e,k", [(8192, 128, 8), (8192, 160, 6)])
+def test_router_topk_at_the_router_shapes(cuda, t, e, k):
+    """The MoE router's top-k (Qwen3-30B-A3B's 128 experts top-8 and
+    DeepSeek-V2's 160 top-6, 8192 tokens) on kernel 5: softmax gates
+    rounded to a grid of 2⁻¹² so that many tie, and uniform rows (every
+    gate 1/E: experts 0..k-1); ids and values bit for bit the plain
+    selection's, one launch a call."""
+    from repro_torch.kernels.select import router_topk, select_topm
+    rng = np.random.default_rng(t + e)
+    logits = torch.from_numpy(rng.normal(0, 1, (t, e)).astype(np.float32))
+    probs = torch.softmax(logits, -1)
+    probs = torch.round(probs * 4096) / 4096
+    probs[::97] = 1.0 / e
+    probs = probs.to(cuda)
+    before = select_topm.launches
+    got_v, got_i = router_topk(probs, k)
+    assert select_topm.launches == before + 1
+    want_v, want_i = router_topk(probs, k, use_kernel=False)
+    torch.cuda.synchronize()
+    assert_parity(f"cuda.router_topk.{t}x{e}.k{k}.ids", got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert bool((got_i[::97] == torch.arange(k, device=cuda)).all())
+    _select_bitwise(f"cuda.router_select.{t}x{e}.k{k}", probs,
+                    torch.full((t,), -1, dtype=torch.int32, device=cuda), k)
+
+
 def test_select_radix_rejects_past_its_domain(cuda):
     from repro_torch.kernels.select import select_topm
     s = torch.zeros((2, 20000), device=cuda)
@@ -847,6 +873,20 @@ def test_flash_kernel_at_the_llama_serving_shapes(cuda, dtype):
                 causal=True, kv_len=kv_len)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_mla_prefill_shape(cuda, dtype):
+    """DeepSeek-V2's MLA prefill launch: q·k width 192, v width 128, no
+    grouping (g = 1), S 2048, causal, at 1/1/2048 scale 1/√192; the bf16
+    call on the tensor-core route (d padded to 256); 16 of the 128
+    heads."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(9, 1, 16, 16, 2048, 2048, 192, 128, dtype, cuda)
+    want = "simt" if dtype == torch.float32 else "mma"
+    got = _routed(q, k, v, want, scale=1.0 / 192 ** 0.5)
+    _attn_close(f"cuda.flash.mla_prefill.{str(dtype)[6:]}", got, q, k, v,
+                causal=True, scale=1.0 / 192 ** 0.5)
+
+
 def test_flash_kernel_strided_inputs_and_rejects(cuda):
     """(B, S, H, d) projections viewed as (B, H, S, d) — the model's layout —
     need no copy; unsupported inputs raise."""
@@ -964,6 +1004,34 @@ def test_llama_smoke_serving_on_card(cuda):
         lg, cg = gpu.decode_step(nxt.to(cuda), cg)
         assert_parity(f"cuda.llama_smoke.decode{step}", lg.cpu(), lc, 1e-4)
     assert flash_attention.launches == before + 4 * cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["qwen3_moe_30b_a3b", "deepseek_v2_236b"])
+def test_moe_mla_smoke_serving_on_card(cuda, name):
+    """The MoE / MLA smoke configs in f32 on the card (kernels 5 and 8)
+    equal the same model on the CPU (plain) within 1e-4, prefill and 3
+    decode steps; kernel 5 runs once a MoE layer and call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.models import transformer as tx
+    cfg = get_arch(name).smoke_config()
+    params = tx.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    cpu = tx.Transformer(cfg, params)
+    gpu = tx.Transformer(cfg, tx._map(lambda t: t.to(cuda), params))
+    toks = torch.randint(0, cfg.vocab, (3, 21), dtype=torch.int32)
+    before = select_topm.launches
+    lc, cc = cpu.prefill(toks, max_len=25)
+    lg, cg = gpu.prefill(toks.to(cuda), max_len=25)
+    assert_parity(f"cuda.{name}_smoke.prefill", lg.cpu(), lc, 1e-4)
+    for step in range(3):
+        nxt = lc.argmax(-1, keepdim=True).to(torch.int32)
+        lc, cc = cpu.decode_step(nxt, cc)
+        lg, cg = gpu.decode_step(nxt.to(cuda), cg)
+        assert_parity(f"cuda.{name}_smoke.decode{step}", lg.cpu(), lc, 1e-4)
+    for key in cc:
+        assert_parity(f"cuda.{name}_smoke.cache.{key}", cg[key].cpu(),
+                      cc[key], 1e-4)
+    assert select_topm.launches == before + 4 * cfg.layer_counts()[1]
 
 
 # -- the embedding-bag kernel (recsys) against its plain version ------------

@@ -188,13 +188,8 @@ def test_llama_full_width_param_count():
 
 
 def test_unported_families_raise():
-    for name in ("qwen3_moe_30b_a3b", "deepseek_v2_236b", "egnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(name)
-    cfg = dataclasses.replace(get_arch("llama3_2_1b").smoke_config(),
-                              moe=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttx.init_params(cfg, torch.Generator())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_arch("egnn")
     arch = get_arch("llama3_2_1b")
     with pytest.raises(NotImplementedError, match="item 11"):
         build_step(dataclasses.replace(arch, kind="gnn"),
