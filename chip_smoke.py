@@ -2198,16 +2198,25 @@ def profile_each(named, n_rows: int = 6) -> list:
     for name, fn, *rows_wanted in named:
         fn()                                       # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
-        busy_ms = sum(r[0] for r in rows)
+        # now and then a trace holds no device events although the call
+        # launched kernels: profile the call again, up to three times,
+        # before failing
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA),
+                          reverse=True)
+            busy_ms = sum(r[0] for r in rows)
+            if busy_ms > 0:
+                break
+            log(f"    {name}: the profiler recorded no device events "
+                f"(attempt {attempt + 1} of 3)")
         check(busy_ms > 0, f"profiler saw device work in {name}")
         log(f"    {name}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
@@ -4280,6 +4289,306 @@ def phase_moe_mla(dev):
     return out
 
 
+# -- the model-parallel train step on a one-rank NCCL mesh ----------------
+
+MESH_MOE_SHAPE = (4, 2048)      # phase 26 (b): the MoE forward's batch
+
+
+def mesh_step_pair(arch, cell, mesh, model, batches, place, profile=None):
+    """``build_step(arch, cell)`` and ``build_step(arch, cell, mesh)`` from
+    the same weights (``model``; ``place`` makes the meshed copy before
+    any step) over ``batches``, one after the other: each plan's losses,
+    step walls, peak GiB and launch counts (zeroed before its run and
+    read after), and both updated parameter trees; with ``profile`` (a
+    name), each plan's step on the first batch under the profiler after
+    the timed steps."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.launch.steps import build_step, place_model
+
+    plans = {"plain": build_step(arch, cell),
+             "mesh": build_step(arch, cell, mesh)}
+    models = {"mesh": place_model(model, plans["mesh"].in_shardings[0])
+              if place else None, "plain": model}
+    out = {}
+    for key in ("plain", "mesh"):
+        plan, m = plans[key], models[key]
+        state = plan.optimizer.init(m.tree())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, walls = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            m, state, loss = plan.fn(m, state, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[key] = {"losses": losses, "walls": walls,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": {"flash": flash_attention.launches,
+                                 "flash_bwd": flash_attention_bwd.launches,
+                                 "select": select_topm.launches},
+                    "model": m}
+        if profile:
+            out[key]["profile"] = profile_each(((
+                f"{profile} {key} step", lambda: plan.fn(m, state,
+                                                         batches[0])),))[0]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def full_leaves(model):
+    """The model's parameters as whole tensors (DTensors gathered), in
+    tree order."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.checkpoint import tree_flatten
+    return [(p.full_tensor() if isinstance(p, DTensor) else p).detach()
+            for p in tree_flatten(model.tree())]
+
+
+def phase_mesh_train(dev):
+    """Phase 26: the model-parallel train step on a one-rank NCCL mesh
+    (axes ("data", "model"), shape (1, 1)), each piece against its
+    no-mesh twin on the same weights and batch.  (a) Llama-3.2-1B at
+    phase 23's shape: one gradient through ``transformer.backward`` under
+    ``make_ctx`` against the no-mesh one (loss 1e-3 relative, each leaf's
+    ‖Δg‖/‖g‖ ≤ 1e-2, bitwise printed), then one ``build_step`` train step
+    each (walls, peaks, kernel 8 / 8b launches equal).  (b) Qwen3-30B-A3B
+    and DeepSeek-V2 at phase 25's depths: the loss of one batch through
+    the sharded MoE branch against the unsharded one, forward only, the
+    expert ids equal on every (token, layer).  (c) both MoE smoke configs:
+    two AdamW steps, mesh within 1e-5 of no mesh.  (d, e) DLRM (fields
+    capped at ``DLRM_TRAIN_ROW_CAP``), FM, xDeepFM and BERT4Rec at phase
+    24's sizes: ``RECSYS_TRAIN_STEPS`` steps, losses within 1e-5
+    relative.  (f) DLRM serve_p99 through the mesh step == the no-mesh
+    forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import (bert4rec_batch, lm_batch,
+                                          recsys_batch)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (_local_leaves, _lm_rows,
+                                          build_step, place_model)
+    from repro_torch.models import bert4rec, dlrm, fm, xdeepfm
+    from repro_torch.models import transformer as tx
+    from repro_torch.training.train_loop import take_grads, trainable
+
+    mesh = make_local_mesh((1, 1), ("data", "model"), device=dev)
+    res = {"mesh": f"{mesh.device_type} mesh {tuple(mesh.shape)} over "
+                   f"{mesh.mesh_dim_names}"}
+    check(mesh.device_type == "cuda", f"an NCCL mesh: {res['mesh']}")
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    # (a) Llama-3.2-1B: one gradient each way, then one step each way
+    b, s = LM_TRAIN_SHAPE
+    arch = get_arch("llama3_2_1b")
+    cfg = dataclasses.replace(arch.config, microbatch=LM_TRAIN_MICROBATCH,
+                              remat=True)
+    arch = dataclasses.replace(arch, config=cfg)
+    cell = dataclasses.replace(arch.cell("train_4k"), name=f"train_4k_b{b}",
+                               dims={"batch": b, "seq": s})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+    batch = on_dev(lm_batch(b, s, cfg.vocab, seed=0))
+    sc = shd.make_ctx(mesh)
+    tree = trainable(model.tree())
+    zero_counts()
+    plain_loss = float(tx.backward(cfg, tree, batch))
+    plain_grads = take_grads(tree)
+    plain_n = (flash_attention.launches, flash_attention_bwd.launches)
+    placed = place_model(model, shd.to_shardings(mesh, tx.param_specs(cfg)))
+    local = _local_leaves(placed.tree())
+    zero_counts()
+    mesh_loss = float(tx.backward(cfg, local, _lm_rows(
+        batch, mesh, shd.batch_axes(mesh), cfg.microbatch, dev), sc=sc))
+    mesh_n = (flash_attention.launches, flash_attention_bwd.launches)
+    mesh_grads = take_grads(local)
+    rel = grad_readings(mesh_grads, plain_grads)
+    from repro_torch.distributed.checkpoint import tree_flatten
+    bitwise = all(torch.equal(a, c) for a, c in zip(
+        tree_flatten(mesh_grads), tree_flatten(plain_grads)))
+    del plain_grads, mesh_grads, local, placed, tree
+    a = {"loss": (mesh_loss, plain_loss),
+         "loss_rel": abs(mesh_loss - plain_loss) / abs(plain_loss),
+         "grad_rel": rel, "bitwise": bitwise and mesh_loss == plain_loss,
+         "grad_launches": {"mesh": mesh_n, "plain": plain_n}}
+    check(math.isfinite(mesh_loss) and a["loss_rel"] <= 1e-3,
+          f"Llama mesh loss {mesh_loss} vs {plain_loss}")
+    check(max(rel) <= 1e-2, f"Llama mesh per-leaf ‖Δg‖/‖g‖ {rel} ≤ 1e-2")
+    check(mesh_n == plain_n and mesh_n[1] > 0,
+          f"Llama gradient launches mesh {mesh_n} == plain {plain_n}")
+    pair = mesh_step_pair(arch, cell, mesh, model, [batch], place=True)
+    for key in ("plain", "mesh"):
+        a[f"{key}_step"] = {k: v for k, v in pair[key].items()
+                            if k != "model"}
+    check(pair["mesh"]["launches"] == pair["plain"]["launches"]
+          and pair["mesh"]["launches"]["flash_bwd"] > 0,
+          f"Llama step launches {a['mesh_step']['launches']} == "
+          f"{a['plain_step']['launches']}")
+    step_rel = abs(pair["mesh"]["losses"][0] - pair["plain"]["losses"][0]) \
+        / abs(pair["plain"]["losses"][0])
+    check(step_rel <= 1e-3, f"Llama step losses {pair['mesh']['losses']} vs "
+          f"{pair['plain']['losses']}")
+    res["llama"] = a
+    del model, pair, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the MoE LMs at phase 25's depths: the loss, forward only
+    b, s = MESH_MOE_SHAPE
+    res["moe"] = {}
+    for name, depth in MOE_LM_DEPTH.items():
+        cfg = dataclasses.replace(get_arch(name).config, n_layers=depth)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = tx.init_params(cfg, gen)
+        batch = on_dev(lm_batch(b, s, cfg.vocab, seed=0))
+        got = {}
+        for key, ctx in (("plain", tx.NO_SHARDING), ("mesh", sc)):
+            calls = []
+            orig = recording_router(tx, calls)
+            zero_counts()
+            try:
+                with torch.no_grad():
+                    t0 = time.perf_counter()
+                    loss = float(tx.loss_fn(cfg, params, batch, sc=ctx))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                tx.router_topk = orig
+            got[key] = {"loss": loss, "ids": calls, "wall_s": wall,
+                        "launches": {"flash": flash_attention.launches,
+                                     "select": select_topm.launches}}
+        same_ids = len(got["mesh"]["ids"]) == len(got["plain"]["ids"]) \
+            and all(torch.equal(x, y) for x, y in zip(got["mesh"]["ids"],
+                                                       got["plain"]["ids"]))
+        o = {"loss": (got["mesh"]["loss"], got["plain"]["loss"]),
+             "loss_rel": abs(got["mesh"]["loss"] - got["plain"]["loss"])
+             / abs(got["plain"]["loss"]),
+             "bitwise": got["mesh"]["loss"] == got["plain"]["loss"],
+             "ids_equal": same_ids,
+             "pairs": sum(int(x.shape[0]) for x in got["mesh"]["ids"]),
+             "launches": {k: v["launches"] for k, v in got.items()},
+             "walls": {k: v["wall_s"] for k, v in got.items()},
+             "reduced": f"n_layers {get_arch(name).config.n_layers} -> "
+                        f"{depth}; train_4k -> {b} x {s}, forward only"}
+        check(same_ids, f"{name}: expert ids equal on every (token, layer)")
+        check(math.isfinite(o["loss"][0]) and o["loss_rel"] <= 1e-3,
+              f"{name}: sharded-branch loss {o['loss']}")
+        check(o["launches"]["mesh"] == o["launches"]["plain"]
+              and o["launches"]["mesh"]["select"]
+              == cfg.layer_counts()[1] > 0,
+              f"{name}: launches {o['launches']}")
+        res["moe"][name] = o
+        del params, batch, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the MoE smoke configs: two AdamW steps each way
+    res["moe_smoke"] = {}
+    for name in MOE_LM_DEPTH:
+        arch = get_arch(name)
+        cfg = arch.smoke_config()
+        arch = dataclasses.replace(arch, config=cfg)
+        cell = dataclasses.replace(arch.cell("train_4k"),
+                                   dims={"batch": 4, "seq": 64})
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+        batches = [on_dev(lm_batch(4, 64, cfg.vocab, seed=i))
+                   for i in range(2)]
+        pair = mesh_step_pair(arch, cell, mesh, model, batches, place=True)
+        err = max(max_diff(x, y) for x, y in zip(
+            full_leaves(pair["mesh"]["model"]),
+            full_leaves(pair["plain"]["model"])))
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(
+            pair["mesh"]["losses"], pair["plain"]["losses"]))
+        res["moe_smoke"][name] = {
+            "losses": (pair["mesh"]["losses"], pair["plain"]["losses"]),
+            "param_err": err, "loss_rel": lrel,
+            "launches": pair["mesh"]["launches"]}
+        check(err <= 1e-5 and lrel <= 1e-5,
+              f"{name} smoke: mesh vs no mesh params {err}, losses {lrel}")
+        check(pair["mesh"]["launches"] == pair["plain"]["launches"],
+              f"{name} smoke launches {pair['mesh']['launches']} vs "
+              f"{pair['plain']['launches']}")
+        del model, pair
+
+    # (d, e) the recsys models at phase 24's sizes; (f) DLRM serve_p99
+    res["recsys"] = {}
+    for name, mod, cls in (("dlrm_mlperf", dlrm, dlrm.DLRM),
+                           ("fm", fm, fm.FM),
+                           ("xdeepfm", xdeepfm, xdeepfm.XDeepFM),
+                           ("bert4rec", bert4rec, bert4rec.BERT4Rec)):
+        arch = get_arch(name)
+        cfg = arch.config
+        if name == "dlrm_mlperf":
+            cfg = dataclasses.replace(cfg, field_sizes=tuple(
+                min(f, DLRM_TRAIN_ROW_CAP) for f in cfg.field_sizes))
+            arch = dataclasses.replace(arch, config=cfg)
+        cell = arch.cell("train_batch")
+        rows = {"xdeepfm": XDEEPFM_TRAIN_ROWS,
+                "bert4rec": B4R_TRAIN_ROWS}.get(name, cell.dims["batch"])
+        cell = dataclasses.replace(cell, dims={"batch": rows})
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cls(cfg, mod.init_params(cfg, gen))
+        if name == "bert4rec":
+            batches = [on_dev(bert4rec_batch(rows, cfg.seq_len, cfg.n_items,
+                                             cfg.mask_token, seed=20 + i))
+                       for i in range(RECSYS_TRAIN_STEPS)]
+        else:
+            batches = [on_dev(recsys_batch(rows, cfg.field_sizes,
+                                           getattr(cfg, "n_dense", 0),
+                                           seed=10 + i))
+                       for i in range(RECSYS_TRAIN_STEPS)]
+        serve = None
+        if name == "dlrm_mlperf":
+            sc_cell = arch.cell("serve_p99")
+            sb = recsys_inputs(cfg, sc_cell.dims["batch"], 0)
+            want = build_step(arch, sc_cell).fn(model, sb)
+            placed = place_model(model, build_step(
+                arch, sc_cell, mesh).in_shardings[0])
+            zero_counts()
+            t0 = time.perf_counter()
+            got = build_step(arch, sc_cell, mesh).fn(placed, sb)
+            torch.cuda.synchronize()
+            serve = {"err": max_diff(got.full_tensor(), want),
+                     "wall_s": time.perf_counter() - t0,
+                     "placements": [repr(p) for p in got.placements]}
+            check(serve["err"] == 0.0, f"DLRM serve_p99 mesh vs no mesh: "
+                  f"{serve['err']}")
+            del placed, got, want
+        pair = mesh_step_pair(arch, cell, mesh, model, batches, place=True,
+                              profile=name if name in ("dlrm_mlperf", "fm")
+                              else None)
+        lrel = [abs(x - y) / abs(y) for x, y in zip(
+            pair["mesh"]["losses"], pair["plain"]["losses"])]
+        o = {"losses": (pair["mesh"]["losses"], pair["plain"]["losses"]),
+             "loss_rel": lrel, "rows": rows, "optimizer": arch.optimizer,
+             "walls": {k: pair[k]["walls"] for k in ("mesh", "plain")},
+             "peak_gib": {k: pair[k]["peak_gib"] for k in ("mesh", "plain")},
+             "serve": serve}
+        check(all(math.isfinite(x) for x in pair["mesh"]["losses"])
+              and max(lrel) <= 1e-5,
+              f"{name}: mesh losses {o['losses']} ({lrel} relative)")
+        res["recsys"][name] = o
+        del model, pair, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4855,6 +5164,70 @@ def main() -> int:
         mo["qwen3_moe_30b_a3b"]["launches"]["flash prefill"]
         + mo["qwen3_moe_30b_a3b"]["launches"]["flash decode"])
     kernels += [mla_row, router_row]
+
+    # the model-parallel step gets the card to itself
+    del mo
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[26] the model-parallel train step on a one-rank NCCL mesh "
+        "(data 1 x model 1): Llama-3.2-1B, the MoE LMs' sharded branch, "
+        "the MoE smoke steps, the recsys steps and DLRM serve_p99, each "
+        "against its no-mesh twin")
+    t_phase = time.perf_counter()
+    mt = phase_mesh_train(dev)
+    mt["wall_s"] = time.perf_counter() - t_phase
+    a = mt["llama"]
+    log(f"    {mt['mesh']} on {card}")
+    log(f"    Llama-3.2-1B ({LM_TRAIN_SHAPE[0]} x {LM_TRAIN_SHAPE[1]}, "
+        f"{LM_TRAIN_MICROBATCH} µbatches, remat, bf16 compute): loss mesh "
+        f"vs no mesh {a['loss']} ({a['loss_rel']!r} relative, limit 1e-3); "
+        f"per-leaf ‖Δg‖/‖g‖ max {max(a['grad_rel'])!r} (limit 1e-2); "
+        f"bitwise {a['bitwise']}; gradient launches (kernel 8, 8b) "
+        f"{a['grad_launches']}")
+    for key in ("plain", "mesh"):
+        st = a[f"{key}_step"]
+        log(f"    Llama build_step train step, {key}: loss {st['losses']}, "
+            f"wall {st['walls'][0]:.4f} s, peak {st['peak_gib']:.2f} GiB, "
+            f"launches {st['launches']} on {card}")
+    for name, o in mt["moe"].items():
+        log(f"    {name} ({o['reduced']}): loss sharded branch vs unsharded "
+            f"{o['loss']} ({o['loss_rel']!r} relative, limit 1e-3), bitwise "
+            f"{o['bitwise']}; expert ids equal on all {o['pairs']} (token, "
+            f"layer) rows: {o['ids_equal']}; walls (s) {o['walls']}; "
+            f"launches {o['launches']}")
+    for name, o in mt["moe_smoke"].items():
+        log(f"    {name} smoke, 2 AdamW steps (f32, \"simt\"): losses mesh / "
+            f"no mesh {o['losses']}; params max |diff| {o['param_err']!r} "
+            f"(limit 1e-5); launches {o['launches']}")
+    for name, o in mt["recsys"].items():
+        log(f"    {name}: {RECSYS_TRAIN_STEPS} {o['optimizer']} steps of "
+            f"{o['rows']} rows, losses mesh / no mesh {o['losses']} (max "
+            f"{max(o['loss_rel'])!r} relative, limit 1e-5); step walls (s) "
+            f"mesh {[round(x, 4) for x in o['walls']['mesh']]}, no mesh "
+            f"{[round(x, 4) for x in o['walls']['plain']]}; peak GiB "
+            f"{ {k: round(v, 2) for k, v in o['peak_gib'].items()} }")
+        if o["serve"]:
+            log(f"    {name} serve_p99 through the mesh step: max |diff| "
+                f"{o['serve']['err']!r} (0.0 required), {o['serve']['wall_s']:.4f}"
+                f" s, out placements {o['serve']['placements']}")
+    log(f"    phase wall {mt['wall_s']:.1f}s")
+    n8 = (a["grad_launches"]["mesh"][0] + a["mesh_step"]["launches"]["flash"]
+          + sum(o["launches"]["mesh"]["flash"] for o in mt["moe"].values())
+          + sum(o["launches"]["flash"] for o in mt["moe_smoke"].values()))
+    n8b = (a["grad_launches"]["mesh"][1]
+           + a["mesh_step"]["launches"]["flash_bwd"]
+           + sum(o["launches"]["flash_bwd"]
+                 for o in mt["moe_smoke"].values()))
+    n5 = (sum(o["launches"]["mesh"]["select"] for o in mt["moe"].values())
+          + sum(o["launches"]["select"] for o in mt["moe_smoke"].values()))
+    check(n8 > 0 and n8b > 0 and n5 > 0,
+          f"phase 26 launches: kernel 8 {n8}, 8b {n8b}, 5 {n5}")
+    log(f"    launches on the mesh paths: kernel 8 {n8}, 8b {n8b}, "
+        f"kernel 5 {n5}")
+    flash_row["launches"] += n8
+    kernels[[k["name"] for k in kernels].index("flash_attention_bwd")][
+        "launches"] += n8b
+    router_row["launches"] += n5
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

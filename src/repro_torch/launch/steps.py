@@ -1,15 +1,14 @@
 """Step builders of the port (counterpart of ``repro.launch.steps``):
-(arch × shape cell [× mesh]) → a ``StepPlan`` with the step function and
-its example input shapes.
+(arch × shape cell × mesh) → a ``StepPlan`` with the step function, its
+example input shapes and, on a mesh, its in / out shardings.
 
 The LM steps of the reference's ``_lm_step`` (``steps.py:59``: train at
 :72, prefill at :115, decode at :128) and the recsys steps of its
 ``_recsys_step`` (``steps.py:199``: train at :218, serve at :236 —
-BERT4Rec's through ``serve_scores`` — and retrieval at :250) without a
-mesh: the port runs them at world size 1, so there are no shardings to
-state.  The LM steps serve and train every LM config of the registry:
-dense, MoE (Qwen3-30B-A3B) and MoE + MLA (DeepSeek-V2, whose decode
-cache is the latent c_kv / k_rope).  The step functions take the model
+BERT4Rec's through ``serve_scores`` — and retrieval at :250).  The LM
+steps serve and train every LM config of the registry: dense, MoE
+(Qwen3-30B-A3B) and MoE + MLA (DeepSeek-V2, whose decode cache is the
+latent c_kv / k_rope).  The step functions take the model
 (``repro_torch.models.transformer.Transformer``, ``models.dlrm.DLRM``,
 ``models.fm.FM``, ``models.xdeepfm.XDeepFM``, ``models.bert4rec.
 BERT4Rec``) where the reference takes its parameter tree.  A train step
@@ -17,24 +16,53 @@ is ``fn(model, opt_state, batch) → (model, opt_state, loss)``: the
 gradient of the model's parameter tree (the LM's mean over
 ``cfg.microbatch`` µbatches), then ``plan.optimizer``'s update written
 into the model's parameters (build the state with
-``plan.optimizer.init(model.tree())``).  The CF steps of ``_cf_step``
-(``steps.py:265``) run the mesh engines of :mod:`repro_torch.core.engine`
-on ``torch.distributed`` over the mesh given to ``build_step`` (None: the
-engine's ``default_mesh`` on the batch's device), sharding over its
-first axis.  The GNN family raises ``NotImplementedError`` naming its
-ROADMAP item.
+``plan.optimizer.init(model.tree())``).
+
+Without a mesh (``mesh=None``) the LM and recsys steps run on one
+device and ``in_shardings`` / ``out_shardings`` are None.  With a
+``DeviceMesh`` (every rank calls, SPMD) they are the reference's
+``NamedSharding`` trees: parameters by the model's ``param_specs``,
+optimizer state by ``opt.state_specs``, the LM batch over the batch
+axes, the recsys batch over every axis where its leading dimension
+divides by 512 (the reference's rule) and replicated elsewhere.  The
+model's parameters are DTensors placed by ``in_shardings[0]``
+(:func:`place_model`); the batch is the global batch, the same on every
+rank, of which each rank takes its rows.
+
+* The LM train step (``make_ctx(mesh)``): tensor-, FSDP- and
+  expert-parallel ``transformer.backward`` on each rank's shards, each
+  µbatch's rows split over the batch axes as the reference's µbatch
+  reshape splits them; the gradients reduced to the parameters'
+  placements; AdamW on the DTensors.  Prefill and decode on a mesh raise
+  ``NotImplementedError`` (ROADMAP Queue 1 item 11: serving on a mesh).
+* The recsys steps (``make_ctx(mesh, dp_over_all=True)``): the batch's
+  rows (retrieval's candidates; its one context stays whole) split over
+  every rank, as the reference's lookup ``shard_map`` splits the ids;
+  the sharded tables' blocks looked up through the differentiable
+  exchange; the dense nets data-parallel; serve and retrieval return
+  DTensors on ``out_shardings``.
+
+The CF steps of ``_cf_step`` (``steps.py:265``) run the mesh engines of
+:mod:`repro_torch.core.engine` on ``torch.distributed`` over the mesh
+given to ``build_step`` (None: the engine's ``default_mesh`` on the
+batch's device), sharding over its first axis.  The GNN family raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.configs.registry import (ArchSpec, ShapeCell, TensorSpec,
                                           input_specs)
-from repro_torch.distributed.checkpoint import tree_flatten
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.checkpoint import tree_flatten, tree_unflatten
+from repro_torch.distributed.sharding import P
 from repro_torch.training.optimizer import get_optimizer
 from repro_torch.training.train_loop import (make_train_step, take_grads,
                                              trainable)
@@ -46,6 +74,8 @@ class StepPlan:
     fn: Callable
     example_args: Dict[str, Any]     # input name → TensorSpec (or a tree)
     optimizer: Any = None            # a train step's optimizer
+    in_shardings: Any = None         # NamedSharding trees, on a mesh
+    out_shardings: Any = None
 
 
 def _on(model, batch) -> Dict[str, torch.Tensor]:
@@ -53,13 +83,18 @@ def _on(model, batch) -> Dict[str, torch.Tensor]:
             for key, val in batch.items()}
 
 
+def _ns(mesh, spec) -> shd.NamedSharding:
+    return shd.NamedSharding(mesh, shd._sanitize(mesh, spec))
+
+
 def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
-    """``mesh``: the ``DeviceMesh`` of the CF steps (the other families
-    run at world size 1 and do not read it)."""
+    """``mesh``: a ``DeviceMesh`` (the LM and recsys steps on it, SPMD),
+    or None (one device; the CF steps then take the engine's default
+    mesh)."""
     if arch.kind == "lm":
-        return _lm_step(arch, cell)
+        return _lm_step(arch, cell, mesh)
     if arch.kind == "recsys":
-        return _recsys_step(arch, cell)
+        return _recsys_step(arch, cell, mesh)
     if arch.kind == "cf":
         return _cf_step(arch, cell, mesh)
     raise NotImplementedError(
@@ -67,11 +102,82 @@ def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
         f"side workloads)")
 
 
-def _lm_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
+def place_model(model, shardings):
+    """``model`` (whole parameters, the same on every rank) rebuilt with
+    its parameters as DTensors placed by ``shardings`` (a mesh plan's
+    ``in_shardings[0]``), each rank keeping its slices; no collective
+    runs."""
+    tree = shd.distribute(
+        tree_unflatten(model.tree(), [p.detach() for p in
+                                      tree_flatten(model.tree())]),
+        shardings)
+    kw = {"use_kernel": model.use_kernel} if hasattr(model, "use_kernel") \
+        else {}
+    return type(model)(model.cfg, tree, **kw)
+
+
+def _local_leaves(params):
+    """The DTensor leaves' local shards as leaves of their own that
+    require a gradient (sharing the DTensors' storage)."""
+    return tree_unflatten(params, [p.to_local().detach().requires_grad_()
+                                   for p in tree_flatten(params)])
+
+
+def _dtensor_grads(params, local):
+    """The local leaves' ``.grad`` (zeros where none arrived) as DTensors
+    on their parameters' placements."""
+    from torch.distributed.tensor import DTensor
+    out = []
+    for p, leaf in zip(tree_flatten(params), tree_flatten(local)):
+        g = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+        out.append(DTensor.from_local(g, p.device_mesh, p.placements,
+                                      run_check=False, shape=p.shape,
+                                      stride=p.stride()))
+    return tree_unflatten(params, out)
+
+
+def _meshed(model) -> None:
+    from torch.distributed.tensor import DTensor
+    if not isinstance(tree_flatten(model.tree())[0], DTensor):
+        raise ValueError("a mesh step takes a model whose parameters are "
+                         "DTensors: place it with place_model(model, "
+                         "plan.in_shardings[0])")
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+def _lm_rows(batch, mesh, axes, mb: int, device) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global (B, S) batch: each µbatch's rows
+    (the reference's (mb, B / mb, S) reshape) split over ``axes``, the
+    µbatches kept in order."""
+    n, r = coll.axis_size(mesh, axes), coll.axis_rank(mesh, axes)
+    out = {}
+    for key, val in batch.items():
+        x = torch.as_tensor(val, device=device)
+        b, s = x.shape
+        if b % (mb * n):
+            raise ValueError(f"{b} rows do not split into {mb} µbatches "
+                             f"over {n} ranks")
+        out[key] = x.reshape(mb, b // mb, s).chunk(n, dim=1)[r] \
+            .reshape(-1, s)
+    return out
+
+
+def _lm_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:
     name = f"{arch.name}:{cell.name}"
     inputs = input_specs(arch, cell)
+    if cell.step not in ("train", "prefill", "decode"):
+        raise ValueError(cell.step)
+    from repro_torch.models import transformer as tx
+    if mesh is not None:
+        if cell.step != "train":
+            raise NotImplementedError(
+                f"LM {cell.step} on a mesh is not ported yet (ROADMAP "
+                f"Queue 1 item 11: serving on a mesh)")
+        return _lm_train_mesh(arch, cell, mesh, inputs)
     if cell.step == "train":
-        from repro_torch.models import transformer as tx
         opt = get_optimizer(arch.optimizer)
 
         def step(model, opt_state, batch):
@@ -92,17 +198,56 @@ def _lm_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
             """(logits (B, V), cache) for ``batch["tokens"]`` (B, S)."""
             return model.prefill(batch["tokens"], max_len=max_len)
         return StepPlan(name=name, fn=step, example_args=inputs)
-    if cell.step == "decode":
-        def step(model, batch):
-            """(logits (B, V), cache) for one token per sequence."""
-            return model.decode_step(batch["tokens"], batch["cache"])
-        return StepPlan(name=name, fn=step, example_args=inputs)
-    raise ValueError(cell.step)
+
+    def step(model, batch):
+        """(logits (B, V), cache) for one token per sequence."""
+        return model.decode_step(batch["tokens"], batch["cache"])
+    return StepPlan(name=name, fn=step, example_args=inputs)
 
 
-def _recsys_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
+def _lm_train_mesh(arch: ArchSpec, cell: ShapeCell, mesh,
+                   inputs) -> StepPlan:
+    """The reference's meshed LM train step (``steps.py:72-113``)."""
+    from repro_torch.models import transformer as tx
+    cfg = arch.config
+    sc = shd.make_ctx(mesh)
+    baxes = shd.batch_axes(mesh)
+    pspecs = tx.param_specs(cfg)
+    params_sh = shd.to_shardings(mesh, pspecs)
+    opt = get_optimizer(arch.optimizer)
+    opt_sh = shd.to_shardings(mesh, opt.state_specs(pspecs))
+    batch_sh = {"tokens": _ns(mesh, P(baxes, None)),
+                "labels": _ns(mesh, P(baxes, None))}
+
+    def step(model, opt_state, batch):
+        """One AdamW step of the meshed model on the global ``batch``
+        {tokens, labels} (B, S); the loss is the global batch's."""
+        _meshed(model)
+        params = model.tree()
+        local = _local_leaves(params)
+        rows = _lm_rows(batch, mesh, baxes, model.cfg.microbatch,
+                        tree_flatten(local)[0].device)
+        loss = tx.backward(model.cfg, local, rows,
+                           use_kernel=model.use_kernel, sc=sc)
+        opt.update(params, _dtensor_grads(params, local), opt_state)
+        return model, opt_state, loss
+    return StepPlan(name=f"{arch.name}:{cell.name}", fn=step,
+                    example_args=inputs, optimizer=opt,
+                    in_shardings=(params_sh, opt_sh, batch_sh),
+                    out_shardings=(params_sh, opt_sh, _ns(mesh, P())))
+
+
+# ---------------------------------------------------------------------------
+# RecSys
+# ---------------------------------------------------------------------------
+
+def _recsys_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:
     name = f"{arch.name}:{cell.name}"
     inputs = input_specs(arch, cell)
+    if cell.step not in ("train", "serve", "retrieval"):
+        raise ValueError(cell.step)
+    if mesh is not None:
+        return _recsys_mesh(arch, cell, mesh, inputs)
     if cell.step == "train":
         opt = get_optimizer(arch.optimizer)
 
@@ -119,12 +264,97 @@ def _recsys_step(arch: ArchSpec, cell: ShapeCell) -> StepPlan:
             BERT4Rec's next-item scores (B, vocab) for its items."""
             return model(batch)
         return StepPlan(name=name, fn=step, example_args=inputs)
-    if cell.step == "retrieval":
-        def step(model, batch):
-            """Scores (N,) of ``batch["candidates"]`` for one context."""
-            return model.retrieval_score(batch)
-        return StepPlan(name=name, fn=step, example_args=inputs)
-    raise ValueError(cell.step)
+
+    def step(model, batch):
+        """Scores (N,) of ``batch["candidates"]`` for one context."""
+        return model.retrieval_score(batch)
+    return StepPlan(name=name, fn=step, example_args=inputs)
+
+
+def _recsys_rows(batch, mesh, device, split=None) -> Dict[str, torch.Tensor]:
+    """This rank's share of a recsys batch: the inputs named in ``split``
+    (default: all) split on their leading dimension over every rank of
+    the mesh (rank order), the others whole."""
+    n, r = mesh.size(), coll.axis_rank(mesh, mesh.mesh_dim_names)
+    out = {}
+    for key, val in batch.items():
+        x = torch.as_tensor(val, device=device)
+        if split is None or key in split:
+            if x.shape[0] % n:
+                raise ValueError(f"{key}: {x.shape[0]} rows do not split "
+                                 f"over {n} ranks")
+            x = x.chunk(n)[r]
+        out[key] = x
+    return out
+
+
+def _recsys_mesh(arch: ArchSpec, cell: ShapeCell, mesh, inputs) -> StepPlan:
+    """The reference's meshed recsys steps (``steps.py:199-262``)."""
+    from torch.distributed.tensor import DTensor
+    mod = importlib.import_module(f"repro_torch.models.{arch.model}")
+    cfg = arch.config
+    sc = shd.make_ctx(mesh, dp_over_all=True)
+    aaxes = shd.all_axes(mesh)
+    pspecs = mod.param_specs(cfg, aaxes) if arch.model != "bert4rec" \
+        else mod.param_specs(cfg)
+    params_sh = shd.to_shardings(mesh, pspecs)
+
+    def batch_shard(v):
+        if v.shape and v.shape[0] > 1 and v.shape[0] % 512 == 0:
+            return _ns(mesh, P(aaxes, *((None,) * (len(v.shape) - 1))))
+        return _ns(mesh, P(*((None,) * len(v.shape))))
+
+    batch_sh = {k: batch_shard(v) for k, v in inputs.items()}
+    name = f"{arch.name}:{cell.name}"
+
+    if cell.step == "train":
+        opt = get_optimizer(arch.optimizer)
+        opt_sh = shd.to_shardings(mesh, opt.state_specs(pspecs))
+
+        def step(model, opt_state, batch):
+            """One step of the arch's optimizer on the global batch's
+            loss (each rank's rows; the mean over every rank's)."""
+            _meshed(model)
+            params = model.tree()
+            local = _local_leaves(params)
+            with torch.enable_grad():
+                loss = mod.loss_fn(cfg, local, _recsys_rows(
+                    batch, mesh, model.device), mesh)
+                loss.backward()
+            shd.reduce_gradients(local, params_sh, sc.batch)
+            opt.update(params, _dtensor_grads(params, local), opt_state)
+            return model, opt_state, loss.detach()
+        return StepPlan(name=name, fn=step, example_args=inputs,
+                        optimizer=opt,
+                        in_shardings=(params_sh, opt_sh, batch_sh),
+                        out_shardings=(params_sh, opt_sh, _ns(mesh, P())))
+
+    if cell.step == "serve":
+        fwd = mod.serve_scores if arch.model == "bert4rec" else mod.forward
+        out_sh = _ns(mesh, P(aaxes, None) if arch.model == "bert4rec"
+                     else P(aaxes))
+        split = None
+    else:
+        fwd = mod.retrieval_score
+        out_sh = _ns(mesh, P(aaxes))
+        split = ("candidates",)
+
+    @torch.inference_mode()
+    def step(model, batch):
+        """This rank's rows of the scores, as a DTensor on
+        ``out_shardings`` (``full_tensor()`` gathers them)."""
+        _meshed(model)
+        local = tree_unflatten(model.tree(), [
+            p.to_local() for p in tree_flatten(model.tree())])
+        out = fwd(cfg, local, _recsys_rows(batch, mesh, model.device, split),
+                  mesh)
+        shape = (out.shape[0] * mesh.size(),) + tuple(out.shape[1:])
+        return DTensor.from_local(out, mesh, out_sh.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+    return StepPlan(name=name, fn=step, example_args=inputs,
+                    in_shardings=(params_sh, batch_sh), out_shardings=out_sh)
 
 
 def _cf_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:

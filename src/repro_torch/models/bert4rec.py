@@ -11,7 +11,9 @@ attention stays plain ``torch.matmul`` / softmax, as the reference
 computes it outside any Pallas kernel (kernel 8 is causal).  ``BERT4Rec``
 is an ``nn.Module`` holding the reference's parameter tree
 (``item_embed``, ``pos_embed``, ``ln_in``, ``blocks.<i>.{wq,wk,wv,wo,ln1,
-w1,w2,ln2}``, ``out_bias``) in f32; the functions take that tree.
+w1,w2,ln2}``, ``out_bias``) in f32; the functions take that tree.  Every
+parameter is replicated on a mesh (``param_specs``); with a ``mesh`` the
+functions take this rank's batch rows.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common as cm
 from repro_torch.models import embedding as emb
 
@@ -83,6 +86,24 @@ def init_params(cfg: BERT4RecConfig, generator: torch.Generator,
             "out_bias": torch.zeros((cfg.vocab,), device=device)}
 
 
+def param_specs(cfg: BERT4RecConfig,
+                batch_axes=("pod", "data", "model")) -> Dict:
+    """(reference ``bert4rec.py:80``) every leaf replicated."""
+    rep2 = P(None, None)
+    ln = {"scale": P(None), "bias": P(None)}
+    blk = {"wq": cm.dense_specs(bias=True, w_spec=rep2),
+           "wk": cm.dense_specs(bias=True, w_spec=rep2),
+           "wv": cm.dense_specs(bias=True, w_spec=rep2),
+           "wo": cm.dense_specs(bias=True, w_spec=rep2),
+           "ln1": ln,
+           "w1": cm.dense_specs(bias=True, w_spec=rep2),
+           "w2": cm.dense_specs(bias=True, w_spec=rep2),
+           "ln2": ln}
+    return {"item_embed": rep2, "pos_embed": rep2, "ln_in": ln,
+            "blocks": [blk for _ in range(cfg.n_blocks)],
+            "out_bias": P(None)}
+
+
 def encode(cfg: BERT4RecConfig, params, items: torch.Tensor) -> torch.Tensor:
     """items (B, S) int (0 = padding) → hidden (B, S, D) (reference
     ``bert4rec.py:101``)."""
@@ -115,13 +136,17 @@ def loss_fn(cfg: BERT4RecConfig, params, batch: Dict,
             mesh=None) -> torch.Tensor:
     """Masked-item NLL (reference ``bert4rec.py:129``): batch {items
     (B, S), labels (B, S) with −1 ignored}; f32 log-softmax over the
-    vocabulary, the mean over the labelled positions."""
+    vocabulary, the mean over the labelled positions (with ``mesh``,
+    over every rank's)."""
     h = encode(cfg, params, batch["items"])
     labels = batch["labels"]
     logp = torch.log_softmax(logits_fn(cfg, params, h).float(), dim=-1)
     lab = labels.clamp_min(0).long()
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
     valid = (labels >= 0).float()
+    if mesh is not None:            # the mean over every rank's labels
+        return cm.global_mean(torch.sum(nll * valid), torch.sum(valid),
+                              mesh, mesh.mesh_dim_names)
     return torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)
 
 

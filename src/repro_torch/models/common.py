@@ -10,30 +10,42 @@ route through ``repro_torch.kernels.flash_attention``: the CUDA kernel on
 a CUDA tensor, its plain version on a CPU tensor or when the caller
 passes ``use_kernel=False``.  When a gradient is needed,
 ``chunked_attention`` goes through ``FlashAttentionFn``, whose backward is
-the hand-written backward kernel on the card.  There is no sharding
-context: the port runs at world size 1.
+the hand-written backward kernel on the card.
+
+``ShardingCtx`` is the reference's logical-axis → mesh-axis map that the
+models thread through their forwards, holding a ``DeviceMesh``;
+``NO_SHARDING`` turns it off.  ``dense_specs`` / ``mlp_specs`` give the
+``PartitionSpec`` trees of ``dense_init`` / ``mlp_init``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention import (NEG_INF, FlashAttentionFn,
                                                  flash_attention,
                                                  flash_attention_plain)
 
-__all__ = ["NEG_INF", "ParamTree", "CTRModel", "dense_init", "dense",
-           "mlp_init", "mlp", "rmsnorm", "layernorm_init", "layernorm",
+__all__ = ["NEG_INF", "Initializer", "ParamTree", "CTRModel", "dense_init",
+           "dense_specs", "dense", "mlp_init", "mlp_specs", "mlp",
+           "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
            "rope_freqs", "apply_rope", "chunked_attention",
-           "decode_attention", "chunked_softmax_xent", "bce_with_logits",
-           "swiglu", "gelu",
-           "count_params"]
+           "decode_attention", "chunked_softmax_xent", "order_slots",
+           "global_mean", "bce_with_logits", "swiglu", "gelu",
+           "count_params", "ShardingCtx", "NO_SHARDING"]
+
+# an initializer, as ``jax.nn.initializers.Initializer``: (generator,
+# shape, dtype) → tensor
+Initializer = Callable[..., torch.Tensor]
 
 
 class ParamTree(nn.Module):
@@ -119,6 +131,15 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+def dense_specs(*, bias: bool = False, w_spec=P(None, None)):
+    """The spec tree of ``dense_init`` (reference ``common.py:41``): the
+    bias follows the weight's output dimension."""
+    p = {"w": w_spec}
+    if bias:
+        p["b"] = P(w_spec[-1])
+    return p
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     """``x @ p["w"] (+ p["b"])`` (reference ``common.py:52``)."""
     y = x @ p["w"]
@@ -136,6 +157,12 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int], *,
             for i in range(len(dims) - 1)}
 
 
+def mlp_specs(n_layers: int, *, bias: bool = True, w_spec=P(None, None)):
+    """The spec tree of ``mlp_init`` (reference ``common.py:64``)."""
+    return {f"l{i}": dense_specs(bias=bias, w_spec=w_spec)
+            for i in range(n_layers)}
+
+
 def mlp(p, x: torch.Tensor, *, act=F.relu, final_act=None) -> torch.Tensor:
     """Dense layers ``l0 .. l{n−1}`` with ``act`` between them and
     ``final_act`` (if any) after the last (reference ``common.py:69``)."""
@@ -147,6 +174,11 @@ def mlp(p, x: torch.Tensor, *, act=F.relu, final_act=None) -> torch.Tensor:
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    """{"scale": ones (d,)} (reference ``common.py:82``)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -229,53 +261,115 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
               kv_len=cache_len.to(torch.int32).contiguous())
 
 
-def _xent_chunk(hh: torch.Tensor, w32: torch.Tensor, ll: torch.Tensor):
-    """(Σ NLL, count) of one chunk: f32 logits, labels −1 ignored."""
+def _xent_chunk(hh: torch.Tensor, w32: torch.Tensor, ll: torch.Tensor,
+                mesh=None, axis=None):
+    """(Σ NLL, count) of one chunk: f32 logits, labels −1 ignored.  With
+    ``axis`` (a mesh axis of several ranks) ``w32`` is this rank's slice
+    of the vocabulary and the log-sum-exp and the gold logit are summed
+    over the axis: the vocab-parallel cross-entropy."""
     logits = hh.float() @ w32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
     valid = (ll >= 0).float()
+    if axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            ll.clamp_min(0).long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * valid), torch.sum(valid)
+    v_loc = logits.shape[-1]
+    m = coll.all_reduce_max(logits.detach().amax(-1), mesh, axis)
+    sumexp = coll.reduce_from(torch.exp(logits - m[..., None]).sum(-1),
+                              mesh, axis)
+    lse = torch.log(sumexp) + m
+    lab = ll.long() - coll.axis_rank(mesh, axis) * v_loc
+    mine = (lab >= 0) & (lab < v_loc)
+    gold = torch.gather(logits, -1, lab.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = coll.reduce_from(torch.where(mine, gold, 0.0), mesh, axis)
     return torch.sum((lse - gold) * valid), torch.sum(valid)
 
 
 def chunked_softmax_xent(h: torch.Tensor, w_out: torch.Tensor,
-                         labels: torch.Tensor, *,
-                         chunk: int = 256) -> torch.Tensor:
+                         labels: torch.Tensor, *, chunk: int = 256,
+                         spec=None, sc=None) -> torch.Tensor:
     """Mean token NLL without materialising (B, S, V) logits (reference
     ``common.py:227``).  ``h``: (B, S, D) final hidden states; ``w_out``:
     (D, V); ``labels``: (B, S) int with −1 = ignore.  S is taken in
     chunks of ``chunk`` positions, each with f32 logits (TF32 off, as the
     package pins it) under ``torch.utils.checkpoint``, so a chunk's
     logits are recomputed in the backward and never stored, as the
-    reference's ``jax.checkpoint`` ensures."""
+    reference's ``jax.checkpoint`` ensures.
+
+    With an enabled ``sc`` (a ``ShardingCtx``) the inputs are this rank's
+    shards: ``h`` its batch rows, ``w_out`` its slice of the vocabulary
+    along the mesh axis that ``spec``'s last entry names (the reference's
+    vocab-sharded logits), and the mean is over every rank's valid tokens
+    (:func:`global_mean` over ``sc.batch``)."""
     b, s, _ = h.shape
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"S={s} must divide chunk={c}")
+    mesh = axis = None
+    if sc is not None and sc.enabled:
+        mesh = sc.mesh
+        if spec is not None and sc.size(spec[-1]) > 1:
+            axis = spec[-1]
+            h = coll.copy_to(h, mesh, axis)
     w32 = w_out.float()
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, s, c):
         hh, ll = h[:, s0:s0 + c], labels[:, s0:s0 + c]
         if torch.is_grad_enabled():
-            part, n = checkpoint(_xent_chunk, hh, w32, ll,
+            part, n = checkpoint(_xent_chunk, hh, w32, ll, mesh, axis,
                                  use_reentrant=False)
         else:
-            part, n = _xent_chunk(hh, w32, ll)
+            part, n = _xent_chunk(hh, w32, ll, mesh, axis)
         tot = tot + part
         cnt = cnt + n
-    return tot / torch.clamp_min(cnt, 1.0)
+    if mesh is None:
+        return tot / torch.clamp_min(cnt, 1.0)
+    return global_mean(tot, cnt, mesh, sc.batch)
 
 
-def bce_with_logits(logits: torch.Tensor,
-                    labels: torch.Tensor) -> torch.Tensor:
+def order_slots(keys: torch.Tensor) -> torch.Tensor:
+    """Each entry's slot among the entries of equal key: the number of
+    earlier entries with its key — the reference's one-hot cumsum,
+    ``(cumsum(onehot, 0) * onehot).sum(-1) - 1``, as a stable sort: an
+    entry's rank among equal keys is its index in the sorted order less
+    the first index of its key.  The same integers, without the (N, K)
+    scan (the MoE's expert slots, the exchange's bucket slots)."""
+    sorted_k, order = torch.sort(keys, stable=True)
+    rank = torch.arange(keys.shape[0], device=keys.device) \
+        - torch.searchsorted(sorted_k, sorted_k)
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
+def global_mean(total: torch.Tensor, count: torch.Tensor, mesh,
+                axes) -> torch.Tensor:
+    """The mean over every rank's rows along ``axes`` of ``mesh``:
+    ``total`` is this rank's (differentiable) sum and ``count`` its number
+    of rows.  The value is the global mean on every rank; the gradient is
+    this rank's share, total / (count summed over the ranks), so that the
+    ranks' gradients summed over ``axes`` are the global mean's.  On one
+    rank it is ``total / max(count, 1)``."""
+    count_all = coll.all_reduce_sum(count.detach(), mesh, axes)
+    share = total / torch.clamp_min(count_all, 1.0)
+    value = coll.all_reduce_sum(share.detach(), mesh, axes)
+    return share + (value - share.detach())
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy in the recsys models' stable form,
     max(z, 0) − z·y + log1p(exp(−|z|)) (reference ``dlrm.py:112``), not
-    ``F.binary_cross_entropy_with_logits``, whose rounding differs."""
+    ``F.binary_cross_entropy_with_logits``, whose rounding differs.  With
+    ``mesh`` the rows are this rank's batch shard and the mean is over
+    every rank's (:func:`global_mean` over all mesh axes)."""
     y = labels.float()
     loss = torch.clamp_min(logits, 0) - logits * y \
         + torch.log1p(torch.exp(-torch.abs(logits)))
-    return torch.mean(loss)
+    if mesh is None:
+        return torch.mean(loss)
+    n = torch.tensor(float(loss.numel()), device=loss.device)
+    return global_mean(loss.sum(), n, mesh, mesh.mesh_dim_names)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -298,3 +392,45 @@ def count_params(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(count_params(v) for v in params)
     return int(params.numel())
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """Logical-axis → mesh-axis mapping threaded through the models
+    (reference ``common.py:275``): ``batch`` the data-parallel axes of
+    activations, ``model`` the tensor / expert / vocab axis, ``fsdp`` the
+    axis parameters are split over, ``mesh`` the ``DeviceMesh``.  The
+    models run on each rank's local shards with the collectives of
+    ``repro_torch.distributed.collectives`` over these axes (the reference
+    states layouts and lets GSPMD insert them); ``constrain`` is the
+    reference's layout hint for a DTensor."""
+    batch: tuple | str | None = ("pod", "data")
+    model: str | None = "model"
+    fsdp: str | None = "data"
+    enabled: bool = True
+    mesh: object | None = None
+
+    def constrain(self, x, *axes):
+        """``x`` redistributed to ``P(*axes)`` when sharding is enabled and
+        ``x`` is a DTensor; else ``x`` (the reference's
+        ``with_sharding_constraint``, which changes no number)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.sharding import _sanitize, placements
+        if not self.enabled or not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, placements(
+            self.mesh, _sanitize(self.mesh, P(*axes))))
+
+    def size(self, axes) -> int:
+        """Ranks along ``axes`` (1 when not enabled)."""
+        from repro_torch.distributed import collectives as coll
+        return coll.axis_size(self.mesh, axes) if self.enabled else 1
+
+    def rank(self, axes) -> int:
+        """This rank's index along ``axes`` (0 when not enabled)."""
+        from repro_torch.distributed import collectives as coll
+        return coll.axis_rank(self.mesh, axes) if self.enabled else 0
+
+
+NO_SHARDING = ShardingCtx(batch=None, model=None, fsdp=None, enabled=False)

@@ -5,8 +5,9 @@ of ``repro.models.dlrm``): the serving ``forward``, the batched
 bottom-MLP(dense 13) ∥ 26 embedding lookups → dot interaction → top-MLP.
 ``DLRM`` is an ``nn.Module`` holding the reference's parameter tree
 (``tables.{sharded,replicated}``, ``bot.l{i}.{w,b}``, ``top.l{i}.{w,b}``)
-in f32; the functions take that tree as the reference's do.  The port
-runs at world size 1 (``mesh=None``).
+in f32; the functions take that tree as the reference's do.  With a
+``mesh`` they take this rank's shards (``param_specs``: the sharded
+table's block, everything else whole) and batch rows.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common as cm
 from repro_torch.models import embedding as emb
 
@@ -78,6 +80,16 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: DLRMConfig, batch_axes=("pod", "data", "model")
+                ) -> Dict:
+    """(reference ``dlrm.py:77``) the tables by ``table_specs``, the MLPs
+    replicated: the dense nets are data-parallel over every axis."""
+    rep = P(None, None)
+    return {"tables": emb.table_specs(batch_axes),
+            "bot": cm.mlp_specs(len(cfg.bot_mlp), w_spec=rep),
+            "top": cm.mlp_specs(len(cfg.top_mlp), w_spec=rep)}
+
+
 def _interact(bot_out: torch.Tensor, sparse: torch.Tensor) -> torch.Tensor:
     """Dot interaction.  bot_out (B, D); sparse (B, F, D) → (B, F*(F+1)/2):
     the Gram matrix of the F + 1 vectors, strict upper triangle in
@@ -122,9 +134,10 @@ def retrieval_score(cfg: DLRMConfig, params, batch: Dict,
 def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``batch["labels"]``
     (reference ``dlrm.py:108``), in the reference's own stable
-    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    form max(z, 0) − z·y + log1p(exp(−|z|)); with ``mesh``, the mean
+    over every rank's rows."""
     return cm.bce_with_logits(forward(cfg, params, batch, mesh),
-                              batch["labels"])
+                              batch["labels"], mesh)
 
 class DLRM(cm.CTRModel):
     """DLRM (``forward``, ``retrieval_score``, ``loss``)."""

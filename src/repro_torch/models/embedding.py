@@ -26,8 +26,13 @@
   min(l_loc, 64))`` for ``l_loc`` lookups a rank, and the drop rule — a
   lookup past its bucket's capacity returns zeros, never another row —
   are the reference's.  Replicated fields are local gathers.  Ids must
-  be rows of the table.  Gradients through the exchange belong to the
-  training slice.
+  be rows of the table.  The exchange is differentiable
+  (``_ExchangeLookup``): its backward sends each looked-up row's
+  gradient back to the owner rank with the reverse all-to-all, which
+  sums it into its block in a fixed order; dropped and empty slots add
+  nothing.
+* ``table_specs`` — the tables' partition specs: the sharded table's rows
+  over the batch axes, the replicated table whole.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import P
+from repro_torch.models.common import order_slots
 
 REPLICATE_THRESHOLD = 8192      # tables smaller than this are replicated
 
@@ -141,6 +148,85 @@ def init_tables(layout: TableLayout, generator: torch.Generator,
     return out
 
 
+def table_specs(batch_axes=("pod", "data", "model")):
+    """The tables' specs (reference ``embedding.py:122``): the sharded
+    table's rows over ``batch_axes``, the replicated table whole."""
+    return {"sharded": P(batch_axes, None), "replicated": P(None, None)}
+
+
+def _row_sum(rows: torch.Tensor, vals: torch.Tensor, n_rows: int
+             ) -> torch.Tensor:
+    """(n_rows, D) zeros with each ``vals[i]`` added into row
+    ``rows[i]`` in a fixed order: ``index_add_`` on the CPU (sequential),
+    ``index_put_(accumulate=True)`` on CUDA (its CUDA path sorts the ids
+    and sums each row's values in one thread, where ``index_add_`` would
+    add in atomic order)."""
+    out = vals.new_zeros((n_rows, vals.shape[1]))
+    if vals.is_cuda:
+        return out.index_put_((rows,), vals, accumulate=True)
+    return out.index_add_(0, rows, vals)
+
+
+def _exchange_slots(owner: torch.Tensor, n_shards: int, capacity: int):
+    """Each lookup's (bucket, slot) and whether it fits: the next slot of
+    its owner's bucket in lookup order (the reference's one-hot cumsum,
+    as ``common.order_slots``); a lookup past ``capacity`` goes to the
+    drop row ``n_shards``."""
+    pos = order_slots(owner.long())                             # (L,)
+    keep = pos < capacity
+    slot_o = torch.where(keep, owner.long(), n_shards)
+    slot_p = torch.where(keep, pos, 0)
+    return slot_o, slot_p, keep
+
+
+class _ExchangeLookup(torch.autograd.Function):
+    """The exchange of :func:`_bucketed_exchange_lookup` with its
+    gradient: the (P, C, D) value gradients go back to the owner ranks
+    with the reverse all-to-all and are summed into the rows they were
+    read from (:func:`_row_sum`).  An empty send slot carries the row id
+    −1 (the reference sends 0 and discards what comes back; the values
+    are the same): it reads row 0 in the forward and adds nothing in the
+    backward, and a dropped lookup's gradient is zeroed, so neither adds
+    gradient to row 0 — nor makes row 0 a hot row of the sum."""
+
+    @staticmethod
+    def forward(ctx, local_table, owner, local_row, n_shards, capacity,
+                group):
+        d = local_table.shape[1]
+        slot_o, slot_p, keep = _exchange_slots(owner, n_shards, capacity)
+        send = torch.full((n_shards + 1, capacity), -1, dtype=torch.int64,
+                          device=local_table.device)
+        send[slot_o, slot_p] = local_row.long()
+        send = send[:n_shards].contiguous()                      # (P, C)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        rows = recv.reshape(-1)
+        vals = local_table[rows.clamp(0, local_table.shape[0] - 1)].reshape(
+            n_shards, capacity, d)
+        back = torch.empty_like(vals)
+        dist.all_to_all_single(back, vals, group=group)          # (P, C, D)
+        out = back[slot_o.clamp(0, n_shards - 1), slot_p]        # (L, D)
+        ctx.save_for_backward(rows, slot_o, slot_p, keep)
+        ctx.shape, ctx.group = (n_shards, capacity, d), group
+        ctx.n_rows = local_table.shape[0]
+        return out.masked_fill(~keep[:, None], 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, slot_o, slot_p, keep = ctx.saved_tensors
+        n_shards, capacity, d = ctx.shape
+        g = g.masked_fill(~keep[:, None], 0.0)
+        gback = g.new_zeros((n_shards + 1, capacity, d))
+        gback[slot_o, slot_p] = g                    # kept slots are unique
+        gback = gback[:n_shards].contiguous()
+        gvals = torch.empty_like(gback)
+        dist.all_to_all_single(gvals, gback, group=ctx.group)
+        filled = rows >= 0
+        grad = _row_sum(rows[filled], gvals.reshape(-1, d)[filled],
+                        ctx.n_rows)
+        return grad, None, None, None, None, None
+
+
 def _bucketed_exchange_lookup(local_table: torch.Tensor, owner: torch.Tensor,
                               local_row: torch.Tensor, n_shards: int,
                               capacity: int, group) -> torch.Tensor:
@@ -152,26 +238,9 @@ def _bucketed_exchange_lookup(local_table: torch.Tensor, owner: torch.Tensor,
     ``capacity``; the (P, C) row ids go out with one all-to-all, every
     owner gathers the rows asked of it, and a second all-to-all brings
     the (P, C, D) values back.  A lookup past its bucket's capacity gets
-    zeros.  Returns (L, D)."""
-    d = local_table.shape[1]
-    dev = local_table.device
-    onehot = F.one_hot(owner.long(), n_shards)                  # (L, P)
-    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1               # (L,)
-    keep = pos < capacity
-    slot_o = torch.where(keep, owner.long(), n_shards)           # drop row
-    slot_p = torch.where(keep, pos, 0)
-    send = torch.zeros((n_shards + 1, capacity), dtype=torch.int64,
-                       device=dev)
-    send[slot_o, slot_p] = local_row.long()
-    send = send[:n_shards].contiguous()                          # (P, C)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    rows = recv.reshape(-1).clamp(0, local_table.shape[0] - 1)
-    vals = local_table[rows].reshape(n_shards, capacity, d)
-    back = torch.empty_like(vals)
-    dist.all_to_all_single(back, vals, group=group)              # (P, C, D)
-    out = back[slot_o.clamp(0, n_shards - 1), slot_p]            # (L, D)
-    return out.masked_fill(~keep[:, None], 0.0)
+    zeros.  Returns (L, D), differentiable in ``local_table``."""
+    return _ExchangeLookup.apply(local_table, owner, local_row, n_shards,
+                                 capacity, group)
 
 
 def _mesh_group(mesh):

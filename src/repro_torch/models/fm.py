@@ -7,7 +7,9 @@ the pairwise term; ``retrieval_score`` splits it over the user fields and
 the candidate field, so scoring N candidates is one (N, k) · (k,) product.
 ``FM`` is an ``nn.Module`` holding the reference's parameter tree (``w0``,
 ``linear.{sharded,replicated}``, ``factors.{sharded,replicated}``) in
-f32; the functions take that tree as the reference's do.
+f32; the functions take that tree as the reference's do.  With a
+``mesh`` they take this rank's shards (``param_specs``: each sharded
+table's block) and batch rows.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common as cm
 from repro_torch.models import embedding as emb
 
@@ -72,6 +75,13 @@ def init_params(cfg: FMConfig, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: FMConfig, batch_axes=("pod", "data", "model")) -> Dict:
+    """(reference ``fm.py:70``) both tables by ``table_specs``."""
+    return {"w0": P(None),
+            "linear": emb.table_specs(batch_axes),
+            "factors": emb.table_specs(batch_axes)}
+
+
 def _fm_terms(v: torch.Tensor) -> torch.Tensor:
     """v: (B, F, k) → (B,) pairwise-interaction term via sum-square trick."""
     s = v.sum(dim=1)                             # (B, k)
@@ -94,17 +104,21 @@ def retrieval_score(cfg: FMConfig, params, batch: Dict,
 
     score(c) = const(user) + w_c + ⟨Σᵤvᵤ, v_c⟩   for each candidate c.
 
-    batch: {sparse (1, F), candidates (N,)}.  Returns (N,)."""
+    batch: {sparse (1, F), candidates (N,)}.  Returns (N,).  With
+    ``mesh`` the candidates are this rank's and the user's context (the
+    same on every rank) is looked up through the exchange as well, the
+    reference's whole-table take: its F − 1 ≤ 64 lookups a rank never
+    overflow a bucket (capacity ≥ min(lookups, 64))."""
     idx = batch["sparse"]
     cand = batch["candidates"]                                  # (N,)
     f = cfg.candidate_field
     user_fields = [i for i in range(cfg.n_sparse) if i != f]
 
     lin_u = emb.sharded_lookup(cfg.linear_layout(), params["linear"],
-                               idx[:, user_fields], None,
+                               idx[:, user_fields], mesh,
                                fields=user_fields)[..., 0]
     v_u = emb.sharded_lookup(cfg.layout(), params["factors"],
-                             idx[:, user_fields], None,
+                             idx[:, user_fields], mesh,
                              fields=user_fields)[0]              # (F-1, k)
     user_const = params["w0"][0] + lin_u.sum() + _fm_terms(v_u[None])[0]
     v_sum_u = v_u.sum(dim=0)                                    # (k,)
@@ -121,9 +135,10 @@ def retrieval_score(cfg: FMConfig, params, batch: Dict,
 def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``batch["labels"]``
     (reference ``fm.py:95``), in the reference's own stable
-    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    form max(z, 0) − z·y + log1p(exp(−|z|)); with ``mesh``, the mean
+    over every rank's rows."""
     return cm.bce_with_logits(forward(cfg, params, batch, mesh),
-                              batch["labels"])
+                              batch["labels"], mesh)
 
 class FM(cm.CTRModel):
     """The FM (``forward``, ``retrieval_score``, ``loss``)."""

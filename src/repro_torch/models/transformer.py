@@ -37,12 +37,25 @@ a gradient, through ``FlashAttentionFn`` and the backward kernel.  MLA
 (DeepSeek-V2) runs the full-rank form through that kernel in prefill and
 training (q·k width ``qk_dim``, v width ``v_head_dim``) and decodes in
 the absorbed form, whose cache is the (c_kv, k_rope) latent and whose
-f32 products are plain torch, as the reference's are.  The MoE FFN is
-the reference's unsharded branch: the router's top-k on the selection
-kernel (``kernels.select.router_topk``), capacity slotting in flat
-(token, k) order, the experts as batched matmuls and each token's
-contributions combined in k order.  The port runs at world size 1; the
-reference's ``shard_map`` branch waits for the model-parallel forward.
+f32 products are plain torch, as the reference's are.  The MoE FFN has
+the reference's two branches (unsharded, and expert-parallel under a
+``ShardingCtx``): the router's top-k on the selection kernel
+(``kernels.select.router_topk``), capacity slotting in flat (token, k)
+order, the experts as batched matmuls and each token's contributions
+combined in k order.
+
+Model parallelism (``hidden``, ``loss_fn``, ``backward`` with an enabled
+``sc``): the leaves are each rank's shards by :func:`param_specs` (the
+reference's: FSDP over ``data``, heads, FFN columns, experts and the
+vocabulary over ``model``), the batch is sharded over the batch axes, and
+the forward runs on local tensors with the collectives of
+``repro_torch.distributed.collectives`` written out where the
+reference's GSPMD partitioner inserts them: FSDP gathers over ``data``,
+Megatron's column / row split with a sum over ``model``, the
+vocab-parallel embedding and cross-entropy, the MoE combine summed over
+``model``.  A model whose parameters are DTensors (``meshed``) trains
+through ``launch.steps``' mesh step and does not serve: prefill and
+decode on a mesh raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,9 +67,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.checkpoint import tree_flatten
+from repro_torch.distributed.sharding import (P, reduce_gradients,
+                                              to_shardings)
 from repro_torch.kernels.select import router_topk
 from repro_torch.models import common as cm
+from repro_torch.models.common import NO_SHARDING, ShardingCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +115,11 @@ class TransformerConfig:
     backward) and ``xent_chunk`` (the loss's chunk of positions).
     ``remat_policy`` names what a remat'd layer may keep: ``"nothing"``,
     or the reference's ``"offload_psum"``, which offloads the layers'
-    tensor-parallel psum outputs to the host; at world size 1 there is no
-    psum to name, so it is taken as ``"nothing"``.  ``first_k_dense``
-    counts dense layers before MoE ones; ``gather_weights_at_use``
-    gathers sharded weights (world size 1 has none): read by no step."""
+    tensor-parallel psum outputs to the host; the port keeps nothing
+    either way.  ``first_k_dense`` counts dense layers before MoE ones;
+    ``gather_weights_at_use`` gathers a layer's FSDP shards at its use,
+    inside the remat'd layer (ZeRO-3), where without it each stack's
+    shards are gathered once a forward."""
     name: str
     n_layers: int
     d_model: int
@@ -274,21 +292,109 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def _map(fn, tree):
+def _attn_specs(cfg: TransformerConfig):
+    """Attention specs (reference ``transformer.py:189``): the input
+    dimension over ``data`` (FSDP), the heads over ``model``; k and v keep
+    their heads whole unless ``n_kv_heads`` divides by 16."""
+    if cfg.mla is not None:
+        a = cfg.mla
+        p = {}
+        if a.q_lora_rank:
+            p["wq_a"] = {"w": P("data", None)}
+            p["q_a_norm"] = {"scale": P(None)}
+        p["wq_b"] = {"w": P("data", "model")}
+        p["wkv_a"] = {"w": P("data", None)}
+        p["kv_a_norm"] = {"scale": P(None)}
+        p["wkv_b"] = {"w": P("data", "model")}
+        p["wo"] = {"w": P("model", "data")}
+        return p
+    kv_spec = P("data", "model") if _kv_tp(cfg) else P("data", None)
+    p = {"wq": cm.dense_specs(bias=cfg.qkv_bias, w_spec=P("data", "model")),
+         "wk": cm.dense_specs(bias=cfg.qkv_bias, w_spec=kv_spec),
+         "wv": cm.dense_specs(bias=cfg.qkv_bias, w_spec=kv_spec),
+         "wo": cm.dense_specs(w_spec=P("model", "data"))}
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": P(None)}
+        p["k_norm"] = {"scale": P(None)}
+    return p
+
+
+def _dense_ffn_specs():
+    """(reference ``transformer.py:224``) Megatron's column / row split."""
+    return {"w_gate": {"w": P("data", "model")},
+            "w_up": {"w": P("data", "model")},
+            "w_down": {"w": P("model", "data")}}
+
+
+def _moe_ffn_specs(cfg: TransformerConfig):
+    """(reference ``transformer.py:250``) experts over ``model``, their
+    hidden dimension over ``data``, the router whole."""
+    p = {"router": {"w": P(None, None)},
+         "w_gate": P("model", None, "data"),
+         "w_up": P("model", None, "data"),
+         "w_down": P("model", "data", None)}
+    if cfg.moe.n_shared:
+        p["shared"] = _dense_ffn_specs()
+    return p
+
+
+def _layer_specs(cfg: TransformerConfig, kind: str):
+    """One layer's specs (reference ``transformer.py:274``)."""
+    return {"ln1": {"scale": P(None)}, "ln2": {"scale": P(None)},
+            "attn": _attn_specs(cfg),
+            "ffn": _moe_ffn_specs(cfg) if kind == "moe"
+            else _dense_ffn_specs()}
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts), with the
+    matching leaves of the trees ``rest``."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The parameter tree's specs (reference ``transformer.py:307``): the
+    embedding's vocabulary over ``model`` and width over ``data``, the
+    layer stacks' specs with the layer axis whole."""
+    specs: Dict[str, Any] = {"embed": P("model", "data"),
+                             "final_norm": {"scale": P(None)}}
+    if not cfg.tie_embeddings:
+        specs["w_out"] = P("data", "model")
+    for (kind, field), n in zip(STACKS, cfg.layer_counts()):
+        if n:
+            specs[field] = _map(lambda sp: P(None, *sp),
+                                _layer_specs(cfg, kind))
+    return specs
+
+
+def cache_specs(cfg: TransformerConfig, batch_axes=("pod", "data")
+                ) -> Dict[str, Any]:
+    """The decode cache's specs (reference ``transformer.py:646``): the
+    sequence axis over ``model`` (flash-decoding's split-K).  A spec tree
+    only: the port serves on no mesh yet."""
+    if cfg.mla is not None:
+        return {"c_kv": P(None, batch_axes, "model", None),
+                "k_rope": P(None, batch_axes, "model", None),
+                "len": P(batch_axes)}
+    return {"k": P(None, batch_axes, None, "model", None),
+            "v": P(None, batch_axes, None, "model", None),
+            "len": P(batch_axes)}
 
 
 def _per_layer(cfg: TransformerConfig, params,
                cast) -> List[Tuple[str, Dict[str, Any]]]:
     """[(kind, layer parameters)] for every layer, the dense stack then
-    the MoE stack, each leaf ``cast`` once a stack and unbound into
-    per-layer views."""
+    the MoE stack, each leaf ``cast`` once a stack (``cast(t, spec)``
+    with the leaf's spec) and unbound into per-layer views."""
+    specs = param_specs(cfg)
     out = []
     for (kind, field), n in zip(STACKS, cfg.layer_counts()):
         if n:
-            stacked = _map(lambda t: cast(t).unbind(0), params[field])
+            stacked = _map(lambda t, sp: cast(t, sp).unbind(0),
+                           params[field], specs[field])
             out += [(kind, _map(lambda t, i=i: t[i], stacked))
                     for i in range(n)]
     return out
@@ -318,38 +424,68 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 # forward pieces
 # ---------------------------------------------------------------------------
 
-def _dense_ffn(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN (reference ``transformer.py:434``)."""
-    return cm.dense(p["w_down"],
-                    cm.swiglu(cm.dense(p["w_gate"], x), cm.dense(p["w_up"], x)))
+def _kv_tp(cfg: TransformerConfig) -> bool:
+    """k / v split their heads over ``model`` (reference
+    ``transformer.py:202``: only when the kv heads divide by 16)."""
+    return cfg.n_kv_heads % 16 == 0
 
 
-def _expert_slots(flat_e: torch.Tensor) -> torch.Tensor:
-    """Each assignment's slot in its expert: the number of earlier
-    assignments (in flat (token, k) order) to the same expert — the
-    reference's one-hot cumsum, ``(cumsum(onehot, 0) * onehot).sum(-1) -
-    1``, as a stable sort: an assignment's rank among equal experts is
-    its index in the sorted order less the first index of its expert.
-    The same integers, without the (T·K, E + 1) scan."""
-    sorted_e, order = torch.sort(flat_e, stable=True)
-    rank = torch.arange(flat_e.shape[0], device=flat_e.device) \
-        - torch.searchsorted(sorted_e, sorted_e)
-    return torch.empty_like(rank).scatter_(0, order, rank)
+def _gather_fsdp(sc: ShardingCtx, tree, specs):
+    """Each leaf's FSDP shards gathered over ``sc.fsdp`` along the
+    dimension its spec names that axis on (reference ``_gw`` and
+    ``local_moe``'s all-gathers); the backward sums the leaf's gradient
+    over the axis.  The identity without an FSDP axis of several ranks."""
+    def gather(t, spec):
+        for dim, entry in enumerate(spec):
+            if entry == sc.fsdp:
+                return coll.gather(t, sc.mesh, sc.fsdp, dim)
+        return t
+    if not sc.enabled or sc.size(sc.fsdp) == 1:
+        return tree
+    return _map(gather, tree, specs)
+
+
+def _dense_ffn(p, x: torch.Tensor,
+               sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+    """SwiGLU FFN (reference ``transformer.py:434``); under ``sc`` the
+    gate / up columns and the down rows are this rank's ``model`` slice
+    (Megatron's column / row split: the partial outputs summed over
+    ``model``)."""
+    if sc.enabled:
+        x = coll.copy_to(x, sc.mesh, sc.model)
+    y = cm.dense(p["w_down"],
+                 cm.swiglu(cm.dense(p["w_gate"], x), cm.dense(p["w_up"], x)))
+    return coll.reduce_from(y, sc.mesh, sc.model) if sc.enabled else y
+
+
+# each assignment's slot in its expert, in flat (token, k) order
+_expert_slots = cm.order_slots
 
 
 def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
-             use_kernel: bool = True,
-             capacity_factor: float | None = None) -> torch.Tensor:
-    """The MoE FFN, the reference's unsharded branch (``transformer.py:444``
-    with ``n_model`` = 1): x (B, S, D) → (B, S, D).
+             use_kernel: bool = True, capacity_factor: float | None = None,
+             sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+    """The MoE FFN (reference ``transformer.py:444``): x (B, S, D) →
+    (B, S, D), in one of the reference's two branches.
 
-    The router's f32 softmax probabilities go through
+    Without sharding (``sc`` not enabled) it is the unsharded branch:
+    every expert on every token.  Under ``sc`` it is the expert-parallel
+    branch (reference ``:459-529``, its ``shard_map`` body on this rank's
+    tensors): ``x`` is the rank's token shard, replicated over ``model``;
+    ``p``'s expert tensors hold the rank's E/M local experts (their FSDP
+    shards already gathered over ``data``); the router runs on the
+    rank's tokens, capacity comes from the local token count, and an
+    assignment to an expert of another ``model`` rank takes the pad row;
+    the combine is summed over ``model``.  With one ``model`` rank the
+    two branches compute the same numbers.
+
+    In both, the router's f32 softmax probabilities go through
     ``kernels.select.router_topk`` (kernel 5 on the card with
     ``use_kernel``, its plain version otherwise: ``lax.top_k``'s ids, ties
     to the lower expert).  Each (token, k) assignment, in flat order,
     takes the next slot of its expert (:func:`_expert_slots`); those past
     ``capacity`` = max(int(T·K / E · cf), 4) are dropped.  The experts'
-    SwiGLU runs as batched matmuls over an (E, C, D) buffer, and each
+    SwiGLU runs as batched matmuls over an (E_loc, C, D) buffer, and each
     token's K gated outputs are added in k order, ((0 + c₀) + c₁) + …,
     as the reference's scatter-add on its host, so that no atomic order
     enters the result.  Shared experts add a dense FFN."""
@@ -357,7 +493,7 @@ def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
     b, s, d = x.shape
     cf = capacity_factor or m.capacity_factor
     t = b * s
-    e = p["w_gate"].shape[0]
+    e = p["w_gate"].shape[0]                     # local experts
     xt = x.reshape(t, d)
 
     logits = (xt @ p["router"]["w"].to(xt.dtype)).float()
@@ -370,9 +506,17 @@ def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
 
     flat_e = exp_idx.reshape(-1).long()                          # (T·K,)
     flat_g = gate_vals.reshape(-1)
+    if sc.enabled:
+        # keep only the experts of this model rank; the others → pad row
+        local = (flat_e // e) == sc.rank(sc.model)
+        flat_e = torch.where(local, flat_e % e, e)
+        flat_g = coll.copy_to(flat_g, sc.mesh, sc.model)
+        xt = coll.copy_to(xt, sc.mesh, sc.model)
     pos = _expert_slots(flat_e)
     capacity = max(int(t * m.top_k / m.n_experts * cf), 4)
     keep = pos < capacity
+    if sc.enabled:
+        keep = keep & local
     slot_e = torch.where(keep, flat_e, e)                 # drop → pad row
     slot_p = torch.where(keep, pos, 0)
 
@@ -388,9 +532,11 @@ def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
     y = torch.zeros((t, d), dtype=out.dtype, device=x.device)
     for k in range(m.top_k):
         y = y + contrib[:, k]
+    if sc.enabled:
+        y = coll.reduce_from(y, sc.mesh, sc.model)
     y = y.reshape(b, s, d)
     if m.n_shared:
-        y = y + _dense_ffn(p["shared"], x)
+        y = y + _dense_ffn(p["shared"], x, sc)
     return y
 
 
@@ -422,55 +568,102 @@ def _cache_insert_2d(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _kv_heads(cfg: TransformerConfig, sc: ShardingCtx) -> slice:
+    """The kv heads this ``model`` rank's q heads read when k and v keep
+    their heads whole: its q heads are global heads m·Hq/M onwards, and
+    head i reads kv head i // g (g = Hq / Hkv), so the rank takes kv heads
+    m·Hq/(M·g) onwards, or the one it shares with other ranks when
+    Hq/M < g.  Kernel 8 then maps local q head j to local kv head j // g'
+    with g' its local group."""
+    n_m, m = sc.size(sc.model), sc.rank(sc.model)
+    hq, g = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    if hq % n_m:
+        raise ValueError(f"{hq} heads do not split over {n_m} model ranks")
+    hq_loc = hq // n_m
+    if hq_loc % g and g % hq_loc:
+        raise ValueError(f"{hq_loc} q heads a rank straddle kv groups of "
+                         f"{g}")
+    first = m * hq_loc // g
+    return slice(first, first + max(hq_loc // g, 1))
+
+
 def _gqa_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
-             positions: torch.Tensor
+             positions: torch.Tensor, sc: ShardingCtx = NO_SHARDING
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, Hq, S, dh) and k (B, Hkv, S, dh) after RoPE, v (B, Hkv, S,
-    dh): the first half of the reference's ``_gqa_attention``."""
+    dh): the first half of the reference's ``_gqa_attention``.  Under
+    ``sc`` the heads are this ``model`` rank's: q's from its column slice
+    of wq; k's and v's from theirs when they are split (``_kv_tp``), else
+    computed whole and cut to :func:`_kv_heads`."""
     b, s, _ = x.shape
     dh = cfg.dh
-    q = cm.dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
-    k = cm.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
-    v = cm.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    tp = sc.enabled and sc.size(sc.model) > 1
+    xq = coll.copy_to(x, sc.mesh, sc.model) if tp else x
+    xk = xq if _kv_tp(cfg) else x
+    q = cm.dense(p["wq"], xq).reshape(b, s, -1, dh)
+    k = cm.dense(p["wk"], xk).reshape(b, s, -1, dh)
+    v = cm.dense(p["wv"], xk).reshape(b, s, -1, dh)
     if cfg.qk_norm:
-        q = cm.rmsnorm(p["q_norm"], q)
-        k = cm.rmsnorm(p["k_norm"], k)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if tp:       # replicated scales applied to this rank's heads only
+            qn = {"scale": coll.copy_to(qn["scale"], sc.mesh, sc.model)}
+            if _kv_tp(cfg):
+                kn = {"scale": coll.copy_to(kn["scale"], sc.mesh,
+                                            sc.model)}
+        q = cm.rmsnorm(qn, q)
+        k = cm.rmsnorm(kn, k)
     q = cm.apply_rope(q.transpose(1, 2), positions[:, None, :],
                       cfg.rope_theta)
     k = cm.apply_rope(k.transpose(1, 2), positions[:, None, :],
                       cfg.rope_theta)
-    return q, k, v.transpose(1, 2)
+    v = v.transpose(1, 2)
+    if tp and not _kv_tp(cfg):
+        heads = _kv_heads(cfg, sc)
+        k = coll.copy_to(k, sc.mesh, sc.model)[:, heads]
+        v = coll.copy_to(v, sc.mesh, sc.model)[:, heads]
+    return q, k, v
 
 
 def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
-                   positions: torch.Tensor, use_kernel: bool
+                   positions: torch.Tensor, use_kernel: bool,
+                   sc: ShardingCtx = NO_SHARDING
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training / prefill attention (reference ``transformer.py:362``):
-    returns (out, {"k", "v"}) with the kv for the cache."""
+    returns (out, {"k", "v"}) with the kv for the cache.  Under ``sc``
+    the rank's heads, and wo's rows of them, summed over ``model``."""
     b, s, _ = x.shape
-    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    q, k, v = _gqa_qkv(cfg, p, x, positions, sc)
     out = cm.chunked_attention(q, k, v, causal=True,
                                chunk_q=min(cfg.attn_chunk_q, s),
                                chunk_kv=min(cfg.attn_chunk_kv, s),
                                use_kernel=use_kernel)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return cm.dense(p["wo"], out), {"k": k, "v": v}
+    out = cm.dense(p["wo"], out.transpose(1, 2).reshape(b, s, -1))
+    if sc.enabled:
+        out = coll.reduce_from(out, sc.mesh, sc.model)
+    return out, {"k": k, "v": v}
 
 
 def _mla_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, sc: ShardingCtx = NO_SHARDING):
     """MLA's full-rank q (B, H, S, qk_dim), k (B, H, S, qk_dim) and v (B,
     H, S, v_head_dim), and the cache's latent {"c_kv" (B, S, rank),
     "k_rope" (B, S, rope)}: the first half of the reference's
-    ``_mla_attention``.  k is [k_nope | the one k_rope of all heads]."""
+    ``_mla_attention``.  k is [k_nope | the one k_rope of all heads].
+    Under ``sc`` the heads are this ``model`` rank's (wq_b's and wkv_b's
+    column slices); the low-rank projections run whole on every rank."""
     a = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    tp = sc.enabled and sc.size(sc.model) > 1
+
+    def split(t):            # a replicated tensor entering the rank's heads
+        return coll.copy_to(t, sc.mesh, sc.model) if tp else t
+
     if a.q_lora_rank:
         q_in = cm.rmsnorm(p["q_a_norm"], cm.dense(p["wq_a"], x))
     else:
         q_in = x
-    q = cm.dense(p["wq_b"], q_in).reshape(b, s, h, a.qk_dim)
+    q = cm.dense(p["wq_b"], split(q_in)).reshape(b, s, -1, a.qk_dim)
+    h = q.shape[2]
     q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
     q_rope = cm.apply_rope(q_rope.transpose(1, 2), positions[:, None, :],
                            cfg.rope_theta).transpose(1, 2)
@@ -479,10 +672,10 @@ def _mla_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
     c_kv = cm.rmsnorm(p["kv_a_norm"], c_kv)
     k_rope = cm.apply_rope(k_rope[:, None], positions[:, None, :],
                            cfg.rope_theta)                     # (B, 1, S, r)
-    kv = cm.dense(p["wkv_b"], c_kv).reshape(b, s, h, a.qk_nope_dim
-                                            + a.v_head_dim)
+    kv = cm.dense(p["wkv_b"], split(c_kv)).reshape(
+        b, s, h, a.qk_nope_dim + a.v_head_dim)
     k_nope, v = kv.split([a.qk_nope_dim, a.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, k_rope.transpose(1, 2).expand(
+    k = torch.cat([k_nope, split(k_rope).transpose(1, 2).expand(
         b, s, h, a.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -490,21 +683,25 @@ def _mla_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
 
 
 def _mla_attention(cfg: TransformerConfig, p, x: torch.Tensor,
-                   positions: torch.Tensor, use_kernel: bool
+                   positions: torch.Tensor, use_kernel: bool,
+                   sc: ShardingCtx = NO_SHARDING
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """MLA training / prefill attention in the full-rank form (reference
     ``transformer.py:391``), scale 1/√qk_dim: returns (out, {"c_kv",
-    "k_rope"}) for the cache."""
+    "k_rope"}) for the cache.  Under ``sc`` the rank's heads, summed over
+    ``model`` after wo."""
     a = cfg.mla
     b, s, _ = x.shape
-    q, k, v, latent = _mla_qkv(cfg, p, x, positions)
+    q, k, v, latent = _mla_qkv(cfg, p, x, positions, sc)
     out = cm.chunked_attention(q, k, v, causal=True,
                                scale=1.0 / (a.qk_dim ** 0.5),
                                chunk_q=min(cfg.attn_chunk_q, s),
                                chunk_kv=min(cfg.attn_chunk_kv, s),
                                use_kernel=use_kernel)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * a.v_head_dim)
-    return cm.dense(p["wo"], out), latent
+    out = cm.dense(p["wo"], out.transpose(1, 2).reshape(b, s, -1))
+    if sc.enabled:
+        out = coll.reduce_from(out, sc.mesh, sc.model)
+    return out, latent
 
 
 def _mla_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
@@ -554,89 +751,170 @@ def _mla_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
 
 
 def _layer_fwd(cfg: TransformerConfig, kind: str, p, x: torch.Tensor,
-               positions: torch.Tensor, use_kernel: bool):
-    """One pre-norm layer (reference ``transformer.py:535``)."""
+               positions: torch.Tensor, use_kernel: bool,
+               sc: ShardingCtx = NO_SHARDING):
+    """One pre-norm layer (reference ``transformer.py:535``).  Under
+    ``sc`` with ``cfg.gather_weights_at_use`` the layer's FSDP shards are
+    gathered here, at their use (ZeRO-3: inside the remat'd layer, so
+    the backward gathers them again)."""
+    if sc.enabled and cfg.gather_weights_at_use:
+        p = _gather_fsdp(sc, p, _layer_specs(cfg, kind))
     attn = _mla_attention if cfg.mla is not None else _gqa_attention
     h, kv = attn(cfg, p["attn"], cm.rmsnorm(p["ln1"], x), positions,
-                 use_kernel)
+                 use_kernel, sc)
     x = x + h
     ffn_in = cm.rmsnorm(p["ln2"], x)
     if kind == "moe":
-        x = x + _moe_ffn(cfg, p["ffn"], ffn_in, use_kernel=use_kernel)
+        x = x + _moe_ffn(cfg, p["ffn"], ffn_in, use_kernel=use_kernel,
+                         sc=sc)
     else:
-        x = x + _dense_ffn(p["ffn"], ffn_in)
+        x = x + _dense_ffn(p["ffn"], ffn_in, sc)
     return x, kv
 
 
 def _layer_train(cfg: TransformerConfig, kind: str, p, x: torch.Tensor,
-                 positions: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-    return _layer_fwd(cfg, kind, p, x, positions, use_kernel)[0]
+                 positions: torch.Tensor, use_kernel: bool,
+                 sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+    return _layer_fwd(cfg, kind, p, x, positions, use_kernel, sc)[0]
+
+
+def _check_split(cfg: TransformerConfig, sc: ShardingCtx) -> None:
+    """The vocabulary, the heads and the experts split evenly over
+    ``model`` (the vocab-parallel offsets and the head and expert slices
+    assume it, as the reference's shardings do)."""
+    n = sc.size(sc.model)
+    counts = {"vocab": cfg.vocab, "n_heads": cfg.n_heads}
+    if cfg.moe is not None:
+        counts["n_experts"] = cfg.moe.n_experts
+    bad = {k: v for k, v in counts.items() if v % n}
+    if bad:
+        raise ValueError(f"{bad} do not split over {n} model ranks")
+
+
+def _embed(params, tokens: torch.Tensor, dt,
+           sc: ShardingCtx) -> torch.Tensor:
+    """The token embeddings (B, S, D) in ``dt``.  Under ``sc`` the table
+    is this rank's (V/M, D/F) block: gathered over ``data``, each
+    ``model`` rank looks up the tokens of its vocabulary slice (zeros for
+    the others) and the ranks' rows are summed over ``model``."""
+    if not sc.enabled:
+        return params["embed"].to(dt)[tokens.long()]
+    w = coll.gather(params["embed"].to(dt), sc.mesh, sc.fsdp, 1)
+    if sc.size(sc.model) == 1:
+        return w[tokens.long()]
+    v_loc = w.shape[0]
+    ids = tokens.long() - sc.rank(sc.model) * v_loc
+    mine = (ids >= 0) & (ids < v_loc)
+    x = torch.nn.functional.embedding(ids.clamp(0, v_loc - 1), w)
+    return coll.reduce_from(torch.where(mine[..., None], x, 0.0), sc.mesh,
+                            sc.model)
 
 
 def hidden(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
-           use_kernel: bool = True) -> torch.Tensor:
+           use_kernel: bool = True,
+           sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """The training forward (reference ``transformer.py:578`` without the
     cache): tokens (B, S) → final hidden (B, S, D) in ``cfg.dtype``, the
     f32 parameters cast to ``cfg.dtype`` at each use (one cast of each
     stack, unbound into per-layer views), the dense stack then the MoE
     stack, each layer under ``torch.utils.checkpoint`` when
-    ``cfg.remat``."""
+    ``cfg.remat``.
+
+    Under an enabled ``sc`` (``distributed.sharding.make_ctx``) the
+    leaves of ``params`` are this rank's shards by :func:`param_specs`,
+    ``tokens`` its batch rows, and the layers run tensor-parallel over
+    ``model`` (heads, FFN columns, experts, vocabulary) with their FSDP
+    shards gathered over ``data``: once a stack here, or at each layer's
+    use with ``cfg.gather_weights_at_use``."""
     dt = cfg.dtype
     b, s = tokens.shape
-    x = params["embed"].to(dt)[tokens.long()]
+    if sc.enabled:
+        _check_split(cfg, sc)
+    x = _embed(params, tokens, dt, sc)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for kind, p in _per_layer(cfg, params, lambda t: t.to(dt)):
+    if sc.enabled and not cfg.gather_weights_at_use:
+        def cast(t, spec):
+            return _gather_fsdp(sc, t.to(dt), spec)
+    else:
+        def cast(t, spec):
+            return t.to(dt)
+    for kind, p in _per_layer(cfg, params, cast):
         if cfg.remat:
             x = checkpoint(_layer_train, cfg, kind, p, x, positions,
-                           use_kernel, use_reentrant=False)
+                           use_kernel, sc, use_reentrant=False)
         else:
-            x = _layer_train(cfg, kind, p, x, positions, use_kernel)
+            x = _layer_train(cfg, kind, p, x, positions, use_kernel, sc)
     return cm.rmsnorm(params["final_norm"], x)
 
 
-def _output_weights(cfg: TransformerConfig, params) -> torch.Tensor:
+def _output_weights(cfg: TransformerConfig, params,
+                    sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """(D, V) output weights in ``cfg.dtype`` (reference
-    ``transformer.py:605``)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["w_out"]
-    return w.to(cfg.dtype)
+    ``transformer.py:605``); under ``sc`` (D, V/M), the rank's vocabulary
+    slice gathered over ``data``."""
+    if cfg.tie_embeddings:
+        w = coll.gather(params["embed"].to(cfg.dtype), sc.mesh, sc.fsdp,
+                        1).T
+    else:
+        w = coll.gather(params["w_out"].to(cfg.dtype), sc.mesh, sc.fsdp, 0)
+    return w
 
 
 def loss_fn(cfg: TransformerConfig, params, batch, *,
-            use_kernel: bool = True) -> torch.Tensor:
+            use_kernel: bool = True,
+            sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """Mean token NLL (reference ``transformer.py:614``): batch {"tokens":
-    (B, S), "labels": (B, S) with −1 ignored}."""
-    h = hidden(cfg, params, batch["tokens"], use_kernel=use_kernel)
-    return cm.chunked_softmax_xent(h, _output_weights(cfg, params),
-                                   batch["labels"], chunk=cfg.xent_chunk)
+    (B, S), "labels": (B, S) with −1 ignored}.  Under ``sc`` the batch is
+    this rank's rows and the logits are vocab-sharded over ``model``; the
+    value is the mean over every rank's tokens (``common.global_mean``)."""
+    h = hidden(cfg, params, batch["tokens"], use_kernel=use_kernel, sc=sc)
+    spec = P(sc.batch, None, sc.model) if sc.enabled else None
+    return cm.chunked_softmax_xent(h, _output_weights(cfg, params, sc),
+                                   batch["labels"], chunk=cfg.xent_chunk,
+                                   spec=spec, sc=sc)
 
 
 def backward(cfg: TransformerConfig, params, batch, *,
-             use_kernel: bool = True) -> torch.Tensor:
+             use_kernel: bool = True,
+             sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """The loss of a train step, its gradient left in the leaves' ``.grad``
     (added to what they hold): with ``cfg.microbatch`` = m > 1 the batch
     is split into m µbatches, each one's gradient accumulated, and the
-    sum and the loss divided by m (reference ``steps.py:77-101``)."""
+    sum and the loss divided by m (reference ``steps.py:77-101``).  Under
+    ``sc`` the leaves are this rank's shards and the batch its rows of
+    each µbatch (µbatch-major: ``launch.steps`` slices it so); the
+    gradients end reduced to the leaves' own placements
+    (``distributed.sharding.reduce_gradients``: a leaf replicated over
+    ``model`` gets its whole gradient on every rank, since
+    ``collectives.copy_to`` sums the parts where a replicated tensor
+    enters a split computation)."""
     mb = cfg.microbatch
     with torch.enable_grad():
         if mb == 1:
-            loss = loss_fn(cfg, params, batch, use_kernel=use_kernel)
+            loss = loss_fn(cfg, params, batch, use_kernel=use_kernel, sc=sc)
             loss.backward()
-            return loss.detach()
-        bsz, seq = batch["tokens"].shape
-        toks = batch["tokens"].reshape(mb, bsz // mb, seq)
-        labs = batch["labels"].reshape(mb, bsz // mb, seq)
-        total = torch.zeros((), dtype=torch.float32,
-                            device=params["embed"].device)
-        for t, lab in zip(toks, labs):
-            loss = loss_fn(cfg, params, {"tokens": t, "labels": lab},
-                           use_kernel=use_kernel)
-            loss.backward()
-            total = total + loss.detach()
-    with torch.no_grad():
-        for leaf in tree_flatten(params):
-            if leaf.grad is not None:
-                leaf.grad.div_(mb)
-    return total / mb
+            total = loss.detach()
+        else:
+            bsz, seq = batch["tokens"].shape
+            toks = batch["tokens"].reshape(mb, bsz // mb, seq)
+            labs = batch["labels"].reshape(mb, bsz // mb, seq)
+            total = torch.zeros((), dtype=torch.float32,
+                                device=params["embed"].device)
+            for t, lab in zip(toks, labs):
+                loss = loss_fn(cfg, params, {"tokens": t, "labels": lab},
+                               use_kernel=use_kernel, sc=sc)
+                loss.backward()
+                total = total + loss.detach()
+    if mb > 1:
+        with torch.no_grad():
+            for leaf in tree_flatten(params):
+                if leaf.grad is not None:
+                    leaf.grad.div_(mb)
+        total = total / mb
+    if sc.enabled:
+        reduce_gradients(params, to_shardings(sc.mesh, param_specs(cfg)),
+                         sc.batch)
+    return total
 
 
 class Transformer(cm.ParamTree):
@@ -654,10 +932,24 @@ class Transformer(cm.ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def meshed(self) -> bool:
+        """Whether the parameters are DTensors on a mesh (placed by
+        :func:`param_specs`): such a model trains through the mesh step
+        and does not serve (ROADMAP Queue 1 item 11: serving on a mesh)."""
+        from torch.distributed.tensor import DTensor
+        return isinstance(self.embed, DTensor)
+
     def refresh(self) -> None:
         """Cast the compute copy again from the parameters (after a
         training update)."""
         self._cast_weights()
+
+    def _no_mesh(self) -> None:
+        if self.meshed:
+            raise NotImplementedError(
+                "prefill and decode on a mesh are not ported yet (ROADMAP "
+                "Queue 1 item 11: serving on a mesh)")
 
     @torch.no_grad()
     def _cast_weights(self) -> None:
@@ -665,6 +957,10 @@ class Transformer(cm.ParamTree):
         layer leaf (the MoE layers' 3-D expert tensors too) in
         ``cfg.dtype`` (per-layer views of each stack's copy), the output
         weights as the f32 image of their ``cfg.dtype`` rounding."""
+        if self.meshed:      # no compute copy: a meshed model does not serve
+            self._embed = self._w_out = None
+            self._kinds, self._layers = [], []
+            return
         dt = self.cfg.dtype
         # detached: with dtype f32 ``.to`` would hand back the Parameter
         # itself, which assigning here would register a second time
@@ -672,7 +968,7 @@ class Transformer(cm.ParamTree):
         w_out = self.embed.T if self.cfg.tie_embeddings else self.w_out
         self._w_out = w_out.detach().to(dt).float()
         layers = _per_layer(self.cfg, self.tree(),
-                            lambda t: t.detach().to(dt))
+                            lambda t, spec: t.detach().to(dt))
         self._kinds = [kind for kind, _ in layers]
         self._layers = [p for _, p in layers]
 
@@ -708,6 +1004,7 @@ class Transformer(cm.ParamTree):
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None):
         """Run the prompt; return (last-position logits (B, V) f32, the
         populated cache) (reference ``transformer.py:658``)."""
+        self._no_mesh()
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         max_len = max_len or s
@@ -746,6 +1043,7 @@ class Transformer(cm.ParamTree):
         """One token for every sequence: tokens (B, 1) → (logits (B, V) f32,
         a new cache holding the tokens' kv with ``len`` advanced)
         (reference ``transformer.py:776``).  ``cache`` is left as it was."""
+        self._no_mesh()
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         cache_len = cache["len"]

@@ -9,6 +9,8 @@ compression is one (B·D, Hk·F) × (Hk·F, H) product (the reference's two
 einsums; same terms, summed in another order).  ``XDeepFM`` is an
 ``nn.Module`` holding the reference's parameter tree (``linear``,
 ``factors``, ``cin`` — a list of {w, b} — ``cin_out``, ``dnn``) in f32.
+With a ``mesh`` the functions take this rank's shards (``param_specs``:
+each sharded table's block) and batch rows.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common as cm
 from repro_torch.models import embedding as emb
 from repro_torch.models.fm import CRITEO_39_SIZES
@@ -85,6 +88,18 @@ def init_params(cfg: XDeepFMConfig, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: XDeepFMConfig,
+                batch_axes=("pod", "data", "model")) -> Dict:
+    """(reference ``xdeepfm.py:84``) the tables by ``table_specs``, the
+    CIN and the DNN replicated."""
+    rep = P(None, None)
+    return {"linear": emb.table_specs(batch_axes),
+            "factors": emb.table_specs(batch_axes),
+            "cin": [{"w": rep, "b": P(None)} for _ in cfg.cin_layers],
+            "cin_out": cm.dense_specs(bias=True, w_spec=rep),
+            "dnn": cm.mlp_specs(len(cfg.mlp) + 1, w_spec=rep)}
+
+
 def _cin(cfg: XDeepFMConfig, params, z0: torch.Tensor) -> torch.Tensor:
     """z0: (B, F, D) → (B, Σ cin_layers) pooled feature maps (reference
     ``xdeepfm.py:96``)."""
@@ -120,10 +135,14 @@ def retrieval_score(cfg: XDeepFMConfig, params, batch: Dict,
     """CIN is not factorisable: ``forward`` over candidate chunks of
     ``retrieval_chunk`` (reference ``xdeepfm.py:135``, whose ``lax.map``
     becomes a loop).  N ≤ chunk runs as one chunk; a larger N must be a
-    multiple of the chunk, as the reference's reshape requires."""
+    multiple of the chunk, as the reference's reshape requires.  With
+    ``mesh`` the candidates are this rank's and a chunk is its share of
+    the reference's, ``retrieval_chunk`` / P rows."""
     cand = batch["candidates"]
     n = cand.shape[0]
-    c = min(cfg.retrieval_chunk, n)
+    chunk = cfg.retrieval_chunk if mesh is None \
+        else max(cfg.retrieval_chunk // mesh.size(), 1)
+    c = min(chunk, n)
     idx = batch["sparse"]                                        # (1, F)
     if n > c and n % c:
         raise ValueError(f"{n} candidates do not split into chunks of {c}")
@@ -142,9 +161,10 @@ def retrieval_score(cfg: XDeepFMConfig, params, batch: Dict,
 def loss_fn(cfg, params, batch: Dict, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``batch["labels"]``
     (reference ``xdeepfm.py:125``), in the reference's own stable
-    form max(z, 0) − z·y + log1p(exp(−|z|))."""
+    form max(z, 0) − z·y + log1p(exp(−|z|)); with ``mesh``, the mean
+    over every rank's rows."""
     return cm.bce_with_logits(forward(cfg, params, batch, mesh),
-                              batch["labels"])
+                              batch["labels"], mesh)
 
 class XDeepFM(cm.CTRModel):
     """xDeepFM (``forward``, ``retrieval_score``, ``loss``)."""

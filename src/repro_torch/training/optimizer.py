@@ -14,6 +14,11 @@ trees, so a step holds one copy of the parameters and of the state, and
 a module whose parameters these are sees the update.  ``grads`` is read,
 never written.
 
+On a mesh the trees' leaves are DTensors, the state placed as its
+parameter (``state_specs``): the updates are elementwise and run on each
+rank's local shard, and AdamW's global norm sums each leaf's squares
+over the mesh axes that shard it (a replicated leaf is counted once).
+
 The formulas are the reference's, not ``torch.optim``'s: AdamW clips by
 the global norm inside ``update``, adds ``eps`` to ``sqrt(v̂)`` with
 ``v̂ = v / bc2``, decays as ``p − lr·(m̂ / (√v̂ + ε) + wd·p)``, and takes
@@ -37,6 +42,25 @@ class Optimizer(NamedTuple):
     state_specs: Callable[[Any], Any]    # param spec tree → state spec tree
 
 
+def _local(x):
+    """A DTensor's local shard (sharing its storage); a tensor as is."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _sq_sum(g) -> torch.Tensor:
+    """Σ g² in f32 over the whole leaf: a DTensor's local sum, summed over
+    the mesh dimensions of several ranks that shard it."""
+    from torch.distributed.tensor import DTensor
+    out = torch.sum(torch.square(_local(g).float()))
+    if isinstance(g, DTensor):
+        mesh = g.device_mesh
+        for md, pl in enumerate(g.placements):
+            if pl.is_shard() and mesh.size(md) > 1:
+                torch.distributed.all_reduce(out, group=mesh.get_group(md))
+    return out
+
+
 def _zeros_like(params):
     return tree_unflatten(params, [torch.zeros_like(p, dtype=torch.float32)
                                    for p in tree_flatten(params)])
@@ -49,7 +73,10 @@ def _step0(params):
 
 
 def _leaves(*trees):
-    flat = [tree_flatten(t) for t in trees]
+    """The trees' matching leaves, each a local tensor (DTensors' local
+    shards, which share their storage: updating them updates the
+    DTensor)."""
+    flat = [[_local(x) for x in tree_flatten(t)] for t in trees]
     n = {len(f) for f in flat}
     if len(n) != 1:
         raise ValueError(f"trees of different sizes: {[len(f) for f in flat]}")
@@ -96,8 +123,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         step = state["step"].add_(1)
         scale = None
         if grad_clip is not None:
-            gsq = sum(torch.sum(torch.square(g.float()))
-                      for g in tree_flatten(grads))
+            gsq = sum(_sq_sum(g) for g in tree_flatten(grads))
             gnorm = torch.sqrt(torch.as_tensor(gsq, dtype=torch.float32,
                                                device=step.device))
             scale = torch.clamp(grad_clip / torch.clamp_min(gnorm, 1e-9),

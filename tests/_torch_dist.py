@@ -14,6 +14,7 @@ reference computed in the pytest process.
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing as mp
 import pickle
 import time
@@ -261,7 +262,179 @@ def compressed_psum_task(rank, world, p):
             "bf16": compressed_psum(x.bfloat16()).float().numpy()}
 
 
+def _full(x):
+    """A DTensor (or a tree of them) gathered whole, as numpy."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, dict):
+        return {k: _full(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_full(v) for v in x)
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return _np(x)
+
+
+def _meshes(shapes):
+    from repro_torch.launch.mesh import make_local_mesh
+    return {shape: make_local_mesh(shape, axes, device="cpu")
+            for shape, axes in shapes}
+
+
+def lm_mesh_task(rank, world, p):
+    """The LM's sharded loss and gradients (``transformer.backward`` under
+    ``make_ctx``) for each case of ``p["cases"]``: the gradients gathered
+    whole, and each MoE call's expert ids on this rank; then
+    ``build_step``'s meshed train step (two AdamW steps) and the
+    prefill / decode plans on a mesh."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.checkpoint import tree_flatten
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tx
+    from repro_torch.state import transformer_from_reference
+    meshes = _meshes(p["meshes"])
+    out = {}
+    orig = tx.router_topk
+    for key, case in p["cases"].items():
+        cfg, mesh = case["cfg"], meshes[case["mesh"]]
+        sc = shd.make_ctx(mesh)
+        model = transformer_from_reference(cfg, p["params"][case["params"]],
+                                           device="cpu")
+        placed = steps.place_model(model, shd.to_shardings(
+            mesh, tx.param_specs(cfg)))
+        params = placed.tree()
+        local = steps._local_leaves(params)
+        rows = steps._lm_rows(p["batch"], mesh, shd.batch_axes(mesh),
+                              cfg.microbatch, "cpu")
+        loss = tx.backward(cfg, local, rows, sc=sc)
+        grads = _full(steps._dtensor_grads(params, local))
+        ids = []
+
+        def router(probs, k, *, use_kernel=True):
+            vals, idx = orig(probs, k, use_kernel=use_kernel)
+            ids.append(idx)
+            return vals, idx
+        tx.router_topk = router         # each µbatch's forward, no remat
+        try:
+            with torch.no_grad():
+                mb = cfg.microbatch
+                for u in range(mb):
+                    n = rows["tokens"].shape[0] // mb
+                    tx.loss_fn(cfg, local, {k: v[u * n:(u + 1) * n]
+                                            for k, v in rows.items()},
+                               sc=sc)
+        finally:
+            tx.router_topk = orig
+        out[key] = {"loss": float(loss), "ids": _np(ids),
+                    "grads": tree_flatten(grads) if rank == 0 else None}
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.models.common import NO_SHARDING
+    mesh = meshes[(2, 2)]
+    sc = shd.make_ctx(mesh)
+    x = torch.arange(8.0).reshape(4, 2)
+    dx = DTensor.from_local(x, mesh, [Replicate(), Replicate()])
+    got = sc.constrain(dx, "data", None)
+    out["constrain"] = ([repr(pl) for pl in got.placements],
+                        torch.equal(got.full_tensor(), x),
+                        NO_SHARDING.constrain(dx, "data") is dx,
+                        sc.constrain(x, "data") is x)
+    for shape, mesh in meshes.items():
+        for dp in (False, True):
+            sc = shd.make_ctx(mesh, dp_over_all=dp)
+            out[("ctx", shape, dp)] = (sc.batch, sc.model, sc.fsdp,
+                                       sc.enabled, sc.mesh is mesh)
+    for key, case in p.get("steps", {}).items():
+        mesh = meshes[case["mesh"]]
+        arch = dataclasses.replace(get_arch(case["arch"]),
+                                   config=case["cfg"])
+        cell = dataclasses.replace(arch.cell("train_4k"),
+                                   dims={"batch": 4, "seq": 16})
+        plan = steps.build_step(arch, cell, mesh)
+        model = steps.place_model(transformer_from_reference(
+            case["cfg"], p["params"][case["params"]], device="cpu"),
+            plan.in_shardings[0])
+        state = plan.optimizer.init(model.tree())
+        losses = []
+        for batch in case["batches"]:
+            model, state, loss = plan.fn(model, state, batch)
+            losses.append(float(loss))
+        raised = {}
+        for cell_name in ("prefill_32k", "decode_32k"):
+            try:
+                steps.build_step(arch, arch.cell(cell_name), mesh)
+            except NotImplementedError as e:
+                raised[cell_name] = str(e)
+        try:
+            model.prefill(torch.zeros((1, 4), dtype=torch.int32))
+        except NotImplementedError as e:
+            raised["model.prefill"] = str(e)
+        params = _full(model.tree())
+        out[key] = {"losses": losses, "raised": raised,
+                    "step": int(state["step"]),
+                    "params": tree_flatten(params) if rank == 0 else None,
+                    "specs": [repr(s.spec) for s in
+                              tree_flatten(plan.in_shardings[0])]}
+    return out
+
+
+def recsys_mesh_task(rank, world, p):
+    """Each recsys model's meshed ``build_step`` plans on each mesh of
+    ``p["meshes"]``: two train steps from the reference's parameters
+    (the updated parameters gathered whole, the losses), serve and
+    retrieval gathered whole; and the sharded lookup's gradient through
+    the exchange on the (2, 2) mesh."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models.embedding import TableLayout, sharded_lookup
+    from repro_torch.state import recsys_from_reference
+    from repro_torch.distributed.checkpoint import tree_flatten
+    meshes = _meshes(p["meshes"])
+    out = {}
+    for (name, shape), case in p["cases"].items():
+        mesh = meshes[shape]
+        arch = dataclasses.replace(get_arch(name), config=case["cfg"])
+        res = {}
+        for cell_name, batch in case["batches"].items():
+            cell = dataclasses.replace(arch.cell(cell_name),
+                                       dims=case["dims"][cell_name])
+            plan = steps.build_step(arch, cell, mesh)
+            model = steps.place_model(recsys_from_reference(
+                case["cfg"], case["params"], device="cpu"),
+                plan.in_shardings[0])
+            if cell.step == "train":
+                state = plan.optimizer.init(model.tree())
+                losses = []
+                for b in batch:
+                    model, state, loss = plan.fn(model, state, b)
+                    losses.append(float(loss))
+                res[cell_name] = {"losses": losses, "step": int(
+                    state["step"]), "params": tree_flatten(_full(
+                        model.tree()))}
+            else:
+                res[cell_name] = _full(plan.fn(model, batch))
+        out[(name, shape)] = res if rank == 0 else None
+    if "exchange" in p:
+        e = p["exchange"]
+        mesh = meshes[e["mesh"]]
+        layout = TableLayout(**e["layout"])
+        rows = layout.sharded_rows // world
+        block = torch.from_numpy(
+            e["sharded"][rank * rows:(rank + 1) * rows]).requires_grad_()
+        rep = torch.from_numpy(e["replicated"]).requires_grad_()
+        b = e["ids"].shape[0] // world
+        mine = torch.from_numpy(e["ids"][rank * b:(rank + 1) * b])
+        got = sharded_lookup(layout, {"sharded": block, "replicated": rep},
+                             mine, mesh)
+        (got ** 2).sum().backward()
+        out["exchange"] = {"block": _np(block.grad), "replicated":
+                           _np(rep.grad), "vals": _np(got)}
+    return out
+
+
 TASKS = {"engine": engine_task, "kmeans": kmeans_task,
          "embedding": embedding_task, "restore": restore_task,
          "usercf": usercf_task, "slope": slope_task,
-         "compressed_psum": compressed_psum_task}
+         "compressed_psum": compressed_psum_task,
+         "lm_mesh": lm_mesh_task, "recsys_mesh": recsys_mesh_task}
