@@ -303,7 +303,27 @@ then the MoE and MLA LMs:
     beside ``scaled_dot_product_attention``, kernel 5 at the router
     shapes (8192 × 128, m 8; 8192 × 160, m 6) beside ``torch.topk``, and
     kernel 8b on "simt" at MLA width (1 × 128 × 2048, bf16) against its
-    plain version and beside SDPA's backward.
+    plain version and beside SDPA's backward;
+
+then the model-parallel paths, on a one-rank NCCL mesh over ("data",
+"model") of shape (1, 1), each against its no-mesh twin on the same
+weights:
+
+26. the train steps (``phase_mesh_train``: Llama-3.2-1B, the MoE LMs'
+    sharded expert branch, the MoE smoke steps, the recsys steps and
+    DLRM serve_p99);
+27. LM serving (``phase_mesh_serve``): the meshed ``build_step`` prefill
+    and decode plans of Llama-3.2-1B at phase 11's shape (4 × 2048,
+    max_len 2080, 16 greedy steps) and of Qwen3-30B-A3B and DeepSeek-V2
+    at phase 25's depths (4 × 2048, 8 greedy steps) against the no-mesh
+    plans: greedy tokens and expert ids equal, logits within 0.07 with
+    bitwise printed, walls and peaks; kernel 8's launches on "mma"
+    (prefill) and "split" (decode), kernel 5's once a MoE layer and
+    call; and kernel 8's split decode on 2 and 4 sequence slices of
+    each Llama layer's cache (rows at kv_len 2049, 1100, 520 and 7, so
+    that some slices hold no visible key) merged by their log-sum-exp
+    (``merge_by_lse_parts``) against the unsplit kernel: f32 within
+    1e-5, bf16 within one bf16 ulp at the partials' scale, no NaN.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels, kernel 8's backward, and kernels 8 and 5 again at
@@ -4589,6 +4609,281 @@ def phase_mesh_train(dev):
     return res
 
 
+# -- LM serving on a one-rank NCCL mesh ------------------------------------
+
+LM_SERVE_SHAPE = (4, 2048, 2080, 16)   # phase 11's prompts, tokens, max_len,
+                                        # decode steps
+MESH_MOE_STEPS = 8                      # phase 27 (c): decode steps
+MERGE_SPLITS = (2, 4)                   # phase 27 (b): sequence slices
+MERGE_LENS = (2049, 1100, 520, 7)       # phase 27 (b): each row's kv_len
+
+
+def mesh_serve_run(pre, dec, model, toks, max_len, steps):
+    """One plan pair's serving run: a warm-up prefill of ``toks`` and one
+    decode step, its logits gathered (the meshed model makes its compute
+    copy there, the allocator its blocks, the mesh its first gather),
+    then with every launch count zeroed: ``pre`` on ``toks`` into a cache
+    of ``max_len``, timed, and ``steps`` greedy decode steps, timed
+    together (the mesh's logits gathered whole each step, as a caller
+    sampling from them would); the logits of every call and the tokens
+    fed, each MoE call's expert ids, walls, the peak and its growth over
+    what was allocated before, and launches."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.select import select_topm
+    from repro_torch.models import transformer as tx
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    warm, wc = pre.fn(model, {"tokens": toks}, max_len=max_len)
+    warm = whole(dec.fn(model, {
+        "tokens": whole(warm).argmax(-1, keepdim=True).int(),
+        "cache": wc})[0])
+    del warm, wc
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    routes = flash_attention.routes
+    routes.update(dict.fromkeys(routes, 0))
+    calls = []
+    orig = recording_router(tx, calls)
+    try:
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(model, {"tokens": toks}, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_n = (flash_attention.launches, dict(routes),
+                 select_topm.launches)
+        out_logits, fed = [whole(logits).clone()], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            nxt = out_logits[-1].argmax(-1, keepdim=True).to(torch.int32)
+            fed.append(nxt)
+            logits, cache = dec.fn(model, {"tokens": nxt, "cache": cache})
+            out_logits.append(whole(logits).clone())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        tx.router_topk = orig
+    return {"logits": out_logits, "fed": fed, "ids": calls,
+            "prefill_s": prefill_s, "decode_ms": decode_s / steps * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "grown_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "len": whole(cache["len"]).tolist(),
+            "launches": {
+                "flash prefill": pre_n[0], "prefill routes": pre_n[1],
+                "flash decode": flash_attention.launches - pre_n[0],
+                "decode routes": {k: routes[k] - pre_n[1][k]
+                                  for k in routes},
+                "select": select_topm.launches}}
+
+
+def mesh_serve_pair(arch, mesh, model, toks, max_len, steps, before=None):
+    """``build_step``'s prefill and decode plans without a mesh and on
+    ``mesh`` from the same weights (``model`` and its ``place_model``
+    copy, both resident; ``before(model, plans)`` runs first, on the
+    no-mesh pair), each through :func:`mesh_serve_run` in turns — no
+    mesh, mesh, mesh, no mesh — and their comparison: greedy tokens and
+    expert ids equal in all four runs, the largest logit difference
+    between the first two, bitwise over all four.  ``plain`` and
+    ``mesh`` are each plan's first run, with both turns' walls."""
+    import dataclasses
+
+    from repro_torch.launch.steps import build_step, place_model
+
+    b, s = toks.shape
+    cells = (dataclasses.replace(arch.cell("prefill_32k"),
+                                 name=f"prefill_{s}",
+                                 dims={"batch": b, "seq": s}),
+             dataclasses.replace(arch.cell("decode_32k"),
+                                 name=f"decode_{max_len}",
+                                 dims={"batch": b, "seq": max_len}))
+    plans = {"plain": [build_step(arch, c) for c in cells],
+             "mesh": [build_step(arch, c, mesh) for c in cells]}
+    models = {"plain": model,
+              "mesh": place_model(model, plans["mesh"][0].in_shardings[0])}
+    out = {}
+    if before is not None:
+        out["before"] = before(model, plans["plain"])
+    runs = [(key, mesh_serve_run(*plans[key], models[key], toks, max_len,
+                                 steps))
+            for key in ("plain", "mesh", "mesh", "plain")]
+    del models, model
+    first = {key: run for key, run in reversed(runs)}
+    p, m = first["plain"], first["mesh"]
+    out["tokens_equal"] = all(torch.equal(x, y) for _, r in runs
+                              for x, y in zip(p["fed"], r["fed"]))
+    out["ids_equal"] = all(len(r["ids"]) == len(p["ids"]) and all(
+        torch.equal(x, y) for x, y in zip(p["ids"], r["ids"]))
+        for _, r in runs)
+    out["pairs"] = sum(int(x.shape[0]) for x in m["ids"])
+    out["max_logit_diff"] = max(max_diff(x, y) for x, y in
+                                zip(m["logits"], p["logits"]))
+    out["bitwise"] = all(torch.equal(x, y) for _, r in runs
+                         for x, y in zip(r["logits"], p["logits"]))
+    for key in ("plain", "mesh"):
+        out[key] = first[key]
+        out[key]["turns"] = [(r["prefill_s"], r["decode_ms"])
+                             for k, r in runs if k == key]
+    for _, r in runs:
+        r["logits"] = r["fed"] = r["ids"] = None
+    del runs, first, p, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def merge_emulation(model, plans, toks, max_len):
+    """Phase 27 (b): one decode step of the no-mesh plans from a prefill
+    of ``toks``, with every layer's kernel-8 inputs recorded; then each
+    layer's cache split into ``MERGE_SPLITS`` sequence slices, kernel 8
+    with ``return_lse`` on each slice (its offset, its own ``kv_len``;
+    rows at ``MERGE_LENS``, so that some slices hold no visible key) and
+    the slices merged by ``merge_by_lse_parts``, against the unsplit
+    kernel: f32 copies within 1e-5; bf16 within one bf16 ulp at the scale
+    of the larger of the slices' partial outputs and the result (the
+    partials are rounded to bf16 once each, the merge is f32 and rounds
+    once), no NaN."""
+    from repro_torch.models import common as cm
+
+    pre, dec = plans
+    logits, cache = pre.fn(model, {"tokens": toks}, max_len=max_len)
+    recorded, orig = [], cm.decode_attention
+
+    def recording(q, k, v, cache_len, **kw):
+        recorded.append((q, k, v))
+        return orig(q, k, v, cache_len, **kw)
+    cm.decode_attention = recording
+    try:
+        dec.fn(model, {"tokens": logits.argmax(-1, keepdim=True).int(),
+                       "cache": cache})
+    finally:
+        cm.decode_attention = orig
+    del logits, cache
+    lens = torch.tensor(MERGE_LENS, dtype=torch.int32, device=toks.device)
+    res = {"layers": len(recorded), "f32": 0.0, "bf16": 0.0,
+           "bf16_ulps": 0.0, "empty_slices": 0, "nan": False}
+    for q, k, v in recorded:
+        skv = k.shape[2]
+        for n in MERGE_SPLITS:
+            bounds = [skv * i // n for i in range(n + 1)]
+            for dt in (torch.float32, torch.bfloat16):
+                qq, kk, vv = (t.to(dt) for t in (q, k, v))
+                want = cm.decode_attention(qq, kk, vv, lens)
+                outs, lses = [], []
+                for lo, hi in zip(bounds, bounds[1:]):
+                    o, lse = cm.decode_attention(
+                        qq, kk[:, :, lo:hi], vv[:, :, lo:hi], lens,
+                        offset=lo, return_lse=True)
+                    outs.append(o)
+                    lses.append(lse)
+                    res["empty_slices"] += int((lens <= lo).sum())
+                got = cm.merge_by_lse_parts(outs, lses)
+                res["nan"] |= bool(torch.isnan(got).any())
+                err = max_diff(got, want)
+                if dt == torch.float32:
+                    res["f32"] = max(res["f32"], err)
+                    continue
+                res["bf16"] = max(res["bf16"], err)
+                scale = torch.stack([o.float().abs() for o in outs]
+                                    + [want.float().abs()]).amax(0)
+                ulps = (got.float() - want.float()).abs() \
+                    / (BF16_ULP * scale).clamp_min(1e-30)
+                ulps = torch.where(got == want, torch.zeros_like(ulps), ulps)
+                res["bf16_ulps"] = max(res["bf16_ulps"], float(ulps.max()))
+    check(res["layers"] == model.cfg.n_layers,
+          f"merge: one decode input a layer ({res['layers']})")
+    check(not res["nan"], "merge: no NaN")
+    check(res["empty_slices"] > 0, "merge: some slices hold no visible key")
+    check(res["f32"] <= 1e-5, f"merge f32 vs unsplit {res['f32']} > 1e-5")
+    check(res["bf16_ulps"] <= 1.0,
+          f"merge bf16 vs unsplit {res['bf16_ulps']} bf16 ulps > 1")
+    return res
+
+
+def phase_mesh_serve(dev):
+    """Phase 27: LM serving on a one-rank NCCL mesh (axes ("data",
+    "model"), shape (1, 1)), each model's meshed ``build_step`` prefill
+    and decode plans against the no-mesh plans from the same weights
+    (:func:`mesh_serve_pair`).  (a) Llama-3.2-1B at phase 11's shape:
+    greedy tokens equal, logits within phase 11's 0.07 (bitwise printed),
+    walls and peaks; every prefill launch of kernel 8 on "mma", every
+    decode launch on "split".  (b) Kernel 8's split decode merged across
+    sequence slices (:func:`merge_emulation`).  (c) Qwen3-30B-A3B and
+    DeepSeek-V2 at phase 25's depths: prefill 4 × 2048, ``MESH_MOE_STEPS``
+    greedy steps, expert ids equal on every (token, layer), greedy tokens
+    equal, the largest logit difference."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tx
+
+    mesh = make_local_mesh((1, 1), ("data", "model"), device=dev)
+    res = {"mesh": f"{mesh.device_type} mesh {tuple(mesh.shape)} over "
+                   f"{mesh.mesh_dim_names}"}
+    check(mesh.device_type == "cuda", f"an NCCL mesh: {res['mesh']}")
+
+    b, s, max_len, steps = LM_SERVE_SHAPE
+    arch = get_arch("llama3_2_1b")
+    cfg = arch.config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.from_numpy(lm_batch(b, s, cfg.vocab, seed=0)["tokens"]
+                            ).to(dev)
+    # the model is handed over, not kept: the pair frees it at its end
+    a = mesh_serve_pair(arch, mesh, tx.Transformer(cfg, tx.init_params(
+        cfg, gen)), toks, max_len, steps,
+        before=lambda m, plans: merge_emulation(m, plans, toks, max_len))
+    res["merge"] = a.pop("before")
+    ln = a["mesh"]["launches"]
+    check(a["tokens_equal"], "Llama: greedy tokens mesh == no mesh")
+    check(a["max_logit_diff"] <= 0.07,
+          f"Llama: logits mesh vs no mesh {a['max_logit_diff']} > 0.07")
+    check(a["mesh"]["len"] == [s + steps] * b, "Llama: mesh cache len")
+    check(ln["prefill routes"]["mma"] == ln["flash prefill"] == cfg.n_layers,
+          f"Llama mesh prefill launches {ln}")
+    check(ln["decode routes"]["split"] == ln["flash decode"]
+          == cfg.n_layers * steps, f"Llama mesh decode launches {ln}")
+    res["llama"] = a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b, s, max_len, _ = MOE_LM_SHAPE
+    res["moe"] = {}
+    for name, depth in MOE_LM_DEPTH.items():
+        full = get_arch(name)
+        cfg = dataclasses.replace(full.config, n_layers=depth)
+        arch = dataclasses.replace(full, config=cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks = torch.from_numpy(lm_batch(b, s, cfg.vocab, seed=0)["tokens"]
+                                ).to(dev)
+        o = mesh_serve_pair(arch, mesh, tx.Transformer(cfg, tx.init_params(
+            cfg, gen)), toks, max_len, MESH_MOE_STEPS)
+        n_moe = cfg.layer_counts()[1]
+        ln = o["mesh"]["launches"]
+        o["reduced"] = (f"n_layers {full.config.n_layers} -> {depth}; "
+                        f"prefill_32k / decode_32k -> {b} x {s}, max_len "
+                        f"{max_len}, {MESH_MOE_STEPS} decode steps")
+        check(o["ids_equal"] and o["pairs"] > 0,
+              f"{name}: expert ids mesh == no mesh on all (token, layer)")
+        check(o["tokens_equal"], f"{name}: greedy tokens mesh == no mesh")
+        check(ln["select"] == n_moe * (1 + MESH_MOE_STEPS) > 0
+              and ln["flash prefill"] == depth,
+              f"{name}: mesh launches {ln}")
+        if cfg.mla is None:
+            check(ln["decode routes"]["split"] == depth * MESH_MOE_STEPS,
+                  f"{name}: mesh decode launches {ln}")
+        res["moe"][name] = o
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5227,6 +5522,50 @@ def main() -> int:
     flash_row["launches"] += n8
     kernels[[k["name"] for k in kernels].index("flash_attention_bwd")][
         "launches"] += n8b
+    router_row["launches"] += n5
+
+    # LM serving on the mesh gets the card to itself
+    del mt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[27] LM serving on a one-rank NCCL mesh (data 1 x model 1): "
+        "build_step prefill -> greedy decode, meshed vs no mesh, for "
+        "Llama-3.2-1B, Qwen3-30B-A3B and DeepSeek-V2; kernel 8's split "
+        "decode merged across sequence slices")
+    t_phase = time.perf_counter()
+    ms = phase_mesh_serve(dev)
+    ms["wall_s"] = time.perf_counter() - t_phase
+    log(f"    {ms['mesh']} on {card}")
+    for name, o in [("llama3_2_1b", ms["llama"])] + list(ms["moe"].items()):
+        for key in ("plain", "mesh"):
+            r = o[key]
+            log(f"    {name} {key}: (prefill s, decode ms/step) in its two "
+                f"turns {r['turns']}, peak {r['peak_gib']:.2f} GiB (both "
+                f"models resident; the run's own {r['grown_gib']:.2f}), "
+                f"launches {r['launches']} on {card}")
+        log(f"    {name}: greedy tokens equal {o['tokens_equal']}; expert "
+            f"ids equal on {o['pairs']} (token, layer) rows: "
+            f"{o['ids_equal']}; max |logit diff| mesh vs no mesh "
+            f"{o['max_logit_diff']!r}, bitwise {o['bitwise']}"
+            + (f"; reduced: {o['reduced']}" if "reduced" in o else ""))
+    mg = ms["merge"]
+    log(f"    kernel 8 split decode merged over {MERGE_SPLITS} sequence "
+        f"slices at kv_len {MERGE_LENS}, {mg['layers']} layers: f32 max "
+        f"|diff| {mg['f32']!r} (limit 1e-5); bf16 max |diff| "
+        f"{mg['bf16']!r}, {mg['bf16_ulps']!r} bf16 ulps at the partials' "
+        f"scale (limit 1); {mg['empty_slices']} empty (row, slice) pairs; "
+        f"NaN {mg['nan']}")
+    log(f"    phase wall {ms['wall_s']:.1f}s")
+    runs = [ms["llama"]["mesh"]] + [o["mesh"] for o in ms["moe"].values()]
+    n8 = sum(r["launches"]["flash prefill"] + r["launches"]["flash decode"]
+             for r in runs)
+    n8_split = sum(r["launches"]["decode routes"]["split"] for r in runs)
+    n5 = sum(r["launches"]["select"] for r in runs)
+    check(n8_split > 0 and n5 > 0,
+          f"phase 27 launches: kernel 8 {n8} ({n8_split} split), 5 {n5}")
+    log(f"    launches on the meshed serving paths: kernel 8 {n8} "
+        f"({n8_split} on \"split\"), kernel 5 {n5}")
+    flash_row["launches"] += n8
     router_row["launches"] += n5
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")

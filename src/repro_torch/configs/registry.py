@@ -96,7 +96,7 @@ def input_specs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
         return _cf_inputs(arch.config, cell)
     raise NotImplementedError(
         f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
-        f"11: side workloads)")
+        f"11, egnn)")
 
 
 def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
@@ -160,7 +160,7 @@ _PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b",
            "qwen3_moe_30b_a3b", "deepseek_v2_236b", "dlrm_mlperf", "fm",
            "xdeepfm", "bert4rec", "cf_movielens")
 _WAITING = {
-    "egnn": "the GNN family (ROADMAP Queue 1 item 11)",
+    "egnn": "the GNN family (ROADMAP Queue 1 item 11, egnn)",
 }
 
 

@@ -33,8 +33,16 @@ rank, of which each rank takes its rows.
   expert-parallel ``transformer.backward`` on each rank's shards, each
   µbatch's rows split over the batch axes as the reference's µbatch
   reshape splits them; the gradients reduced to the parameters'
-  placements; AdamW on the DTensors.  Prefill and decode on a mesh raise
-  ``NotImplementedError`` (ROADMAP Queue 1 item 11: serving on a mesh).
+  placements; AdamW on the DTensors.
+* The LM prefill and decode steps (the reference's ``steps.py:115-143``):
+  each rank serves its rows of the global batch (split over the batch
+  axes) on the meshed model (``Transformer.prefill`` / ``decode_step``:
+  tensor- and expert-parallel over ``model``, the decode cache's sequence
+  over ``model``, flash-decoding's partial outputs merged by their
+  log-sum-exp).  They return DTensors on ``out_shardings``: the logits
+  ``P(baxes, "model")`` (each rank its rows' vocabulary slice) and the
+  cache by ``transformer.cache_specs``.  Decode takes the cache as a
+  prefill returned it, or whole (placed by ``transformer.place_cache``).
 * The recsys steps (``make_ctx(mesh, dp_over_all=True)``): the batch's
   rows (retrieval's candidates; its one context stays whole) split over
   every rank, as the reference's lookup ``shard_map`` splits the ids;
@@ -46,7 +54,7 @@ The CF steps of ``_cf_step`` (``steps.py:265``) run the mesh engines of
 :mod:`repro_torch.core.engine` on ``torch.distributed`` over the mesh
 given to ``build_step`` (None: the engine's ``default_mesh`` on the
 batch's device), sharding over its first axis.  The GNN family raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item (egnn).
 """
 
 from __future__ import annotations
@@ -98,8 +106,8 @@ def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
     if arch.kind == "cf":
         return _cf_step(arch, cell, mesh)
     raise NotImplementedError(
-        f"{arch.kind} steps are not ported yet (ROADMAP Queue 1 item 11: "
-        f"side workloads)")
+        f"{arch.kind} steps are not ported yet (ROADMAP Queue 1 item 11, "
+        f"egnn)")
 
 
 def place_model(model, shardings):
@@ -114,6 +122,20 @@ def place_model(model, shardings):
     kw = {"use_kernel": model.use_kernel} if hasattr(model, "use_kernel") \
         else {}
     return type(model)(model.cfg, tree, **kw)
+
+
+def _from_local(t: torch.Tensor, sharding):
+    """This rank's block ``t`` of a tensor split evenly by ``sharding``
+    (a ``NamedSharding``) as the DTensor of the whole; no collective."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = list(t.shape)
+    for md, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            shape[pl.dim] *= sharding.mesh.size(md)
+    return DTensor.from_local(t, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def _local_leaves(params):
@@ -172,11 +194,9 @@ def _lm_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:
         raise ValueError(cell.step)
     from repro_torch.models import transformer as tx
     if mesh is not None:
-        if cell.step != "train":
-            raise NotImplementedError(
-                f"LM {cell.step} on a mesh is not ported yet (ROADMAP "
-                f"Queue 1 item 11: serving on a mesh)")
-        return _lm_train_mesh(arch, cell, mesh, inputs)
+        if cell.step == "train":
+            return _lm_train_mesh(arch, cell, mesh, inputs)
+        return _lm_serve_mesh(arch, cell, mesh, inputs)
     if cell.step == "train":
         opt = get_optimizer(arch.optimizer)
 
@@ -230,11 +250,66 @@ def _lm_train_mesh(arch: ArchSpec, cell: ShapeCell, mesh,
         loss = tx.backward(model.cfg, local, rows,
                            use_kernel=model.use_kernel, sc=sc)
         opt.update(params, _dtensor_grads(params, local), opt_state)
+        model.refresh()
         return model, opt_state, loss
     return StepPlan(name=f"{arch.name}:{cell.name}", fn=step,
                     example_args=inputs, optimizer=opt,
                     in_shardings=(params_sh, opt_sh, batch_sh),
                     out_shardings=(params_sh, opt_sh, _ns(mesh, P())))
+
+
+def _lm_serve_mesh(arch: ArchSpec, cell: ShapeCell, mesh,
+                   inputs) -> StepPlan:
+    """The reference's meshed prefill and decode plans (``steps.py:115-
+    143``): tokens over the batch axes, logits ``P(baxes, "model")``, the
+    cache on ``cache_specs``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import transformer as tx
+    cfg = arch.config
+    baxes = shd.batch_axes(mesh)
+    params_sh = shd.to_shardings(mesh, tx.param_specs(cfg))
+    cache_sh = shd.to_shardings(mesh, tx.cache_specs(cfg, baxes))
+    tok_sh = _ns(mesh, P(baxes, None))
+    logits_sh = _ns(mesh, P(baxes, "model"))
+    name = f"{arch.name}:{cell.name}"
+
+    def rows(model, batch):
+        _meshed(model)
+        return _lm_rows({"tokens": batch["tokens"]}, mesh, baxes, 1,
+                        model.device)["tokens"]
+
+    def placed(logits, cache):
+        return (_from_local(logits, logits_sh),
+                {key: _from_local(val, cache_sh[key])
+                 for key, val in cache.items()})
+
+    if cell.step == "prefill":
+        @torch.inference_mode()
+        def step(model, batch, max_len=None):
+            """(logits (B, V), cache) as DTensors for the global
+            ``batch["tokens"]`` (B, S); ``max_len`` (default S) must
+            split over ``model``."""
+            return placed(*model.prefill(rows(model, batch),
+                                         max_len=max_len))
+        return StepPlan(name=name, fn=step, example_args=inputs,
+                        in_shardings=(params_sh, {"tokens": tok_sh}),
+                        out_shardings=(logits_sh, cache_sh))
+
+    @torch.inference_mode()
+    def step(model, batch):
+        """(logits (B, V), cache) as DTensors for one token per sequence
+        of the global ``batch["tokens"]`` (B, 1), from ``batch["cache"]``
+        (DTensors on ``cache_sh``, or the whole cache)."""
+        cache = batch["cache"]
+        if not isinstance(cache["len"], DTensor):
+            cache = tx.place_cache(cfg, cache, mesh)
+        return placed(*model.decode_step(rows(model, batch), {
+            key: val.to_local() for key, val in cache.items()}))
+    return StepPlan(name=name, fn=step, example_args=inputs,
+                    in_shardings=(params_sh, {"tokens": tok_sh,
+                                              "cache": cache_sh}),
+                    out_shardings=(logits_sh, cache_sh))
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +365,6 @@ def _recsys_rows(batch, mesh, device, split=None) -> Dict[str, torch.Tensor]:
 
 def _recsys_mesh(arch: ArchSpec, cell: ShapeCell, mesh, inputs) -> StepPlan:
     """The reference's meshed recsys steps (``steps.py:199-262``)."""
-    from torch.distributed.tensor import DTensor
     mod = importlib.import_module(f"repro_torch.models.{arch.model}")
     cfg = arch.config
     sc = shd.make_ctx(mesh, dp_over_all=True)
@@ -346,13 +420,8 @@ def _recsys_mesh(arch: ArchSpec, cell: ShapeCell, mesh, inputs) -> StepPlan:
         _meshed(model)
         local = tree_unflatten(model.tree(), [
             p.to_local() for p in tree_flatten(model.tree())])
-        out = fwd(cfg, local, _recsys_rows(batch, mesh, model.device, split),
-                  mesh)
-        shape = (out.shape[0] * mesh.size(),) + tuple(out.shape[1:])
-        return DTensor.from_local(out, mesh, out_sh.placements,
-                                  run_check=False, shape=torch.Size(shape),
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+        return _from_local(fwd(cfg, local, _recsys_rows(
+            batch, mesh, model.device, split), mesh), out_sh)
     return StepPlan(name=name, fn=step, example_args=inputs,
                     in_shardings=(params_sh, batch_sh), out_shardings=out_sh)
 

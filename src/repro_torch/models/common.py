@@ -39,7 +39,8 @@ __all__ = ["NEG_INF", "Initializer", "ParamTree", "CTRModel", "dense_init",
            "dense_specs", "dense", "mlp_init", "mlp_specs", "mlp",
            "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
            "rope_freqs", "apply_rope", "chunked_attention",
-           "decode_attention", "chunked_softmax_xent", "order_slots",
+           "decode_attention", "merge_by_lse", "merge_by_lse_parts",
+           "chunked_softmax_xent", "order_slots",
            "global_mean", "bce_with_logits", "swiglu", "gelu",
            "count_params", "ShardingCtx", "NO_SHARDING"]
 
@@ -251,14 +252,65 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     scale: float | None = None,
-                     use_kernel: bool = True) -> torch.Tensor:
+                     scale: float | None = None, use_kernel: bool = True,
+                     offset: int = 0, return_lse: bool = False):
     """Single-token decode (reference ``common.py:200``).  q: (B, Hq, 1, d);
     caches (B, Hkv, S, d); positions ≥ ``cache_len[b]`` are masked — the
-    flash kernel with ``kv_len=cache_len``."""
+    flash kernel with ``kv_len=cache_len``.
+
+    The sequence-shard form: the caches hold positions ``offset`` …
+    ``offset + S − 1`` of a longer cache (one shard of flash-decoding's
+    split over the sequence), so the kernel's ``kv_len`` is the shard's
+    own count of visible keys, clamp(cache_len − offset, 0, S) — a
+    one-row query sees every key below its ``kv_len``, so no other
+    alignment enters.  A shard with no visible key gives 0 and an lse of
+    ``NEG_INF``.  With ``return_lse`` it returns (out, lse (B, Hq, 1)
+    f32), the pieces :func:`merge_by_lse` combines."""
     fn = flash_attention if use_kernel else flash_attention_plain
+    kv_len = cache_len
+    if offset:
+        kv_len = (cache_len.long() - offset).clamp(0, k_cache.shape[2])
     return fn(q, k_cache, v_cache, causal=True, scale=scale,
-              kv_len=cache_len.to(torch.int32).contiguous())
+              kv_len=kv_len.to(torch.int32).contiguous(),
+              return_lse=return_lse)
+
+
+def _merge(outs: torch.Tensor, lses: torch.Tensor, reduce_max,
+           reduce_sum) -> torch.Tensor:
+    """The weighted mean of partial outputs by exp(lse − max lse): ``outs``
+    (..., dv) and ``lses`` (...) summed over the shards by the two
+    reductions; f32 throughout.  A shard with no visible key (lse at
+    ``NEG_INF``, its output 0) weighs 0; where every shard is empty, each
+    weighs 1 and the mean is 0."""
+    m = reduce_max(lses)
+    w = torch.where(lses == m, 1.0, torch.exp(lses - m))
+    return reduce_sum(outs.float() * w[..., None]) / reduce_sum(w)[..., None]
+
+
+def merge_by_lse(out: torch.Tensor, lse: torch.Tensor, mesh,
+                 axis) -> torch.Tensor:
+    """The attention output of the whole sequence from this rank's
+    partial one, ``out`` (..., dv) over its shard of the keys with its
+    log-sum-exp ``lse`` (...) (:func:`decode_attention` with
+    ``return_lse``), merged over the ranks of ``axis`` of ``mesh``: the
+    max lse and the weighted sums all-reduced over the axis, in f32, and
+    cast to ``out``'s dtype once, after the merge.  On an axis of one
+    rank, ``out`` itself."""
+    if coll.axis_size(mesh, axis) == 1:
+        return out
+    merged = _merge(out, lse, lambda t: coll.all_reduce_max(t, mesh, axis),
+                    lambda t: coll.all_reduce_sum(t, mesh, axis))
+    return merged.to(out.dtype)
+
+
+def merge_by_lse_parts(outs: Sequence[torch.Tensor],
+                       lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`merge_by_lse` on one rank: the partial outputs of a list of
+    sequence shards, with their lses, merged in list order."""
+    merged = _merge(torch.stack([o.float() for o in outs]),
+                    torch.stack(list(lses)),
+                    lambda t: t.amax(0), lambda t: t.sum(0))
+    return merged.to(outs[0].dtype)
 
 
 def _xent_chunk(hh: torch.Tensor, w32: torch.Tensor, ll: torch.Tensor,

@@ -54,8 +54,23 @@ reference's GSPMD partitioner inserts them: FSDP gathers over ``data``,
 Megatron's column / row split with a sum over ``model``, the
 vocab-parallel embedding and cross-entropy, the MoE combine summed over
 ``model``.  A model whose parameters are DTensors (``meshed``) trains
-through ``launch.steps``' mesh step and does not serve: prefill and
-decode on a mesh raise ``NotImplementedError``.
+through ``launch.steps``' mesh step.
+
+Serving on a mesh (``prefill``, ``decode_step`` of a meshed model, every
+rank calling): each rank runs its batch rows, and its compute copy holds
+its ``model`` shards with their FSDP shards gathered over ``data`` once,
+at the first serving call after a build or ``refresh()``.  Prefill is the
+meshed forward above; the logits are the rank's (B_loc, V/M) vocabulary
+slice.  The decode cache is placed by :func:`cache_specs`: its sequence
+axis over ``model``, so ``model`` rank m of M holds positions
+[m·L/M, (m+1)·L/M) of every kv head (or of the whole MLA latent).  A
+decode step is flash-decoding's split over the sequence: each rank
+gathers the q heads over ``model`` (one token's), attends to its own
+positions (kernel 8's split decode with its log-sum-exp; MLA's absorbed
+form in plain f32) and merges the ranks' partial outputs by their
+log-sum-exp (``common.merge_by_lse``), then keeps its own heads for
+``wo``, whose partial sums are summed over ``model``.  The new token's kv
+is written by the one rank whose slice holds its position.
 """
 
 from __future__ import annotations
@@ -69,7 +84,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.checkpoint import tree_flatten
-from repro_torch.distributed.sharding import (P, reduce_gradients,
+from repro_torch.distributed.sharding import (P, batch_axes, distribute,
+                                              make_ctx, reduce_gradients,
                                               to_shardings)
 from repro_torch.kernels.select import router_topk
 from repro_torch.models import common as cm
@@ -373,8 +389,8 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 def cache_specs(cfg: TransformerConfig, batch_axes=("pod", "data")
                 ) -> Dict[str, Any]:
     """The decode cache's specs (reference ``transformer.py:646``): the
-    sequence axis over ``model`` (flash-decoding's split-K).  A spec tree
-    only: the port serves on no mesh yet."""
+    batch over ``batch_axes``, the sequence axis over ``model``
+    (flash-decoding's split over the sequence; :func:`place_cache`)."""
     if cfg.mla is not None:
         return {"c_kv": P(None, batch_axes, "model", None),
                 "k_rope": P(None, batch_axes, "model", None),
@@ -400,24 +416,68 @@ def _per_layer(cfg: TransformerConfig, params,
     return out
 
 
+def _seq_slice(sc: ShardingCtx, max_len: int) -> int:
+    """The positions a ``model`` rank holds of a cache of ``max_len``
+    (rank m the m-th run of them): ``max_len`` without sharding.  A
+    ``max_len`` that does not split evenly raises, as the reference's
+    sharding of its cache does."""
+    n = sc.size(sc.model)
+    if max_len % n:
+        raise ValueError(f"a cache of {max_len} positions does not split "
+                         f"over the {n} ranks of mesh axis {sc.model!r}")
+    return max_len // n
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, device=None,
+               sc: ShardingCtx = NO_SHARDING) -> Dict[str, torch.Tensor]:
     """The decode cache, layer-major (reference ``transformer.py:628``):
     GQA k / v (L, B, Hkv, max_len, dh); MLA the latent c_kv (L, B,
     max_len, kv_lora_rank) and k_rope (L, B, max_len, qk_rope_dim); all
-    zeros, and ``len`` (B,) int32."""
+    zeros, and ``len`` (B,) int32.  Under an enabled ``sc`` the mesh-local
+    form: ``batch`` is the rank's rows and the sequence axis its
+    max_len / M positions (:func:`cache_specs`)."""
     L = cfg.n_layers
+    seq = _seq_slice(sc, max_len)
     if cfg.mla is not None:
         a = cfg.mla
-        shapes = {"c_kv": (L, batch, max_len, a.kv_lora_rank),
-                  "k_rope": (L, batch, max_len, a.qk_rope_dim)}
+        shapes = {"c_kv": (L, batch, seq, a.kv_lora_rank),
+                  "k_rope": (L, batch, seq, a.qk_rope_dim)}
     else:
-        kv = (L, batch, cfg.n_kv_heads, max_len, cfg.dh)
+        kv = (L, batch, cfg.n_kv_heads, seq, cfg.dh)
         shapes = {"k": kv, "v": kv}
     cache = {key: torch.zeros(shape, dtype=dtype, device=device)
              for key, shape in shapes.items()}
     cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
+
+
+def place_cache(cfg: TransformerConfig, cache: Dict[str, torch.Tensor],
+                mesh) -> Dict[str, Any]:
+    """A whole cache (the same on every rank) as DTensors placed by
+    :func:`cache_specs` on ``mesh``, each rank keeping its rows and its
+    ``model`` rank's positions; no collective runs.  A batch or a
+    ``max_len`` that does not split evenly over its mesh axes raises
+    ``ValueError`` naming them (the reference's jit refuses such a
+    sharding).  :func:`gather_cache` brings it back whole."""
+    baxes = batch_axes(mesh)
+    sc = make_ctx(mesh)
+    seq = cache["c_kv"].shape[2] if cfg.mla is not None \
+        else cache["k"].shape[3]
+    _seq_slice(sc, seq)
+    n = sc.size(baxes)
+    if cache["len"].shape[0] % n:
+        raise ValueError(f"{cache['len'].shape[0]} cache rows do not split "
+                         f"over the {n} ranks of mesh axes {baxes}")
+    return distribute(cache, to_shardings(mesh, cache_specs(cfg, baxes)))
+
+
+def gather_cache(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A cache of DTensors (:func:`place_cache`, a mesh plan's output)
+    gathered whole on every rank (a collective: every rank calls)."""
+    from torch.distributed.tensor import DTensor
+    return {key: val.full_tensor() if isinstance(val, DTensor) else val
+            for key, val in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -541,30 +601,33 @@ def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor, *,
 
 
 def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
-                  cache_len: torch.Tensor) -> torch.Tensor:
+                  pos: torch.Tensor) -> torch.Tensor:
     """cache (B, H, S, D) ← new (B, H, 1, D) at each row's own position
-    ``cache_len[b]``, in place (reference ``transformer.py:761``: a one-hot
-    blend, which writes nothing for a row whose position is ≥ S — kept
-    here by writing that row's old value back)."""
+    ``pos[b]``, in place (reference ``transformer.py:761``: a one-hot
+    blend, which writes nothing for a row whose position is outside
+    [0, S) — kept here by writing that row's old value back; a sequence
+    shard of the cache takes the positions less its first one, so only
+    the shard that holds a position writes it)."""
     s = cache.shape[2]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    pos = cache_len.long().clamp(max=s - 1)
-    val = torch.where((cache_len < s)[:, None, None],
-                      new[:, :, 0].to(cache.dtype), cache[rows, :, pos])
-    cache[rows, :, pos] = val
+    at = pos.long().clamp(0, s - 1)
+    inside = (pos >= 0) & (pos < s)
+    val = torch.where(inside[:, None, None], new[:, :, 0].to(cache.dtype),
+                      cache[rows, :, at])
+    cache[rows, :, at] = val
     return cache
 
 
 def _cache_insert_2d(cache: torch.Tensor, new: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor) -> torch.Tensor:
     """cache (B, S, D) ← new (B, D) at each row's position, in place, as
     :func:`_cache_insert` (reference ``transformer.py:769``)."""
     s = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    pos = cache_len.long().clamp(max=s - 1)
-    val = torch.where((cache_len < s)[:, None], new.to(cache.dtype),
-                      cache[rows, pos])
-    cache[rows, pos] = val
+    at = pos.long().clamp(0, s - 1)
+    inside = (pos >= 0) & (pos < s)
+    val = torch.where(inside[:, None], new.to(cache.dtype), cache[rows, at])
+    cache[rows, at] = val
     return cache
 
 
@@ -592,9 +655,10 @@ def _gqa_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, Hq, S, dh) and k (B, Hkv, S, dh) after RoPE, v (B, Hkv, S,
     dh): the first half of the reference's ``_gqa_attention``.  Under
-    ``sc`` the heads are this ``model`` rank's: q's from its column slice
-    of wq; k's and v's from theirs when they are split (``_kv_tp``), else
-    computed whole and cut to :func:`_kv_heads`."""
+    ``sc`` q's heads are this ``model`` rank's (its column slice of wq);
+    k's and v's are the rank's slice when they are split (``_kv_tp``),
+    else all Hkv heads, computed whole from the replicated wk and wv (the
+    attention takes the ones its q heads read, :func:`_kv_heads`)."""
     b, s, _ = x.shape
     dh = cfg.dh
     tp = sc.enabled and sc.size(sc.model) > 1
@@ -616,12 +680,7 @@ def _gqa_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
                       cfg.rope_theta)
     k = cm.apply_rope(k.transpose(1, 2), positions[:, None, :],
                       cfg.rope_theta)
-    v = v.transpose(1, 2)
-    if tp and not _kv_tp(cfg):
-        heads = _kv_heads(cfg, sc)
-        k = coll.copy_to(k, sc.mesh, sc.model)[:, heads]
-        v = coll.copy_to(v, sc.mesh, sc.model)[:, heads]
-    return q, k, v
+    return q, k, v.transpose(1, 2)
 
 
 def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
@@ -630,9 +689,16 @@ def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training / prefill attention (reference ``transformer.py:362``):
     returns (out, {"k", "v"}) with the kv for the cache.  Under ``sc``
-    the rank's heads, and wo's rows of them, summed over ``model``."""
+    the rank's heads, and wo's rows of them, summed over ``model``; the
+    cache's kv are as :func:`_gqa_qkv` gives them (all heads, or the
+    rank's slice when k and v split their heads)."""
     b, s, _ = x.shape
     q, k, v = _gqa_qkv(cfg, p, x, positions, sc)
+    kv = {"k": k, "v": v}
+    if sc.enabled and sc.size(sc.model) > 1 and not _kv_tp(cfg):
+        heads = _kv_heads(cfg, sc)
+        k = coll.copy_to(k, sc.mesh, sc.model)[:, heads]
+        v = coll.copy_to(v, sc.mesh, sc.model)[:, heads]
     out = cm.chunked_attention(q, k, v, causal=True,
                                chunk_q=min(cfg.attn_chunk_q, s),
                                chunk_kv=min(cfg.attn_chunk_kv, s),
@@ -640,7 +706,7 @@ def _gqa_attention(cfg: TransformerConfig, p, x: torch.Tensor,
     out = cm.dense(p["wo"], out.transpose(1, 2).reshape(b, s, -1))
     if sc.enabled:
         out = coll.reduce_from(out, sc.mesh, sc.model)
-    return out, {"k": k, "v": v}
+    return out, kv
 
 
 def _mla_qkv(cfg: TransformerConfig, p, x: torch.Tensor,
@@ -706,22 +772,31 @@ def _mla_attention(cfg: TransformerConfig, p, x: torch.Tensor,
 
 def _mla_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
                       c_kv: torch.Tensor, k_rope: torch.Tensor,
-                      cache_len: torch.Tensor) -> torch.Tensor:
+                      cache_len: torch.Tensor,
+                      sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """One token's MLA attention in the absorbed form (reference
     ``transformer.py:715``): x (B, 1, D) → (B, 1, D); the token's latent
     goes into the layer's caches c_kv (B, S, rank) and k_rope (B, S, rope)
     in place.  W_kv_b's key half is absorbed into the query, so the
     scores and the output stay in the 576-wide latent space; the products
-    are f32 (TF32 off), as the reference's, and no kernel runs here."""
+    are f32 (TF32 off), as the reference's, and no kernel runs here.
+
+    Under ``sc`` the caches are this ``model`` rank's sequence slice and
+    ``p`` holds its heads (wq_b's and wkv_b's columns, wo's rows): the
+    absorbed queries of every head are gathered over ``model``, scored
+    against the rank's positions, and the ranks' latent outputs merged by
+    their log-sum-exp (``common.merge_by_lse``) before the rank applies
+    wv_b and wo to its own heads; wo's partial sums are summed over
+    ``model``.  On one ``model`` rank that is the unsharded arithmetic."""
     a = cfg.mla
     b = x.shape[0]
-    h = cfg.n_heads
     pos = cache_len[:, None]                                      # (B, 1)
     if a.q_lora_rank:
         q_in = cm.rmsnorm(p["q_a_norm"], cm.dense(p["wq_a"], x))
     else:
         q_in = x
-    q = cm.dense(p["wq_b"], q_in).reshape(b, h, a.qk_dim)
+    q = cm.dense(p["wq_b"], q_in).reshape(b, -1, a.qk_dim)
+    h = q.shape[1]                                  # the rank's heads
     q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
     q_rope = cm.apply_rope(q_rope[:, :, None, :], pos[:, None, :],
                            cfg.rope_theta)[:, :, 0]
@@ -729,25 +804,85 @@ def _mla_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
         [a.kv_lora_rank, a.qk_rope_dim], dim=-1)
     c_new = cm.rmsnorm(p["kv_a_norm"], c_new)
     r_new = cm.apply_rope(r_new[:, None], pos, cfg.rope_theta)[:, 0]
-    _cache_insert_2d(c_kv, c_new, cache_len)
-    _cache_insert_2d(k_rope, r_new, cache_len)
+    off = sc.rank(sc.model) * c_kv.shape[1]
+    _cache_insert_2d(c_kv, c_new, cache_len - off)
+    _cache_insert_2d(k_rope, r_new, cache_len - off)
 
     wkv_b = p["wkv_b"]["w"].reshape(a.kv_lora_rank, h,
                                     a.qk_nope_dim + a.v_head_dim).float()
     wk_b, wv_b = wkv_b[..., :a.qk_nope_dim], wkv_b[..., a.qk_nope_dim:]
     ckv = c_kv.float()
     q_lat = torch.einsum("bhn,lhn->bhl", q_nope.float(), wk_b)
+    q_rope = q_rope.float()
+    tp = sc.enabled and sc.size(sc.model) > 1
+    if tp:                                          # every head's query
+        q_lat = coll.gather(q_lat, sc.mesh, sc.model, 1)
+        q_rope = coll.gather(q_rope, sc.mesh, sc.model, 1)
     scores = torch.einsum("bhl,bsl->bhs", q_lat, ckv) \
-        + torch.einsum("bhr,bsr->bhs", q_rope.float(), k_rope.float())
+        + torch.einsum("bhr,bsr->bhs", q_rope, k_rope.float())
     scores = scores / (a.qk_dim ** 0.5)
     mask = torch.arange(ckv.shape[1], device=x.device)[None] \
-        < (cache_len + 1)[:, None]
+        < (cache_len + 1 - off)[:, None]
     scores = torch.where(mask[:, None], scores, cm.NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", w, ckv)
+    if tp:
+        o_lat = cm.merge_by_lse(o_lat, torch.logsumexp(scores, dim=-1),
+                                sc.mesh, sc.model)
+        o_lat = o_lat[:, sc.rank(sc.model) * h:][:, :h]
     out = torch.einsum("bhl,lhv->bhv", o_lat, wv_b)
-    out = out.reshape(b, 1, h * a.v_head_dim).to(x.dtype)
-    return cm.dense(p["wo"], out)
+    out = cm.dense(p["wo"], out.reshape(b, 1, h * a.v_head_dim).to(x.dtype))
+    return coll.reduce_from(out, sc.mesh, sc.model) if sc.enabled else out
+
+
+def _gqa_decode_layer(cfg: TransformerConfig, p, x: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      cache_len: torch.Tensor, use_kernel: bool = True,
+                      sc: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+    """One token's attention against the layer's cache (reference
+    ``transformer.py:693``); writes the token's k / v into the cache.
+
+    Under ``sc`` the caches (B, Hkv, S/M, dh) are this ``model`` rank's
+    sequence slice of every kv head, and ``p`` holds the rank's q heads
+    (wq's columns, wo's rows): the token's q heads are gathered over
+    ``model`` (and its k / v heads, when they split), kernel 8's decode
+    runs on the rank's slice with the slice's own ``kv_len`` and returns
+    its log-sum-exp, the ranks' partial outputs are merged by it
+    (``common.merge_by_lse``), and the rank keeps its own heads for wo,
+    whose partial sums are summed over ``model``."""
+    b = x.shape[0]
+    dh = cfg.dh
+    pos = cache_len[:, None]                                      # (B, 1)
+    q = cm.dense(p["wq"], x).reshape(b, 1, -1, dh)
+    k = cm.dense(p["wk"], x).reshape(b, 1, -1, dh)
+    v = cm.dense(p["wv"], x).reshape(b, 1, -1, dh)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(p["q_norm"], q)
+        k = cm.rmsnorm(p["k_norm"], k)
+    q = cm.apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta)
+    k = cm.apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta)
+    v = v.transpose(1, 2)
+    tp = sc.enabled and sc.size(sc.model) > 1
+    hq = q.shape[1]                                 # the rank's q heads
+    if tp:
+        q = coll.gather(q, sc.mesh, sc.model, 1)
+        if _kv_tp(cfg):
+            k = coll.gather(k, sc.mesh, sc.model, 1)
+            v = coll.gather(v, sc.mesh, sc.model, 1)
+    off = sc.rank(sc.model) * k_cache.shape[2]
+    _cache_insert(k_cache, k, cache_len - off)
+    _cache_insert(v_cache, v, cache_len - off)
+    if tp:
+        out, lse = cm.decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                       use_kernel=use_kernel, offset=off,
+                                       return_lse=True)
+        out = cm.merge_by_lse(out, lse, sc.mesh, sc.model)
+        out = out[:, sc.rank(sc.model) * hq:][:, :hq]
+    else:
+        out = cm.decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                  use_kernel=use_kernel)
+    out = cm.dense(p["wo"], out.transpose(1, 2).reshape(b, 1, -1))
+    return coll.reduce_from(out, sc.mesh, sc.model) if sc.enabled else out
 
 
 def _layer_fwd(cfg: TransformerConfig, kind: str, p, x: torch.Tensor,
@@ -919,7 +1054,8 @@ def backward(cfg: TransformerConfig, params, batch, *,
 
 class Transformer(cm.ParamTree):
     """The transformer for serving: ``prefill`` and ``decode_step`` (see
-    the module docstring)."""
+    the module docstring), on one device or, with DTensor parameters
+    (``launch.steps.place_model``), on their mesh."""
 
     def __init__(self, cfg: TransformerConfig, params: Dict[str, Any],
                  use_kernel: bool = True):
@@ -936,7 +1072,7 @@ class Transformer(cm.ParamTree):
     def meshed(self) -> bool:
         """Whether the parameters are DTensors on a mesh (placed by
         :func:`param_specs`): such a model trains through the mesh step
-        and does not serve (ROADMAP Queue 1 item 11: serving on a mesh)."""
+        and serves on its mesh, each rank its batch rows."""
         from torch.distributed.tensor import DTensor
         return isinstance(self.embed, DTensor)
 
@@ -945,21 +1081,17 @@ class Transformer(cm.ParamTree):
         training update)."""
         self._cast_weights()
 
-    def _no_mesh(self) -> None:
-        if self.meshed:
-            raise NotImplementedError(
-                "prefill and decode on a mesh are not ported yet (ROADMAP "
-                "Queue 1 item 11: serving on a mesh)")
-
     @torch.no_grad()
     def _cast_weights(self) -> None:
         """The compute-dtype copy of the weights: the embedding and every
         layer leaf (the MoE layers' 3-D expert tensors too) in
         ``cfg.dtype`` (per-layer views of each stack's copy), the output
-        weights as the f32 image of their ``cfg.dtype`` rounding."""
-        if self.meshed:      # no compute copy: a meshed model does not serve
-            self._embed = self._w_out = None
-            self._kinds, self._layers = [], []
+        weights as the f32 image of their ``cfg.dtype`` rounding.  A
+        meshed model's copy holds the rank's shards with their FSDP shards
+        gathered over ``data``, a collective: it is made at the first
+        serving call, which every rank makes (:meth:`_ready`)."""
+        self._layers = None
+        if self.meshed:
             return
         dt = self.cfg.dtype
         # detached: with dtype f32 ``.to`` would hand back the Parameter
@@ -967,14 +1099,40 @@ class Transformer(cm.ParamTree):
         self._embed = self.embed.detach().to(dt)
         w_out = self.embed.T if self.cfg.tie_embeddings else self.w_out
         self._w_out = w_out.detach().to(dt).float()
-        layers = _per_layer(self.cfg, self.tree(),
-                            lambda t, spec: t.detach().to(dt))
+        self._final_scale = self.final_norm.scale.detach()
+        self._sc = NO_SHARDING
+        self._set_layers(_per_layer(self.cfg, self.tree(),
+                                    lambda t, spec: t.detach().to(dt)))
+
+    def _set_layers(self, layers) -> None:
         self._kinds = [kind for kind, _ in layers]
         self._layers = [p for _, p in layers]
 
+    @torch.no_grad()
+    def _ready(self) -> None:
+        """A meshed model's compute copy, made if it is not there: each
+        leaf's local shard cast to ``cfg.dtype`` and gathered over
+        ``data`` by its spec, once; the serving context is ``make_ctx``'s
+        with no FSDP axis left to gather."""
+        if self._layers is not None:
+            return
+        cfg, dt = self.cfg, self.cfg.dtype
+        sc = make_ctx(self.embed.device_mesh)
+        _check_split(cfg, sc)
+        tree = self.tree()
+        local = _map(lambda t: t.to_local().detach(), tree)
+        self._embed = coll.gather(local["embed"].to(dt), sc.mesh, sc.fsdp, 1)
+        self._w_out = _output_weights(cfg, local, sc).float()
+        self._final_scale = local["final_norm"]["scale"]
+        self._sc = dataclasses.replace(sc, fsdp=None)
+        self._set_layers(_per_layer(cfg, local, lambda t, spec: _gather_fsdp(
+            sc, t.to(dt), spec)))
+
     def output_weights(self) -> torch.Tensor:
         """(D, V) output weights in ``cfg.dtype`` (reference
-        ``transformer.py:605``), here as their f32 image."""
+        ``transformer.py:605``), here as their f32 image; on a mesh the
+        rank's (D, V/M) vocabulary slice."""
+        self._ready()
         return self._w_out
 
     def forward(self, tokens: torch.Tensor,
@@ -985,88 +1143,87 @@ class Transformer(cm.ParamTree):
         MLA c_kv / k_rope) goes to its first S positions, the layers in
         stack order (the reference collects them per stack and
         ``prefill`` concatenates the stacks on the layer axis: the same
-        values)."""
+        values).  On a mesh ``tokens`` are the rank's rows, the layers run
+        tensor- and expert-parallel over ``model``, and ``cache`` is the
+        rank's slice (:func:`init_cache` under the model's context): it
+        takes the positions of its slice, every kv head's (gathered over
+        ``model`` when k and v split their heads)."""
+        self._ready()
+        cfg, sc = self.cfg, self._sc
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
-        x = self._embed[tokens.long()]
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        x = _embed({"embed": self._embed}, tokens, cfg.dtype, sc)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        gather_heads = _kv_tp(cfg) and sc.size(sc.model) > 1
         for i, (kind, p) in enumerate(zip(self._kinds, self._layers)):
-            x, kv = _layer_fwd(self.cfg, kind, p, x, positions,
-                               self.use_kernel)
-            if cache is not None:
-                for key, val in kv.items():
-                    cache[key][i].narrow(-2, 0, s).copy_(val)
-        return cm.rmsnorm({"scale": self.final_norm.scale}, x)
+            x, kv = _layer_fwd(cfg, kind, p, x, positions, self.use_kernel,
+                               sc)
+            if cache is None:
+                continue
+            for key, val in kv.items():
+                dst = cache[key][i]
+                off = sc.rank(sc.model) * dst.shape[-2]
+                n = min(max(s - off, 0), dst.shape[-2])
+                if gather_heads and key in ("k", "v"):
+                    val = coll.gather(val, sc.mesh, sc.model, 1)
+                if n:
+                    dst.narrow(-2, 0, n).copy_(val.narrow(-2, off, n))
+        return cm.rmsnorm({"scale": self._final_scale}, x)
 
     # -- serving -----------------------------------------------------------
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None):
         """Run the prompt; return (last-position logits (B, V) f32, the
-        populated cache) (reference ``transformer.py:658``)."""
-        self._no_mesh()
+        populated cache) (reference ``transformer.py:658``).  On a mesh:
+        the rank's rows in, its (B_loc, V/M) slice of the logits and its
+        slice of the cache (its rows, its ``model`` rank's positions of
+        ``max_len``, which must split evenly) out."""
+        self._ready()
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         max_len = max_len or s
-        cache = init_cache(self.cfg, b, max_len, self.cfg.dtype, self.device)
+        cache = init_cache(self.cfg, b, max_len, self.cfg.dtype, self.device,
+                           self._sc)
         h = self.forward(tokens, cache)
-        logits = h[:, -1].float() @ self.output_weights()
+        logits = h[:, -1].float() @ self._w_out
         cache["len"].fill_(s)
         return logits, cache
-
-    def _gqa_decode_layer(self, p, x: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, cache_len: torch.Tensor
-                          ) -> torch.Tensor:
-        """One token's attention against the layer's cache (reference
-        ``transformer.py:693``); writes the token's k / v into the cache."""
-        cfg = self.cfg
-        b = x.shape[0]
-        dh = cfg.dh
-        pos = cache_len[:, None]                                  # (B, 1)
-        q = cm.dense(p["wq"], x).reshape(b, 1, cfg.n_heads, dh)
-        k = cm.dense(p["wk"], x).reshape(b, 1, cfg.n_kv_heads, dh)
-        v = cm.dense(p["wv"], x).reshape(b, 1, cfg.n_kv_heads, dh)
-        if cfg.qk_norm:
-            q = cm.rmsnorm(p["q_norm"], q)
-            k = cm.rmsnorm(p["k_norm"], k)
-        q = cm.apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta)
-        k = cm.apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta)
-        _cache_insert(k_cache, k, cache_len)
-        _cache_insert(v_cache, v.transpose(1, 2), cache_len)
-        out = cm.decode_attention(q, k_cache, v_cache, cache_len + 1,
-                                  use_kernel=self.use_kernel)
-        return cm.dense(p["wo"], out.transpose(1, 2).reshape(b, 1, -1))
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor,
                     cache: Dict[str, torch.Tensor]):
         """One token for every sequence: tokens (B, 1) → (logits (B, V) f32,
         a new cache holding the tokens' kv with ``len`` advanced)
-        (reference ``transformer.py:776``).  ``cache`` is left as it was."""
-        self._no_mesh()
-        cfg = self.cfg
+        (reference ``transformer.py:776``).  ``cache`` is left as it was.
+        On a mesh: the rank's rows and its cache slice in, its logits slice
+        and new cache slice out (see the module docstring)."""
+        self._ready()
+        cfg, sc = self.cfg, self._sc
         tokens = torch.as_tensor(tokens, device=self.device)
         cache_len = cache["len"]
         new_cache = {key: val.clone() for key, val in cache.items()
                      if key != "len"}
         new_cache["len"] = cache_len + 1
-        x = self._embed[tokens.long()]
+        x = _embed({"embed": self._embed}, tokens, cfg.dtype, sc)
         for i, (kind, p) in enumerate(zip(self._kinds, self._layers)):
             h = cm.rmsnorm(p["ln1"], x)
             if cfg.mla is not None:
                 att = _mla_decode_layer(cfg, p["attn"], h,
                                         new_cache["c_kv"][i],
-                                        new_cache["k_rope"][i], cache_len)
+                                        new_cache["k_rope"][i], cache_len,
+                                        sc)
             else:
-                att = self._gqa_decode_layer(p["attn"], h, new_cache["k"][i],
-                                             new_cache["v"][i], cache_len)
+                att = _gqa_decode_layer(cfg, p["attn"], h, new_cache["k"][i],
+                                        new_cache["v"][i], cache_len,
+                                        self.use_kernel, sc)
             x = x + att
             ffn_in = cm.rmsnorm(p["ln2"], x)
             if kind == "moe":
                 x = x + _moe_ffn(cfg, p["ffn"], ffn_in,
-                                 use_kernel=self.use_kernel)
+                                 use_kernel=self.use_kernel, sc=sc)
             else:
-                x = x + _dense_ffn(p["ffn"], ffn_in)
-        x = cm.rmsnorm({"scale": self.final_norm.scale}, x)
-        logits = x[:, 0].float() @ self.output_weights()
+                x = x + _dense_ffn(p["ffn"], ffn_in, sc)
+        x = cm.rmsnorm({"scale": self._final_scale}, x)
+        logits = x[:, 0].float() @ self._w_out
         return logits, new_cache

@@ -9,14 +9,19 @@ killed and the launch raises, so a hung collective fails one test instead
 of the run.  Every group has a 60 s timeout of its own.
 
 The tasks import only the port; the tests hold their results against the
-reference computed in the pytest process.
+reference, computed in the pytest process or, on a mesh, in a subprocess
+on fake XLA devices (:func:`start_reference`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import multiprocessing as mp
+import os
 import pickle
+import subprocess
+import sys
+import textwrap
 import time
 import traceback
 from datetime import timedelta
@@ -65,6 +70,32 @@ def launch(task: str, world: int, out_dir, payload=None,
         with open(out_dir / f"{task}_{world}_{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def start_reference(code: str, devices: int = 4) -> subprocess.Popen:
+    """A run of the JAX reference on ``devices`` fake XLA devices, started
+    in a subprocess (it runs while the port's ranks do); ``code`` is a
+    script that pickles its result."""
+    env = {**os.environ,
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}",
+           "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def finish_reference(proc: subprocess.Popen, out_pkl, timeout: float = 600):
+    """Wait for :func:`start_reference`'s run (killed at ``timeout``) and
+    load what it pickled to ``out_pkl``."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-4000:]
+    with open(out_pkl, "rb") as f:
+        return pickle.load(f)
 
 
 def _run_rank(task, rank, world, store, out_dir, payload):
@@ -284,8 +315,9 @@ def lm_mesh_task(rank, world, p):
     """The LM's sharded loss and gradients (``transformer.backward`` under
     ``make_ctx``) for each case of ``p["cases"]``: the gradients gathered
     whole, and each MoE call's expert ids on this rank; then
-    ``build_step``'s meshed train step (two AdamW steps) and the
-    prefill / decode plans on a mesh."""
+    ``build_step``'s meshed train step (two AdamW steps), the prefill /
+    decode plans on a mesh (their out-shardings, or what they raise) and
+    the trained meshed model's ``prefill`` of a row of zeros a rank."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as shd
@@ -359,22 +391,106 @@ def lm_mesh_task(rank, world, p):
         for batch in case["batches"]:
             model, state, loss = plan.fn(model, state, batch)
             losses.append(float(loss))
-        raised = {}
+        raised, served = {}, {}
         for cell_name in ("prefill_32k", "decode_32k"):
             try:
-                steps.build_step(arch, arch.cell(cell_name), mesh)
+                plan = steps.build_step(arch, arch.cell(cell_name), mesh)
+                served[cell_name] = (
+                    repr(plan.out_shardings[0].spec),
+                    {k: repr(v.spec) for k, v in
+                     plan.out_shardings[1].items()})
             except NotImplementedError as e:
                 raised[cell_name] = str(e)
         try:
-            model.prefill(torch.zeros((1, 4), dtype=torch.int32))
+            logits, cache = model.prefill(torch.zeros((1, 4),
+                                                      dtype=torch.int32))
+            served["model.prefill"] = (_np(logits), {
+                k: tuple(v.shape) for k, v in cache.items()})
         except NotImplementedError as e:
             raised["model.prefill"] = str(e)
         params = _full(model.tree())
-        out[key] = {"losses": losses, "raised": raised,
+        out[key] = {"losses": losses, "raised": raised, "served": served,
                     "step": int(state["step"]),
                     "params": tree_flatten(params) if rank == 0 else None,
                     "specs": [repr(s.spec) for s in
                               tree_flatten(plan.in_shardings[0])]}
+    return out
+
+
+def lm_serve_task(rank, world, p):
+    """The LM's meshed prefill and decode plans (``build_step`` on a mesh)
+    for each case of ``p["cases"]`` whose mesh has ``world`` ranks: the
+    prompt prefilled into a cache of ``p["max_len"]`` positions, then one
+    decode step a token of ``p["feed"]`` (teacher-forced); the logits of
+    every call and the cache after the prefill and after the last step,
+    gathered whole, and each MoE call's expert ids on this rank.  Then
+    the plans' refusals (a cache length that does not split over
+    ``model``) and the cache placement's round trip."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tx
+    from repro_torch.state import transformer_from_reference
+    meshes = _meshes([m for m in p["meshes"] if np.prod(m[0]) == world])
+    out = {}
+    orig = tx.router_topk
+    for key, case in p["cases"].items():
+        if case["mesh"] not in meshes:
+            continue
+        mesh, cfg = meshes[case["mesh"]], case["cfg"]
+        arch = dataclasses.replace(get_arch(case["arch"]), config=cfg)
+        pre = steps.build_step(arch, arch.cell("prefill_32k"), mesh)
+        dec = steps.build_step(arch, arch.cell("decode_32k"), mesh)
+        model = steps.place_model(transformer_from_reference(
+            cfg, p["params"][case["params"]], device="cpu"),
+            pre.in_shardings[0])
+        ids = []
+
+        def router(probs, k, *, use_kernel=True):
+            vals, idx = orig(probs, k, use_kernel=use_kernel)
+            ids.append(idx)
+            return vals, idx
+        tx.router_topk = router
+        try:
+            logits, cache = pre.fn(model, {"tokens": p["prompt"]},
+                                   max_len=p["max_len"])
+            got = {"logits": [_full(logits)], "prefill_cache": _full(cache)}
+            first = cache
+            for tok in p["feed"]:
+                logits, cache = dec.fn(model, {"tokens": tok,
+                                               "cache": cache})
+                got["logits"].append(_full(logits))
+        finally:
+            tx.router_topk = orig
+        got["cache"] = _full(cache)
+        got["ids"] = _np(ids)
+        got["placements"] = {k: [repr(pl) for pl in v.placements]
+                             for k, v in cache.items()}
+        got["local_shapes"] = {k: tuple(v.to_local().shape)
+                               for k, v in cache.items()}
+        # a whole cache into the decode plan: placed there, same step
+        whole = tx.gather_cache(first)
+        got["from_whole"] = _full(dec.fn(model, {
+            "tokens": p["feed"][0], "cache": whole})[0])
+        try:
+            pre.fn(model, {"tokens": p["prompt"]})
+        except ValueError as e:
+            got["indivisible"] = str(e)
+        out[key] = got if rank == 0 else {"ids": got["ids"]}
+    for shape, mesh in meshes.items():
+        cfg = p["roundtrip_cfg"]
+        whole = {k: torch.from_numpy(v) for k, v in p["roundtrip"].items()}
+        placed = tx.place_cache(cfg, whole, mesh)
+        back = tx.gather_cache(placed)
+        res = {"equal": all(torch.equal(back[k], whole[k]) for k in whole),
+               "local": {k: _np(v.to_local()) for k, v in placed.items()}}
+        odd = dict(whole, k=whole["k"][..., :-1, :],
+                   v=whole["v"][..., :-1, :])
+        try:
+            tx.place_cache(cfg, odd, mesh)
+        except ValueError as e:
+            res["indivisible"] = str(e)
+        out[("roundtrip", shape)] = res
     return out
 
 
@@ -437,4 +553,5 @@ TASKS = {"engine": engine_task, "kmeans": kmeans_task,
          "embedding": embedding_task, "restore": restore_task,
          "usercf": usercf_task, "slope": slope_task,
          "compressed_psum": compressed_psum_task,
-         "lm_mesh": lm_mesh_task, "recsys_mesh": recsys_mesh_task}
+         "lm_mesh": lm_mesh_task, "lm_serve": lm_serve_task,
+         "recsys_mesh": recsys_mesh_task}

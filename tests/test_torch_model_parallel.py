@@ -28,17 +28,16 @@ f32 (TF32 off, as the port pins it).
   one-axis and a (2, 2) mesh against the reference's plan jitted with its
   shardings; serve and retrieval on the mesh within 1e-6 of ``mesh=None``.
 * One LM ``build_step`` train plan on a mesh against the reference's
-  (two AdamW steps); prefill and decode on a mesh raise naming item 11.
+  (two AdamW steps); the prefill and decode plans on that mesh build,
+  and the trained meshed model prefills (``tests/test_torch_mesh_serving.
+  py`` holds serving on a mesh to the reference).
 """
 
 import dataclasses
 import functools
 import importlib
-import os
 import pickle
 import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import jax
@@ -56,9 +55,9 @@ from repro_torch.data import batches as tbatches
 from repro_torch.launch.steps import build_step
 from repro_torch.models import embedding as temb
 from repro_torch.models import transformer as ttx
-from repro_torch.state import recsys_from_reference
+from repro_torch.state import (recsys_from_reference,
+                               transformer_from_reference)
 
-REPO = Path(__file__).resolve().parents[1]
 WORLD = 4
 TOL = 1e-5
 LM = ("llama3_2_1b", "qwen3_moe_30b_a3b", "deepseek_v2_236b")
@@ -86,24 +85,11 @@ def _perturbed(params, seed):
 def _start_reference(code: str) -> subprocess.Popen:
     """The reference's meshed run, started in a subprocess on 4 fake XLA
     devices (it runs while the port's ranks do)."""
-    env = {**os.environ,
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={WORLD}",
-           "PYTHONPATH": str(REPO / "src")}
-    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+    return td.start_reference(code, WORLD)
 
 
 def _finish_reference(proc: subprocess.Popen, tmp: Path):
-    try:
-        _, err = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    assert proc.returncode == 0, err[-4000:]
-    with open(tmp / "out.pkl", "rb") as f:
-        return pickle.load(f)
+    return td.finish_reference(proc, tmp / "out.pkl")
 
 
 def _rel_norm(name, got, want, rtol=TOL):
@@ -399,11 +385,37 @@ def test_lm_build_step_on_mesh_matches_reference_plan(lm):
 
 
 def test_lm_prefill_and_decode_on_a_mesh_raise(lm):
-    _, _, _, out, _ = lm
-    raised = out[0]["llama_step"]["raised"]
-    assert set(raised) == {"prefill_32k", "decode_32k", "model.prefill"}
-    for msg in raised.values():
-        assert "ROADMAP Queue 1 item 11" in msg and "mesh" in msg
+    """Serving on a mesh is ported, so nothing raises any more (the name
+    is kept from when these plans raised ``NotImplementedError``): on the
+    (2, 2) mesh the ``prefill_32k`` and ``decode_32k`` plans build, with
+    the reference's out-shardings (logits over the batch and ``model``,
+    the cache's sequence over ``model``); and the meshed model, after its
+    two train steps, prefills a row of zeros on each rank — its logits,
+    the ranks' vocabulary slices put together, within 1e-4 of the
+    no-mesh prefill of the reference's parameters after the same two
+    steps (the trained parameters agree within 1e-5 of max(1, |p|))."""
+    params, _, _, out, ref = lm
+    want_specs = ("PartitionSpec(('data',), 'model')", {
+        "k": "PartitionSpec(None, ('data',), None, 'model', None)",
+        "v": "PartitionSpec(None, ('data',), None, 'model', None)",
+        "len": "PartitionSpec(('data',),)"})
+    cfg = _lm_cfgs("llama3_2_1b", None)[1]
+    trained = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(params["llama3_2_1b"]),
+        ref["llama_step"][1])
+    want = transformer_from_reference(cfg, trained, device="cpu").prefill(
+        np.zeros((1, 4), np.int32))[0]
+    for rank in range(WORLD):
+        got = out[rank]["llama_step"]
+        assert got["raised"] == {}, got["raised"]
+        served = got["served"]
+        assert served["prefill_32k"] == served["decode_32k"] == want_specs
+        logits, shapes = served["model.prefill"]
+        assert shapes == {"k": (2, 1, 2, 2, 16), "v": (2, 1, 2, 2, 16),
+                          "len": (1,)}
+        v_loc = cfg.vocab // 2
+        assert_parity(f"mp.llama.mesh_prefill.r{rank}", logits,
+                      want[:, (rank % 2) * v_loc:][:, :v_loc], atol=1e-4)
 
 
 def _spec_tree(tree):
