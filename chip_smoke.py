@@ -323,7 +323,29 @@ weights:
     each Llama layer's cache (rows at kv_len 2049, 1100, 520 and 7, so
     that some slices hold no visible key) merged by their log-sum-exp
     (``merge_by_lse_parts``) against the unsplit kernel: f32 within
-    1e-5, bf16 within one bf16 ulp at the partials' scale, no NaN.
+    1e-5, bf16 within one bf16 ulp at the partials' scale, no NaN;
+
+and last the GNN family, which runs no kernel of the port (gathers,
+small f32 MLPs and fixed-order segment sums in plain PyTorch, as the
+reference computes them outside Pallas):
+
+28. EGNN at full width (4 layers, hidden 64, d_out 47; f32, TF32 off)
+    through ``build_step`` on its four cells (``phase_gnn``): (a)
+    full_graph_sm at full size (2708 nodes and the dummy, 10556 edges
+    padded to 11264 by ``pad_edges``) against the port's CPU run from
+    the same weights — logits, coordinates, loss, gradients within 1e-4
+    of max(1, |x|), the non-finite gradient leaves (the reference's NaN
+    at self-loops) equal, one AdamW step — two card runs bitwise, and
+    the E(n) check (a rotated, translated input: logits unchanged,
+    coordinates moved alike, 1e-4); (b) minibatch_lg on
+    ``NeighborSampler(fanouts=(15, 10))``'s subgraph of 1024 seeds
+    (169984 × 602) of a synthetic Reddit, its edges cut 10×, the
+    sampler's host time apart; (c) ogb_products at 2449029 nodes × 100,
+    edges cut to what one card holds; (d) molecule (128 × 30 nodes, 64
+    edges), the batched forward against a loop over the graphs within
+    1e-5; step walls and peaks; (e) the meshed plans of (a), (b) and
+    (d) on the one-rank NCCL mesh against the no-mesh plans, bitwise;
+    (f) ``launch.train --arch egnn --smoke --steps 20``, finite losses.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels, kernel 8's backward, and kernels 8 and 5 again at
@@ -4884,6 +4906,375 @@ def phase_mesh_serve(dev):
     return res
 
 
+# -- the GNN family (EGNN) ---------------------------------------------------
+
+# minibatch_lg's synthetic Reddit: the node count and width are the
+# cell's; its 114,615,892 edges are cut 10× to keep the host's generation
+# and CSR sort (tens of seconds at full size) inside the phase's time.
+# The device shapes depend only on the seeds and fanouts: at a mean
+# in-degree of 49 every seed has 15 neighbours and every hop-1 node 10.
+GNN_REDDIT_EDGES = 11_461_589
+# ogb_products' 61,859,140 edges cut to what one 80 GB card holds in a
+# 4-layer f32 train step with ~20 % of it free; phase 28 (c) checks the
+# cut each run: it steps on the first 2^20 and 2^21 edges of the graph
+# (the full node count and width) and prints the peak's growth an edge
+# and the edge count that would fill 80 % of the card
+GNN_PRODUCTS_EDGES = 6_000_000
+GNN_PRODUCTS_PROBES = (1 << 20, 1 << 21)
+# card vs CPU, and a rotated input vs the plain one: of max(1, |x|) a
+# tensor, f32 with TF32 off (cuBLAS and the CPU's GEMMs round apart)
+GNN_TOL = 1e-4
+GNN_SMOKE_STEPS = 20
+
+
+def padded_graph(n_nodes, n_edges, d_feat, n_classes):
+    """``synthetic_graph`` with ``pad_edges``' padding: one dummy node
+    (features and coordinates 0, label −1) and dummy → dummy edges up to
+    ``pad_edges(n_edges)``; the host seconds it took."""
+    from repro_torch.configs.registry import pad_edges
+    from repro_torch.data.graph import GraphSpec, synthetic_graph
+    t0 = time.perf_counter()
+    g = synthetic_graph(GraphSpec(n_nodes, n_edges, d_feat, n_classes))
+    pad = np.full((2, pad_edges(n_edges) - n_edges), n_nodes, np.int32)
+    out = {"feat": np.concatenate([g["feat"], np.zeros((1, d_feat),
+                                                       np.float32)]),
+           "coord": np.concatenate([g["coord"], np.zeros((1, 3),
+                                                         np.float32)]),
+           "edges": np.concatenate([g["edges"], pad], axis=1),
+           "labels": np.concatenate([g["labels"], [-1]]).astype(np.int32)}
+    return out, time.perf_counter() - t0
+
+
+def on_device(batch, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def egnn_grads(model, batch):
+    """The loss and the gradient leaves of ``model`` on ``batch`` (zeros
+    where no gradient arrives, as the train step takes them)."""
+    from repro_torch.distributed.checkpoint import tree_flatten
+    from repro_torch.training.train_loop import take_grads, trainable
+    tree = trainable(model.tree())
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach(), tree_flatten(take_grads(tree))
+
+
+def leaves_apart(got, want):
+    """(the non-finite element masks equal on every leaf, the largest
+    difference of the finite elements over max(1, |want|) of its leaf)."""
+    same, worst = True, 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        fin = torch.isfinite(w)
+        same &= bool(torch.equal(fin, torch.isfinite(g)))
+        if fin.any():
+            scale = max(1.0, float(w[fin].abs().max()))
+            worst = max(worst, float((g[fin] - w[fin]).abs().max()) / scale)
+    return same, worst
+
+
+def nan_equal(a, b) -> bool:
+    """Bitwise equal, NaN where and only where the other is NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def egnn_steps(plan, model, batch, n=2):
+    """``n`` steps of a GNN plan from a fresh AdamW state: the losses,
+    walls (s), the peak GiB and the model."""
+    state = plan.optimizer.init(model.tree())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        model, state, loss = plan.fn(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.detach())
+    return {"losses": losses, "walls": walls, "model": model,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_gnn(dev):
+    """Phase 28: EGNN at its full width (4 layers, hidden 64, d_out 47;
+    f32, TF32 off), every cell through ``build_step``: (a) full_graph_sm
+    at full size against the port's CPU run from the same weights —
+    forward, loss, gradients (the non-finite leaves equal), one AdamW
+    step — the card run twice bitwise, and the E(n) check; (b)
+    minibatch_lg on the sampler's subgraph of a synthetic Reddit; (c)
+    ogb_products at its full node count and width, edges cut; (d)
+    molecule, the batched forward against a loop over its graphs; each
+    with two steps' walls and the peak; (e) the meshed plans of (a), (b)
+    and (d) on a one-rank NCCL mesh against the no-mesh plans, bitwise;
+    (f) ``launch.train --arch egnn --smoke``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, input_specs
+    from repro_torch.data.graph import NeighborSampler, molecules_batch
+    from repro_torch.data.graph import GraphSpec, synthetic_graph
+    from repro_torch.distributed.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_step, place_model
+    from repro_torch.models import egnn as eg
+
+    arch = get_arch("egnn")
+    res, batches, inits = {}, {}, {}
+    cpu = torch.device("cpu")
+
+    def model_for(cell_name, device=dev):
+        """A fresh EGNN at the cell's width on ``device``, from one seeded
+        draw a cell (made on the card), so every run of a cell starts
+        from the same weights."""
+        cfg = dataclasses.replace(arch.config,
+                                  d_feat=arch.cell(cell_name).dims["d_feat"])
+        if cell_name not in inits:
+            inits[cell_name] = eg.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0))
+        tree = inits[cell_name]
+        return eg.EGNN(cfg, tree_unflatten(tree, [
+            p.detach().clone().to(device) for p in tree_flatten(tree)]))
+
+    def specs_match(cell_name, batch):
+        want = input_specs(arch, arch.cell(cell_name))
+        return {k: tuple(v.shape) for k, v in batch.items()} == \
+            {k: tuple(v.shape) for k, v in want.items()}
+
+    # (a) full_graph_sm, card against the CPU from the same weights
+    d = arch.cell("full_graph_sm").dims
+    host, gen_s = padded_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                               arch.config.d_out)
+    check(specs_match("full_graph_sm", host),
+          "full_graph_sm: the padded graph has input_specs' shapes")
+    batch = batches["full_graph_sm"] = on_device(host, dev)
+    model, ref = model_for("full_graph_sm"), model_for("full_graph_sm", cpu)
+    logits, coords = model.forward(batch)
+    want_logits, want_coords = ref.forward(host)
+    a = {"nodes": host["feat"].shape[0], "edges": host["edges"].shape[1],
+         "self_loops": int((host["edges"][0] == host["edges"][1]).sum()),
+         "gen_s": gen_s,
+         "logits": leaves_apart([logits], [want_logits])[1],
+         "coords": leaves_apart([coords], [want_coords])[1]}
+    loss, grads = egnn_grads(model, batch)
+    loss2, grads2 = egnn_grads(model, batch)
+    want_loss, want_grads = egnn_grads(ref, host)
+    a["loss"] = (float(loss), float(want_loss))
+    a["loss_err"] = leaves_apart([loss], [want_loss])[1]
+    a["nonfinite_equal"], a["grad_err"] = leaves_apart(grads, want_grads)
+    a["nonfinite"] = sum(not bool(torch.isfinite(g).all()) for g in grads)
+    a["leaves"] = len(grads)
+    a["rerun_bitwise"] = bool(torch.equal(loss, loss2)) and all(
+        nan_equal(g, h) for g, h in zip(grads, grads2))
+    # E(n): rotate and translate the coordinates
+    rng = np.random.default_rng(28)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = torch.from_numpy(q.astype(np.float32)).to(dev)
+    shift = torch.from_numpy(rng.normal(size=3).astype(np.float32)).to(dev)
+    moved = dict(batch, coord=batch["coord"] @ q.T + shift)
+    logits_m, coords_m = model.forward(moved)
+    a["equiv_logits"] = leaves_apart([logits_m], [logits])[1]
+    a["equiv_coords"] = leaves_apart([coords_m], [coords @ q.T + shift])[1]
+    plan = build_step(arch, arch.cell("full_graph_sm"))
+    run = egnn_steps(plan, model, batch, n=1)
+    ref_state = plan.optimizer.init(ref.tree())
+    ref, _, ref_loss = plan.fn(ref, ref_state, host)
+    a["step_loss"] = (float(run["losses"][0]), float(ref_loss))
+    a["step_nonfinite_equal"], a["step_err"] = leaves_apart(
+        tree_flatten(run["model"].tree()), tree_flatten(ref.tree()))
+    a["walls"], a["peak_gib"] = run["walls"], run["peak_gib"]
+    check(a["logits"] <= GNN_TOL and a["coords"] <= GNN_TOL
+          and a["loss_err"] <= GNN_TOL and a["grad_err"] <= GNN_TOL,
+          f"full_graph_sm card vs CPU within {GNN_TOL}: {a}")
+    check(a["nonfinite_equal"] and a["step_nonfinite_equal"],
+          f"full_graph_sm: the non-finite leaves card == CPU: {a}")
+    # AdamW's first step moves an element by its rate (3e-4) whatever |g|,
+    # so a gradient within rounding of 0 may step the other way on the
+    # card: twice the rate bounds that
+    check(a["step_err"] <= 2 * 3e-4 + GNN_TOL,
+          f"full_graph_sm step card vs CPU within 2·lr: {a}")
+    check(a["rerun_bitwise"], "full_graph_sm: two card runs bitwise")
+    check(a["equiv_logits"] <= GNN_TOL and a["equiv_coords"] <= GNN_TOL,
+          f"full_graph_sm E(n) within {GNN_TOL}: {a}")
+    res["full_graph_sm"] = a
+    del model, ref, run, grads, grads2, want_grads
+
+    # (b) minibatch_lg: a sampled subgraph of a synthetic Reddit
+    d = arch.cell("minibatch_lg").dims
+    t0 = time.perf_counter()
+    g = synthetic_graph(GraphSpec(d["n_nodes"], GNN_REDDIT_EDGES,
+                                  d["d_feat"], arch.config.d_out))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g["edges"], d["n_nodes"],
+                              (d["fanout1"], d["fanout2"]), seed=0)
+    csr_s = time.perf_counter() - t0
+    seeds = np.random.default_rng(0).choice(d["n_nodes"], d["batch_nodes"],
+                                            replace=False)
+    t0 = time.perf_counter()
+    host = sampler.sample(seeds, g["feat"], g["coord"], g["labels"])
+    sample_s = time.perf_counter() - t0
+    del g, sampler
+    used = np.union1d(np.unique(host["edges"]),
+                      np.arange(d["batch_nodes"]))
+    real = int(((host["edges"][0] != 0) | (host["edges"][1] != 0)).sum())
+    b = {"graph_edges": GNN_REDDIT_EDGES, "gen_s": gen_s, "csr_s": csr_s,
+         "sample_s": sample_s, "budget": host["feat"].shape,
+         "edge_budget": host["edges"].shape[1], "nodes_used": used.size,
+         "edges_real": real}
+    batch = batches["minibatch_lg"] = on_device(host, dev)
+    run = egnn_steps(build_step(arch, arch.cell("minibatch_lg")),
+                     model_for("minibatch_lg"), batch)
+    b.update(losses=[float(x) for x in run["losses"]], walls=run["walls"],
+             peak_gib=run["peak_gib"])
+    res["minibatch_lg"] = b
+    del run, host
+
+    # (c) ogb_products at its full node count and width, edges cut; the
+    # peak first on the graph's first GNN_PRODUCTS_PROBES edges
+    d = arch.cell("ogb_products").dims
+    host, gen_s = padded_graph(d["n_nodes"], GNN_PRODUCTS_EDGES, d["d_feat"],
+                               arch.config.d_out)
+    batch = on_device(host, dev)
+    del host
+    plan = build_step(arch, arch.cell("ogb_products"))
+    probes = [egnn_steps(plan, model_for("ogb_products"), dict(
+        batch, edges=batch["edges"][:, :e]), n=1)["peak_gib"]
+        for e in GNN_PRODUCTS_PROBES]
+    (e1, e2), (p1, p2) = GNN_PRODUCTS_PROBES, probes
+    per_edge = (p2 - p1) / (e2 - e1)
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30 \
+        if dev.type == "cuda" else float("nan")
+    run = egnn_steps(plan, model_for("ogb_products"), batch)
+    res["ogb_products"] = {
+        "graph_edges": GNN_PRODUCTS_EDGES,
+        "edges": int(batch["edges"].shape[1]),
+        "nodes": int(batch["feat"].shape[0]), "gen_s": gen_s,
+        "losses": [float(x) for x in run["losses"]], "walls": run["walls"],
+        "peak_gib": run["peak_gib"], "probes": dict(zip((e1, e2), probes)),
+        "kib_per_edge": per_edge * 2**20, "total_gib": total,
+        "fits_80pc": (0.8 * total - (p1 - per_edge * e1)) / per_edge
+        if per_edge > 0 else float("nan")}
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) molecule: the batched forward against a loop over the graphs
+    d = arch.cell("molecule").dims
+    host = molecules_batch(d["batch"], d["n_nodes"], d["n_edges"],
+                           d["d_feat"])
+    check(specs_match("molecule", host),
+          "molecule: the batch has input_specs' shapes")
+    batch = batches["molecule"] = on_device(host, dev)
+    model = model_for("molecule")
+    logits, coords = model.forward_batched(batch)
+    looped = [model.forward({k: v[i] for k, v in batch.items()
+                             if k != "labels"}) for i in range(d["batch"])]
+    m = {"loop_logits": leaves_apart(
+            [logits], [torch.stack([x[0] for x in looped])])[1],
+         "loop_coords": leaves_apart(
+            [coords], [torch.stack([x[1] for x in looped])])[1]}
+    check(m["loop_logits"] <= 1e-5 and m["loop_coords"] <= 1e-5,
+          f"molecule: batched forward == the loop within 1e-5: {m}")
+    run = egnn_steps(build_step(arch, arch.cell("molecule")), model, batch)
+    m.update(losses=[float(x) for x in run["losses"]], walls=run["walls"],
+             peak_gib=run["peak_gib"])
+    res["molecule"] = m
+    del run, model
+
+    # (e) the meshed plans on a one-rank NCCL mesh against the no-mesh ones
+    mesh = make_local_mesh((1, 1), ("data", "model"), device=dev)
+    res["mesh"] = f"{mesh.device_type} mesh {tuple(mesh.shape)} over " \
+                  f"{mesh.mesh_dim_names}"
+    check(mesh.device_type == "cuda", f"an NCCL mesh: {res['mesh']}")
+    res["mesh_pairs"] = {}
+    for cell_name, batch in batches.items():
+        cell = arch.cell(cell_name)
+        plain_model = model_for(cell_name)
+        mesh_plan = build_step(arch, cell, mesh)
+        mesh_model = place_model(model_for(cell_name),
+                                 mesh_plan.in_shardings[0])
+        plain = egnn_steps(build_step(arch, cell), plain_model, batch, n=1)
+        meshed = egnn_steps(mesh_plan, mesh_model, batch, n=1)
+        got = [p.full_tensor() for p in tree_flatten(meshed["model"].tree())]
+        want = tree_flatten(plain["model"].tree())
+        pair = {"loss_bitwise": nan_equal(meshed["losses"][0],
+                                          plain["losses"][0]),
+                "params_bitwise": all(nan_equal(x, y)
+                                      for x, y in zip(got, want)),
+                "walls": (plain["walls"][0], meshed["walls"][0]),
+                "peak_gib": (plain["peak_gib"], meshed["peak_gib"])}
+        check(pair["loss_bitwise"] and pair["params_bitwise"],
+              f"{cell_name}: meshed step == no-mesh step bitwise: {pair}")
+        res["mesh_pairs"][cell_name] = pair
+        del plain, meshed, got, want, plain_model, mesh_model
+    batches.clear()
+
+    # (f) the launcher's smoke run on the card
+    t0 = time.perf_counter()
+    out, before, after = launch_train.main(
+        ["--arch", "egnn", "--smoke", "--steps", str(GNN_SMOKE_STEPS),
+         "--device", dev.type])
+    res["train"] = {"losses": out.losses, "before": before, "after": after,
+                    "wall_s": time.perf_counter() - t0}
+    check(len(out.losses) == GNN_SMOKE_STEPS
+          and all(math.isfinite(x) for x in out.losses + [before, after]),
+          f"launch.train --arch egnn --smoke: finite losses {res['train']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_gnn(gn, card) -> None:
+    """Phase 28's lines: each cell's checks, walls and peaks beside the
+    card's name and power limit."""
+    a = gn["full_graph_sm"]
+    log(f"    full_graph_sm ({a['nodes']} nodes with the dummy, {a['edges']} "
+        f"edges padded by pad_edges, {a['self_loops']} self-loops): card vs "
+        f"CPU from the same weights, of max(1, |x|): logits {a['logits']!r}, "
+        f"coords {a['coords']!r}, loss {a['loss']} ({a['loss_err']!r}), "
+        f"gradients {a['grad_err']!r} (limit {GNN_TOL}); non-finite leaves "
+        f"{a['nonfinite']} of {a['leaves']}, equal on card and CPU "
+        f"{a['nonfinite_equal']}; two card runs bitwise "
+        f"{a['rerun_bitwise']}; E(n): logits {a['equiv_logits']!r}, coords "
+        f"{a['equiv_coords']!r} (limit {GNN_TOL})")
+    log(f"    full_graph_sm build_step: loss card / CPU {a['step_loss']}, "
+        f"params {a['step_err']!r} apart (limit 2 * 3e-4 + {GNN_TOL}), "
+        f"non-finite equal {a['step_nonfinite_equal']}; step wall "
+        f"{a['walls'][0]:.4f} s, peak {a['peak_gib']:.2f} GiB on {card}")
+    b = gn["minibatch_lg"]
+    log(f"    minibatch_lg: synthetic Reddit of {b['graph_edges']} edges "
+        f"(cut from 114615892) made in {b['gen_s']:.2f} s host, CSR "
+        f"{b['csr_s']:.2f} s, sampler {b['sample_s']:.3f} s host for "
+        f"{b['budget']} features, {b['nodes_used']} nodes used, "
+        f"{b['edges_real']} of {b['edge_budget']} edges sampled; step walls "
+        f"{[round(x, 4) for x in b['walls']]} s, peak {b['peak_gib']:.2f} "
+        f"GiB, losses {b['losses']} on {card}")
+    o = gn["ogb_products"]
+    log(f"    ogb_products: {o['nodes']} nodes, {o['edges']} edges (cut from "
+        f"61859140 to {o['graph_edges']}, padded), graph {o['gen_s']:.2f} s "
+        f"host; step walls {[round(x, 4) for x in o['walls']]} s, peak "
+        f"{o['peak_gib']:.2f} GiB of {o['total_gib']:.2f}, losses "
+        f"{o['losses']} on {card}; peaks at the probes' edge counts "
+        f"{o['probes']} GiB: {o['kib_per_edge']:.3f} KiB an edge, "
+        f"{o['fits_80pc']:.0f} edges would fill 80 % of the card")
+    m = gn["molecule"]
+    log(f"    molecule (128 graphs x 30 nodes, 64 edges): batched forward vs "
+        f"the loop, logits {m['loop_logits']!r}, coords {m['loop_coords']!r} "
+        f"(limit 1e-5); step walls {[round(x, 4) for x in m['walls']]} s, "
+        f"peak {m['peak_gib']:.2f} GiB, losses {m['losses']} on {card}")
+    for name, pr in gn["mesh_pairs"].items():
+        log(f"    {name} on the {gn['mesh']}: loss and params == no mesh "
+            f"bitwise {pr['loss_bitwise'] and pr['params_bitwise']}; walls "
+            f"(s) no mesh / mesh {tuple(round(x, 4) for x in pr['walls'])}, "
+            f"peak GiB {tuple(round(x, 2) for x in pr['peak_gib'])}")
+    t = gn["train"]
+    log(f"    launch.train --arch egnn --smoke --steps {GNN_SMOKE_STEPS}: "
+        f"losses {[round(x, 5) for x in t['losses']]}, step 0's batch "
+        f"{t['before']!r} -> {t['after']!r}, {t['wall_s']:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5567,6 +5958,19 @@ def main() -> int:
         f"({n8_split} on \"split\"), kernel 5 {n5}")
     flash_row["launches"] += n8
     router_row["launches"] += n5
+
+    # the GNN family gets the card to itself
+    del ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[28] the GNN family: EGNN at full width (4 layers, hidden 64, "
+        "d_out 47; f32, TF32 off) on its four cells through build_step, "
+        "no kernel on the path")
+    t_phase = time.perf_counter()
+    gn = phase_gnn(dev)
+    gn["wall_s"] = time.perf_counter() - t_phase
+    log_gnn(gn, card)
+    log(f"    phase wall {gn['wall_s']:.1f}s")
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

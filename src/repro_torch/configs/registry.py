@@ -6,12 +6,15 @@ shapes.
 Ported: the LM configs (dense ``llama3_2_1b``, ``codeqwen1_5_7b``,
 ``qwen1_5_110b``; MoE ``qwen3_moe_30b_a3b``; MoE + MLA
 ``deepseek_v2_236b``), the recsys configs (``dlrm_mlperf``, ``fm``,
-``xdeepfm``, ``bert4rec``) and the paper's CF config (``cf_movielens``,
-with the CF shape set); the GNN family raises ``NotImplementedError``
-naming its ROADMAP item.  ``input_specs`` gives
-``TensorSpec(shape, dtype)`` stand-ins, as the reference gives
-``jax.ShapeDtypeStruct``s: nothing is allocated.  ``ASSIGNED`` names the
-reference's 40-cell pool (``cf_movielens`` is extra).
+``xdeepfm``, ``bert4rec``), the GNN config (``egnn``, with the GNN
+shape set: a full graph at Cora and ogbn-products size, a Reddit-scale
+sampled minibatch and batched molecules) and the paper's CF config
+(``cf_movielens``, with the CF shape set): every config of the
+reference.  ``input_specs`` gives ``TensorSpec(shape, dtype)``
+stand-ins, as the reference gives ``jax.ShapeDtypeStruct``s: nothing is
+allocated.  ``ASSIGNED`` names the reference's 40-cell pool
+(``cf_movielens`` is extra); ``all_archs`` and ``all_cells`` walk the
+registry as the reference's do.
 """
 
 from __future__ import annotations
@@ -67,6 +70,19 @@ def lm_shapes(full_attention: bool = True) -> Tuple[ShapeCell, ...]:
     )
 
 
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "train",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeCell("minibatch_lg", "train",
+              {"n_nodes": 232965, "n_edges": 114615892,
+               "batch_nodes": 1024, "fanout1": 15, "fanout2": 10,
+               "d_feat": 602}),
+    ShapeCell("ogb_products", "train",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
+    ShapeCell("molecule", "train",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 11}),
+)
+
 RECSYS_SHAPES = (
     ShapeCell("train_batch", "train", {"batch": 65536}),
     ShapeCell("serve_p99", "serve", {"batch": 512}),
@@ -86,17 +102,16 @@ CF_SHAPES = (
 
 
 def input_specs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
-    """Model inputs of ``cell`` as ``TensorSpec``s (the LM, recsys and CF
-    families)."""
+    """Model inputs of ``cell`` as ``TensorSpec``s."""
     if arch.kind == "lm":
         return _lm_inputs(arch.config, cell)
+    if arch.kind == "gnn":
+        return _gnn_inputs(arch.config, cell)
     if arch.kind == "recsys":
         return _recsys_inputs(arch, cell)
     if arch.kind == "cf":
         return _cf_inputs(arch.config, cell)
-    raise NotImplementedError(
-        f"{arch.kind} inputs are not ported yet (ROADMAP Queue 1 item "
-        f"11, egnn)")
+    raise ValueError(arch.kind)
 
 
 def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
@@ -116,6 +131,44 @@ def _lm_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
                 "cache": {key: TensorSpec(tuple(val.shape), val.dtype)
                           for key, val in cache.items()}}
     raise ValueError(cell.step)
+
+
+def pad_edges(e: int, mult: int = 1024) -> int:
+    """Edge lists shard over all 512 devices → pad to a clean multiple.
+
+    Padding edges are (dummy → dummy) self-loops on one extra node whose
+    label is -1, so they contribute nothing to the loss."""
+    return ((e + mult - 1) // mult) * mult
+
+
+def _gnn_inputs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    """The EGNN inputs (reference ``registry.py:136``): B graphs for
+    ``molecule``; the sampler's padded subgraph for ``minibatch_lg``,
+    sized b·(1 + f1 + f1·f2) + 1 nodes (``NeighborSampler.node_budget``
+    gives one fewer) and the padded edge budget; else the whole graph
+    plus the dummy node, its edges padded by :func:`pad_edges`."""
+    d = cell.dims
+    f32, i32 = torch.float32, torch.int32
+    if cell.name == "molecule":
+        b, n, e = d["batch"], d["n_nodes"], d["n_edges"]
+        return {"feat": TensorSpec((b, n, d["d_feat"]), f32),
+                "coord": TensorSpec((b, n, 3), f32),
+                "edges": TensorSpec((b, 2, e), i32),
+                "labels": TensorSpec((b, n), i32)}
+    if cell.name == "minibatch_lg":
+        b = d["batch_nodes"]
+        f1, f2 = d["fanout1"], d["fanout2"]
+        n_budget = b * (1 + f1 + f1 * f2) + 1
+        e_budget = pad_edges(b * (f1 + f1 * f2))
+        return {"feat": TensorSpec((n_budget, d["d_feat"]), f32),
+                "coord": TensorSpec((n_budget, 3), f32),
+                "edges": TensorSpec((2, e_budget), i32),
+                "labels": TensorSpec((n_budget,), i32)}
+    n, e = d["n_nodes"] + 1, pad_edges(d["n_edges"])
+    return {"feat": TensorSpec((n, d["d_feat"]), f32),
+            "coord": TensorSpec((n, 3), f32),
+            "edges": TensorSpec((2, e), i32),
+            "labels": TensorSpec((n,), i32)}
 
 
 def _recsys_inputs(arch: ArchSpec, cell: ShapeCell) -> Dict[str, Any]:
@@ -156,19 +209,30 @@ ASSIGNED = (
     "deepseek_v2_236b", "egnn", "dlrm_mlperf", "fm", "xdeepfm", "bert4rec",
 )
 
-_PORTED = ("llama3_2_1b", "codeqwen1_5_7b", "qwen1_5_110b",
-           "qwen3_moe_30b_a3b", "deepseek_v2_236b", "dlrm_mlperf", "fm",
-           "xdeepfm", "bert4rec", "cf_movielens")
-_WAITING = {
-    "egnn": "the GNN family (ROADMAP Queue 1 item 11, egnn)",
-}
+_ARCH_MODULES = ASSIGNED + ("cf_movielens",)
 
 
 def get_arch(name: str) -> ArchSpec:
     key = name.replace("-", "_").replace(".", "_")
-    if key in _WAITING:
-        raise NotImplementedError(f"{name}: not ported yet — {_WAITING[key]}")
-    if key not in _PORTED:
+    if key not in _ARCH_MODULES:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{key}").ARCH
+
+
+def all_archs() -> Dict[str, ArchSpec]:
+    """Every registered arch by name, in the reference's order."""
+    return {name: get_arch(name) for name in _ARCH_MODULES}
+
+
+def all_cells(include_skipped: bool = False):
+    """Every assigned (arch, shape) pair — the 40-cell grid (less the
+    skipped cells unless ``include_skipped``)."""
+    out = []
+    for name in ASSIGNED:
+        arch = get_arch(name)
+        for cell in arch.shapes:
+            if cell.skip and not include_skipped:
+                continue
+            out.append((arch, cell))
+    return out
 

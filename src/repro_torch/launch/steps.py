@@ -5,20 +5,23 @@ example input shapes and, on a mesh, its in / out shardings.
 The LM steps of the reference's ``_lm_step`` (``steps.py:59``: train at
 :72, prefill at :115, decode at :128) and the recsys steps of its
 ``_recsys_step`` (``steps.py:199``: train at :218, serve at :236 —
-BERT4Rec's through ``serve_scores`` — and retrieval at :250).  The LM
-steps serve and train every LM config of the registry: dense, MoE
+BERT4Rec's through ``serve_scores`` — and retrieval at :250), and the
+GNN train step of its ``_gnn_step`` (``steps.py:149``) for every cell
+of EGNN (a full graph, a sampled subgraph, a batch of molecules).  The
+LM steps serve and train every LM config of the registry: dense, MoE
 (Qwen3-30B-A3B) and MoE + MLA (DeepSeek-V2, whose decode cache is the
 latent c_kv / k_rope).  The step functions take the model
 (``repro_torch.models.transformer.Transformer``, ``models.dlrm.DLRM``,
 ``models.fm.FM``, ``models.xdeepfm.XDeepFM``, ``models.bert4rec.
-BERT4Rec``) where the reference takes its parameter tree.  A train step
+BERT4Rec``, ``models.egnn.EGNN`` built at the cell's ``d_feat``) where
+the reference takes its parameter tree.  A train step
 is ``fn(model, opt_state, batch) → (model, opt_state, loss)``: the
 gradient of the model's parameter tree (the LM's mean over
 ``cfg.microbatch`` µbatches), then ``plan.optimizer``'s update written
 into the model's parameters (build the state with
 ``plan.optimizer.init(model.tree())``).
 
-Without a mesh (``mesh=None``) the LM and recsys steps run on one
+Without a mesh (``mesh=None``) the LM, GNN and recsys steps run on one
 device and ``in_shardings`` / ``out_shardings`` are None.  With a
 ``DeviceMesh`` (every rank calls, SPMD) they are the reference's
 ``NamedSharding`` trees: parameters by the model's ``param_specs``,
@@ -49,12 +52,21 @@ rank, of which each rank takes its rows.
   the sharded tables' blocks looked up through the differentiable
   exchange; the dense nets data-parallel; serve and retrieval return
   DTensors on ``out_shardings``.
+* The GNN train step (the reference's ``_gnn_step``, ``steps.py:149``;
+  ``make_ctx(mesh, dp_over_all=True)``): for ``molecule`` the batch's
+  graphs split over the batch axes, the loss the global batch's Σ NLL
+  over its labelled-node count (each graph counted once, whatever the
+  ``model`` axis holds) and the gradients summed over the batch axes;
+  for every other cell the node tensors whole on every rank and the edge
+  list split over every mesh axis, each rank's messages summed into a
+  whole node table and those tables summed over all ranks
+  (``models.egnn``'s collectives), the node-side gradients whole on
+  every rank and the edge-side ones summed there.
 
 The CF steps of ``_cf_step`` (``steps.py:265``) run the mesh engines of
 :mod:`repro_torch.core.engine` on ``torch.distributed`` over the mesh
 given to ``build_step`` (None: the engine's ``default_mesh`` on the
-batch's device), sharding over its first axis.  The GNN family raises
-``NotImplementedError`` naming its ROADMAP item (egnn).
+batch's device), sharding over its first axis.
 """
 
 from __future__ import annotations
@@ -96,18 +108,18 @@ def _ns(mesh, spec) -> shd.NamedSharding:
 
 
 def build_step(arch: ArchSpec, cell: ShapeCell, mesh=None) -> StepPlan:
-    """``mesh``: a ``DeviceMesh`` (the LM and recsys steps on it, SPMD),
+    """``mesh``: a ``DeviceMesh`` (the LM, GNN and recsys steps on it, SPMD),
     or None (one device; the CF steps then take the engine's default
     mesh)."""
     if arch.kind == "lm":
         return _lm_step(arch, cell, mesh)
+    if arch.kind == "gnn":
+        return _gnn_step(arch, cell, mesh)
     if arch.kind == "recsys":
         return _recsys_step(arch, cell, mesh)
     if arch.kind == "cf":
         return _cf_step(arch, cell, mesh)
-    raise NotImplementedError(
-        f"{arch.kind} steps are not ported yet (ROADMAP Queue 1 item 11, "
-        f"egnn)")
+    raise ValueError(arch.kind)
 
 
 def place_model(model, shardings):
@@ -310,6 +322,95 @@ def _lm_serve_mesh(arch: ArchSpec, cell: ShapeCell, mesh,
                     in_shardings=(params_sh, {"tokens": tok_sh,
                                               "cache": cache_sh}),
                     out_shardings=(logits_sh, cache_sh))
+
+
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+
+def _split(x: torch.Tensor, mesh, axes, dim: int, key: str) -> torch.Tensor:
+    """This rank's block of ``x`` split evenly on ``dim`` over ``axes``
+    (the first axis outermost, DTensor's layout)."""
+    n, r = coll.axis_size(mesh, axes), coll.axis_rank(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"{key}: {x.shape[dim]} do not split over {n} "
+                         f"ranks")
+    return x.chunk(n, dim=dim)[r]
+
+
+def _gnn_step(arch: ArchSpec, cell: ShapeCell, mesh) -> StepPlan:
+    """One AdamW step of EGNN (the reference's ``_gnn_step``, ``steps.py:
+    149-190``), ``fn(model, opt_state, batch) → (model, opt_state,
+    loss)``; the model is built at the cell's ``d_feat``."""
+    from repro_torch.models import egnn as eg
+    if cell.step != "train":
+        raise ValueError(cell.step)
+    name = f"{arch.name}:{cell.name}"
+    cfg = dataclasses.replace(arch.config, d_feat=cell.dims["d_feat"])
+    inputs = input_specs(arch, cell)
+    opt = get_optimizer(arch.optimizer)
+    if mesh is None:
+        def step(model, opt_state, batch):
+            """One AdamW step on the model's loss."""
+            fn = make_train_step(lambda p, b: model.loss(b), opt)
+            _, opt_state, loss = fn(model.tree(), opt_state, batch)
+            return model, opt_state, loss
+        return StepPlan(name=name, fn=step, example_args=inputs,
+                        optimizer=opt)
+
+    sc = shd.make_ctx(mesh, dp_over_all=True)
+    baxes = shd.batch_axes(mesh)
+    pspecs = eg.param_specs(cfg)
+    params_sh = shd.to_shardings(mesh, pspecs)
+    opt_sh = shd.to_shardings(mesh, opt.state_specs(pspecs))
+    molecule = cell.name == "molecule"
+    if molecule:
+        batch_sh = {k: _ns(mesh, P(baxes, *((None,) * (len(v.shape) - 1))))
+                    for k, v in inputs.items()}
+
+        def rows(batch, device):
+            return {k: _split(torch.as_tensor(v, device=device), mesh,
+                              baxes, 0, k) for k, v in batch.items()}
+    else:
+        # nodes replicated, edge list sharded over every rank
+        eaxes = shd.all_axes(mesh)
+        batch_sh = {"feat": _ns(mesh, P(None, None)),
+                    "coord": _ns(mesh, P(None, None)),
+                    "edges": _ns(mesh, P(None, eaxes)),
+                    "labels": _ns(mesh, P(None))}
+        sc = dataclasses.replace(sc, batch=eaxes)
+        edge_dim = {"edges": 1, "edge_feat": 0}
+
+        def rows(batch, device):
+            out = {k: torch.as_tensor(v, device=device)
+                   for k, v in batch.items()}
+            for k, dim in edge_dim.items():
+                if k in out:
+                    out[k] = _split(out[k], mesh, eaxes, dim, k)
+            return out
+
+    def step(model, opt_state, batch):
+        """One AdamW step of the meshed model on the global ``batch``;
+        the loss is the global batch's, the same on every rank."""
+        _meshed(model)
+        params = model.tree()
+        local = _local_leaves(params)
+        with torch.enable_grad():
+            total, count = eg.nll_terms(model.cfg, local,
+                                        rows(batch, model.device), sc,
+                                        shard_edges=not molecule)
+            if molecule:
+                total = coll.reduce_from(total, mesh, baxes)
+                count = coll.all_reduce_sum(count, mesh, baxes)
+            loss = total / torch.clamp_min(count, 1)
+            loss.backward()
+        if molecule:
+            shd.reduce_gradients(local, params_sh, baxes)
+        opt.update(params, _dtensor_grads(params, local), opt_state)
+        return model, opt_state, loss.detach()
+    return StepPlan(name=name, fn=step, example_args=inputs, optimizer=opt,
+                    in_shardings=(params_sh, opt_sh, batch_sh),
+                    out_shardings=(params_sh, opt_sh, _ns(mesh, P())))
 
 
 # ---------------------------------------------------------------------------

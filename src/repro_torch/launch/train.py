@@ -1,19 +1,20 @@
 """Training launcher of the port (counterpart of ``repro.launch.train``):
-any registered LM (dense, MoE or MLA) or recsys arch through the
+any registered LM (dense, MoE or MLA), GNN or recsys arch through the
 fault-tolerant loop, at world size 1, on the card unless ``--device cpu``
 asks for the CPU.
 
     python -m repro_torch.launch.train --arch llama3_2_1b --smoke --steps 30
+    python -m repro_torch.launch.train --arch egnn --smoke --steps 20
     python -m repro_torch.launch.train --arch bert4rec --smoke --steps 5 \\
         --device cpu [--ckpt-dir D] [--compression]
 
 The batches are the reference's ``_loss_and_batch``: LM 4 × 64 tokens,
-BERT4Rec 16 sequences, the CTR models 32 rows, seeded by the step index.
-Weights come from a ``torch.Generator`` seeded with 0 (the reference's
-shapes and scales, not its numbers).  It prints the training losses and,
-on step 0's batch, the loss before and after training.  The GNN family
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 11, egnn); the CF
-arch trains nothing (its fit is ``launch.serve``'s).
+EGNN one fixed synthetic graph of 256 nodes and 1024 edges, BERT4Rec 16
+sequences, the CTR models 32 rows, seeded by the step index.  Weights
+come from a ``torch.Generator`` seeded with 0 (the reference's shapes
+and scales, not its numbers).  It prints the training losses and, on
+step 0's batch, the loss before and after training.  The CF arch trains
+nothing (its fit is ``launch.serve``'s).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import batches as db
+from repro_torch.data import graph as dg
 from repro_torch.device import resolve_device
 from repro_torch.models.common import count_params
 from repro_torch.training.compression import init_compression
@@ -39,8 +41,8 @@ def _on(batch, dev):
 
 
 def loss_and_batch(arch, cfg, seed_base: int, dev):
-    """(loss_fn(params, batch), batches(step), params) for an LM or recsys
-    arch (the reference's ``_loss_and_batch``)."""
+    """(loss_fn(params, batch), batches(step), params) for an LM, GNN or
+    recsys arch (the reference's ``_loss_and_batch``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     if arch.kind == "lm":
         from repro_torch.models import transformer as tx
@@ -53,9 +55,14 @@ def loss_and_batch(arch, cfg, seed_base: int, dev):
                        dev)
         return loss_fn, batches, tx.init_params(cfg, gen)
     if arch.kind == "gnn":
-        raise NotImplementedError(
-            f"{arch.name}: the GNN family is not ported yet (ROADMAP Queue 1 "
-            f"item 11, egnn)")
+        from repro_torch.models import egnn
+        batch = _on(dg.synthetic_graph(dg.GraphSpec(
+            n_nodes=256, n_edges=1024, d_feat=cfg.d_feat,
+            n_classes=cfg.d_out)), dev)
+
+        def loss_fn(p, b):
+            return egnn.loss_fn(cfg, p, b)
+        return loss_fn, (lambda i: batch), egnn.init_params(cfg, gen)
     if arch.kind == "recsys":
         model = importlib.import_module(f"repro_torch.models.{arch.model}")
         if arch.model == "bert4rec":

@@ -19,7 +19,8 @@ becomes the port's ``Transformer`` module on a device, so both packages
 compute on the same weights.  :func:`recsys_from_reference` does it for
 the recsys models (DLRM, FM, xDeepFM and BERT4Rec — also
 :func:`bert4rec_from_reference`), whose trees hold lists too (xDeepFM's
-``"cin"``, BERT4Rec's ``"blocks"``).  :func:`opt_state_from_reference`
+``"cin"``, BERT4Rec's ``"blocks"``), and :func:`egnn_from_reference` for
+EGNN (its ``"layers"`` list).  :func:`opt_state_from_reference`
 and :func:`opt_state_to_numpy` carry an optimizer state tree across
 (``{"step", "m", "v"}``, ``{"step", "acc"}``, ``{"step"[, "mu"]}``), so
 both packages train from one state.
@@ -136,6 +137,17 @@ def bert4rec_from_reference(cfg, params: dict, device="cuda"):
     if not isinstance(cfg, BERT4RecConfig):
         raise TypeError(f"need a BERT4RecConfig, got {type(cfg)}")
     return recsys_from_reference(cfg, params, device)
+
+
+def egnn_from_reference(cfg, params: dict, device="cuda"):
+    """Reference EGNN parameter tree (``embed_in``, ``layers`` — a list of
+    {phi_e, phi_x, phi_h} MLPs — and ``readout``, host or jax arrays,
+    f32) → the port's ``EGNN`` for ``cfg`` on ``device`` with the same
+    parameter paths and values."""
+    from repro_torch.models.egnn import EGNN, EGNNConfig
+    if not isinstance(cfg, EGNNConfig):
+        raise TypeError(f"need an EGNNConfig, got {type(cfg)}")
+    return EGNN(cfg, _tensor_tree(params, resolve_device(device)))
 
 
 _OPT_KEYS = ({"step", "m", "v"}, {"step", "acc"}, {"step"},

@@ -549,9 +549,43 @@ def recsys_mesh_task(rank, world, p):
     return out
 
 
+def egnn_mesh_task(rank, world, p):
+    """EGNN's meshed ``build_step`` train step for each case of
+    ``p["cases"]`` whose mesh has ``world`` ranks: ``p["steps"]`` AdamW
+    steps from the reference's parameters on one global batch (the
+    losses; the updated parameters gathered whole), and the plan's batch
+    shardings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.checkpoint import tree_flatten
+    from repro_torch.launch import steps
+    from repro_torch.state import egnn_from_reference
+    meshes = _meshes([m for m in p["meshes"] if np.prod(m[0]) == world])
+    out = {}
+    for (cell_name, shape), case in p["cases"].items():
+        if shape not in meshes:
+            continue
+        arch = dataclasses.replace(get_arch("egnn"), config=p["cfg"])
+        cell = dataclasses.replace(arch.cell(cell_name), dims=case["dims"])
+        plan = steps.build_step(arch, cell, meshes[shape])
+        model = steps.place_model(egnn_from_reference(
+            p["cfg"], p["params"], device="cpu"), plan.in_shardings[0])
+        state = plan.optimizer.init(model.tree())
+        losses = []
+        for _ in range(p["steps"]):
+            model, state, loss = plan.fn(model, state, case["batch"])
+            losses.append(float(loss))
+        params = tree_flatten(_full(model.tree()))
+        out[(cell_name, shape)] = {
+            "losses": losses, "step": int(state["step"]),
+            "params": params if rank == 0 else None,
+            "batch_specs": {k: tuple(v.spec)
+                            for k, v in plan.in_shardings[2].items()}}
+    return out
+
+
 TASKS = {"engine": engine_task, "kmeans": kmeans_task,
          "embedding": embedding_task, "restore": restore_task,
          "usercf": usercf_task, "slope": slope_task,
          "compressed_psum": compressed_psum_task,
          "lm_mesh": lm_mesh_task, "lm_serve": lm_serve_task,
-         "recsys_mesh": recsys_mesh_task}
+         "recsys_mesh": recsys_mesh_task, "egnn_mesh": egnn_mesh_task}

@@ -8,10 +8,9 @@ import pytest
 
 # reference names whose code the port has not ported (yet)
 NOT_PORTED = {
-    "configs": {"all_archs", "all_cells"},
+    "configs": set(),
     "core": set(),
-    "data": {"GraphSpec", "NeighborSampler", "molecules_batch",
-             "synthetic_graph"},
+    "data": set(),
     "index": set(),
     "kernels": set(),
     "obs": set(),
