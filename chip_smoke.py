@@ -3597,6 +3597,23 @@ def grad_readings(kern, plain):
     return out
 
 
+def lm_train_cell():
+    """Phase 23's arch and cell: Llama-3.2-1B with ``LM_TRAIN_MICROBATCH``
+    µbatches and remat, train_4k's seq with the batch cut to
+    ``LM_TRAIN_SHAPE``'s."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    b, s = LM_TRAIN_SHAPE
+    arch = get_arch("llama3_2_1b")
+    cfg = dataclasses.replace(arch.config, microbatch=LM_TRAIN_MICROBATCH,
+                              remat=True)
+    arch = dataclasses.replace(arch, config=cfg)
+    return arch, dataclasses.replace(arch.cell("train_4k"),
+                                     name=f"train_4k_b{b}",
+                                     dims={"batch": b, "seq": s})
+
+
 def phase_lm_train(dev):
     """Phase 23: Llama-3.2-1B trained at full width (f32 master weights,
     bf16 compute, AdamW, remat, the tied embedding), train_4k's seq 4096
@@ -3607,7 +3624,6 @@ def phase_lm_train(dev):
     read after."""
     import dataclasses
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.batches import lm_batch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
@@ -3617,18 +3633,13 @@ def phase_lm_train(dev):
     from repro_torch.training.train_loop import take_grads, trainable
 
     b, s = LM_TRAIN_SHAPE
-    arch = get_arch("llama3_2_1b")
-    cfg = dataclasses.replace(arch.config, microbatch=LM_TRAIN_MICROBATCH,
-                              remat=True)
-    arch = dataclasses.replace(arch, config=cfg)
-    plan = build_step(arch, dataclasses.replace(
-        arch.cell("train_4k"), name=f"train_4k_b{b}",
-        dims={"batch": b, "seq": s}))
+    arch, cell = lm_train_cell()
+    cfg = arch.config
+    plan = build_step(arch, cell)
     out = {"reduced": [f"train_4k batch {arch.cell('train_4k').dims['batch']}"
                        f" -> {b} ({LM_TRAIN_MICROBATCH} µbatches of "
                        f"{b // LM_TRAIN_MICROBATCH})",
                        f"{LM_TRAIN_STEPS} steps"]}
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = tx.Transformer(cfg, tx.init_params(cfg, gen))
     out["params"] = cm.count_params(model)
@@ -3680,6 +3691,11 @@ def phase_lm_train(dev):
 
     state = plan.optimizer.init(model.tree())
     zero_counts()
+    # the card's peak over the timed steps alone (phase 29 holds the dry
+    # run's estimate to it)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["reset_bytes"] = torch.cuda.memory_allocated()
     losses, walls = [], []
     for i in range(LM_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -3691,7 +3707,8 @@ def phase_lm_train(dev):
     out["first_s"] = walls[0]
     out["warm_s"] = float(np.mean(walls[1:]))
     out["tokens_per_s"] = b * s / out["warm_s"]
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_gib"] = out["peak_bytes"] / 2**30
     out["launches"] = {"forward": flash_attention.launches,
                        "backward": flash_attention_bwd.launches}
     out["bwd_routes"] = dict(flash_attention_bwd.routes)
@@ -4986,6 +5003,7 @@ def egnn_steps(plan, model, batch, n=2):
     state = plan.optimizer.init(model.tree())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_bytes = torch.cuda.memory_allocated()
     losses, walls = [], []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -4993,8 +5011,10 @@ def egnn_steps(plan, model, batch, n=2):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         losses.append(loss.detach())
+    peak = torch.cuda.max_memory_allocated()
     return {"losses": losses, "walls": walls, "model": model,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "peak_gib": peak / 2**30, "peak_bytes": peak,
+            "reset_bytes": reset_bytes}
 
 
 def phase_gnn(dev):
@@ -5152,7 +5172,9 @@ def phase_gnn(dev):
         "edges": int(batch["edges"].shape[1]),
         "nodes": int(batch["feat"].shape[0]), "gen_s": gen_s,
         "losses": [float(x) for x in run["losses"]], "walls": run["walls"],
-        "peak_gib": run["peak_gib"], "probes": dict(zip((e1, e2), probes)),
+        "peak_gib": run["peak_gib"], "peak_bytes": run["peak_bytes"],
+        "reset_bytes": run["reset_bytes"],
+        "probes": dict(zip((e1, e2), probes)),
         "kib_per_edge": per_edge * 2**20, "total_gib": total,
         "fits_80pc": (0.8 * total - (p1 - per_edge * e1)) / per_edge
         if per_edge > 0 else float("nan")}
@@ -5273,6 +5295,98 @@ def log_gnn(gn, card) -> None:
     log(f"    launch.train --arch egnn --smoke --steps {GNN_SMOKE_STEPS}: "
         f"losses {[round(x, 5) for x in t['losses']]}, step 0's batch "
         f"{t['before']!r} -> {t['after']!r}, {t['wall_s']:.2f} s")
+
+
+# phase 29: the dry run's estimate against the card's reading
+ESTIMATE_RATIO = (0.90, 1.10)   # estimated / measured peak bytes
+DRYRUN_TIMEOUT = 600            # s, the production-mesh dry run's process
+
+
+def phase_estimates(lt, gn):
+    """Phase 29: the no-mesh dry run (``repro_torch.launch.dryrun.
+    estimate``: the step counted on meta tensors, no data, nothing on the
+    card) of phase 23's Llama-3.2-1B train step and of phase 28's
+    ogb_products step at its edge cut, each held to the card's peak over
+    that phase's timed steps (``reset_peak_memory_stats`` just before
+    them), which ran on the card earlier in this run; the counted flops
+    and matmul flops beside the warm step wall.  Then one cell of the
+    production mesh, Llama-3.2-1B train_4k on (16, 16), through the dry
+    run's CLI in its own process (a fake group of 256 ranks, this
+    machine's torch)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import estimate
+
+    egnn = get_arch("egnn")
+    products = dataclasses.replace(
+        egnn.cell("ogb_products"), dims={
+            **egnn.cell("ogb_products").dims,
+            "n_edges": GNN_PRODUCTS_EDGES})
+    o = gn["ogb_products"]
+    cases = {"llama3_2_1b train step": (lm_train_cell(), lt["peak_bytes"],
+                                        lt["reset_bytes"], lt["warm_s"]),
+             "egnn ogb_products step": ((egnn, products), o["peak_bytes"],
+                                        o["reset_bytes"], o["walls"][-1])}
+    out = {}
+    for name, ((arch, cell), peak, reset, warm_s) in cases.items():
+        rec = estimate(arch, cell)
+        mem = rec["memory"]
+        out[name] = {
+            "estimated_peak": mem["peak_bytes"], "measured_peak": peak,
+            "ratio": mem["peak_bytes"] / peak,
+            "estimated_arguments": mem["argument_bytes"],
+            "allocated_at_reset": reset, "flops": rec["flops_per_device"],
+            "matmul_flops": rec["matmul_flops"], "warm_s": warm_s,
+            "kernels": rec["kernels"], "trace_s": rec["trace_s"],
+            "cell": f"{cell.name} {cell.dims}"}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = os.path.join(tmp, "llama3_2_1b__train_4k.json")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "llama3_2_1b", "--shape", "train_4k", "--out", rec_path],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        check(run.returncode == 0,
+              f"the production-mesh dry run exits 0: {run.stderr[-2000:]}")
+        with open(rec_path) as f:
+            out["mesh"] = json.load(f)
+        out["mesh"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_estimates(es, card) -> None:
+    """Phase 29's lines, checked: each ratio inside ``ESTIMATE_RATIO``."""
+    lo, hi = ESTIMATE_RATIO
+    for name, r in es.items():
+        if name == "mesh":
+            continue
+        log(f"    {name} ({r['cell']}): peak estimated {r['estimated_peak']} "
+            f"B ({r['estimated_peak'] / 2**30:.2f} GiB), measured "
+            f"{r['measured_peak']} B ({r['measured_peak'] / 2**30:.2f} GiB): "
+            f"ratio {r['ratio']!r} (limit [{lo}, {hi}]); arguments "
+            f"estimated {r['estimated_arguments'] / 2**30:.2f} GiB, the "
+            f"card's allocation at the reset "
+            f"{r['allocated_at_reset'] / 2**30:.2f} GiB; counted "
+            f"{r['flops']!r} flops ({r['matmul_flops']!r} in matmuls; "
+            f"kernels {r['kernels']}) beside a warm step of "
+            f"{r['warm_s']:.4f} s, {r['flops'] / r['warm_s'] / 1e12:.1f} "
+            f"counted TFLOP/s on {card}; the trace {r['trace_s']} s host")
+        check(lo <= r["ratio"] <= hi,
+              f"{name}: estimated / measured peak {r['ratio']!r} inside "
+              f"[{lo}, {hi}]")
+    m = es["mesh"]
+    log(f"    {m['arch']} {m['shape']} on the {m['mesh']} mesh "
+        f"({m['n_devices']} fake ranks): per device "
+        f"{m['flops_per_device']!r} flops, {m['matmul_flops']!r} in "
+        f"matmuls, {m['bytes_accessed_per_device']!r} bytes, peak "
+        f"{m['memory']['peak_bytes'] / 2**30:.2f} GiB, collective bytes "
+        f"{ {k: v['bytes'] for k, v in m['collectives'].items()} }; the "
+        f"process {m['wall_s']:.1f} s")
+    check(m["n_devices"] == 256 and m["collective_bytes_total"] > 0,
+          "the production-mesh dry run counts its collectives")
 
 
 def main() -> int:
@@ -5971,6 +6085,14 @@ def main() -> int:
     gn["wall_s"] = time.perf_counter() - t_phase
     log_gnn(gn, card)
     log(f"    phase wall {gn['wall_s']:.1f}s")
+
+    log("[29] the dry run's estimates (launch/dryrun.py: the step counted "
+        "on meta tensors) against the card's readings of phases 23 and 28")
+    t_phase = time.perf_counter()
+    es = phase_estimates(lt, gn)
+    log(f"    {card}")
+    log_estimates(es, card)
+    log(f"    phase wall {time.perf_counter() - t_phase:.1f}s")
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

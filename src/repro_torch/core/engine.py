@@ -60,6 +60,13 @@ from repro_torch.kernels import similarity as ksim
 _DEN_EPS = 1e-8
 
 
+def _on_kernels(x: torch.Tensor) -> bool:
+    """Whether ``x``'s engine work goes through the kernel wrappers: on
+    CUDA tensors, and on a dry run's meta tensors (whose wrappers count
+    the kernels' work)."""
+    return x.device.type in ("cuda", "meta")
+
+
 def default_mesh(device="cuda", axis: str = "data"):
     """One-axis mesh over every rank of the default process group (a
     one-rank NCCL group on the card, gloo on the CPU, when none is
@@ -73,7 +80,11 @@ def _similarity_operand(ratings, gather_src):
     int8 gather source when the matrix round-trips through int8 (integer
     ratings in [0, 127]) and every Gram sum stays exact (``max_value² ·
     D ≤ 2^24``), with its largest rating as ``max_value`` (one device
-    sync); else the f32 matrix and None."""
+    sync); else the f32 matrix and None.  A meta operand (a dry run's: no
+    data to bound) takes the int8 route with None, whose work does not
+    depend on the bound."""
+    if gather_src.device.type == "meta" and gather_src.dtype == torch.int8:
+        return gather_src, None
     if gather_src.dtype == torch.int8 and gather_src.numel():
         bound = int(gather_src.max())
         if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
@@ -109,7 +120,10 @@ def kernel_block_topk(q_src, cand_src, k: int, *, measure: str,
 
 def check_bad(n_bad, max_value) -> None:
     """Read the rows-past-``max_value`` count of a fit's launches (one
-    device sync) and raise if any row was past it."""
+    device sync) and raise if any row was past it.  A meta counter (a dry
+    run's) holds no count to read."""
+    if n_bad.device.type == "meta":
+        return
     if int(n_bad.item()):
         raise ValueError(f"ratings past the fit's max_value {max_value}")
 
@@ -141,7 +155,7 @@ def kernel_topk(ratings: torch.Tensor, k: int, *, measure: str,
 def mesh_axis(mesh, axis: str, x: torch.Tensor):
     """(group, this rank's index on ``axis``, the axis size) — with the
     device check every collective on ``x``'s device relies on."""
-    if x.device.type != mesh.device_type:
+    if x.device.type not in (mesh.device_type, "meta"):
         raise ValueError(f"tensors on {x.device.type} but the mesh's "
                          f"collectives take {mesh.device_type} tensors")
     dim = mesh.mesh_dim_names.index(axis)
@@ -183,8 +197,14 @@ def _rotate(x: torch.Tensor, ranks: list, me: int):
 def _ring_operand(q: torch.Tensor, group):
     """The similarity operand of a ring rank's shard, chosen from global
     facts: int8 only if every shard round-trips through int8, with the
-    largest rating of all shards as ``max_value`` (one ``all_reduce``)."""
+    largest rating of all shards as ``max_value`` (one ``all_reduce``).
+    A meta shard (a dry run's) reduces its flags unread and takes the int8
+    route with None, as :func:`_similarity_operand` does."""
     src = pred_mod.make_gather_source(q)
+    if q.device.type == "meta":
+        flags = torch.zeros((2,), dtype=torch.int64, device=q.device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
+        return src, None
     flags = torch.tensor(
         [int(src.dtype != torch.int8),
          int(src.max()) if src.dtype == torch.int8 and src.numel() else 0],
@@ -209,7 +229,7 @@ def sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,
     shard = _shard(n_users, axis, n)
     q0 = me * shard
     bs = min(block_size, n_users)
-    if ratings.is_cuda:
+    if _on_kernels(ratings):
         s, i = kernel_topk(ratings, k, measure=measure, block_size=bs,
                            beta=beta, q0=q0, n_query=shard)
     else:
@@ -232,7 +252,7 @@ def ring_sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,
     q0 = me * shard
     q = ratings[q0:q0 + shard]
     bs = min(block_size, shard)
-    if ratings.is_cuda:
+    if _on_kernels(ratings):
         q, max_value = _ring_operand(q, group)
         n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
     ranks = axis_ranks(mesh, axis)
@@ -245,7 +265,7 @@ def ring_sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,
         c0 = ((me - step) % n) * shard      # the held shard's first id
         if step + 1 < n:
             reqs, nxt = _rotate(cand, ranks, me)
-        if ratings.is_cuda:
+        if _on_kernels(ratings):
             s, i = kernel_block_topk(q, cand, k, measure=measure,
                                      q_offset=q0, cand_offset=c0,
                                      block_size=bs, beta=beta,
@@ -258,7 +278,7 @@ def ring_sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,
             for req in reqs:
                 req.wait()
             cand = nxt
-    if ratings.is_cuda:
+    if _on_kernels(ratings):
         check_bad(n_bad, max_value)
     return (all_gather_rows(best_s, group, n),
             all_gather_rows(best_i, group, n))

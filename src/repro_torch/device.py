@@ -20,14 +20,19 @@ torch.backends.cudnn.allow_tf32 = False
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+def resolve_device(device=DEFAULT_DEVICE, *,
+                   allow_meta: bool = False) -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    no card is present (no silent CPU fallback)."""
+    no card is present (no silent CPU fallback).  ``"meta"`` (shapes and
+    dtypes, no data) is taken only with ``allow_meta``, which the dry run
+    (``launch/dryrun.py``) passes when it asks for meta by name."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run the plain CPU path")
+    if dev.type == "meta" and allow_meta:
+        return dev
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}; want cuda or cpu")
     return dev

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -30,6 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# counters of a dry run (``launch/op_cost.py``'s ``OpCounter``), each
+# called as fn(kernel, operations, bytes) by a wrapper given meta tensors
+META_LISTENERS: List[Callable[[str, float, float], None]] = []
+
+
+def meta_call(name: str, work) -> None:
+    """A wrapper's call on meta tensors: hand ``work`` (its kernel module's
+    ``(operations, bytes)``) to every listening counter; nothing is built,
+    loaded or launched, and no launch is counted."""
+    ops, n_bytes = work
+    for listener in list(META_LISTENERS):
+        listener(name, float(ops), float(n_bytes))
 
 
 def _nvcc() -> str:

@@ -16,6 +16,9 @@ row's distances never depend on the rows beside it.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +31,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import centroid_distances_ref
 
 centroid_distances_plain = centroid_distances_ref
+
+
+def work(x: torch.Tensor, c: torch.Tensor):
+    """(operations, bytes) of one call on (m, D) × (C, D), as ``PERF.md``'s
+    bound for kernel 3 counts them: 2·m·C·D for the cross term, 2·(m + C)·D
+    for the norms and 3·m·C for the epilogue; rows and centroids read and
+    the (m, C) f32 output written once."""
+    m, d = x.shape
+    n = c.shape[0]
+    return (2.0 * m * n * d + 2.0 * (m + n) * d + 3.0 * m * n,
+            ((m + n) * d + m * n) * 4.0)
 
 
 def _lib():
@@ -56,6 +70,10 @@ def fused_centroid_distances(x: torch.Tensor, c: torch.Tensor
         raise ValueError(f"x on {x.device} but c on {c.device}")
     if x.device.type == "cpu":
         return centroid_distances_plain(x, c)
+    if x.device.type == "meta":
+        _build.meta_call("fused_centroid_distances", work(x, c))
+        return torch.empty((x.shape[0], c.shape[0]), dtype=torch.float32,
+                           device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32 or c.dtype != torch.float32:

@@ -25,6 +25,9 @@ Its route — ``"slots"`` or ``"warp"`` — is counted in
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -175,6 +178,22 @@ def _count_slot(device: torch.device):
     return slots[device.index]
 
 
+def work(table: torch.Tensor, indices: torch.Tensor, *,
+         distinct: int | None = None, n_valid: int | None = None):
+    """(operations, bytes) of one call, as ``PERF.md``'s bound for kernel 9
+    counts them: each distinct row read once, the (B, L) ids read and the
+    (B, D) bags written once; one operation a valid id and column.
+    ``distinct`` and ``n_valid`` depend on the data; without them every
+    id counts as valid and distinct (up to V rows)."""
+    b, bag_len = indices.shape
+    n_rows, dim = table.shape
+    n_valid = b * bag_len if n_valid is None else n_valid
+    distinct = min(n_valid, n_rows) if distinct is None else distinct
+    return (float(n_valid * dim),
+            float((distinct * dim + b * dim) * table.element_size()
+                  + b * bag_len * indices.element_size()))
+
+
 def _launch(table, indices, n_bad, combiner, how, counted=None):
     b, bag_len = indices.shape
     n_rows, dim = table.shape
@@ -230,6 +249,10 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
     _check(table, indices, combiner)
     if table.device.type == "cpu":
         return embedding_bag_plain(table, indices, combiner=combiner)
+    if table.device.type == "meta":
+        _build.meta_call("embedding_bag", work(table, indices))
+        return torch.empty((indices.shape[0], table.shape[1]),
+                           dtype=table.dtype, device=table.device)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     if table.dtype not in _DTYPES:

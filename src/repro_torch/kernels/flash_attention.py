@@ -20,7 +20,9 @@ heads of a GQA group): f32 → ``"simt"`` (f32 FMAs, the 1e-5 contract);
 bf16 with R > 16 → ``"mma"`` (tensor-core prefill); bf16 with R ≤ 16 →
 ``"split"`` (split-K decode, two launches and an f32 workspace).  It
 launches that route or raises — it never falls back; on a CPU tensor it
-runs the plain version.
+runs the plain version; on a meta tensor (a dry run, ``launch/dryrun.py``)
+it returns meta outputs and workspaces and hands :func:`work` (the
+backward: :func:`bwd_work`) to the run's counter.
 
 The gradient (no TPU counterpart: the reference differentiates its XLA
 ``chunked_attention`` under ``jax.checkpoint``) is
@@ -134,6 +136,51 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(b, hq, sq)
 
 
+def visible_pairs(sq: int, skv: int, causal: bool = True) -> int:
+    """(query, key) pairs of one (batch row, head) that a call scores:
+    every pair without ``causal``; with it, query i (aligned to the end of
+    the keys) sees ``skv − sq + i + 1`` keys, none where that is ≤ 0."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    start = max(0, -off)               # the first query that sees a key
+    n = max(0, sq - start)
+    first = off + start + 1
+    return n * first + n * (n - 1) // 2
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, kv_len: int | None = None,
+         return_lse: bool = False):
+    """(operations, bytes) of one call, as ``PERF.md``'s bounds for kernel 8
+    count them: 2·(d + dv) operations a visible (query, key) pair and head
+    (the two products), q, the visible keys' k and v and the output each
+    moved once (and the f32 log-sum-exp written with ``return_lse``).
+    ``kv_len`` (the keys a row reads, the decode's cache length) depends
+    on the data; without it every key of the cache counts."""
+    b, hq, sq, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    keys = skv if kv_len is None else min(kv_len, skv)
+    pairs = visible_pairs(sq, keys, causal)
+    n_bytes = (b * hq * sq * (d + dv) + b * hkv * keys * (d + dv)) \
+        * q.element_size() + (b * hq * sq * 4 if return_lse else 0)
+    return 2.0 * (d + dv) * pairs * b * hq, float(n_bytes)
+
+
+def bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True):
+    """(operations, bytes) of one backward call, as ``PERF.md``'s bound for
+    8b counts them: the function's five products (S and dP again, dV, dQ,
+    dK: 2·(3·d + 2·dv) operations a visible pair and head), q, o, dO, dQ
+    and k, v, dK, dV each moved once."""
+    b, hq, sq, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    pairs = visible_pairs(sq, skv, causal)
+    n_bytes = (b * hq * sq + b * hkv * skv) * (2 * d + 2 * dv) \
+        * q.element_size()
+    return 2.0 * (3 * d + 2 * dv) * pairs * b * hq, float(n_bytes)
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
@@ -180,6 +227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len, return_lse=return_lse)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -229,6 +278,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = dict.fromkeys(_ROUTES, 0)
+
+
+def _meta(q, k, v, causal, return_lse):
+    """The forward on meta tensors: the (B, Hq, Sq, dv) view of a (B, Sq,
+    Hq, dv) output, the lse and the split route's f32 workspace, as the
+    card allocates them; its work handed to the dry run's counter."""
+    b, hq, sq, _ = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel() and route(q, k) == "split":
+        keys = _build.source_constant("flash_attention", "SPLIT_KEYS")
+        rows = _build.source_constant("flash_attention", "SPLIT_ROWS")
+        splits = -(-skv // keys) if skv > 0 else 1
+        torch.empty((b * hkv * splits * rows * (dv + 2),),
+                    dtype=torch.float32, device=q.device)
+    if out.numel():
+        _build.meta_call("flash_attention", work(q, k, v, causal=causal,
+                                                 return_lse=return_lse))
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -333,6 +404,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          scale=scale)
+    if q.device.type == "meta":
+        dq, dk, dv = (torch.empty_like(
+            t, memory_format=torch.contiguous_format) for t in (q, k, v))
+        if q.shape[0] * q.shape[1] * max(q.shape[2], k.shape[2]):
+            # the Δ = rowsum(dO ∘ O) workspace
+            torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+            _build.meta_call("flash_attention_bwd",
+                             bwd_work(q, k, v, causal=causal))
+        return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     tensors = (q, k, v, o, do)

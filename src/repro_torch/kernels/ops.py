@@ -14,8 +14,9 @@ port        runs                                   reference
 ``oracle``  the oracle in ``kernels/ref.py``       ``"xla"``
 ==========  =====================================  ======================
 
-``impl=None`` picks ``kernel`` for CUDA tensors and ``oracle`` for CPU
-tensors, as the reference picks ``"pallas"`` on a TPU and ``"xla"``
+``impl=None`` picks ``kernel`` for CUDA tensors (and for meta tensors,
+whose wrappers hand their work to a dry run's counter) and ``oracle``
+for CPU tensors, as the reference picks ``"pallas"`` on a TPU and ``"xla"``
 elsewhere.  The reference passes any other keyword on to its Pallas
 kernel, where all but ``beta`` only set the kernel's tiles (``bm``,
 ``bn``, ``bk``, ``bq``) or ``interpret``.  The port's kernels tile
@@ -39,17 +40,21 @@ from repro_torch.kernels.similarity import (fused_similarity as _sim_kernel,
                                             similarity_plain)
 
 IMPLS = ("kernel", "plain", "oracle")
+# the kernel wrappers take CUDA tensors, and meta tensors in a dry run
+# (``launch/dryrun.py``: meta outputs, the kernel's work counted)
+_KERNEL_DEVICES = ("cuda", "meta")
 
 
 def _resolve(impl: str | None, x: torch.Tensor, kw: dict, what: str) -> str:
     if kw:
         raise TypeError(f"{what}: {sorted(kw)} only tile the reference's "
                         f"Pallas kernel; the port's kernels tile themselves")
-    impl = impl or ("kernel" if x.device.type == "cuda" else "oracle")
+    impl = impl or ("kernel" if x.device.type in _KERNEL_DEVICES
+                    else "oracle")
     if impl not in IMPLS:
         raise ValueError(f"{what}: unknown impl {impl!r}; want one of "
                          f"{IMPLS}")
-    if impl == "kernel" and x.device.type != "cuda":
+    if impl == "kernel" and x.device.type not in _KERNEL_DEVICES:
         raise ValueError(f"{what}: impl='kernel' needs CUDA tensors, got "
                          f"{x.device}")
     return impl

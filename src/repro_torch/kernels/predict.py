@@ -16,6 +16,9 @@ and ``"f32"`` (f32 ratings, e.g. half stars: one thread per item).
 
 On a CPU tensor the wrapper runs the plain version and counts nothing; on
 a CUDA tensor it launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +42,25 @@ def tile_predict_plain(src: torch.Tensor, ids: torch.Tensor,
     from repro_torch.core.predict import _tile_predict
     nbr = src[:, lo:hi][ids.long()].float()
     return _tile_predict(w, nbr, nb_means, q_means)
+
+
+def work(src: torch.Tensor, ids: torch.Tensor, lo: int, hi: int, *,
+         rows_read: int | None = None, terms: int | None = None):
+    """(operations, bytes) of one call, as ``PERF.md``'s bound for kernel 2
+    counts them: each distinct neighbor row's ``[lo, hi)`` read once (at
+    ``src``'s width), the ids, weights and neighbor means (4 bytes each a
+    slot), the query means and the f32 output once; 4 operations a rated
+    (neighbor, item) term under a nonzero weight and 5 an output for the
+    epilogue.  ``rows_read`` and ``terms`` depend on the data; without
+    them every gathered row and element counts (min(m·k, U) rows, m·k·T
+    terms), the most a call can need."""
+    m, k = ids.shape
+    t = hi - lo
+    rows_read = min(m * k, src.shape[0]) if rows_read is None else rows_read
+    terms = m * k * t if terms is None else terms
+    return (4.0 * terms + 5.0 * m * t,
+            float(rows_read * t * src.element_size() + m * k * 4 * 3
+                  + m * 4 + m * t * 4))
 
 
 def _lib():
@@ -83,6 +105,10 @@ def fused_tile_predict(src: torch.Tensor, ids: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if src.device.type == "cpu":
         return tile_predict_plain(src, ids, w, nb_means, q_means, lo, hi)
+    if src.device.type == "meta":
+        _build.meta_call("fused_tile_predict", work(src, ids, lo, hi))
+        return torch.empty((m, hi - lo), dtype=torch.float32,
+                           device=src.device)
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     if src.dtype not in _DTYPES or ids.dtype != torch.int32 \

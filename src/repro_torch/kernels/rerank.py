@@ -29,6 +29,9 @@ raises.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +52,21 @@ _DTYPES = {torch.float32: 0, torch.int8: 1}
 EXACT_SUM = 2 ** 24
 
 rerank_scores_plain = rerank_scores_ref
+
+
+def work(q_vals: torch.Tensor, cand_rows: torch.Tensor,
+         measure: str = "cosine"):
+    """(operations, bytes) of one call on (G, J) × (Kc, J), as ``PERF.md``'s
+    bound for kernel 6 counts them: 2·G·Kc·J operations a Gram product —
+    one for jaccard and for cosine, six for pcc and pcc_sig — and both
+    row blocks (at their widths), the candidates' norms and counts read
+    once and the (G, Kc) f32 output written once."""
+    g, j = q_vals.shape
+    kc = cand_rows.shape[0]
+    products = 1 if measure in ("jaccard", "cosine") else 6
+    return (2.0 * products * g * kc * j,
+            float(g * j * q_vals.element_size()
+                  + kc * j * cand_rows.element_size() + kc * 8 + g * kc * 4))
 
 
 def _lib():
@@ -99,6 +117,11 @@ def fused_rerank_scores(q_vals: torch.Tensor, cand_rows: torch.Tensor,
     if q_vals.device.type == "cpu":
         return rerank_scores_plain(q_vals, cand_rows, cand_norms,
                                    cand_counts, measure=measure, beta=beta)
+    if q_vals.device.type == "meta":
+        _build.meta_call("fused_rerank_scores",
+                         work(q_vals, cand_rows, measure))
+        return torch.empty((g, kc), dtype=torch.float32,
+                           device=q_vals.device)
     if q_vals.device.type != "cuda":
         raise ValueError(f"unsupported device {q_vals.device}")
     if q_vals.dtype not in _DTYPES or cand_rows.dtype not in _DTYPES \

@@ -23,7 +23,9 @@ P=33, m=17).  The radix select takes ``m`` ≤ :data:`SELECT_M_MAX`; both
 wrappers raise past it (the scan before its launch).
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises — it never falls back.  The index's other
+launches the kernel or raises — it never falls back; on a meta tensor (a
+dry run, ``launch/dryrun.py``) it returns meta outputs and hands
+:func:`scan_work` / :func:`select_work` to the run's counter.  The index's other
 canonical selections (smallest-``k`` distances, the rerank's final sort)
 live here too, as stable sorts.
 """
@@ -54,6 +56,35 @@ def scan_topm_twin(q: torch.Tensor, proxies: torch.Tensor,
             "approx=True (approx_max_k) is not ported: the port's scan is "
             "exact only")
     return scan_topm_plain(q, proxies, q_ids, min(m, proxies.shape[0]))
+
+
+def scan_work(q: torch.Tensor, proxies: torch.Tensor, m: int):
+    """(operations, bytes) of one :func:`fused_scan_topm` call, as
+    ``PERF.md``'s bound for kernel 4 counts them: 2·Q·N·P operations for
+    the scores; both proxy blocks and the query ids read once and the
+    (Q, m) values and ids written once."""
+    n_q, p = q.shape
+    n = proxies.shape[0]
+    m = min(m, n)
+    return 2.0 * n_q * n * p, (n_q + n) * p * 4.0 + n_q * 4.0 + n_q * m * 8.0
+
+
+def select_work(scores: torch.Tensor, m: int):
+    """(operations, bytes) of one :func:`select_topm` call, as ``PERF.md``'s
+    bound for kernel 5 counts them: one operation a score; the (Q, L)
+    scores and the query ids read once and the (Q, m) values and ids
+    written once."""
+    n_q, n = scores.shape
+    m = min(m, n)
+    return float(n_q * n), n_q * n * 4.0 + n_q * 4.0 + n_q * m * 8.0
+
+
+def _topm_meta(name, work, n_q, n, m, device, workspace=False):
+    if workspace:                      # the scan's (Q, N) f32 scores
+        torch.empty((n_q, n), dtype=torch.float32, device=device)
+    _build.meta_call(name, work)
+    return (torch.empty((n_q, m), dtype=torch.float32, device=device),
+            torch.empty((n_q, m), dtype=torch.int32, device=device))
 
 
 def _lib(name):
@@ -125,6 +156,9 @@ def fused_scan_topm(q: torch.Tensor, proxies: torch.Tensor,
     _check_ids(q_ids, n_q, q.device)
     if q.device.type == "cpu":
         return scan_topm_plain(q, proxies, q_ids, m)
+    if q.device.type == "meta":
+        return _topm_meta("fused_scan_topm", scan_work(q, proxies, m), n_q,
+                          n, m, q.device, workspace=n_q > 0)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype != torch.float32 or proxies.dtype != torch.float32 \
@@ -174,6 +208,9 @@ def select_topm(scores: torch.Tensor, q_ids: torch.Tensor, *, m: int):
     _check_ids(q_ids, n_q, scores.device)
     if scores.device.type == "cpu":
         return select_topm_twin(scores, q_ids, m=m)
+    if scores.device.type == "meta":
+        return _topm_meta("select_topm", select_work(scores, m), n_q, n, m,
+                          scores.device)
     if scores.device.type != "cuda":
         raise ValueError(f"unsupported device {scores.device}")
     if scores.dtype != torch.float32 or q_ids.dtype != torch.int32:

@@ -21,6 +21,9 @@ too (after the launch).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -77,6 +80,47 @@ def similarity_route(a_dtype: torch.dtype, b_dtype: torch.dtype, d: int,
     return route
 
 
+def work(ra: torch.Tensor, rb: torch.Tensor, measure: str = "all"):
+    """(operations, bytes) of one call on (m, D) × (n, D) blocks, as
+    ``PERF.md``'s bound for kernel 1 counts them: 2·m·n·D operations a
+    masked Gram product — one for jaccard and for cosine, six for pcc,
+    pcc_sig and "all" — and each block read once and each (m, n) f32
+    output written once."""
+    m, d = ra.shape
+    n = rb.shape[0]
+    products = 1 if measure in ("jaccard", "cosine") else 6
+    n_out = 3 if measure == "all" else 1
+    return (2.0 * products * m * n * d,
+            float(m * d * ra.element_size() + n * d * rb.element_size()
+                  + n_out * m * n * 4))
+
+
+def _meta(ra, rb, measure, max_value):
+    """The call on meta tensors: the outputs and the "imma" route's
+    square planes and row statistics, its work handed to the dry run's
+    counter.  No data, so the rows-past-``max_value`` count is not
+    checked."""
+    route = _ROUTE_OF.get(ra.dtype)
+    if route is None or rb.dtype != ra.dtype:
+        raise TypeError(f"need matching f32 or int8 blocks, got {ra.dtype} "
+                        f"and {rb.dtype}")
+    m, d = ra.shape
+    n = rb.shape[0]
+    dev = ra.device
+    if route == "imma":
+        d16 = -(-d // 16) * 16
+        bound = 128 if max_value is None else min(int(max_value), 128)
+        planes = 0 if measure in ("jaccard", "cosine") \
+            else 1 + (bound > NARROW_MAX)
+        for rows in (m, n):
+            torch.empty((planes, rows, d16), dtype=torch.uint8, device=dev)
+            torch.empty((2, rows), dtype=torch.float32, device=dev)
+    outs = [torch.empty((m, n), dtype=torch.float32, device=dev)
+            for _ in range(3 if measure == "all" else 1)]
+    _build.meta_call("fused_similarity", work(ra, rb, measure))
+    return tuple(outs) if measure == "all" else outs[0]
+
+
 def _lib(route: str):
     lib = _build.load("similarity")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -112,7 +156,9 @@ def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
     it is not 0.  CUDA tensors launch the kernel on the current stream
     (outputs and scratch from ``torch.empty``) and add one to
     ``fused_similarity.launches`` and to the route's entry of
-    ``fused_similarity.routes``; CPU tensors run the plain version.
+    ``fused_similarity.routes``; CPU tensors run the plain version; meta
+    tensors give meta outputs and hand :func:`work` to a dry run's
+    counter, launching nothing and counting no launch.
     """
     if measure not in _CODES:
         raise ValueError(f"unknown measure {measure!r}; want one of "
@@ -125,6 +171,8 @@ def fused_similarity(ra: torch.Tensor, rb: torch.Tensor, *,
         raise ValueError(f"ra on {ra.device} but rb on {rb.device}")
     if ra.device.type == "cpu":
         return similarity_plain(ra, rb, measure=measure, beta=beta)
+    if ra.device.type == "meta":
+        return _meta(ra, rb, measure, max_value)
     if ra.device.type != "cuda":
         raise ValueError(f"unsupported device {ra.device}")
     m, d = ra.shape

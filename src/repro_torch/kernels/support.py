@@ -26,6 +26,9 @@ version).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — it never falls back.
+On a meta tensor (a dry run, ``launch/dryrun.py``) it returns meta
+outputs and hands :func:`work` to the run's counter, launching and
+counting nothing.
 """
 
 from __future__ import annotations
@@ -125,6 +128,27 @@ def support_route(dev: torch.Tensor, msk: torch.Tensor) -> str:
     return "table"
 
 
+def work(dev: torch.Tensor, msk: torch.Tensor, nb_idx: torch.Tensor, *,
+         rows_read: int | None = None, terms: int | None = None):
+    """(operations, bytes) of one call, as ``PERF.md``'s bound for kernel 7
+    counts them: each distinct neighbor row read once — on the ``"int8"``
+    route its I int8 ratings and its f32 mean, on ``"table"`` its two f32
+    table rows — the ids and weights (8 bytes a slot), the query means and
+    the (b, I') f32 output once; 4 operations a rated (neighbor, item)
+    term under a nonzero weight and 5 an output for the epilogue.
+    ``rows_read`` and ``terms`` depend on the data; without them every
+    gathered row and element counts (min(b·k, U) rows, b·k·I terms)."""
+    route = support_route(dev, msk)
+    b, k = nb_idx.shape
+    n_users, n_items = dev.shape
+    width = n_items if route == "table" else support_width(n_items)
+    rows_read = min(b * k, n_users) if rows_read is None else rows_read
+    terms = b * k * n_items if terms is None else terms
+    row_bytes = n_items + 4.0 if route == "int8" else 2.0 * width * 4
+    return (4.0 * terms + 5.0 * b * width,
+            rows_read * row_bytes + b * k * 8.0 + b * 4.0 + b * width * 4.0)
+
+
 def _lib(route: str):
     lib = _build.load("support")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -173,6 +197,11 @@ def fused_support_scores(dev: torch.Tensor, msk: torch.Tensor,
             return support_scores_int8_plain(dev, msk, nb_idx, nb_w,
                                              q_means)
         return support_scores_plain(dev, msk, nb_idx, nb_w, q_means)
+    if dev.device.type == "meta":
+        _build.meta_call("fused_support_scores", work(dev, msk, nb_idx))
+        return torch.empty((b, n_items if route == "table"
+                            else support_width(n_items)),
+                           dtype=torch.float32, device=dev.device)
     if dev.device.type != "cuda":
         raise ValueError(f"unsupported device {dev.device}")
     if nb_idx.dtype != torch.int32 or any(

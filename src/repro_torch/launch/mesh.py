@@ -15,6 +15,14 @@ initialised, :func:`init_default_group` creates a one-rank group over a
 gloo for ``"cpu"`` — and destroys it at exit.  An initialised group
 whose backend does not serve the asked device is an error: the card
 never falls back to gloo.
+
+A dry run (``launch/dryrun.py``) asks for ``device="meta"`` by name: its
+mesh is over the ``"fake"`` backend's group, which the dry run creates
+itself (``torch.testing._internal.distributed.fake_pg``, any world size,
+collectives that move nothing).  This module never creates a fake group,
+and only a meta device is served by one.  Such a mesh has the CPU's
+device type (DTensor's sharding rules need a device type with a device
+count) and holds meta tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from repro_torch.device import resolve_device
 
 # every process group of the port: a hung collective fails in a minute
 GROUP_TIMEOUT = timedelta(seconds=60)
-_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+_BACKEND = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 
 def _destroy_own_group(group, store_dir: str) -> None:
@@ -45,16 +53,26 @@ def _destroy_own_group(group, store_dir: str) -> None:
     shutil.rmtree(store_dir, ignore_errors=True)
 
 
+def backends(name: str) -> set:
+    """The backends a group's backend string names: ``"nccl"`` → {nccl};
+    ``"cpu:fake,meta:fake"`` (the dry run's group) → {fake}."""
+    return {part.split(":")[-1] for part in name.split(",")}
+
+
 def init_default_group(device="cuda") -> str:
     """Make sure a default process group serves ``device``; returns the
-    mesh device type (``"cuda"`` or ``"cpu"``).
+    mesh device type (``"cuda"`` or ``"cpu"``; ``"cpu"`` for ``"meta"``,
+    whose group must be an existing fake one).
 
     With no group initialised, a one-rank group is created over a
     ``FileStore`` in a fresh temporary directory (no network): NCCL for
     CUDA, gloo for the CPU.  An initialised group must have the backend
     of ``device``'s type, else ``ValueError``."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     want = _BACKEND[dev.type]
+    if not dist.is_initialized() and dev.type == "meta":
+        raise ValueError("a meta mesh needs the dry run's fake process "
+                         "group, initialised by the caller")
     if not dist.is_initialized():
         store_dir = tempfile.mkdtemp(prefix="repro_torch_pg_")
         store = dist.FileStore(os.path.join(store_dir, "store"), 1)
@@ -65,11 +83,11 @@ def init_default_group(device="cuda") -> str:
                                 timeout=GROUP_TIMEOUT)
         atexit.register(_destroy_own_group, dist.group.WORLD, store_dir)
     have = dist.get_backend()
-    if have != want:
+    if backends(have) != {want}:
         raise ValueError(
             f"the default process group's backend is {have!r}, which does "
             f"not serve {dev.type} tensors (want {want!r})")
-    return dev.type
+    return "cpu" if dev.type == "meta" else dev.type
 
 
 def _mesh(shape, axes, device) -> DeviceMesh:

@@ -146,8 +146,17 @@ def _from_local(t: torch.Tensor, sharding):
             shape[pl.dim] *= sharding.mesh.size(md)
     return DTensor.from_local(t, sharding.mesh, sharding.placements,
                               run_check=False, shape=torch.Size(shape),
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a size-0 dimension
+    counted as 1, as torch does), without making one."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
 
 
 def _local_leaves(params):

@@ -138,6 +138,11 @@ class Segments(NamedTuple):
 def segments(idx: torch.Tensor, n: int) -> Segments:
     idx = idx.long()
     order = torch.sort(idx, stable=True).indices
+    if idx.device.type == "meta":
+        # a dry run's: no data to count, and bincount has no meta kernel;
+        # the n segment lengths have their shape without a host read
+        return Segments(idx, order, torch.empty((n,), dtype=torch.int64,
+                                                device=idx.device))
     return Segments(idx, order, torch.bincount(idx, minlength=n))
 
 

@@ -221,9 +221,14 @@ class _ExchangeLookup(torch.autograd.Function):
         gback = gback[:n_shards].contiguous()
         gvals = torch.empty_like(gback)
         dist.all_to_all_single(gvals, gback, group=ctx.group)
-        filled = rows >= 0
-        grad = _row_sum(rows[filled], gvals.reshape(-1, d)[filled],
-                        ctx.n_rows)
+        if rows.device.type == "meta":
+            # a dry run's: no ids to mask with, so every slot counts as
+            # filled (the most the sum can take)
+            grad = _row_sum(rows, gvals.reshape(-1, d), ctx.n_rows)
+        else:
+            filled = rows >= 0
+            grad = _row_sum(rows[filled], gvals.reshape(-1, d)[filled],
+                            ctx.n_rows)
         return grad, None, None, None, None, None
 
 
@@ -302,8 +307,9 @@ def _exchange(layout: TableLayout, block: torch.Tensor, ids: torch.Tensor,
               mesh) -> torch.Tensor:
     """The sharded fields' (B, Fs) fused-table ids of this rank's batch
     shard → (B, Fs, D) rows through the all-to-all exchange."""
-    if ids.device.type != mesh.device_type or \
-            block.device.type != mesh.device_type:
+    # a dry run's meta tensors pass on its fake group's mesh
+    takes = (mesh.device_type, "meta")
+    if ids.device.type not in takes or block.device.type not in takes:
         raise ValueError(f"ids on {ids.device.type} and the table block on "
                          f"{block.device.type}, but the mesh's collectives "
                          f"take {mesh.device_type} tensors")

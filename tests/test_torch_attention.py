@@ -357,8 +357,9 @@ def test_chunked_attention_takes_the_function_with_grad():
 def test_backward_kernel_source_and_wrapper():
     """``csrc/flash_attention_bwd.cu`` is built like the other kernels
     (a plain C entry point returning ``cudaGetLastError``, its bound
-    stated, listed in ``_build.KERNELS``); its wrapper counts launches
-    and raises on a device it does not take."""
+    stated, listed in ``_build.KERNELS``); its wrapper counts launches,
+    checks its shapes, and on a dry run's meta tensors returns meta
+    gradients without a launch."""
     import re
     from pathlib import Path
 
@@ -379,8 +380,11 @@ def test_backward_kernel_source_and_wrapper():
     assert set(flash_attention_bwd.routes) == {"simt", "mma"}
     q = torch.zeros(1, 2, 3, 8, device="meta")
     lse = torch.zeros(1, 2, 3, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse)
+    launches = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse)
+    assert [(g.shape, g.device.type) for g in grads] == [
+        (q.shape, "meta"), (q[:, :1].shape, "meta"), (q[:, :1].shape, "meta")]
+    assert flash_attention_bwd.launches == launches
     with pytest.raises(ValueError, match="lse must be"):
         flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse[:, :, :2])
 
