@@ -347,10 +347,34 @@ reference computes them outside Pallas):
     (d) on the one-rank NCCL mesh against the no-mesh plans, bitwise;
     (f) ``launch.train --arch egnn --smoke --steps 20``, finite losses.
 
+29. The dry run's peak estimates (``launch/dryrun.py``) of phases 23 and
+    28's steps against the card's peaks, within [0.90, 1.10], and one
+    production-mesh dry run in its own process (``phase_estimates``).
+30. The port's four examples through their ``main(argv)`` in this
+    process, each with the launch counts zeroed before and read after
+    (``phase_examples``): ``torch_quickstart`` (MAE / P / R / F1 equal to
+    the reference's CPU printout, ``QUICKSTART_METRICS``; the pcc top-5
+    of users 0-2 equal to ``QUICKSTART_TOP5`` up to ties within 1e-5);
+    ``torch_serve_recommendations`` exact on ``--backend kernel`` (the
+    update refits every row, as the reference's ``pallas`` does), on the
+    default backend (the reference's 253 rows recomputed, 771 merged) and
+    approx on the kernels, every one of 64 requests answered;
+    ``torch_train_cf_movielens`` at its defaults on ``sequential`` and
+    on ``ring`` over the one-rank NCCL mesh, equal CSVs but ``fit_s``;
+    ``torch_train_lm`` at its defaults (~100 M parameters, 200 steps,
+    f32) with a fault at step 120: one restart, the loss falls, kernels
+    8 and 8b on ``"simt"``; then ``python -m repro_torch.analysis
+    --device cuda``'s checks: exit 0, the widenings of
+    ``PRECISION_audit_torch.json``, no kernel build or load in a warm
+    window.  Kernels 1-6, 8 and 8b must launch.  A CPU rehearsal sets
+    ``EXAMPLE_LM_ARGS``, ``EXAMPLE_LM_CONFIG``, ``EXAMPLE_LM_CKPT_EVERY``
+    and ``EXAMPLE_CF_ARGS`` small, replaces ``check`` and calls
+    ``phase_examples(torch.device("cpu"))``: only the launch checks fail.
+
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels, kernel 8's backward, and kernels 8 and 5 again at
 phase 25's MLA prefill and router shapes (``flash_attention:mla_prefill``,
-``select_topm:router``).
+``select_topm:router``); phase 30's launches are added to the main rows.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -5389,6 +5413,224 @@ def log_estimates(es, card) -> None:
           "the production-mesh dry run counts its collectives")
 
 
+# phase 30: the port's examples in this process.  What the reference's
+# examples/quickstart.py prints on the CPU (MAE / P / R / F1 as printed,
+# and the pcc top-5 of users 0-2, every shown score 5.00)
+QUICKSTART_METRICS = {"jaccard": ("0.8977", "0.618", "0.602", "0.610"),
+                      "cosine": ("0.8545", "0.661", "0.606", "0.633"),
+                      "pcc": ("0.8114", "0.678", "0.671", "0.674")}
+QUICKSTART_TOP5 = {0: (118, 131, 172, 205, 274),
+                   1: (205, 216, 454, 468, 664),
+                   2: (37, 227, 331, 345, 356)}
+TOP5_TIE = 1e-5
+# examples/serve_recommendations.py's update line on its default
+# (sequential) backend: (rows recomputed, rows merged)
+SERVE_UPDATE = (253, 771)
+# the LM example at its defaults (200 steps, batch 8, seq 128) with a fault
+# at step 120; a CPU rehearsal cuts the model and the run with these
+EXAMPLE_LM_ARGS = ["--inject-fault-at", "120"]
+EXAMPLE_LM_CONFIG = {}          # build_config overrides
+EXAMPLE_LM_CKPT_EVERY = 50
+EXAMPLE_CF_ARGS = []            # the sweep at its defaults (2048 x 1024)
+
+
+def load_example(name):
+    """``examples/<name>.py`` imported as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(fn, *args, **kw):
+    """``fn(*args, **kw)`` (an example's ``main``) with every launch count
+    set to 0 just before and read just after, its stdout captured and
+    logged indented.  Returns (its result, its stdout, launches by wrapper
+    name, flash forward / backward launches by route, wall s)."""
+    import contextlib
+    import io
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    zero_counts()
+    fwd0 = dict(flash_attention.routes)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in all_wrappers().values()}
+    routes = {"forward": {r: n - fwd0[r]
+                          for r, n in flash_attention.routes.items()},
+              "backward": dict(flash_attention_bwd.routes)}
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"      | {line}")
+    return out, text, launches, routes, wall
+
+
+def top5_agree(got, want, pred, seen, tol=TOP5_TIE) -> bool:
+    """Two top-5 lists of one user agree if they are equal, or differ only
+    in unseen items whose predictions lie within ``tol`` of the cut (the
+    5th best prediction among the unseen items)."""
+    if list(got) == list(want):
+        return True
+    scores = torch.where(seen, torch.full_like(pred, float("-inf")), pred)
+    cut = float(torch.sort(scores, descending=True).values[len(got) - 1])
+    return all(abs(float(scores[i]) - cut) <= tol
+               for i in set(got) ^ set(want))
+
+
+def phase_examples(dev):
+    """Phase 30: the four port examples through their ``main(argv)`` in
+    this process (no new CUDA context, nothing rebuilt), then ``python -m
+    repro_torch.analysis``'s checks, each with its own launch counts."""
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch import analysis, obs
+    from repro_torch.analysis import precision as P
+
+    on = ["--device", str(dev)]
+    total: dict = {}
+    out = {}
+
+    def run(label, fn, *args, **kw):
+        res, text, launches, routes, wall = run_example(fn, *args, **kw)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        out[label] = {"launches": {k: v for k, v in launches.items() if v},
+                      "routes": routes, "wall_s": wall}
+        return res, text
+
+    # (a) quickstart: the reference's printed metrics, its top-5 (ties)
+    qs, text = run("quickstart", load_example("torch_quickstart").main, on)
+    got = {m: (f"{ev['mae']:.4f}", f"{ev['precision']:.3f}",
+               f"{ev['recall']:.3f}", f"{ev['f1']:.3f}")
+           for m, ev in qs["metrics"].items()}
+    check(got == QUICKSTART_METRICS,
+          f"quickstart metrics {got} == the reference's {QUICKSTART_METRICS}")
+    pred = qs["model"].predict(qs["train"])[:3].cpu()
+    seen = (qs["train"][:3] > 0).cpu()
+    for u, want in QUICKSTART_TOP5.items():
+        items = [int(i) for i in qs["items"][u]]
+        check(top5_agree(items, want, pred[u], seen[u]),
+              f"quickstart user {u}: top-5 {items} == the reference's "
+              f"{want} up to ties within {TOP5_TIE}")
+    out["quickstart"]["top5"] = {u: [int(i) for i in qs["items"][u]]
+                                 for u in QUICKSTART_TOP5}
+    out["quickstart"]["metrics"] = got
+
+    # (b) serving: exact on the kernel backend (its update refits every
+    # row, as the reference's pallas backend does) and on the default
+    # backend (the reference's update line), then approx on the kernels
+    serve = load_example("torch_serve_recommendations").main
+    for label, argv in (("serve kernel", ["--backend", "kernel"]),
+                        ("serve sequential", []),
+                        ("serve approx", ["--backend", "kernel",
+                                          "--neighbor-mode", "approx"])):
+        sv, text = run(label, serve, argv + on)
+        st, s = sv["update"], sv["stats"]
+        check(len(sv["results"]) == 64 and s["n_requests"] == 64,
+              f"{label}: every one of 64 requests answered "
+              f"({len(sv['results'])} results, {s['n_requests']} served)")
+        out[label].update(
+            update=(st.n_affected, st.n_merged), req_per_s=64 / sv["seconds"],
+            p50_ms=s["latency_p50_ms"], p99_ms=s["latency_p99_ms"],
+            recall=sv["recall"])
+    n_users = 1024
+    check(out["serve kernel"]["update"] == (n_users, 0),
+          f"serve kernel: the update refits every row "
+          f"{out['serve kernel']['update']}")
+    check(out["serve sequential"]["update"] == SERVE_UPDATE,
+          f"serve sequential: update {out['serve sequential']['update']} == "
+          f"the reference's {SERVE_UPDATE}")
+
+    # (c) the paper's sweep: sequential and ring (one-rank mesh), equal CSVs
+    sweep = load_example("torch_train_cf_movielens").main
+    rows = {}
+    for engine in ("sequential", "ring"):
+        res, _ = run(f"sweep {engine}", sweep,
+                     EXAMPLE_CF_ARGS + ["--engine", engine] + on)
+        rows[engine] = [r.split(",")[:2] + r.split(",")[3:] for r in res]
+    check(rows["sequential"] and rows["sequential"] == rows["ring"],
+          "the ring sweep's CSV == the sequential sweep's but fit_s")
+    out["sweep"] = rows["sequential"]
+
+    # (d) the ~100M LM with a fault: one restart, the loss falls (the
+    # example's own assert), kernels 8 / 8b on their f32 route
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        res, text = run("train_lm", load_example("torch_train_lm").main,
+                        EXAMPLE_LM_ARGS + ["--ckpt-dir", ckpt] + on,
+                        checkpoint_every=EXAMPLE_LM_CKPT_EVERY,
+                        **EXAMPLE_LM_CONFIG)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(res.restarts == 1, f"train_lm restarts {res.restarts} == 1")
+    out["train_lm"].update(
+        restarts=res.restarts, steps=res.final_step,
+        first=float(np.mean(res.losses[:10])),
+        last=float(np.mean(res.losses[-10:])),
+        params=re.search(r"([\d.]+M) params", text).group(1))
+    r = out["train_lm"]["routes"]
+    check(r["forward"]["simt"] > 0 and r["backward"]["simt"] > 0,
+          f"train_lm: kernels 8 / 8b on \"simt\" {r}")
+
+    # (e) the trace-level checks: exit 0, the committed audit's widenings,
+    # no compile event in a warm window
+    audit = os.path.join(ROOT, P.AUDIT_FILE)
+    rc, _ = run("analysis", analysis.main,
+                ["--precision-audit", audit] + on)
+    check(rc == 0, f"python -m repro_torch.analysis exits {rc}")
+    live = sorted(w.symbol for w in P.run_precision_audit(device=dev))
+    committed = sorted(sym for (_, _, sym) in P.load_audit(audit))
+    check(live == committed,
+          f"widenings on the card {live} == {P.AUDIT_FILE} {committed}")
+    count = obs.registry().gauge("analysis.retrace.count").value
+    check(count == 0, f"compile events in the warm windows: {count}")
+    out["analysis"].update(widenings=live, retrace=count)
+
+    out["launches"] = total
+    ported = ("fused_similarity", "fused_tile_predict",
+              "fused_centroid_distances", "fused_scan_topm", "select_topm",
+              "fused_rerank_scores", "flash_attention", "flash_attention_bwd")
+    check(all(total[k] > 0 for k in ported),
+          f"phase 30 launches kernels 1-6, 8 and 8b: {total}")
+    return out
+
+
+def log_examples(ex, card) -> None:
+    """Phase 30's lines."""
+    for label in ("quickstart", "serve kernel", "serve sequential",
+                  "serve approx", "sweep sequential", "sweep ring",
+                  "train_lm", "analysis"):
+        o = ex[label]
+        log(f"    {label}: {o['wall_s']:.2f} s, launches {o['launches']}")
+    log(f"    quickstart metrics (MAE, P, R, F1) {ex['quickstart']['metrics']}"
+        f" == the reference's CPU printout; top-5 {ex['quickstart']['top5']}")
+    for label in ("serve kernel", "serve sequential", "serve approx"):
+        o = ex[label]
+        log(f"    {label}: update (recomputed, merged) {o['update']}, "
+            f"{o['req_per_s']:.1f} req/s, p50 {o['p50_ms']:.1f} ms, p99 "
+            f"{o['p99_ms']:.1f} ms"
+            + (f", recall@40 vs exact {o['recall']!r}"
+               if o["recall"] is not None else "") + f" on {card}")
+    log(f"    sweep: ring == sequential ({len(ex['sweep'])} rows, fit_s "
+        f"aside); pcc rows {[r for r in ex['sweep'] if r[0] == 'pcc']}")
+    t = ex["train_lm"]
+    log(f"    train_lm ({t['params']} params): {t['steps']} steps, "
+        f"restarts {t['restarts']}, loss {t['first']!r} -> {t['last']!r}, "
+        f"flash routes {t['routes']}, {t['wall_s']:.2f} s on {card}")
+    a = ex["analysis"]
+    log(f"    python -m repro_torch.analysis --device cuda: exit 0, "
+        f"widenings {a['widenings']}, compile events in warm windows "
+        f"{a['retrace']!r}")
+    log(f"    launches in phase 30: {ex['launches']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -6092,6 +6334,18 @@ def main() -> int:
     es = phase_estimates(lt, gn)
     log(f"    {card}")
     log_estimates(es, card)
+    log(f"    phase wall {time.perf_counter() - t_phase:.1f}s")
+
+    log("[30] the port's examples in this process: quickstart, serving "
+        "(exact kernel / sequential, approx), the paper's sweep (sequential,"
+        " ring), the ~100M LM with a fault; then python -m "
+        "repro_torch.analysis")
+    t_phase = time.perf_counter()
+    ex = phase_examples(dev)
+    log(f"    {card}")
+    log_examples(ex, card)
+    for k in kernels:
+        k["launches"] += ex["launches"].get(k["name"], 0)
     log(f"    phase wall {time.perf_counter() - t_phase:.1f}s")
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")

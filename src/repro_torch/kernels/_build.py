@@ -33,6 +33,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # counters of a dry run (``launch/op_cost.py``'s ``OpCounter``), each
 # called as fn(kernel, operations, bytes) by a wrapper given meta tensors
 META_LISTENERS: List[Callable[[str, float, float], None]] = []
+# run-time compile events (``analysis/retrace.py``'s sentinel), each
+# called as fn(event, name): "build" when an ``nvcc`` run for
+# ``csrc/<name>.cu`` ends, "load" when this process first opens its library
+COMPILE_LISTENERS: List[Callable[[str, str], None]] = []
 
 
 def meta_call(name: str, work) -> None:
@@ -42,6 +46,11 @@ def meta_call(name: str, work) -> None:
     ops, n_bytes = work
     for listener in list(META_LISTENERS):
         listener(name, float(ops), float(n_bytes))
+
+
+def _compile_event(event: str, name: str) -> None:
+    for listener in list(COMPILE_LISTENERS):
+        listener(event, name)
 
 
 def _nvcc() -> str:
@@ -88,6 +97,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     for name, (proc, lib, tmp, t0) in procs.items():
         log, _ = proc.communicate()
         out[name] = time.perf_counter() - t0
+        _compile_event("build", name)
         lib.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu "
@@ -107,6 +117,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            _compile_event("load", name)
         return lib
 
 

@@ -8,9 +8,17 @@ absolute tolerance elsewhere.  Every comparison prints one
 them), the source of the parity table in PERF.md.
 """
 
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def to_np(x) -> np.ndarray:
@@ -59,3 +67,35 @@ def torch_single_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def run_example_pair(name: str, args=(), port_extras=((),),
+                     timeout: float = 300.0):
+    """Stdouts of ``examples/<name>.py`` and of ``examples/torch_<name>.py``
+    run as subprocesses, all started together: the reference's first, then
+    one port run for each entry of ``port_extras`` (arguments added to
+    ``args`` and ``--device cpu``); each must exit 0."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    runs = [(f"{name}.py", ())] + [
+        (f"torch_{name}.py", (*extra, "--device", "cpu"))
+        for extra in port_extras]
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "examples" / script), *args, *extra],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for script, extra in runs]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=timeout)
+        assert p.returncode == 0, err[-4000:]
+        outs.append(out)
+    return outs
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` imported as a module (not run)."""
+    path = REPO / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and no script of ``tools/`` imports ``jax`` or the
+``chip_smoke.py``, no script of ``tools/`` and no port example
+(``examples/torch_*.py``) imports ``jax`` or the
 reference package ``repro`` (an AST scan), every kernel wrapper carries a
 launch count, and each CUDA source names the TPU kernel it replaces and
 its bound."""
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*.py")))
+         + sorted((ROOT / "tools").glob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):
@@ -57,7 +59,8 @@ def test_scan_covers_the_package():
                  "core/cf_model.py", "core/slope_one.py",
                  "configs/cf_movielens.py", "models/egnn.py",
                  "data/graph.py", "configs/egnn.py", "launch/dryrun.py",
-                 "launch/op_cost.py"):
+                 "launch/op_cost.py", "analysis/precision.py",
+                 "analysis/retrace.py", "analysis/findings.py"):
         assert want in names
 
 
