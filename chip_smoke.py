@@ -299,11 +299,15 @@ then the MoE and MLA LMs:
     prefill s, decode ms a
     step, tokens/s, peak GiB, a profile of one prefill and one decode
     step; one ``build_step`` train step of each smoke config (f32: the
-    kernels' "simt" routes); kernel 8 timed at the MLA prefill launch
-    beside ``scaled_dot_product_attention``, kernel 5 at the router
-    shapes (8192 × 128, m 8; 8192 × 160, m 6) beside ``torch.topk``, and
-    kernel 8b on "simt" at MLA width (1 × 128 × 2048, bf16) against its
-    plain version and beside SDPA's backward;
+    kernels' "simt" routes); kernel 8 timed at the MLA prefill launch on
+    its <192, 128> tile beside the <256, 128> tile it ran on before (a
+    patched copy of the source, ``PREVIOUS_MLA_DESIGN``, built beside the
+    kernels in phase 1 and timed in turns with it: old, new, new, old) and
+    ``scaled_dot_product_attention``, kernel 5 at the router shapes (8192
+    × 128, m 8; 8192 × 160, m 6) beside ``torch.topk``, and kernel 8b on
+    "mma" at MLA width (1 × 128 × 2048, bf16) against its plain version,
+    beside the bf16 "simt" route it took before (a patched copy, in
+    turns) and SDPA's backward;
 
 then the model-parallel paths, on a one-rank NCCL mesh over ("data",
 "model") of shape (1, 1), each against its no-mesh twin on the same
@@ -370,11 +374,30 @@ reference computes them outside Pallas):
     ``EXAMPLE_LM_ARGS``, ``EXAMPLE_LM_CONFIG``, ``EXAMPLE_LM_CKPT_EVERY``
     and ``EXAMPLE_CF_ARGS`` small, replaces ``check`` and calls
     ``phase_examples(torch.device("cpu"))``: only the launch checks fail.
+31. DeepSeek-V2 trained at full width (``phase_mla_train``: d 5120, 128
+    MLA heads at q·k 192 / v 128, vocab 102,400), its depth cut from 60
+    layers to the first, dense one (``MLA_TRAIN_DEPTH``), train_4k's
+    4096-token rows with the batch cut to 32 in 2 µbatches of 16, the
+    most the dry run puts under 72 GB (``MLA_TRAIN_SHAPE``): (a) one
+    step's loss and per-leaf gradients at 1 × 4096 through kernels 8 and
+    8b against the plain attention (loss within 1e-3 relative; each bf16
+    leaf's distance to the plain attention's f32 gradient at most 1.5 ×
+    the plain path's); (b) 2 ``build_step`` AdamW steps, finite losses,
+    the warm step's seconds and tokens/s, the peak within 72 GB beside
+    the dry run's estimate; (c) the counts zeroed before (b) and read
+    after: every forward launch on "mma"'s <192, 128> tile, every
+    backward launch on "mma", none on "simt"; a third step profiled.  A
+    CPU rehearsal patches ``repro_torch.configs.get_arch`` to the smoke
+    config in bf16, sets ``MLA_TRAIN_SHAPE`` and ``MLA_GRAD_ROWS`` small,
+    stubs the ``torch.cuda`` calls and ``profile_each`` and replaces
+    ``check``: only the launch checks fail.
 
 Then one ``{"kernels": [...]}`` line with times, bounds and launch counts
 for all nine kernels, kernel 8's backward, and kernels 8 and 5 again at
 phase 25's MLA prefill and router shapes (``flash_attention:mla_prefill``,
-``select_topm:router``); phase 30's launches are added to the main rows.
+``select_topm:router``) and 8b at MLA width (``flash_attention_bwd:mla``);
+phase 30's launches are added to the main rows, phase 31's to the MLA
+rows.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero with no ``ok`` line; without a CUDA
@@ -383,6 +406,7 @@ card it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import math
@@ -2253,8 +2277,9 @@ def phase_profile(eng, eng_approx, eng_rec, lm) -> None:
                   ("LM decode step", lm_decode)))
 
 
-def profile_each(named, n_rows: int = 6) -> list:
-    """For each (name, fn[, rows]): one warm call, then one call under
+def profile_each(named, n_rows: int = 6, warm: bool = True) -> list:
+    """For each (name, fn[, rows]): one warm call (unless ``warm`` is
+    false: the caller's calls were), then one call under
     ``torch.profiler``; logs wall ms, device-busy ms and share, and the
     ``rows`` (default ``n_rows``) largest device-time entries.  Returns
     each call's (wall ms, device-busy ms)."""
@@ -2262,8 +2287,9 @@ def profile_each(named, n_rows: int = 6) -> list:
     from torch.profiler import ProfilerActivity, profile
     out = []
     for name, fn, *rows_wanted in named:
-        fn()                                       # warm
-        torch.cuda.synchronize()
+        if warm:
+            fn()
+            torch.cuda.synchronize()
         # now and then a trace holds no device events although the call
         # launched kernels: profile the call again, up to three times,
         # before failing
@@ -3941,6 +3967,23 @@ def phase_recsys_train(dev):
 MOE_LM_DEPTH = {"qwen3_moe_30b_a3b": 8, "deepseek_v2_236b": 2}
 MOE_LM_SHAPE = (4, 2048, 2080, 16)   # prompts, prompt tokens, max_len, steps
 MLA_BWD_SHAPE = (1, 128, 2048, 192, 128)   # B, H, S, q·k width, v width
+# kernels 8 and 8b as they ran at MLA's 192 / 128 heads before their own
+# tiles: patched copies of the sources (``_build.build_variants``), timed
+# in phase 25 beside the shipped tiles in the same call and never on a
+# model's path — the forward with d padded to 256 (the <256, 128> tile),
+# the backward's bf16 "simt" route
+PREVIOUS_MLA_DESIGN = {
+    "forward <256, 128>": ("flash_attention", [(
+        "  if (a.d <= 192) return launch_mma_dv<192>(a, batch, stream);\n",
+        "")]),
+    "backward \"simt\"": ("flash_attention_bwd", [(
+        "  if (route == 1) return launch_mma_all(a, batch, st);",
+        "  if (route == 1 && d <= 128 && dv_dim <= 128)\n"
+        "    return launch_mma_all(a, batch, st);")]),
+}
+# phase 25: 8b at MLA width holds the bf16 reading of the d = 64 "mma"
+# route (3.52e-3 of the largest |grad|, PERF.md) beside BWD_TOL's limit
+MLA_BWD_REL_READING = 3.52e-3
 ROUTER_SHAPES = {"qwen3_moe_30b_a3b": (8192, 128, 8),   # tokens, E, top-k
                  "deepseek_v2_236b": (8192, 160, 6)}
 
@@ -4261,30 +4304,59 @@ def moe_train_steps(dev):
     return out
 
 
-def moe_kernel_timings(dev, ds, qw):
+def in_turns(new, old, reps):
+    """``time_ms`` of ``new`` and ``old`` in the order old, new, new, old:
+    (new's mean, old's mean, the four readings in that order)."""
+    t = [time_ms(fn, reps=reps) for fn in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def moe_kernel_timings(dev, ds, qw, previous):
     """Phase 25's kernel rows and readings: kernel 8 at DeepSeek-V2's MLA
     prefill launch (layer 0's q / k / v: 4 × 128 heads × 2048, q·k 192, v
-    128, bf16, causal, route "mma") beside ``scaled_dot_product_attention``
-    and its bound (2·(192 + 128) operations a visible pair at the bf16
-    peak; q, k, v read and the output written once); kernel 5 at both
-    router shapes beside ``torch.topk``; kernel 8b at ``MLA_BWD_SHAPE`` on
-    "simt" against its plain version and beside SDPA's backward."""
+    128, bf16, causal, route "mma" on its <192, 128> tile) beside the
+    <256, 128> tile it ran on before (``previous``: the paths of
+    ``PREVIOUS_MLA_DESIGN``'s builds, timed in turns with it),
+    ``scaled_dot_product_attention`` and its bound (2·(192 + 128)
+    operations a visible pair at the bf16 peak; q, k, v read and the
+    output written once); kernel 5 at both router shapes beside
+    ``torch.topk``; kernel 8b at ``MLA_BWD_SHAPE`` on "mma" against its
+    plain version, beside the "simt" route it took before (in turns), and
+    SDPA's backward."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
+        flash_attention_plain, mma_tile)
     from repro_torch.kernels.select import select_topm, select_topm_twin
 
     q, k, v, scale = ds.pop("qkv")
     b, h, s, d = q.shape
     dv = v.shape[3]
+    tile = mma_tile(d, dv)
+    check(tile == "192x128", f"MLA's heads take the <192, 128> tile: {tile}")
+
+    def padded():
+        with _build.swapped("flash_attention",
+                            previous["forward <256, 128>"]):
+            return flash_attention(q, k, v, scale=scale)
+
     with torch.inference_mode():
-        ms = time_ms(lambda: flash_attention(q, k, v, scale=scale), reps=10)
+        before = flash_attention.tiles.get(tile, 0)
+        flash_attention(q, k, v, scale=scale)
+        check(flash_attention.tiles.get(tile, 0) == before + 1,
+              f"the MLA prefill launch ran the {tile} tile")
+        prev_err = flash_close("flash at layer 0 on the <256, 128> tile",
+                               padded(), q, k, v, causal=True, scale=scale)
+        ms, prev_ms, fwd_turns = in_turns(
+            lambda: flash_attention(q, k, v, scale=scale), padded, reps=10)
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
                                                          scale=scale), reps=2)
         library = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale), reps=10)
+    check(ms <= prev_ms, f"the <192, 128> tile ({ms} ms) no slower than the "
+                         f"<256, 128> one ({prev_ms} ms) in the same call")
     pairs = b * h * s * (s + 1) / 2
     bound, by = bound_ms(2.0 * b * h * s * (2 * d + 2 * dv),
                          2.0 * (d + dv) * pairs, PEAK_BF16_OPS_PER_S)
@@ -4294,9 +4366,10 @@ def moe_kernel_timings(dev, ds, qw):
                "launches": ds["launches"]["flash prefill"],
                "max_abs_err": ds["layer0_err"], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": library,
+               "library_ms": library, "previous_ms": prev_ms,
+               "previous_err": prev_err, "turns": fwd_turns,
                "shape": f"MLA prefill B={b} H={h} S={s} d={d} dv={dv} bf16 "
-                        f"causal (route mma, d padded to 256)"}
+                        f"causal (route mma, tile {tile})"}
     del q, k, v
 
     gen = torch.Generator(device=dev).manual_seed(25)
@@ -4338,13 +4411,32 @@ def moe_kernel_timings(dev, ds, qw):
     v = torch.randn((b, h, s, dv), generator=gen, device=dev).to(
         torch.bfloat16)
     err, rel, o, do, lse = bwd_close("flash bwd bf16 at MLA width", q, k, v,
-                                     "simt")
-    bwd = {"shape": f"B={b} H={h} S={s} d={d} dv={dv} bf16 causal",
-           "max_abs_err": err, "rel_err": rel,
-           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse),
-                         reps=3),
+                                     "mma")
+
+    def simt():
+        with _build.swapped("flash_attention_bwd",
+                            previous["backward \"simt\""]):
+            return flash_attention_bwd(q, k, v, o, do, lse)
+
+    want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)))
+    prev_rel = max(max_diff(g, w) / max(1.0, float(w.abs().max()))
+                   for g, w in zip(simt(), want))
+    del want
+    bwd_ms, bwd_prev, bwd_turns = in_turns(
+        lambda: flash_attention_bwd(q, k, v, o, do, lse), simt, reps=3)
+    bwd = {"name": "flash_attention_bwd:mla", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/common.py:126", "launches": 0,
+           "shape": f"B={b} H={h} S={s} d={d} dv={dv} bf16 causal (route "
+                    f"mma)",
+           "max_abs_err": err, "rel_err": rel, "ms": bwd_ms,
+           "previous_ms": bwd_prev, "previous_rel": prev_rel,
+           "turns": bwd_turns,
            "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
                q, k, v, o, do), reps=1)}
+    check(bwd["ms"] < bwd["plain_ms"],
+          f"8b at MLA width on \"mma\" ({bwd['ms']} ms) faster than its "
+          f"plain version ({bwd['plain_ms']} ms)")
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
@@ -4358,17 +4450,18 @@ def moe_kernel_timings(dev, ds, qw):
     return mla_row, router_row, router, bwd
 
 
-def phase_moe_mla(dev):
+def phase_moe_mla(dev, previous):
     """Phase 25: Qwen3-30B-A3B and DeepSeek-V2 served at full width (one
     after the other, each freed before the next), one train step of each
-    smoke config, and the kernel rows of kernel 8 at MLA's prefill shape
+    smoke config, and the kernel rows of kernels 8 and 8b at MLA's widths
+    (beside ``previous``, the paths of ``PREVIOUS_MLA_DESIGN``'s builds)
     and kernel 5 at the router shapes."""
     out = {"qwen3_moe_30b_a3b": serve_moe_lm("qwen3_moe_30b_a3b", dev)}
     out["qwen3_moe_30b_a3b"].pop("qkv")
     out["deepseek_v2_236b"] = serve_moe_lm("deepseek_v2_236b", dev)
     out["train"] = moe_train_steps(dev)
     out["rows"] = moe_kernel_timings(dev, out["deepseek_v2_236b"],
-                                     out["qwen3_moe_30b_a3b"])
+                                     out["qwen3_moe_30b_a3b"], previous)
     return out
 
 
@@ -5631,6 +5724,213 @@ def log_examples(ex, card) -> None:
     log(f"    launches in phase 30: {ex['launches']}")
 
 
+# phase 31: DeepSeek-V2's train step at full width through kernels 8 and
+# 8b at MLA's 192 / 128 heads.  One layer: a 160-expert MoE layer is 3.8 B
+# parameters, 61 GB with AdamW's f32 state, beside 1.39 B of the first
+# (dense) layer and the two 102,400 × 5120 embeddings; MoE training waits
+# for a mesh.  The µbatch is the most rows whose step the dry run
+# (launch/dryrun.py at this config) puts under 72 GB: 16 rows 59.3 GiB,
+# 32 rows 90.4 GiB
+MLA_TRAIN_DEPTH = 1
+MLA_TRAIN_SHAPE = (32, 4096)    # train_4k's seq 4096, batch cut from 256
+MLA_TRAIN_MICROBATCH = 2        # µbatches of 16 rows
+MLA_TRAIN_STEPS = 2             # timed; one more under the profiler
+MLA_GRAD_ROWS = 1               # (a)'s batch: the plain attention's
+#                                 autograd keeps 128 heads' f32 scores
+MLA_PEAK_LIMIT = 72e9           # bytes: what the µbatch was sized to
+
+
+def mla_train_cell():
+    """Phase 31's uncut arch, its cut arch and its cell: DeepSeek-V2 at
+    ``MLA_TRAIN_DEPTH`` layers with ``MLA_TRAIN_MICROBATCH`` µbatches and
+    remat, train_4k's seq with the batch cut to ``MLA_TRAIN_SHAPE``'s."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    b, s = MLA_TRAIN_SHAPE
+    full = get_arch("deepseek_v2_236b")
+    cfg = dataclasses.replace(full.config, n_layers=MLA_TRAIN_DEPTH,
+                              microbatch=MLA_TRAIN_MICROBATCH, remat=True)
+    arch = dataclasses.replace(full, config=cfg)
+    return full, arch, dataclasses.replace(arch.cell("train_4k"),
+                                           name=f"train_4k_b{b}",
+                                           dims={"batch": b, "seq": s})
+
+
+def phase_mla_train(dev):
+    """Phase 31: DeepSeek-V2 trained at full width (d 5120, 128 MLA heads
+    at q·k 192 / v 128, vocab 102,400; f32 master weights, bf16 compute,
+    AdamW, remat) at ``MLA_TRAIN_DEPTH`` layer: (a) one step's loss and
+    per-leaf gradients at ``MLA_GRAD_ROWS`` × 4096 through kernels 8 and
+    8b on "mma" against the plain attention in bf16, each held to the
+    plain attention's f32 gradient (phase 23's contract); (b)
+    ``MLA_TRAIN_STEPS`` ``build_step`` train steps at ``MLA_TRAIN_SHAPE``
+    with the launch counts zeroed before and read after, the peak over
+    them beside the dry run's estimate, the warm step's seconds and
+    tokens/s; (c) every forward launch on "mma"'s <192, 128> tile and
+    every backward launch on "mma", none on "simt"; then one more step
+    under ``torch.profiler`` (the steps are 12.9 s each: no extra warm
+    call)."""
+    import dataclasses
+
+    from repro_torch.data.batches import lm_batch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tx
+    from repro_torch.training.train_loop import take_grads, trainable
+
+    b, s = MLA_TRAIN_SHAPE
+    mb = MLA_TRAIN_MICROBATCH
+    full, arch, cell = mla_train_cell()
+    cfg = arch.config
+    n_dense, n_moe = cfg.layer_counts()
+    check(n_moe == 0, f"phase 31 trains dense layers only: {n_dense}, "
+                      f"{n_moe}")
+    out = {"reduced": [
+        f"n_layers {full.config.n_layers} -> {cfg.n_layers} (the first, "
+        f"dense; the MoE layers wait for a mesh)",
+        f"train_4k batch {full.cell('train_4k').dims['batch']} -> {b} ({mb}"
+        f" µbatches of {b // mb})", f"{MLA_TRAIN_STEPS} steps",
+        f"(a) at {MLA_GRAD_ROWS} x {s}"],
+        "full_params": full.config.param_count()}
+    t0 = time.perf_counter()
+    out["estimated_peak"] = estimate(arch, cell)["memory"]["peak_bytes"]
+    out["estimate_s"] = time.perf_counter() - t0
+    plan = build_step(arch, cell)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tx.Transformer(cfg, tx.init_params(cfg, gen))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = cm.count_params(model)
+    check(out["params"] == cfg.param_count(), "parameter count")
+
+    # (a) one step's loss and gradients on the same weights and batch:
+    # bf16 compute through the kernels and through the plain attention,
+    # each against the plain attention's f32 gradient
+    tree = trainable(model.tree())
+    one = {k: torch.from_numpy(v).to(dev) for k, v in
+           lm_batch(MLA_GRAD_ROWS, s, cfg.vocab, seed=31).items()}
+    cfg1 = dataclasses.replace(cfg, microbatch=1)
+
+    def grads_of(c, use_kernel):
+        t0 = time.perf_counter()
+        loss = float(tx.backward(c, tree, one, use_kernel=use_kernel))
+        grads = take_grads(tree)
+        torch.cuda.synchronize()
+        return loss, grads, time.perf_counter() - t0
+
+    lt, gt, out["grad_s_f32_plain"] = grads_of(
+        dataclasses.replace(cfg1, dtype=torch.float32), False)
+    fwd0, bwd0 = dict(flash_attention.routes), dict(flash_attention_bwd.routes)
+    lk, gk, out["grad_s_kernel"] = grads_of(cfg1, True)
+    out["grad_routes"] = {
+        "forward": {r: flash_attention.routes[r] - fwd0[r] for r in fwd0},
+        "backward": {r: flash_attention_bwd.routes[r] - bwd0[r]
+                     for r in bwd0}}
+    check(out["grad_routes"]["backward"] == {"simt": 0, "mma": 1}
+          and out["grad_routes"]["forward"]["mma"] == 2,
+          f"(a): the kernel path's launches {out['grad_routes']}")
+    lp, gp, out["grad_s_plain"] = grads_of(cfg1, False)
+    out["f32_loss"] = lt
+    out["loss_kernel"], out["loss_plain"] = lk, lp
+    out["loss_rel"] = abs(lk - lp) / abs(lp)
+    out["grad_rel"] = grad_readings(gk, gp)
+    out["kernel_vs_f32"] = grad_readings(gk, gt)
+    out["plain_vs_f32"] = grad_readings(gp, gt)
+    del gk, gp, gt
+    check(math.isfinite(lk) and out["loss_rel"] <= 1e-3,
+          f"loss kernel {lk} vs plain {lp}: {out['loss_rel']} relative")
+    check(all(k <= 1.5 * p + 1e-5 for k, p in zip(out["kernel_vs_f32"],
+                                                  out["plain_vs_f32"])),
+          f"bf16: the kernel path's per-leaf distance to the f32 gradient "
+          f"{out['kernel_vs_f32']} ≤ 1.5 × the plain path's + 1e-5 "
+          f"{out['plain_vs_f32']}")
+
+    # (b) build_step's train steps, the counts zeroed before, read after
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                lm_batch(b, s, cfg.vocab, seed=i).items()}
+               for i in range(MLA_TRAIN_STEPS)]
+    state = plan.optimizer.init(model.tree())
+    zero_counts()
+    flash_attention.routes.update(dict.fromkeys(flash_attention.routes, 0))
+    flash_attention.tiles.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        model, state, loss = plan.fn(model, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["losses"], out["walls"] = losses, walls
+    out["warm_s"] = float(np.mean(walls[1:]))
+    out["tokens_per_s"] = b * s / out["warm_s"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_gib"] = out["peak_bytes"] / 2**30
+    out["launches"] = {"forward": flash_attention.launches,
+                       "backward": flash_attention_bwd.launches}
+    out["routes"] = {"forward": dict(flash_attention.routes),
+                     "tiles": dict(flash_attention.tiles),
+                     "backward": dict(flash_attention_bwd.routes)}
+    per_step = cfg.n_layers * mb
+    n_fwd, n_bwd = 2 * per_step * MLA_TRAIN_STEPS, per_step * MLA_TRAIN_STEPS
+    check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    check(int(state["step"]) == MLA_TRAIN_STEPS, "optimizer step count")
+    check(out["peak_bytes"] <= MLA_PEAK_LIMIT,
+          f"peak {out['peak_bytes']} B ≤ {MLA_PEAK_LIMIT}")
+    # (c) the routes of the path: the forward (and its remat recompute) on
+    # the <192, 128> tile, the backward on "mma", nothing on "simt"
+    check(out["launches"] == {"forward": n_fwd, "backward": n_bwd},
+          f"forward, remat recompute and backward launches: "
+          f"{out['launches']}")
+    check(out["routes"]["forward"]["mma"] == n_fwd
+          and out["routes"]["tiles"] == {"192x128": n_fwd},
+          f"every forward launch on \"mma\"'s <192, 128> tile: "
+          f"{out['routes']}")
+    check(out["routes"]["backward"] == {"simt": 0, "mma": n_bwd},
+          f"every backward launch on \"mma\", none on \"simt\": "
+          f"{out['routes']['backward']}")
+    out["profile"] = profile_each(((
+        f"DeepSeek-V2 train step ({b} x {s}, {mb} µbatches, "
+        f"{cfg.n_layers} layer)", lambda: plan.fn(model, state, batches[0]),
+        10),), warm=False)[0]
+    del model, state, tree, batches, one
+    torch.cuda.synchronize()
+    return out
+
+
+def log_mla_train(dt, card) -> None:
+    """Phase 31's lines."""
+    log(f"    {dt['params']} parameters (the uncut model "
+        f"{dt['full_params']}); reduced: {dt['reduced']}; init on the card "
+        f"{dt['init_s']:.2f}s")
+    log(f"    (a) one step at {MLA_GRAD_ROWS} x {MLA_TRAIN_SHAPE[1]}, bf16 "
+        f"compute: loss {dt['loss_kernel']!r} vs {dt['loss_plain']!r} "
+        f"({dt['loss_rel']!r} relative, limit 1e-3; f32 plain "
+        f"{dt['f32_loss']!r}); per-leaf ‖Δg‖/‖g‖ kernel vs plain "
+        f"{[round(x, 6) for x in dt['grad_rel']]}; to the f32 gradient: "
+        f"kernel {[round(x, 6) for x in dt['kernel_vs_f32']]}, plain "
+        f"{[round(x, 6) for x in dt['plain_vs_f32']]} (limit 1.5 × plain's "
+        f"+ 1e-5); gradient walls kernel {dt['grad_s_kernel']:.3f}s, plain "
+        f"{dt['grad_s_plain']:.3f}s, f32 plain {dt['grad_s_f32_plain']:.3f}"
+        f"s; the kernel path's launches by route {dt['grad_routes']}")
+    log(f"    (b) losses {dt['losses']}; step walls "
+        f"{[round(x, 4) for x in dt['walls']]} s, warm step "
+        f"{dt['warm_s']:.4f}s ({dt['tokens_per_s']:.1f} tokens/s); peak "
+        f"device memory {dt['peak_bytes']} B ({dt['peak_gib']:.2f} GiB, "
+        f"limit {MLA_PEAK_LIMIT:.0f} B; the dry run's estimate "
+        f"{dt['estimated_peak'] / 2**30:.2f} GiB, ratio "
+        f"{dt['estimated_peak'] / dt['peak_bytes']!r}, counted in "
+        f"{dt['estimate_s']:.1f}s) on {card}")
+    log(f"    (c) launches {dt['launches']}; by route {dt['routes']}; phase "
+        f"wall {dt['wall_s']:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5647,6 +5947,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    # phase 25's earlier designs of kernels 8 and 8b, compiled beside the
+    # shipped kernels
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    previous_build = builder.submit(_build.build_variants,
+                                    PREVIOUS_MLA_DESIGN)
+    builder.shutdown(wait=False)
     per_kernel = _build.build()
     build_s = time.perf_counter() - t0
     log(f"    kernel build {build_s:.2f}s (parallel nvcc: "
@@ -6148,7 +6454,7 @@ def main() -> int:
         f"({MOE_LM_SHAPE[0]} x {MOE_LM_SHAPE[1]}, max_len {MOE_LM_SHAPE[2]})"
         f" -> {MOE_LM_SHAPE[3]} greedy decode steps; smoke train steps")
     t_phase = time.perf_counter()
-    mo = phase_moe_mla(dev)
+    mo = phase_moe_mla(dev, previous_build.result())
     mo["wall_s"] = time.perf_counter() - t_phase
     b, s, _, steps = MOE_LM_SHAPE
     for name in MOE_LM_DEPTH:
@@ -6192,20 +6498,27 @@ def main() -> int:
             f"torch.topk {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"ms by {r['bound_by']}); ids and values bit for bit")
     log(f"    flash_attention at {mla_row['shape']}: {mla_row['ms']:.4f} ms "
-        f"(plain {mla_row['plain_ms']:.4f}, scaled_dot_product_attention "
-        f"{mla_row['library_ms']:.4f}, bound {mla_row['bound_ms']:.4f} ms by "
-        f"{mla_row['bound_by']}) on {card}")
-    log(f"    flash_attention_bwd at MLA width ({mla_bwd['shape']}, route "
-        f"\"simt\"): {mla_bwd['ms']:.4f} ms (plain "
+        f"(the <256, 128> tile it ran on before "
+        f"{mla_row['previous_ms']:.4f}; in turns, old / new / new / old "
+        f"{[round(x, 4) for x in mla_row['turns']]}; that tile's max_abs_diff"
+        f" {mla_row['previous_err']!r}), plain {mla_row['plain_ms']:.4f}, "
+        f"scaled_dot_product_attention {mla_row['library_ms']:.4f}, bound "
+        f"{mla_row['bound_ms']:.4f} ms by {mla_row['bound_by']} on {card}")
+    log(f"    flash_attention_bwd at MLA width ({mla_bwd['shape']}): "
+        f"{mla_bwd['ms']:.4f} ms (the \"simt\" route it took before "
+        f"{mla_bwd['previous_ms']:.4f}; in turns, old / new / new / old "
+        f"{[round(x, 4) for x in mla_bwd['turns']]}), plain "
         f"{mla_bwd['plain_ms']:.4f}, scaled_dot_product_attention backward "
         f"{mla_bwd['library_ms']:.4f}, bound {mla_bwd['bound_ms']:.4f} ms by "
-        f"{mla_bwd['bound_by']}); dQ, dK, dV within {mla_bwd['rel_err']!r} "
-        f"of the largest |grad| (limit {BWD_TOL[torch.bfloat16]}) on {card}")
+        f"{mla_bwd['bound_by']}; dQ, dK, dV within {mla_bwd['rel_err']!r} "
+        f"of the largest |grad| (limit {BWD_TOL[torch.bfloat16]}; the d = 64 "
+        f"route's reading {MLA_BWD_REL_READING}; \"simt\" "
+        f"{mla_bwd['previous_rel']!r}) on {card}")
     log(f"    phase wall {mo['wall_s']:.1f}s")
     flash_row["launches"] += (
         mo["qwen3_moe_30b_a3b"]["launches"]["flash prefill"]
         + mo["qwen3_moe_30b_a3b"]["launches"]["flash decode"])
-    kernels += [mla_row, router_row]
+    kernels += [mla_row, router_row, mla_bwd]
 
     # the model-parallel step gets the card to itself
     del mo
@@ -6347,6 +6660,23 @@ def main() -> int:
     for k in kernels:
         k["launches"] += ex["launches"].get(k["name"], 0)
     log(f"    phase wall {time.perf_counter() - t_phase:.1f}s")
+
+    # DeepSeek-V2's train step gets the card to itself
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = MLA_TRAIN_SHAPE
+    log(f"[31] DeepSeek-V2 training at full width: {MLA_TRAIN_DEPTH} layer "
+        f"(the first, dense), train_4k cut to {b} x {s} "
+        f"({MLA_TRAIN_MICROBATCH} µbatches, remat, AdamW), "
+        f"{MLA_TRAIN_STEPS} build_step train steps; kernels 8 and 8b at "
+        f"MLA's 192 / 128 heads on \"mma\"")
+    t_phase = time.perf_counter()
+    dt = phase_mla_train(dev)
+    dt["wall_s"] = time.perf_counter() - t_phase
+    log_mla_train(dt, card)
+    mla_row["launches"] += dt["launches"]["forward"]
+    mla_bwd["launches"] += dt["launches"]["backward"]
 
     check(all(math.isfinite(k["ms"]) for k in kernels), "finite timings")
     print(card)

@@ -33,14 +33,17 @@
 // by a two-stage cp.async ring of 16-byte copies (the next tile loads
 // while this one is computed), rows padded by 16 bytes so ldmatrix is
 // conflict-free.  The warp's Q fragments are loaded once with ldmatrix
-// and kept in registers (d, dv ≤ 128; reloaded from shared memory per
-// tile past that).  S = QKᵀ is mma.sync m16n8k16 bf16 → f32; the online
-// softmax runs on the accumulator fragments in f32; P goes from the S
-// registers to A fragments without shared memory, split as p_hi =
-// bf16(p), p_lo = bf16(p − p_hi), and O += P·V is two mma.sync (V
-// fragments by ldmatrix.trans), so P keeps ~2⁻¹⁷ of relative precision
-// while l is summed from the f32 p.  d and dv are zero-padded to 64, 128
-// or 256 in shared memory (exact).  Masks apply only on tiles that reach
+// and kept in registers (d ≤ QREG_MAX_DK and dv ≤ 128; reloaded from
+// shared memory per tile past that).  S = QKᵀ is mma.sync m16n8k16 bf16
+// → f32; the online softmax runs on the accumulator fragments in f32; P
+// goes from the S registers to A fragments without shared memory, split
+// as p_hi = bf16(p), p_lo = bf16(p − p_hi), and O += P·V is two mma.sync
+// (V fragments by ldmatrix.trans), so P keeps ~2⁻¹⁷ of relative
+// precision while l is summed from the f32 p.  d is zero-padded to 64,
+// 128, 192 or 256 and dv to 64, 128 or 256 in shared memory (exact).
+// 192 is MLA's q·k width (DeepSeek-V2: 128 nope + 64 rope, v 128): its
+// own tile runs S = QKᵀ as 12 k-steps of 16 with no zero columns, where
+// padding to 256 would run 16.  Masks apply only on tiles that reach
 // kv_end or the causal frontier of the block's first row.  Blocks run
 // the longest (last) row tiles first.
 //
@@ -379,23 +382,29 @@ using repro_mma::stage_bf16;
 constexpr int MMA_BR = 64;       // packed rows a block, 16 a warp
 constexpr int MMA_THREADS = 128;
 constexpr int MMA_KEYS = 32;     // keys a K/V tile
+// Widest padded d whose Q fragments a warp keeps in registers (with dv ≤
+// 128).  At MLA's 192 / 128 they would be 48 more registers a lane: ptxas
+// gives 177 with them (two blocks an SM) and 140 without (three), and the
+// MLA prefill runs 5.71 ms without, 7.11 ms with (H100, tools/
+// flash_mla_variants.py), so past 128 they are reloaded per key tile.
+constexpr int QREG_MAX_DK = 128;
 
 __host__ __device__ constexpr int mma_smem_bytes(int dk, int dv) {
   return 2 * (MMA_BR * (dk + 8) + 2 * MMA_KEYS * (dk + 8) +
               2 * MMA_KEYS * (dv + 8));
 }
 
-// DK, DV: d and dv padded (64, 128 or 256).  Fragment layouts are those
-// of mma.m16n8k16: lane = 4·g + t4; an accumulator holds (row g, cols
-// 2·t4, 2·t4 + 1) in [0, 1] and row g + 8 in [2, 3].  LSE: write a.lse
-// (a template argument, so that without it the kernel keeps its
-// registers: 96 at 64 / 64, five blocks an SM).
+// DK, DV: d and dv padded (DK 64, 128, 192 or 256; DV 64, 128 or 256).
+// Fragment layouts are those of mma.m16n8k16: lane = 4·g + t4; an
+// accumulator holds (row g, cols 2·t4, 2·t4 + 1) in [0, 1] and row g + 8
+// in [2, 3].  LSE: write a.lse (a template argument, so that without it
+// the kernel keeps its registers: 96 at 64 / 64, five blocks an SM).
 template <int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 mma_kernel(const Args a) {
   constexpr int BK = MMA_KEYS;
   constexpr int LDK = DK + 8, LDV = DV + 8;
-  constexpr bool QREG = DK <= 128 && DV <= 128;
+  constexpr bool QREG = DK <= QREG_MAX_DK && DV <= 128;
   extern __shared__ uint4 smem_u4[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_u4);
   bf16* k_s = q_s + MMA_BR * LDK;
@@ -620,9 +629,12 @@ int launch_mma_dv(const Args& a, int batch, cudaStream_t stream) {
   return launch_mma<DK, 256>(a, batch, stream);
 }
 
+// d padded to the tile's DK: 64, 128, 192 (MLA's q·k width) or 256; the
+// wrapper's mma_tile() states the same rule
 int launch_mma_all(const Args& a, int batch, cudaStream_t stream) {
   if (a.d <= 64) return launch_mma_dv<64>(a, batch, stream);
   if (a.d <= 128) return launch_mma_dv<128>(a, batch, stream);
+  if (a.d <= 192) return launch_mma_dv<192>(a, batch, stream);
   return launch_mma_dv<256>(a, batch, stream);
 }
 

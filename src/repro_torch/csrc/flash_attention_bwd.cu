@@ -28,22 +28,25 @@
 // kernel's prologue).  Launches 2 (dK/dV) and 3 (dQ) take one of two
 // routes, chosen by the caller (the wrapper) by dtype and width:
 //
-// "mma" (bf16, d and dv ≤ 128).  Every product is mma.sync m16n8k16 bf16
-// → f32, 128 threads a block, 16 rows a warp; d and dv are zero-padded to
-// 64 or 128 in shared memory (exact); rows there are padded by 16 bytes so
-// ldmatrix is conflict-free; the streamed operand goes through a two-stage
-// cp.async ring of 16-byte copies (element by element where rows are not
-// 16-byte aligned, as the forward's vec flag); masks apply only on tiles
-// that reach Skv, Sq or the causal diagonal.  P and dS are rounded once to
-// bf16 as the A operand of the next product, straight from the
-// accumulators (no shared memory), as FlashAttention-2 does.
+// "mma" (bf16, d ≤ 192 and dv ≤ 128).  Every product is mma.sync m16n8k16
+// bf16 → f32, 128 threads a block, 16 rows a warp; d is zero-padded to 64,
+// 128 or 192 and dv to 64 or 128 in shared memory (exact; 192 / 128 is
+// MLA's heads, DeepSeek-V2's q·k 128 nope + 64 rope and v 128, below);
+// rows there are padded by 16 bytes so ldmatrix is conflict-free; the
+// streamed operand goes through a two-stage cp.async ring of 16-byte
+// copies (element by element where rows are not 16-byte aligned, as the
+// forward's vec flag); masks apply only on tiles that reach Skv, Sq or
+// the causal diagonal.  P and dS are rounded once to bf16 as the A
+// operand of the next product, straight from the accumulators (no shared
+// memory), as FlashAttention-2 does.
 //  2. dK/dV, grid (Skv/64, Hkv, B): a block owns 64 keys of one kv head
 //     (4 warps × 16 keys) and loops over the q tiles (BN rows: 64 when d,
 //     dv ≤ 64, else 32) of all g query heads of the group in a fixed
-//     order from the first tile that sees its keys.  Key-major, so that
-//     each warp's accumulator rows are its keys: Sᵀ = K·Qᵀ, Pᵀ = exp(Sᵀ −
-//     lse) (lse and Δ index the accumulator's column), dV += Pᵀ·dO, dPᵀ =
-//     V·dOᵀ, dSᵀ = Pᵀ ∘ (dPᵀ − Δ), dK += dSᵀ·Q.  K and V fragments stay in
+//     order from the first tile that sees its keys.
+//     Key-major, so that each warp's accumulator rows are its keys: Sᵀ =
+//     K·Qᵀ, Pᵀ = exp(Sᵀ − lse) (lse and Δ index the accumulator's
+//     column), dV += Pᵀ·dO, dPᵀ = V·dOᵀ, dSᵀ = Pᵀ ∘ (dPᵀ − Δ), dK +=
+//     dSᵀ·Q.  K and V fragments stay in
 //     registers (d, dv ≤ 64; reloaded from shared memory past that); Q and
 //     dO stream through the ring, each read both ways (ldmatrix for the
 //     ·Qᵀ products, ldmatrix.trans for the ·Q ones), with lse and Δ beside
@@ -52,10 +55,26 @@
 //  3. dQ, grid (Sq/64, Hq, B), the longest (last) row tiles first: a block
 //     owns 64 query rows of one head (4 warps × 16) and loops over the K/V
 //     tiles (BN keys) up to its causal edge: S = Q·Kᵀ, P = exp(S − lse),
-//     dP = dO·Vᵀ, dS = P ∘ (dP − Δ), dQ += dS·K — Q and dO fragments in
-//     registers, K and V through the ring (K read both ways).
+//     dP = dO·Vᵀ, dS = P ∘ (dP − Δ), dQ += dS·K — Q (d ≤ 128) and dO
+//     fragments in registers, K and V through the ring (K read both ways).
 //
-// "simt" (f32; bf16 with d or dv > 128).  The same three launches in f32
+// MLA's 192 / 128 heads on "mma".  Registers decide the design: a lane
+// of the dK/dV kernel holds its 16 keys' dK (192 wide: 96 f32) and dV
+// (128: 64) for the whole loop, beside Sᵀ and dPᵀ (16 each at 32-row q
+// tiles): 192 accumulators of the 255.  ptxas fits the kernel in 254
+// registers with no spill (K and V fragments come from shared memory, as
+// they do past 64), and it runs 4.19 ms at B 1, H 128, S 2048 against
+// 4.65 ms with 16-row q tiles (240 registers) (H100, tools/
+// flash_mla_variants.py), so the tile and the 128 threads stay as they
+// are at 128 / 128.  The dQ kernel keeps dQ (96) and dO (32) and
+// restages Q's fragments from shared memory per key tile: with Q in
+// registers (48 more) ptxas spills 8 bytes at 255 and the backward is
+// no faster.  Every other choice stands: no atomics, one order of every
+// sum, P and dS rounded once to bf16 from the accumulators, the scale
+// folded into dK and dQ.  Two warps a 16-key slab (256 threads, dK's
+// columns split) or dK held in shared memory were not needed.
+//
+// "simt" (f32; bf16 with d > 192 or dv > 128).  The same three launches in f32
 // FMAs on the CUDA cores from f32 copies in shared memory: T = 64 keys and
 // query rows when d, dv ≤ 128 (T = 32 up to 256), 256 threads as 16 × 16,
 // each thread a (T/16) × (T/16) block of a score tile and (T/16) rows ×
@@ -556,7 +575,7 @@ __device__ __forceinline__ void zero(float (&c)[NB][4]) {
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 }
 
-// DK, DV: d and dv padded (64 or 128).
+// DK, DV: d and dv padded (DK 64, 128 or 192; DV 64 or 128).
 template <int DK, int DV>
 __global__ void __launch_bounds__(MMA_THREADS)
 dkdv_mma_kernel(const BwdArgs a) {
@@ -730,6 +749,7 @@ template <int DK, int DV>
 __global__ void __launch_bounds__(MMA_THREADS)
 dq_mma_kernel(const BwdArgs a) {
   constexpr int BN = dq_bn(DK, DV), LDK = DK + 8, LDV = DV + 8;
+  constexpr bool QREG = DK <= 128;  // Q's fragments kept in registers
   extern __shared__ uint4 smem_u4[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_u4);
   bf16* do_s = q_s + MMA_ROWS * LDK;
@@ -784,7 +804,8 @@ dq_mma_kernel(const BwdArgs a) {
   const float dl0 = qi0 < a.Sq ? a.delta[base + qi0] : 0.f;
   const float dl1 = qi1 < a.Sq ? a.delta[base + qi1] : 0.f;
   const float sl2 = a.scale * LOG2E;
-  uint32_t qf[DK / 16][4], of[DV / 16][4];
+  const bf16* q_row = q_s + (wr + (lane & 15)) * LDK + (lane >> 4) * 8;
+  uint32_t qf[QREG ? DK / 16 : 1][4], of[DV / 16][4];
   float dq[DK / 8][4];
   zero(dq);
 
@@ -799,9 +820,8 @@ dq_mma_kernel(const BwdArgs a) {
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int kc = 0; kc < DK / 16; ++kc)
-        ldsm_x4(qf[kc], q_s + (wr + (lane & 15)) * LDK + (lane >> 4) * 8 +
-                            kc * 16);
+      for (int kc = 0; kc < (QREG ? DK / 16 : 1); ++kc)
+        if (QREG) ldsm_x4(qf[kc], q_row + kc * 16);
 #pragma unroll
       for (int kc = 0; kc < DV / 16; ++kc)
         ldsm_x4(of[kc], do_s + (wr + (lane & 15)) * LDV + (lane >> 4) * 8 +
@@ -816,8 +836,12 @@ dq_mma_kernel(const BwdArgs a) {
     zero(s);
     zero(dp);
     mma_rows<DK / 16>(s, [&](uint32_t (&af)[4], int kc) {
+      if (QREG) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) af[e] = qf[kc][e];
+        for (int e = 0; e < 4; ++e) af[e] = qf[QREG ? kc : 0][e];
+      } else {
+        ldsm_x4(af, q_row + kc * 16);
+      }
     }, ks, LDK, lane);
     mma_rows<DV / 16>(dp, [&](uint32_t (&af)[4], int kc) {
 #pragma unroll
@@ -883,7 +907,10 @@ int launch_mma(const BwdArgs& a, int batch, cudaStream_t st) {
   return err;
 }
 
+// d, dv padded to the instantiation's DK, DV: 64 / 64, 64 / 128, 128 / 64,
+// 128 / 128, and 192 / 128 for any d in 129 … 192 (dv ≤ 128)
 int launch_mma_all(const BwdArgs& a, int batch, cudaStream_t st) {
+  if (a.d > 128) return launch_mma<192, 128>(a, batch, st);
   if (a.d <= 64 && a.dv <= 64) return launch_mma<64, 64>(a, batch, st);
   if (a.d <= 64) return launch_mma<64, 128>(a, batch, st);
   if (a.dv <= 64) return launch_mma<128, 64>(a, batch, st);
@@ -910,7 +937,7 @@ int launch_delta(const BwdArgs& a, int batch, cudaStream_t st) {
 // dO, dq, dk and dv in that order.  lse: the forward's (B, Hq, Sq)
 // contiguous f32 log-sum-exp; delta: a (B, Hq, Sq) f32 device workspace.
 // dtype 0 = f32, 1 = bf16 (all eight tensors alike); 1 ≤ d, dv ≤ 256, Hq a
-// multiple of Hkv.  route 0 = "simt", 1 = "mma" (bf16, d and dv ≤ 128).
+// multiple of Hkv.  route 0 = "simt", 1 = "mma" (bf16, d ≤ 192, dv ≤ 128).
 // Returns cudaErrorInvalidValue unlaunched on other arguments, else
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int repro_flash_attention_bwd(
@@ -923,7 +950,7 @@ extern "C" int repro_flash_attention_bwd(
                   hkv > 0 && hq % hkv == 0 && (dtype == 0 || dtype == 1) &&
                   batch >= 0 && sq >= 0 && skv >= 0 &&
                   (route == 0 ||
-                   (route == 1 && dtype == 1 && d <= 128 && dv_dim <= 128));
+                   (route == 1 && dtype == 1 && d <= 192 && dv_dim <= 128));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || hq == 0 || (sq == 0 && skv == 0)) return 0;
   BwdArgs a;

@@ -10,6 +10,7 @@ the source and flags, and are built at first use; :func:`build` starts one
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_variant_libs: Dict[Path, ctypes.CDLL] = {}   # build_variants' copies
 # counters of a dry run (``launch/op_cost.py``'s ``OpCounter``), each
 # called as fn(kernel, operations, bytes) by a wrapper given meta tensors
 META_LISTENERS: List[Callable[[str, float, float], None]] = []
@@ -176,6 +178,64 @@ def padded_rows(x, width: int):
         out[:, :x.shape[1]] = x
         return out
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def build_variants(variants: Dict[str, tuple]) -> Dict[str, Path]:
+    """Patched copies of kernel sources, for timing an earlier or another
+    design beside the shipped one (measurement only: no model path loads
+    them).  ``variants`` maps a label to ``(name, [(old, new), ...])``,
+    each ``old`` found exactly once in ``csrc/<name>.cu``; every copy is
+    compiled in parallel into ``build/variants/`` with the shipped flags.
+    Returns label → library path, ``-Xptxas -v``'s report beside each
+    library as ``<label>.log``."""
+    out_dir = BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, (name, pairs) in variants.items():
+        src = (CSRC / f"{name}.cu").read_text()
+        for old, new in pairs:
+            if src.count(old) != 1:
+                raise RuntimeError(f"variant {label!r}: {old[:60]!r} occurs "
+                                   f"{src.count(old)} times in {name}.cu")
+            src = src.replace(old, new)
+        stem = re.sub(r"\W+", "_", label)
+        cu = out_dir / f"{stem}.cu"
+        cu.write_text(src)
+        so = cu.with_suffix(".so")
+        procs[label] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    out, errors = {}, []
+    for label, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for variant {label!r}:\n{log}")
+        out[label] = so
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+@contextlib.contextmanager
+def swapped(name: str, path: Path):
+    """Within the block, ``csrc/<name>.cu``'s wrapper launches the library
+    at ``path`` (a :func:`build_variants` copy, opened once a process) in
+    place of the shipped one; the shipped library is back after it."""
+    with _lock:
+        lib = _variant_libs.get(path)
+        if lib is None:
+            lib = _variant_libs[path] = ctypes.CDLL(str(path))
+        before = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before
 
 
 def check(status: int, what: str) -> None:

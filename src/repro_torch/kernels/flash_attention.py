@@ -17,8 +17,10 @@ keys; with ``kv_len=None`` it is exactly the TPU kernel's contract.
 On a CUDA tensor the wrapper takes one of three routes of the kernel,
 by dtype and by packed rows R = Sq·Hq/Hkv (the query positions times the
 heads of a GQA group): f32 → ``"simt"`` (f32 FMAs, the 1e-5 contract);
-bf16 with R > 16 → ``"mma"`` (tensor-core prefill); bf16 with R ≤ 16 →
-``"split"`` (split-K decode, two launches and an f32 workspace).  It
+bf16 with R > 16 → ``"mma"`` (tensor-core prefill, on the tile
+:func:`mma_tile` names: d padded to 64, 128, 192 — MLA's q·k width — or
+256, dv to 64, 128 or 256); bf16 with R ≤ 16 → ``"split"`` (split-K
+decode, two launches and an f32 workspace).  It
 launches that route or raises — it never falls back; on a CPU tensor it
 runs the plain version; on a meta tensor (a dry run, ``launch/dryrun.py``)
 it returns meta outputs and workspaces and hands :func:`work` (the
@@ -29,9 +31,10 @@ The gradient (no TPU counterpart: the reference differentiates its XLA
 :class:`FlashAttentionFn`, whose forward is the kernel above (asked for
 its log-sum-exp) and whose backward is :func:`flash_attention_bwd`: the
 hand-written CUDA kernel of ``csrc/flash_attention_bwd.cu`` on a CUDA
-tensor — route ``"mma"`` (bf16 tensor cores) for bf16 with d, dv ≤ 128,
-``"simt"`` (f32 FMAs) otherwise, chosen by :func:`bwd_route` with no
-fallback — and :func:`flash_attention_bwd_plain` on a CPU tensor.
+tensor — route ``"mma"`` (bf16 tensor cores) for bf16 with d ≤ 192 and
+dv ≤ 128 (up to MLA's 192 / 128 heads), ``"simt"`` (f32 FMAs) for f32 and
+for wider heads, chosen by :func:`bwd_route` with no fallback — and
+:func:`flash_attention_bwd_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ SPLIT_MAX_ROWS = 16         # packed rows the split-K decode route holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"simt": 0, "mma": 1, "split": 2}
 _BWD_ROUTES = {"simt": 0, "mma": 1}
-MMA_BWD_MAX_DIM = 128       # d, dv the backward's tensor-core route takes
+MMA_BWD_MAX_DK = 192        # the widest d and dv the backward's
+MMA_BWD_MAX_DV = 128        # tensor-core route takes
 
 
 def _check(q, k, v, kv_len):
@@ -205,6 +209,16 @@ def route(q: torch.Tensor, k: torch.Tensor) -> str:
     return "mma" if rows > SPLIT_MAX_ROWS else "split"
 
 
+def mma_tile(d: int, dv: int) -> str:
+    """The ``"mma"`` route's tile for heads of width d (q·k) and dv,
+    ``"DKxDV"``: d padded to 64, 128, 192 or 256 and dv to 64, 128 or 256
+    (``csrc/flash_attention.cu``'s ``launch_mma_all`` / ``launch_mma_dv``,
+    whose zero columns are exact)."""
+    dk = next(w for w in (64, 128, 192, 256) if d <= w)
+    dvp = next(w for w in (64, 128, 256) if dv <= w)
+    return f"{dk}x{dvp}"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     kv_len: torch.Tensor | None = None,
@@ -218,8 +232,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors (f32 or bf16, unit stride on the last axis, any other
     strides; d, dv ≤ 256) launch the kernel's route (:func:`route`) on
-    the current stream and add one to ``flash_attention.launches`` and to
-    ``flash_attention.routes[route]``; the output is allocated
+    the current stream and add one to ``flash_attention.launches``, to
+    ``flash_attention.routes[route]`` and, on ``"mma"``, to
+    ``flash_attention.tiles[mma_tile(d, dv)]``; the output is allocated
     (B, Sq, Hq, dv) and returned as its (B, Hq, Sq, dv) view, so the
     model's head merge is free.  CPU tensors run the plain version.
     """
@@ -273,11 +288,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(status, f"flash_attention ({path})")
         flash_attention.launches += 1
         flash_attention.routes[path] += 1
+        if path == "mma":
+            tile = mma_tile(d, dv)
+            flash_attention.tiles[tile] = \
+                flash_attention.tiles.get(tile, 0) + 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.routes = dict.fromkeys(_ROUTES, 0)
+flash_attention.tiles = {}      # "mma" launches by mma_tile
 
 
 def _meta(q, k, v, causal, return_lse):
@@ -371,10 +391,11 @@ def _bwd_lib():
 
 def bwd_route(q: torch.Tensor, v: torch.Tensor) -> str:
     """The backward kernel's route for a CUDA call with these q, v:
-    ``"mma"`` (bf16 tensor cores) for bf16 with d and dv ≤
-    ``MMA_BWD_MAX_DIM``, else ``"simt"`` (f32 FMAs)."""
-    if (q.dtype == torch.bfloat16 and q.shape[3] <= MMA_BWD_MAX_DIM
-            and v.shape[3] <= MMA_BWD_MAX_DIM):
+    ``"mma"`` (bf16 tensor cores) for bf16 with d ≤ ``MMA_BWD_MAX_DK``
+    (192: MLA's q·k width) and dv ≤ ``MMA_BWD_MAX_DV`` (128), else
+    ``"simt"`` (f32 FMAs)."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] <= MMA_BWD_MAX_DK
+            and v.shape[3] <= MMA_BWD_MAX_DV):
         return "mma"
     return "simt"
 

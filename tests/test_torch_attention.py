@@ -391,12 +391,15 @@ def test_backward_kernel_source_and_wrapper():
 
 @pytest.mark.parametrize("dtype,d,dv,want", [
     (torch.bfloat16, 64, 64, "mma"), (torch.bfloat16, 128, 128, "mma"),
-    (torch.bfloat16, 40, 72, "mma"), (torch.bfloat16, 192, 128, "simt"),
+    (torch.bfloat16, 40, 72, "mma"), (torch.bfloat16, 192, 128, "mma"),
     (torch.bfloat16, 64, 256, "simt"), (torch.float32, 64, 64, "simt"),
+    (torch.bfloat16, 136, 128, "mma"), (torch.bfloat16, 192, 136, "simt"),
+    (torch.bfloat16, 200, 128, "simt"),
 ])
 def test_backward_route_rule(dtype, d, dv, want):
-    """A CUDA backward's route: bf16 with d, dv ≤ 128 → the tensor-core
-    ``"mma"`` route; f32, or a head wider than 128 → ``"simt"``."""
+    """A CUDA backward's route: bf16 with d ≤ 192 (MLA's q·k width) and
+    dv ≤ 128 → the tensor-core ``"mma"`` route; f32, a q·k width past 192
+    or a v width past 128 → ``"simt"``."""
     from repro_torch.kernels.flash_attention import bwd_route
     q = torch.zeros((1, 4, 3, d), dtype=dtype)
     v = torch.zeros((1, 2, 5, dv), dtype=dtype)

@@ -877,12 +877,16 @@ def test_flash_kernel_at_the_llama_serving_shapes(cuda, dtype):
 def test_flash_kernel_at_the_mla_prefill_shape(cuda, dtype):
     """DeepSeek-V2's MLA prefill launch: q·k width 192, v width 128, no
     grouping (g = 1), S 2048, causal, at 1/1/2048 scale 1/√192; the bf16
-    call on the tensor-core route (d padded to 256); 16 of the 128
-    heads."""
+    call on the tensor-core route's own ``<192, 128>`` tile (no padding
+    to 256); 16 of the 128 heads."""
     from repro_torch.kernels.flash_attention import flash_attention
     q, k, v = _attn_inputs(9, 1, 16, 16, 2048, 2048, 192, 128, dtype, cuda)
     want = "simt" if dtype == torch.float32 else "mma"
+    tiles = dict(flash_attention.tiles)
     got = _routed(q, k, v, want, scale=1.0 / 192 ** 0.5)
+    if dtype == torch.bfloat16:
+        assert flash_attention.tiles.get("192x128", 0) == \
+            tiles.get("192x128", 0) + 1
     _attn_close(f"cuda.flash.mla_prefill.{str(dtype)[6:]}", got, q, k, v,
                 causal=True, scale=1.0 / 192 ** 0.5)
 
@@ -1315,16 +1319,22 @@ def _bwd_close(name, q, k, v, causal=True, route=None):
     (2, 2, 1, 77, 77, 64, 64, True),      # ragged tiles, Sq == Skv
     (1, 2, 4, 50, 130, 128, 128, True),   # Sq != Skv, group 4
     (2, 1, 2, 100, 100, 64, 64, False),   # not causal
-    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d, 32-row tiles
+    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d: MLA's 192 / 128
     (1, 1, 2, 20, 8, 64, 64, True),       # Sq > Skv: fully masked rows
     (1, 2, 2, 65, 65, 40, 40, True),      # d off 16
+    (2, 3, 1, 77, 77, 192, 128, True),    # MLA: group 1, S off 64
+    (1, 2, 1, 90, 90, 160, 128, True),    # d 160: zero-padded to 192
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, hkv, group, sq, skv,
                                         d, dv, causal):
+    """Both dtypes against the plain backward; a bf16 call with d ≤ 192
+    and dv ≤ 128 advances ``routes["mma"]`` (MLA's 192 / 128 heads and a
+    d of 160 padded to them included), f32 ``routes["simt"]``."""
     q, k, v = _attn_inputs(sq * 7 + skv, b, hkv * group, hkv, sq, skv, d,
                            dv, dtype, cuda)
+    route = "simt" if dtype == torch.float32 else "mma"
     _bwd_close(f"cuda.flash_bwd.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}."
-               f"{str(dtype)[6:]}", q, k, v, causal=causal)
+               f"{str(dtype)[6:]}", q, k, v, causal=causal, route=route)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1368,7 +1378,9 @@ BWD_SHAPES = [
     (2, 2, 1, 77, 77, 64, 64, True),      # ragged tiles, Sq == Skv
     (1, 2, 4, 50, 130, 128, 128, True),   # Sq != Skv, group 4
     (2, 1, 2, 100, 100, 64, 64, False),   # not causal
-    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d: "simt" in bf16 too
+    (1, 2, 4, 40, 100, 192, 128, True),   # dv != d: MLA's 192 / 128
+    (1, 3, 1, 130, 130, 192, 128, True),  # MLA, group 1: 16-row q tiles
+    (1, 2, 2, 40, 70, 192, 136, True),    # dv past 128: "simt"
     (1, 1, 2, 20, 8, 64, 64, True),       # Sq > Skv: fully masked rows
     (1, 2, 2, 65, 65, 40, 40, True),      # d off 16
     (1, 8, 4, 256, 256, 64, 64, True),    # Llama-3.2-1B's heads
@@ -1379,16 +1391,16 @@ BWD_SHAPES = [
 @pytest.mark.parametrize("b,hkv,group,sq,skv,d,dv,causal", BWD_SHAPES)
 def test_flash_bwd_bf16_routes_and_determinism(cuda, b, hkv, group, sq, skv,
                                                d, dv, causal):
-    """bf16 backward on the route ``bwd_route`` names ("mma" for d, dv ≤
-    128, "simt" past that), counted once, against the plain backward;
-    then the same call again gives the same bits (no atomics, fixed sum
-    order); fully masked rows give exact zeros."""
+    """bf16 backward on the route ``bwd_route`` names ("mma" for d ≤ 192
+    and dv ≤ 128, "simt" past that), counted once, against the plain
+    backward; then the same call again gives the same bits (no atomics,
+    fixed sum order); fully masked rows give exact zeros."""
     from repro_torch.kernels.flash_attention import (bwd_route,
                                                      flash_attention_bwd)
     q, k, v = _attn_inputs(sq * 3 + skv + d, b, hkv * group, hkv, sq, skv,
                            d, dv, torch.bfloat16, cuda)
     route = bwd_route(q, v)
-    assert route == ("mma" if max(d, dv) <= 128 else "simt")
+    assert route == ("mma" if d <= 192 and dv <= 128 else "simt")
     got, o, lse, do = _bwd_close(
         f"cuda.flash_bwd.route.{b}x{hkv}x{group}x{sq}x{skv}x{d}x{dv}."
         f"{route}", q, k, v, causal=causal, route=route)
