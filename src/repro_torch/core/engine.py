@@ -52,6 +52,7 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import neighbors as nb
 from repro_torch.core import predict as pred_mod
 from repro_torch.core.similarity import user_means
@@ -85,11 +86,12 @@ def _similarity_operand(ratings, gather_src):
     depend on the bound."""
     if gather_src.device.type == "meta" and gather_src.dtype == torch.int8:
         return gather_src, None
-    if gather_src.dtype == torch.int8 and gather_src.numel():
-        bound = int(gather_src.max())
-        if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
-            return gather_src, bound
-    return ratings, None
+    with obs.span("topk.operand"):
+        if gather_src.dtype == torch.int8 and gather_src.numel():
+            bound = int(gather_src.max())
+            if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
+                return gather_src, bound
+        return ratings, None
 
 
 def kernel_block_topk(q_src, cand_src, k: int, *, measure: str,
@@ -108,13 +110,19 @@ def kernel_block_topk(q_src, cand_src, k: int, *, measure: str,
     best_i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
     q_ids = q_offset + torch.arange(m, device=dev)
     for b0 in range(0, cand_src.shape[0], block_size):
-        block = cand_src[b0:b0 + block_size]
-        s = ksim.fused_similarity(q_src, block, measure=measure, beta=beta,
-                                  max_value=max_value, n_bad=n_bad)
-        cand = cand_offset + b0 + torch.arange(block.shape[0], device=dev)
-        s = s.masked_fill(cand[None, :] == q_ids[:, None], nb.NEG_INF)
-        ids = cand.to(torch.int32)[None, :].expand(m, -1)
-        best_s, best_i = nb.merge_topk(best_s, best_i, s, ids, k)
+        with obs.span("topk.block", b0=b0):
+            block = cand_src[b0:b0 + block_size]
+            with obs.span("topk.score"):
+                s = ksim.fused_similarity(q_src, block, measure=measure,
+                                          beta=beta, max_value=max_value,
+                                          n_bad=n_bad)
+            with obs.span("topk.merge"):
+                cand = cand_offset + b0 + torch.arange(block.shape[0],
+                                                       device=dev)
+                s = s.masked_fill(cand[None, :] == q_ids[:, None],
+                                  nb.NEG_INF)
+                ids = cand.to(torch.int32)[None, :].expand(m, -1)
+                best_s, best_i = nb.merge_topk(best_s, best_i, s, ids, k)
     return best_s, best_i
 
 
@@ -124,7 +132,9 @@ def check_bad(n_bad, max_value) -> None:
     run's) holds no count to read."""
     if n_bad.device.type == "meta":
         return
-    if int(n_bad.item()):
+    with obs.span("topk.check_bad"):
+        bad = int(n_bad.item())
+    if bad:
         raise ValueError(f"ratings past the fit's max_value {max_value}")
 
 

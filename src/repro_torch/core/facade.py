@@ -166,11 +166,14 @@ def _recommend_block(ratings, gather_src, scores, idx, means, q_means,
                      q_ids, *, n, item_block, use_kernel):
     """Exact recommend for one (padded) user block: item-tiled prediction,
     seen-mask, canonical top-n with -1 for unfillable slots."""
-    safe = q_ids.clamp(0, ratings.shape[0] - 1)
-    pred = pred_mod.predict_from_neighbors_blocked(
-        ratings, scores, idx, means=means, query_means=q_means,
-        item_block=item_block, gather_src=gather_src, use_kernel=use_kernel)
-    return pred_mod.topn_unseen(pred, ratings[safe] > 0, n)
+    with obs.span("recommend.predict"):
+        pred = pred_mod.predict_from_neighbors_blocked(
+            ratings, scores, idx, means=means, query_means=q_means,
+            item_block=item_block, gather_src=gather_src,
+            use_kernel=use_kernel)
+    with obs.span("recommend.topn"):
+        safe = q_ids.clamp(0, ratings.shape[0] - 1)
+        return pred_mod.topn_unseen(pred, ratings[safe] > 0, n)
 
 
 def _refold_stats(ratings, cnt, tot, ids):
@@ -346,9 +349,11 @@ class CFEngine:
         """Fence the device work, then publish the model in one reference
         swap: a concurrent reader sees the whole old model or the whole
         new one, never a mix."""
-        if self.scores.is_cuda:
-            torch.cuda.synchronize(self.scores.device)
-        self._snapshot = (self.ratings, self.scores, self.idx, self.means)
+        with obs.span("fit.publish"):
+            if self.scores.is_cuda:
+                torch.cuda.synchronize(self.scores.device)
+            self._snapshot = (self.ratings, self.scores, self.idx,
+                              self.means)
 
     # -- fit ---------------------------------------------------------------
     def fit(self) -> "CFEngine":
@@ -356,7 +361,9 @@ class CFEngine:
         with obs.span("engine.fit", backend=self.backend,
                       neighbor_mode=self.neighbor_mode,
                       n_users=self.n_users, n_items=self.n_items) as sp:
-            self._cnt, self._tot, self.means = sim.user_stats(self.ratings)
+            with obs.span("fit.user_stats"):
+                self._cnt, self._tot, self.means = sim.user_stats(
+                    self.ratings)
             if self.neighbor_mode == "approx":
                 self.index.fit(self.ratings, self.means)
                 self.scores, self.idx = self.index.query(
@@ -739,37 +746,50 @@ class CFEngine:
         read the published snapshot (the item index's cluster state only
         shapes the candidate set, never the returned scores).
         """
-        if not self.fitted:
-            raise RuntimeError("call fit() first")
-        mode = mode or self.recommend_mode
-        if mode not in RECOMMEND_MODES:
-            raise ValueError(f"unknown recommend mode {mode!r}")
-        ratings, scores, idx, means = self.snapshot()
-        uids = (np.arange(self.n_users, dtype=np.int64) if user_ids is None
-                else self._user_ids(user_ids))
-        if mode == "approx":
-            return self._recommend_approx(ratings, scores, idx, means, uids,
-                                          n=n, n_probe=n_probe,
-                                          shortlist=shortlist)
-        if n_probe is not None or shortlist is not None:
-            raise ValueError(
-                "n_probe/shortlist are approx-mode candidate budgets; the "
-                "exact path scores every item and cannot honor them")
+        with obs.span("engine.recommend", n=n) as sp:
+            if not self.fitted:
+                raise RuntimeError("call fit() first")
+            mode = mode or self.recommend_mode
+            if mode not in RECOMMEND_MODES:
+                raise ValueError(f"unknown recommend mode {mode!r}")
+            sp.set_attr("mode", mode)
+            ratings, scores, idx, means = self.snapshot()
+            uids = (np.arange(self.n_users, dtype=np.int64)
+                    if user_ids is None else self._user_ids(user_ids))
+            if mode == "approx":
+                return self._recommend_approx(ratings, scores, idx, means,
+                                              uids, n=n, n_probe=n_probe,
+                                              shortlist=shortlist)
+            if n_probe is not None or shortlist is not None:
+                raise ValueError(
+                    "n_probe/shortlist are approx-mode candidate budgets; "
+                    "the exact path scores every item and cannot honor "
+                    "them")
+            return self._recommend_exact(ratings, scores, idx, means, uids,
+                                         n=n)
+
+    def _recommend_exact(self, ratings, scores, idx, means, uids, *, n):
+        """The exact path for ``uids``: one ``_recommend_block`` a user
+        block of at most ``USER_BLOCK``, each block's ids padded to the
+        block size so every block has one shape."""
         src = self._gather_source(ratings)
         ub = min(USER_BLOCK, _bucket(len(uids), self.n_users))
         out_s, out_i = [], []
         for lo in range(0, len(uids), ub):
-            ids = uids[lo:lo + ub]
-            ids_pad = np.full((ub,), self.n_users, np.int64)
-            ids_pad[:len(ids)] = ids
-            ids_t = torch.as_tensor(ids_pad, device=self.device)
-            safe = ids_t.clamp(0, self.n_users - 1)
-            s, i = _recommend_block(
-                ratings, src, scores[safe], idx[safe], means, means[safe],
-                ids_t, n=n, item_block=ITEM_BLOCK,
-                use_kernel=self.use_kernel)
-            out_s.append(s[:len(ids)])
-            out_i.append(i[:len(ids)])
+            with obs.span("recommend.block", lo=lo):
+                with obs.span("recommend.ids"):
+                    ids = uids[lo:lo + ub]
+                    ids_pad = np.full((ub,), self.n_users, np.int64)
+                    ids_pad[:len(ids)] = ids
+                    ids_t = torch.as_tensor(ids_pad, device=self.device)
+                    safe = ids_t.clamp(0, self.n_users - 1)
+                    q_scores, q_idx, q_means = (scores[safe], idx[safe],
+                                                means[safe])
+                s, i = _recommend_block(
+                    ratings, src, q_scores, q_idx, means, q_means, ids_t,
+                    n=n, item_block=ITEM_BLOCK, use_kernel=self.use_kernel)
+                out_s.append(s[:len(ids)])
+                out_i.append(i[:len(ids)])
         if not out_s:
             return (torch.zeros((0, n), dtype=torch.float32,
                                 device=self.device),

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.similarity import user_means
 
 _DEN_EPS = 1e-8
@@ -44,7 +45,8 @@ def make_gather_source(ratings: torch.Tensor) -> torch.Tensor:
     round-trips exactly (the cast back to f32 is exact, so results are
     unchanged bit for bit at 4× less gather traffic), the matrix itself
     otherwise."""
-    return ratings.to(torch.int8) if _int8_exact(ratings) else ratings
+    with obs.span("gather_source.build"):
+        return ratings.to(torch.int8) if _int8_exact(ratings) else ratings
 
 
 def patch_gather_source(src: torch.Tensor, ratings: torch.Tensor,

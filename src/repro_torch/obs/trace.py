@@ -20,15 +20,25 @@ not completion.  ``device_sync=True`` (on :func:`traced`) or
 before the span closes, so the recorded duration covers the device work —
 measured honestly instead of timing dispatch.
 
+Spans reach ``torch.profiler`` too: while a profiler is recording (and
+``torch`` is already imported), each span also opens a
+``torch.profiler.record_function`` of its name, closed when the span
+closes (on an exception too), so the span shows in the profiler's Chrome
+trace as a ``user_annotation`` event on the clock of the device activity
+it launched.  With no profiler running that costs one module lookup and
+one attribute read a span.  Span names are static (a block index goes in
+an attribute), since a trace groups time by name.
+
 No dependencies beyond the standard library; ``torch`` is imported lazily
-and only when a CUDA tensor actually needs a fence.  Port of
-``repro.obs.trace``.
+and only when a CUDA tensor actually needs a fence, and the profiler is
+only ever looked up, never imported.  Port of ``repro.obs.trace``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -61,6 +71,18 @@ class SpanRecord:
     attrs: Dict[str, Any]
 
 
+def _profiler_range(name: str):
+    """An entered ``record_function(name)`` while ``torch.profiler`` is
+    recording, else None.  The profiler module is looked up, not
+    imported: a process that never imported torch has no profiler."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 def _stack() -> list:
     st = getattr(_tls, "stack", None)
     if st is None:
@@ -78,7 +100,7 @@ class Span:
     """
 
     __slots__ = ("name", "attrs", "device_sync", "span_id", "parent_id",
-                 "t_start", "duration", "_tracked")
+                 "t_start", "duration", "_tracked", "_range")
 
     def __init__(self, name: str, *, device_sync: bool = False, **attrs):
         self.name = name
@@ -89,6 +111,7 @@ class Span:
         self.t_start = 0.0
         self.duration = 0.0
         self._tracked: list = []
+        self._range = None      # the profiler's record_function, if open
 
     # -- attribute / fence plumbing ---------------------------------------
     def set_attr(self, key: str, value) -> None:
@@ -110,6 +133,7 @@ class Span:
         self.parent_id = st[-1].span_id if st else 0
         self.span_id = next(_ids)
         st.append(self)
+        self._range = _profiler_range(self.name)
         self.t_start = time.perf_counter()
         return self
 
@@ -117,6 +141,9 @@ class Span:
         if self.device_sync and self._tracked:
             _fence(self._tracked)
         self.duration = time.perf_counter() - self.t_start
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         st = _stack()
         if st and st[-1] is self:
             st.pop()
