@@ -924,11 +924,18 @@ def phase_index_kernels(dev, rng, train_dev):
         check(False, "scan past the select's domain raises")
     except ValueError as exc:
         log(f"  scan_topm m=16385: raises ({exc})")
+    # (1024, 17770, 10) is the bulk recommend's user block at Netflix
+    # width, its scores clamped to [1, 5] as predictions are, so that ties
+    # at 5.0 cross the top-10 cut
     for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64),
                       (9, 300, 1), (9, 300, 300), (9, 300, 280),
-                      (3, 40000, 700)):
+                      (3, 40000, 700), (1024, 17770, 10)):
         sc = torch.from_numpy(
             rng.integers(-40, 41, (q_n, n)).astype(np.float32) / 8).to(dev)
+        if (q_n, n, m) == (1024, 17770, 10):
+            sc.clamp_(1.0, 5.0)
+            check(bool(((sc == 5.0).sum(1) > m).all()),
+                  "every row's top 10 lies inside the ties at 5.0")
         sc[torch.rand(sc.shape, device=dev) < 0.1] = float("-inf")
         sc[1] = float("-inf")                        # an all -inf row
         sc[2, ::3] = -0.0                            # ±0.0 ties

@@ -173,7 +173,8 @@ def _recommend_block(ratings, gather_src, scores, idx, means, q_means,
             use_kernel=use_kernel)
     with obs.span("recommend.topn"):
         safe = q_ids.clamp(0, ratings.shape[0] - 1)
-        return pred_mod.topn_unseen(pred, ratings[safe] > 0, n)
+        return pred_mod.topn_unseen(pred, ratings[safe] > 0, n,
+                                    use_kernel=use_kernel)
 
 
 def _refold_stats(ratings, cnt, tot, ids):

@@ -202,10 +202,33 @@ def recommend_topn(pred: torch.Tensor, seen_mask: torch.Tensor, n: int):
     return vals[:, :n], items[:, :n].to(torch.int32)
 
 
-def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int):
+def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int, *,
+                use_kernel: bool = True):
     """``recommend_topn`` with sanitised ids: slots a user cannot fill
     (fewer unseen items than ``n``) come back as item −1 with score −inf,
-    so an already-rated item is never returned."""
-    scores, items = recommend_topn(pred, seen_mask, n)
+    so an already-rated item is never returned.
+
+    With ``use_kernel`` the top n of the masked predictions come from
+    kernel 5's canonical select
+    (:func:`repro_torch.kernels.select.select_topm`: one launch on a CUDA
+    tensor, which takes f32; its plain twin, a stable sort, on a CPU
+    tensor) and count on ``obs`` counter ``recommend.topn.select``.  Its
+    order is the stable descending sort's: ties to the lower item id.  The
+    kernel folds −0.0 into +0.0 and never ranks NaN, where the sort ranks
+    NaN first; predictions are clamped to [1, 5], so neither arises from
+    the predictors here.  Without ``use_kernel`` (the plain path on any
+    device), or where ``min(n, items)`` lies outside the select's domain
+    (below 1, or past ``SELECT_M_MAX``), the full stable sort of
+    :func:`recommend_topn` stays, counted on ``recommend.topn.sort``."""
+    from repro_torch.kernels.select import SELECT_M_MAX, select_topm
+    if use_kernel and 1 <= min(n, pred.shape[1]) <= SELECT_M_MAX:
+        obs.counter("recommend.topn.select").inc()
+        masked = pred.masked_fill(seen_mask, float("-inf"))
+        no_knockout = torch.full((pred.shape[0],), -1, dtype=torch.int32,
+                                 device=pred.device)
+        scores, items = select_topm(masked, no_knockout, m=n)
+    else:
+        obs.counter("recommend.topn.sort").inc()
+        scores, items = recommend_topn(pred, seen_mask, n)
     return scores, torch.where(scores == float("-inf"),
                                torch.full_like(items, -1), items)

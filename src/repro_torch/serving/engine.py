@@ -184,7 +184,8 @@ def _predict_users(users, ratings, scores, idx, means, *, topn,
         ratings, scores[users], idx[users], means=means,
         query_means=means[users], item_block=_ITEM_BLOCK,
         gather_src=gather_src, use_kernel=use_kernel)
-    return topn_unseen(pred, ratings[users] > 0, topn)
+    return topn_unseen(pred, ratings[users] > 0, topn,
+                       use_kernel=use_kernel)
 
 
 class BatchingServer:
