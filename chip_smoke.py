@@ -20,7 +20,9 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    two routes by name (``fused_tile_predict.routes``: "int8" for the int8
    gather source, "f32" for f32 ratings) at k = 1 / 7 / 40 / 65 / 100,
    over the whole item range, 512-item tiles and ranges off 16 (lo = 3,
-   100), and with ids outside [0, U), bit for bit;
+   100), and with ids outside [0, U), bit for bit; the "f32" route on
+   half stars at MovieLens-25M's recommend block (1,024 queries, k = 40,
+   59,047 items), bit for bit;
 3. the main path at the paper's size (ML-1M surrogate, 6040 × 3952,
    pcc, k = 40): ``CFEngine(backend="kernel")`` fit → predict / MAE →
    ``recommend`` → ``update_ratings`` (oracle-checked) → a
@@ -38,7 +40,9 @@ per source, in parallel).  Phases, each ended by a device synchronize:
    distances bit for bit at 1, 33, 78, 97 and 182 centroids, and a row
    subset bit for bit the full call); the
    radix select also on ±0.0, all −inf rows, m = 1, m = L, m above the
-   finite count and a row too long for shared memory, its values equal
+   finite count and a row too long for shared memory, and the bulk
+   recommend's 1,024-user blocks at 17,770 (staged) and 59,047 (unstaged)
+   scores with 5.0 ties across the top-10 cut, its values equal
    bit for bit (signs of zeros included); the scan bit for bit at the
    approx path's and phase 6's block shapes, P not a multiple of 4, ties,
    and raising past the select's m ≤ 16384; the rerank bit for bit on
@@ -704,6 +708,35 @@ def phase_kernels(dev, rng, train_dev):
             check(e == 0.0, f"tile predict {route} k={k} bad ids diff {e}")
         log(f"  tile_predict k={k:3d} int8 and f32 routes, 5 item ranges "
             f"and ids outside [0, U) max_abs_diff={err['predict']!r}")
+    # the f32 route as the MovieLens-25M recommend runs it: half stars
+    # over 59,047 items (not a multiple of 16), a block of 1,024 queries
+    # at k 40, one launch over every item; the plain version by 8,192-item
+    # ranges, bit for bit
+    g = torch.Generator(device=dev).manual_seed(25)
+    half = (torch.randint(1, 11, (4096, 59047), generator=g, device=dev)
+            .float() / 2)
+    half *= torch.rand(half.shape, generator=g, device=dev) < 0.02
+    check(pr.make_gather_source(half) is half,
+          "a half-star matrix is its own gather source")
+    hm = pr.user_means(half)
+    ids = torch.randint(0, 4096, (1024, 40), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((1024, 40), generator=g, device=dev)
+    w[::3, -1] = 0.0
+    nbm, qm = hm[ids.long()].contiguous(), hm[:1024].contiguous()
+    before = fused_tile_predict.routes["f32"]
+    got = fused_tile_predict(half, ids, w, nbm, qm, 0, 59047)
+    check(fused_tile_predict.routes["f32"] == before + 1,
+          "tile predict at 59,047 items took the f32 route")
+    for lo in range(0, 59047, 8192):
+        hi = min(59047, lo + 8192)
+        check(torch.equal(got[:, lo:hi].contiguous().view(torch.int32),
+                          tile_predict_plain(half, ids, w, nbm, qm, lo, hi)
+                          .view(torch.int32)),
+              f"tile predict f32 half stars [{lo},{hi}) bit for bit")
+    log("  tile_predict f32 route, half stars 4096 x 59047, 1024 queries "
+        "k=40, whole range: bit for bit with the plain version")
+    del half, got
     torch.cuda.synchronize()
     return err
 
@@ -924,15 +957,17 @@ def phase_index_kernels(dev, rng, train_dev):
         check(False, "scan past the select's domain raises")
     except ValueError as exc:
         log(f"  scan_topm m=16385: raises ({exc})")
-    # (1024, 17770, 10) is the bulk recommend's user block at Netflix
-    # width, its scores clamped to [1, 5] as predictions are, so that ties
-    # at 5.0 cross the top-10 cut
+    # (1024, 17770, 10) and (1024, 59047, 10) are the bulk recommend's
+    # user blocks at Netflix and MovieLens-25M width (the staged and the
+    # unstaged branch), their scores clamped to [1, 5] as predictions are,
+    # so that ties at 5.0 cross the top-10 cut
     for q_n, n, m in ((130, 257, 17), (256, 3000, 906), (7, 30, 64),
                       (9, 300, 1), (9, 300, 300), (9, 300, 280),
-                      (3, 40000, 700), (1024, 17770, 10)):
+                      (3, 40000, 700), (1024, 17770, 10),
+                      (1024, 59047, 10)):
         sc = torch.from_numpy(
             rng.integers(-40, 41, (q_n, n)).astype(np.float32) / 8).to(dev)
-        if (q_n, n, m) == (1024, 17770, 10):
+        if q_n == 1024:
             sc.clamp_(1.0, 5.0)
             check(bool(((sc == 5.0).sum(1) > m).all()),
                   "every row's top 10 lies inside the ties at 5.0")

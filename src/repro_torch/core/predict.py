@@ -29,24 +29,46 @@ from repro_torch.core.similarity import user_means
 _DEN_EPS = 1e-8
 
 
+# cells of one row block of the int8 exactness check: about 1 GiB of f32,
+# so the check's temporaries never approach the matrix's own size
+CHECK_BLOCK_CELLS = 1 << 28
+
+
 def _int8_exact(ratings: torch.Tensor) -> bool:
     """True iff every rating is an integer in [0, 127], i.e. an int8 copy
     round-trips exactly (MovieLens-style 0..5 matrices qualify).  A meta
     matrix (a dry run's: no data) counts as such, the ratings the CF
-    cells stand for."""
+    cells stand for.
+
+    The check runs over row blocks of at most ``CHECK_BLOCK_CELLS`` cells
+    (one row at the least), their verdicts and-ed into one device flag that
+    is read once: no temporary of the matrix's size, one host wait.  Each
+    block counts on ``obs`` counter ``gather_source.check.blocks``."""
     if ratings.device.type == "meta":
         return True
-    return bool(((ratings >= 0) & (ratings <= 127)
-                 & (ratings == torch.round(ratings))).all())
+    rows = max(1, CHECK_BLOCK_CELLS // max(1, ratings.shape[-1]))
+    ok, blocks = None, 0
+    for lo in range(0, ratings.shape[0], rows):
+        r = ratings[lo:lo + rows]
+        block_ok = ((r >= 0) & (r <= 127) & (r == torch.round(r))).all()
+        ok = block_ok if ok is None else ok & block_ok
+        blocks += 1
+    obs.counter("gather_source.check.blocks").inc(blocks)
+    return ok is None or bool(ok)
 
 
 def make_gather_source(ratings: torch.Tensor) -> torch.Tensor:
     """Rating matrix as a gather operand: an int8 copy when that
     round-trips exactly (the cast back to f32 is exact, so results are
     unchanged bit for bit at 4× less gather traffic), the matrix itself
-    otherwise."""
+    otherwise (half stars, say).  ``obs`` counters ``gather_source.int8``
+    and ``gather_source.f32`` count the builds of each."""
     with obs.span("gather_source.build"):
-        return ratings.to(torch.int8) if _int8_exact(ratings) else ratings
+        with obs.span("gather_source.check"):
+            exact = _int8_exact(ratings)
+        obs.counter("gather_source.int8" if exact
+                    else "gather_source.f32").inc()
+        return ratings.to(torch.int8) if exact else ratings
 
 
 def patch_gather_source(src: torch.Tensor, ratings: torch.Tensor,
@@ -212,7 +234,10 @@ def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int, *,
     kernel 5's canonical select
     (:func:`repro_torch.kernels.select.select_topm`: one launch on a CUDA
     tensor, which takes f32; its plain twin, a stable sort, on a CPU
-    tensor) and count on ``obs`` counter ``recommend.topn.select``.  Its
+    tensor) and count on ``obs`` counter ``recommend.topn.select``; a
+    call whose rows are past the kernel's staging limit
+    (``ROW_STAGE_MAX`` scores) counts on ``recommend.topn.unstaged``
+    too.  Its
     order is the stable descending sort's: ties to the lower item id.  The
     kernel folds −0.0 into +0.0 and never ranks NaN, where the sort ranks
     NaN first; predictions are clamped to [1, 5], so neither arises from
@@ -220,9 +245,12 @@ def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int, *,
     device), or where ``min(n, items)`` lies outside the select's domain
     (below 1, or past ``SELECT_M_MAX``), the full stable sort of
     :func:`recommend_topn` stays, counted on ``recommend.topn.sort``."""
-    from repro_torch.kernels.select import SELECT_M_MAX, select_topm
+    from repro_torch.kernels.select import (ROW_STAGE_MAX, SELECT_M_MAX,
+                                            select_topm)
     if use_kernel and 1 <= min(n, pred.shape[1]) <= SELECT_M_MAX:
         obs.counter("recommend.topn.select").inc()
+        if pred.shape[1] > ROW_STAGE_MAX:
+            obs.counter("recommend.topn.unstaged").inc()
         masked = pred.masked_fill(seen_mask, float("-inf"))
         no_knockout = torch.full((pred.shape[0],), -1, dtype=torch.int32,
                                  device=pred.device)

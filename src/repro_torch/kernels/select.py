@@ -44,6 +44,11 @@ scan_topm_plain = scan_topm_ref
 # the radix select's sort buffer (m entries, rounded up to a power of two,
 # 8 bytes each) lives in shared memory
 SELECT_M_MAX = 16384
+# the radix select stages a row of at most ROW_STAGE_MAX scores in shared
+# memory (radix_topm_kernel<true>, when the sort buffer fits beside it); a
+# longer row is read from global memory on every pass over it
+# (radix_topm_kernel<false>): csrc/select.cu
+ROW_STAGE_MAX = 32768
 
 
 def scan_topm_twin(q: torch.Tensor, proxies: torch.Tensor,
