@@ -772,25 +772,31 @@ class CFEngine:
     def _recommend_exact(self, ratings, scores, idx, means, uids, *, n):
         """The exact path for ``uids``: one ``_recommend_block`` a user
         block of at most ``USER_BLOCK``, each block's ids padded to the
-        block size so every block has one shape."""
+        block size so every block has one shape.  Every block's padded
+        ids go to the device in one copy before the loop (``obs`` counter
+        ``recommend.ids.staged``), so no block copies from the host or
+        reads a device value, and the host issues block b+1 while the
+        device still runs block b."""
         src = self._gather_source(ratings)
         ub = min(USER_BLOCK, _bucket(len(uids), self.n_users))
+        ids_pad = np.full((-(-len(uids) // ub) * ub,), self.n_users, np.int64)
+        ids_pad[:len(uids)] = uids
+        ids_all = torch.as_tensor(ids_pad, device=self.device)
+        obs.counter("recommend.ids.staged").inc()
         out_s, out_i = [], []
         for lo in range(0, len(uids), ub):
             with obs.span("recommend.block", lo=lo):
                 with obs.span("recommend.ids"):
-                    ids = uids[lo:lo + ub]
-                    ids_pad = np.full((ub,), self.n_users, np.int64)
-                    ids_pad[:len(ids)] = ids
-                    ids_t = torch.as_tensor(ids_pad, device=self.device)
+                    ids_t = ids_all[lo:lo + ub]
                     safe = ids_t.clamp(0, self.n_users - 1)
                     q_scores, q_idx, q_means = (scores[safe], idx[safe],
                                                 means[safe])
                 s, i = _recommend_block(
                     ratings, src, q_scores, q_idx, means, q_means, ids_t,
                     n=n, item_block=ITEM_BLOCK, use_kernel=self.use_kernel)
-                out_s.append(s[:len(ids)])
-                out_i.append(i[:len(ids)])
+                real = min(ub, len(uids) - lo)
+                out_s.append(s[:real])
+                out_i.append(i[:real])
         if not out_s:
             return (torch.zeros((0, n), dtype=torch.float32,
                                 device=self.device),

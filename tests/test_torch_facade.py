@@ -137,8 +137,14 @@ def _assert_recommend_tie_aware(name, got_i, want_i, pred):
     print(f"PARITY {name} rows_differing_at_near_ties={len(bad)}")
 
 
+@pytest.mark.parametrize("user_block", [None, 8])
 @pytest.mark.parametrize("measure", ["pcc", "cosine"])
-def test_recommend_matches_reference(ml_small, ref_engines, measure):
+def test_recommend_matches_reference(ml_small, ref_engines, measure,
+                                     user_block, monkeypatch):
+    """``user_block`` 8 splits the exact path's 384 users into 48 blocks,
+    and its shuffled 61 ids into 8 blocks with a partial last one."""
+    if user_block is not None:
+        monkeypatch.setattr(tfacade, "USER_BLOCK", user_block)
     ref = ref_engines[measure]
     _, want = ref.recommend(n=10)
     for backend in BACKENDS:
@@ -146,9 +152,10 @@ def test_recommend_matches_reference(ml_small, ref_engines, measure):
         _, got = eng.recommend(n=10)
         _assert_recommend_tie_aware(f"recommend.{backend}.{measure}", got,
                                     want, eng.predict())
-        sub = [5, 0, 383, 5]
-        _, got_sub = eng.recommend(sub, n=10)
-        assert torch.equal(got_sub, got[sub])
+        for sub in ([5, 0, 383, 5],
+                    np.random.default_rng(1).permutation(384)[:61].tolist()):
+            _, got_sub = eng.recommend(sub, n=10)
+            assert torch.equal(got_sub, got[sub])
         seen = eng.ratings > 0
         for u in range(eng.n_users):
             row = got[u][got[u] >= 0].long()
