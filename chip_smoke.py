@@ -1868,8 +1868,7 @@ def phase_index_timings(dev, eng, err, launches):
     u_real = int((u < n).sum())
     u = u.clamp_max(n - 1)
     kc = u.numel()
-    src = ix._gather_source(ratings)
-    bound = tcl._abs_bound(src)
+    src, bound = ix._gather_cache.get(ratings)
     norms, counts = tcl._user_norms_counts(ratings)
     qr = src[:q_n].contiguous()
     cr = src[u].contiguous()

@@ -76,22 +76,16 @@ def default_mesh(device="cuda", axis: str = "data"):
     return make_local_mesh(axes=(axis,), device=device)
 
 
-def _similarity_operand(ratings, gather_src):
-    """The similarity kernel's operand and ``max_value`` for a fit: the
-    int8 gather source when the matrix round-trips through int8 (integer
-    ratings in [0, 127]) and every Gram sum stays exact (``max_value² ·
-    D ≤ 2^24``), with its largest rating as ``max_value`` (one device
-    sync); else the f32 matrix and None.  A meta operand (a dry run's: no
-    data to bound) takes the int8 route with None, whose work does not
-    depend on the bound."""
-    if gather_src.device.type == "meta" and gather_src.dtype == torch.int8:
-        return gather_src, None
-    with obs.span("topk.operand"):
-        if gather_src.dtype == torch.int8 and gather_src.numel():
-            bound = int(gather_src.max())
-            if bound * bound * gather_src.shape[1] <= ksim.EXACT_SUM:
-                return gather_src, bound
-        return ratings, None
+def _similarity_operand(ratings, op):
+    """The similarity kernel's operand and ``max_value`` for a fit from the
+    gather operand ``op``, with no device read: the int8 copy and its bound
+    inside the exact domain ``max_value² · D ≤ 2^24`` (a meta copy, whose
+    work needs no bound, with None), else the f32 matrix and None."""
+    src, bound = op
+    if src.dtype == torch.int8 and (
+            bound is None or bound * bound * src.shape[1] <= ksim.EXACT_SUM):
+        return src, bound
+    return ratings, None
 
 
 def kernel_block_topk(q_src, cand_src, k: int, *, measure: str,
@@ -139,19 +133,19 @@ def check_bad(n_bad, max_value) -> None:
 
 
 def kernel_topk(ratings: torch.Tensor, k: int, *, measure: str,
-                block_size: int, beta=None, gather_src=None, q0: int = 0,
+                block_size: int, beta=None, operand=None, q0: int = 0,
                 n_query: int | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exact top-k of the query users ``[q0, q0 + n_query)`` (default:
     every user) over all users, every candidate block of ``block_size``
-    scored by the fused similarity kernel: on its int8 route when
-    ``gather_src`` (default :func:`make_gather_source` of ``ratings``) is
-    int8 inside the exact domain, else on its f32 route.  Rows past the
+    scored by the fused similarity kernel: on its int8 route when the
+    gather ``operand`` (default :func:`make_gather_operand` of ``ratings``)
+    is int8 inside the exact domain, else on its f32 route.  Rows past the
     operand's ``max_value`` are counted on the device and read once, after
     the last launch, so no launch waits for the one before."""
-    if gather_src is None:
-        gather_src = pred_mod.make_gather_source(ratings)
-    src, max_value = _similarity_operand(ratings, gather_src)
+    if operand is None:
+        operand = pred_mod.make_gather_operand(ratings)
+    src, max_value = _similarity_operand(ratings, operand)
     n_query = src.shape[0] - q0 if n_query is None else n_query
     n_bad = torch.zeros((1,), dtype=torch.int32, device=ratings.device)
     best = kernel_block_topk(src[q0:q0 + n_query], src, k, measure=measure,
@@ -206,24 +200,19 @@ def _rotate(x: torch.Tensor, ranks: list, me: int):
 
 def _ring_operand(q: torch.Tensor, group):
     """The similarity operand of a ring rank's shard, chosen from global
-    facts: int8 only if every shard round-trips through int8, with the
-    largest rating of all shards as ``max_value`` (one ``all_reduce``).
-    A meta shard (a dry run's) reduces its flags unread and takes the int8
-    route with None, as :func:`_similarity_operand` does."""
-    src = pred_mod.make_gather_source(q)
-    if q.device.type == "meta":
-        flags = torch.zeros((2,), dtype=torch.int64, device=q.device)
-        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
-        return src, None
-    flags = torch.tensor(
-        [int(src.dtype != torch.int8),
-         int(src.max()) if src.dtype == torch.int8 and src.numel() else 0],
-        dtype=torch.int64, device=q.device)
+    facts: int8 only if every shard's gather operand is int8, with the
+    largest of their ``max_value``s as the bound (the flags the records
+    hold, one ``all_reduce``).  A meta shard (a dry run's) reduces its
+    flags unread and takes the int8 route with None."""
+    op = pred_mod.make_gather_operand(q)
+    flags = torch.tensor([int(op.src.dtype != torch.int8), op.max_value or 0],
+                         dtype=torch.int64, device=q.device)
     dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
-    not_int8, bound = int(flags[0]), int(flags[1])
-    if not_int8 or bound * bound * q.shape[1] > ksim.EXACT_SUM:
-        return q.contiguous(), None
-    return src, bound
+    if q.device.type == "meta":
+        return op.src, None
+    not_int8, bound = flags.tolist()
+    return _similarity_operand(q.contiguous(), pred_mod.GatherOperand(
+        q if not_int8 else op.src, bound))
 
 
 def sharded_topk(ratings: torch.Tensor, k: int, mesh=None, *,

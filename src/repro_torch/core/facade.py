@@ -162,21 +162,6 @@ def _rows_topk(ratings, q_ids, *, k, measure, block_size, beta=None):
                          block_size=min(block_size, n_users), beta=beta)
 
 
-def _recommend_block(ratings, gather_src, scores, idx, means, q_means,
-                     q_ids, *, n, item_block, use_kernel):
-    """Exact recommend for one (padded) user block: item-tiled prediction,
-    seen-mask, canonical top-n with -1 for unfillable slots."""
-    with obs.span("recommend.predict"):
-        pred = pred_mod.predict_from_neighbors_blocked(
-            ratings, scores, idx, means=means, query_means=q_means,
-            item_block=item_block, gather_src=gather_src,
-            use_kernel=use_kernel)
-    with obs.span("recommend.topn"):
-        safe = q_ids.clamp(0, ratings.shape[0] - 1)
-        return pred_mod.topn_unseen(pred, ratings[safe] > 0, n,
-                                    use_kernel=use_kernel)
-
-
 def _refold_stats(ratings, cnt, tot, ids):
     """Recompute count/total for the touched rows only (ids padded with
     U, which are dropped); returns fresh tensors (copy-on-write)."""
@@ -248,10 +233,6 @@ class CFEngine:
                 "reads or writes it",
         "_tot": "internal sufficient statistic, only the update thread "
                 "reads or writes it",
-        "_gather_cache": "immutable (ratings, operand) tuple swapped "
-                         "atomically; consumers read the reference once "
-                         "and validate by ratings identity, so the worst "
-                         "interleaving is one redundant rebuild",
         "ratings_version": "monotone int bumped by the single writer; "
                            "readers only compare for staleness",
         "last_update": "diagnostic record, atomically rebound",
@@ -317,7 +298,7 @@ class CFEngine:
         self._cnt = None                             # (U,) int32 counts
         self._tot = None                             # (U,) f32 rating sums
         self._snapshot: Optional[tuple] = None       # atomically published
-        self._gather_cache: Optional[tuple] = None   # int8 predict operand
+        self._gather_cache = pred_mod.GatherCache()  # the gather operand
         self.ratings_version = 0
         self.fit_seconds = 0.0
         self.last_update: Optional[UpdateStats] = None
@@ -395,17 +376,10 @@ class CFEngine:
             return dist_engine.ring_sharded_topk(
                 ratings, self.k, self.mesh, measure=self.measure,
                 axis=self.axis, block_size=bs, beta=self.pcc_sig_beta)
-        return self._kernel_topk(ratings)
-
-    def _kernel_topk(self, ratings) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Streaming top-k over candidate blocks scored by the fused
-        similarity kernel (the counterpart of the reference's
-        ``_pallas_topk``), on the engine's cached gather source."""
+        # the reference's _pallas_topk, on the engine's cached operand
         return dist_engine.kernel_topk(
-            ratings, self.k, measure=self.measure,
-            block_size=min(self.block_size, ratings.shape[0]),
-            beta=self.pcc_sig_beta,
-            gather_src=self._gather_source(ratings))
+            ratings, self.k, measure=self.measure, block_size=bs,
+            beta=self.pcc_sig_beta, operand=self._gather_cache.get(ratings))
 
     def _obs_update(self, stats: UpdateStats) -> UpdateStats:
         """Publish one ``update_ratings`` outcome to the registry."""
@@ -486,14 +460,8 @@ class CFEngine:
         pad_touch_t = torch.as_tensor(pad_touch, device=dev)
         self._cnt, self._tot, self.means = _refold_stats(
             self.ratings, self._cnt, self._tot, pad_touch_t)
-        # delta-patch the predict gather operand (copy-on-write; a single
-        # local read of the cache reference — see _gather_source)
-        gather_cache = self._gather_cache
-        if gather_cache is not None and gather_cache[0] is prev_ratings:
-            self._gather_cache = (self.ratings, pred_mod.patch_gather_source(
-                gather_cache[1], self.ratings, pad_touch_t))
-        else:
-            self._gather_cache = None
+        # delta-patch the gather operand (copy-on-write)
+        self._gather_cache.advance(prev_ratings, self.ratings, pad_touch_t)
         if self.neighbor_mode == "approx":
             self.index.refold(self.ratings, self.means, touched,
                               version=self.ratings_version)
@@ -678,7 +646,7 @@ class CFEngine:
         self._cnt = tree["cnt"].to(self.device)
         self._tot = tree["tot"].to(self.device)
         self.ratings_version = int(tree["version"])
-        self._gather_cache = None
+        self._gather_cache.clear()
         if self.index is not None and tree.get("index"):
             self.index.load_state(tree["index"], device=self.device)
         if self.item_index is not None and tree.get("item_index"):
@@ -691,17 +659,8 @@ class CFEngine:
         return self
 
     def _gather_source(self, ratings):
-        """int8 gather operand for the predict gathers when the matrix
-        round-trips exactly (cached per ratings tensor; an update replaces
-        the tensor, which invalidates by identity).  The cache reference
-        is read ONCE: the serving batcher calls this while
-        ``update_ratings`` may swap it on the writer thread."""
-        cache = self._gather_cache
-        if cache is not None and cache[0] is ratings:
-            return cache[1]
-        src = pred_mod.make_gather_source(ratings)
-        self._gather_cache = (ratings, src)
-        return src
+        """The gather operand's tensor, cached per ratings tensor."""
+        return self._gather_cache.get(ratings).src
 
     def _user_ids(self, user_ids) -> np.ndarray:
         """Caller's user ids as int64, checked on the host: an
@@ -770,7 +729,7 @@ class CFEngine:
                                          n=n)
 
     def _recommend_exact(self, ratings, scores, idx, means, uids, *, n):
-        """The exact path for ``uids``: one ``_recommend_block`` a user
+        """The exact path for ``uids``: one ``recommend_block`` a user
         block of at most ``USER_BLOCK``, each block's ids padded to the
         block size so every block has one shape.  Every block's padded
         ids go to the device in one copy before the loop (``obs`` counter
@@ -791,7 +750,7 @@ class CFEngine:
                     safe = ids_t.clamp(0, self.n_users - 1)
                     q_scores, q_idx, q_means = (scores[safe], idx[safe],
                                                 means[safe])
-                s, i = _recommend_block(
+                s, i = pred_mod.recommend_block(
                     ratings, src, q_scores, q_idx, means, q_means, ids_t,
                     n=n, item_block=ITEM_BLOCK, use_kernel=self.use_kernel)
                 real = min(ub, len(uids) - lo)

@@ -11,7 +11,8 @@ falling back to r̄_u when no selected neighbor rated item i, clipped to
 [1, 5].  Forms: one-shot (``predict_from_neighbors``), item-tiled
 (``predict_from_neighbors_blocked``, optionally through the hand-written
 tile kernel), an explicit candidate list (``predict_items``), and the
-dense oracle (``predict_dense``).
+dense oracle (``predict_dense``); ``recommend_block``, the exact recommend
+of a user block.  The gather operand is decided here alone (``GatherOperand``).
 
 The k-reduction of :func:`_tile_predict` is an explicit loop k = 0..k−1
 that accumulates ``w[:, j] · dev_j`` — the order the CUDA tile kernel
@@ -20,6 +21,8 @@ the item axis reproduces the one-shot result bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,63 +37,130 @@ _DEN_EPS = 1e-8
 CHECK_BLOCK_CELLS = 1 << 28
 
 
-def _int8_exact(ratings: torch.Tensor) -> bool:
-    """True iff every rating is an integer in [0, 127], i.e. an int8 copy
-    round-trips exactly (MovieLens-style 0..5 matrices qualify).  A meta
-    matrix (a dry run's: no data) counts as such, the ratings the CF
-    cells stand for.
+class GatherOperand(NamedTuple):
+    """The rating matrix as a gather operand: ``src`` is an int8 copy when
+    every rating is an integer in [0, 127] (exact, at 4× less gather
+    traffic), else the f32 matrix itself (half stars, say).  ``max_value``
+    is the copy's largest value, the bound of the int8 similarity and
+    rerank routes' exact domain; None for the f32 matrix and a meta copy
+    (a dry run's: no data to bound)."""
+    src: torch.Tensor
+    max_value: Optional[int]
 
-    The check runs over row blocks of at most ``CHECK_BLOCK_CELLS`` cells
-    (one row at the least), their verdicts and-ed into one device flag that
-    is read once: no temporary of the matrix's size, one host wait.  Each
-    block counts on ``obs`` counter ``gather_source.check.blocks``."""
-    if ratings.device.type == "meta":
-        return True
-    rows = max(1, CHECK_BLOCK_CELLS // max(1, ratings.shape[-1]))
-    ok, blocks = None, 0
-    for lo in range(0, ratings.shape[0], rows):
-        r = ratings[lo:lo + rows]
-        block_ok = ((r >= 0) & (r <= 127) & (r == torch.round(r))).all()
-        ok = block_ok if ok is None else ok & block_ok
-        blocks += 1
-    obs.counter("gather_source.check.blocks").inc(blocks)
-    return ok is None or bool(ok)
+
+def _fold_check(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device scalars ``(whole, top)``: whether every value of ``x`` is a
+    non-negative integer, and the largest value (0 with no cells), folded
+    over row blocks of at most ``CHECK_BLOCK_CELLS`` cells (one row at the
+    least) so no temporary nears ``x``'s size; each block counts on
+    ``obs`` counter ``gather_source.check.blocks``."""
+    if not x.numel():
+        return (torch.ones((), dtype=torch.bool, device=x.device),
+                torch.zeros((), dtype=x.dtype, device=x.device))
+    step = max(1, CHECK_BLOCK_CELLS // x.shape[-1])
+    whole = top = None
+    for lo in range(0, x.shape[0], step):
+        r = x[lo:lo + step]
+        low, high = torch.aminmax(r)
+        ok = (low >= 0) & (r == torch.round(r)).all()
+        whole = ok if whole is None else whole & ok
+        top = high if top is None else torch.maximum(top, high)
+    obs.counter("gather_source.check.blocks").inc(-(-x.shape[0] // step))
+    return whole, top
+
+
+def _read_bound(whole: torch.Tensor, top: torch.Tensor) -> Optional[int]:
+    """``top`` as an int where ``whole`` holds and ``top`` ≤ 127, so that an
+    int8 copy round-trips exactly, else None: one host read."""
+    value = torch.where(whole, top, -1).item()
+    return int(value) if 0 <= value <= 127 else None
+
+
+def make_gather_operand(ratings: torch.Tensor) -> GatherOperand:
+    """``ratings``' :class:`GatherOperand`: one row-blocked pass and one
+    host read, then the int8 copy where exact.  A meta matrix counts as
+    exact with no bound, the ratings the CF cells stand for.  ``obs`` span
+    ``gather_source.check`` inside ``gather_source.build``; counters
+    ``gather_source.int8`` / ``.f32`` count the builds of each."""
+    with obs.span("gather_source.build"):
+        with obs.span("gather_source.check"):
+            meta = ratings.device.type == "meta"
+            bound = None if meta else _read_bound(*_fold_check(ratings))
+        exact = meta or bound is not None
+        obs.counter("gather_source.int8" if exact
+                    else "gather_source.f32").inc()
+        if not exact:
+            return GatherOperand(ratings, None)
+        return GatherOperand(ratings.to(torch.int8), bound)
+
+
+def patch_gather_operand(op: GatherOperand, ratings: torch.Tensor,
+                         touched: torch.Tensor) -> GatherOperand:
+    """Refresh ``op``, the *pre-delta* matrix's operand, for ``ratings``,
+    whose only changed rows are ``touched`` (ids ≥ U pad, dropped).
+    Copy-on-write: the touched rows go into a fresh copy, so a reader
+    holding the old operand stays valid; its ``max_value`` is the copy's
+    exact largest value, read with the rows' verdict in one host read.  A
+    delta that breaks int8 exactness rebuilds; an f32 operand stays the
+    matrix."""
+    if op.src.dtype != torch.int8:
+        return GatherOperand(ratings, None)
+    touched = touched.to(ratings.device).long()
+    rows = touched[touched < ratings.shape[0]]
+    vals = ratings[rows]
+    whole, top = _fold_check(vals)
+    out = op.src.clone()
+    out[rows] = vals.to(torch.int8)
+    bound = _read_bound(whole, torch.maximum(top, out.amax()))
+    if bound is None:
+        return make_gather_operand(ratings)
+    return GatherOperand(out, bound)
 
 
 def make_gather_source(ratings: torch.Tensor) -> torch.Tensor:
-    """Rating matrix as a gather operand: an int8 copy when that
-    round-trips exactly (the cast back to f32 is exact, so results are
-    unchanged bit for bit at 4× less gather traffic), the matrix itself
-    otherwise (half stars, say).  ``obs`` counters ``gather_source.int8``
-    and ``gather_source.f32`` count the builds of each."""
-    with obs.span("gather_source.build"):
-        with obs.span("gather_source.check"):
-            exact = _int8_exact(ratings)
-        obs.counter("gather_source.int8" if exact
-                    else "gather_source.f32").inc()
-        return ratings.to(torch.int8) if exact else ratings
+    """:func:`make_gather_operand`'s tensor."""
+    return make_gather_operand(ratings).src
 
 
 def patch_gather_source(src: torch.Tensor, ratings: torch.Tensor,
                         touched: torch.Tensor) -> torch.Tensor:
-    """Refresh a cached :func:`make_gather_source` result for a row delta.
+    """:func:`patch_gather_operand` on a :func:`make_gather_source`."""
+    return patch_gather_operand(GatherOperand(src, None), ratings,
+                                touched).src
 
-    ``src`` is the operand of the *pre-delta* matrix, ``ratings`` the
-    post-delta matrix whose only changed rows are ``touched`` (padding ids
-    ≥ U are dropped).  Copy-on-write: the touched rows are scattered into a
-    fresh copy, so a concurrent reader holding the old operand stays valid.
-    A delta that breaks int8 exactness falls back to a full rebuild.
-    """
-    if src.dtype != torch.int8:
-        return ratings
-    touched = touched.to(ratings.device).long()
-    rows = touched[touched < ratings.shape[0]]
-    vals = ratings[rows]
-    if not _int8_exact(vals):
-        return make_gather_source(ratings)
-    out = src.clone()
-    out[rows] = vals.to(torch.int8)
-    return out
+
+class GatherCache:
+    """One ratings tensor's :class:`GatherOperand`, keyed by identity:
+    ``entry``, an immutable ``(ratings, operand)`` tuple swapped in one
+    write and read once, so readers stay valid while the writer advances
+    it.  One per engine or index: a matrix written in place keeps its
+    identity, so no cache may outlive the owner that sees it change."""
+
+    def __init__(self):
+        self.entry: Optional[Tuple[torch.Tensor, GatherOperand]] = None
+
+    def get(self, ratings: torch.Tensor) -> GatherOperand:
+        entry = self.entry
+        if entry is not None and entry[0] is ratings:
+            return entry[1]
+        op = make_gather_operand(ratings)
+        self.entry = (ratings, op)
+        return op
+
+    def advance(self, prev: torch.Tensor, ratings: torch.Tensor,
+                touched: torch.Tensor) -> bool:
+        """Patch ``prev``'s operand along a row delta to ``ratings``, or
+        drop an operand of any other tensor; whether it patched."""
+        entry = self.entry
+        if entry is None or entry[0] is not prev:
+            self.entry = None
+            return False
+        self.entry = (ratings, patch_gather_operand(entry[1], ratings,
+                                                    touched))
+        return True
+
+    def clear(self) -> None:
+        self.entry = None
 
 
 def _tile_predict(w, nbr, nb_means, query_means):
@@ -260,3 +330,21 @@ def topn_unseen(pred: torch.Tensor, seen_mask: torch.Tensor, n: int, *,
         scores, items = recommend_topn(pred, seen_mask, n)
     return scores, torch.where(scores == float("-inf"),
                                torch.full_like(items, -1), items)
+
+
+def recommend_block(ratings, gather_src, scores, idx, means, q_means, q_ids,
+                    *, n: int, item_block: int, use_kernel: bool):
+    """The exact recommend of one (padded) user block: the (m, k) neighbor
+    ``scores`` / ``idx`` and ``q_means`` of the users ``q_ids`` (ids ≥ U
+    pad), item-tiled prediction over ``gather_src``, the seen mask, and
+    :func:`topn_unseen`'s canonical top ``n`` with −1 for unfillable
+    slots.  ``obs`` spans ``recommend.predict`` and ``recommend.topn``."""
+    with obs.span("recommend.predict"):
+        pred = predict_from_neighbors_blocked(
+            ratings, scores, idx, means=means, query_means=q_means,
+            item_block=item_block, gather_src=gather_src,
+            use_kernel=use_kernel)
+    with obs.span("recommend.topn"):
+        safe = q_ids.clamp(0, ratings.shape[0] - 1)
+        return topn_unseen(pred, ratings[safe] > 0, n,
+                           use_kernel=use_kernel)

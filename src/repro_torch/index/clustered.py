@@ -417,15 +417,6 @@ def _user_norms_counts(ratings):
             (ratings > 0).sum(-1).float())
 
 
-def _abs_bound(src):
-    """Largest |value| of an int8 rerank gather source (one device sync),
-    the bound the rerank kernel's int8 route checks its exact domain
-    against; None for an f32 source."""
-    if src.dtype != torch.int8:
-        return None
-    return max(abs(int(v)) for v in torch.stack(torch.aminmax(src)).tolist())
-
-
 def _topk_with_padding(s, ids, k, n):
     """Canonical top-``k`` of (b, w) scores/ids, padding to ``k`` columns
     with (NEG_INF, n) first; NEG_INF slots surface as id -1, the exact
@@ -677,7 +668,7 @@ class _SpillClusterCore:
         self.kmeans_stats: Optional[KMeansStats] = None
         self.last_refold: Optional[RefoldStats] = None
         self._reassigned_since_fit = 0
-        self._gather_cache: Optional[tuple] = None
+        self._gather_cache = pred_mod.GatherCache()     # per-ratings operand
         self._csr_cache: Optional[tuple] = None        # per-ratings CSR
         self._proxies_np_cache: Optional[tuple] = None # per-proxies host copy
         self._short_buf = None                         # host GEMM output
@@ -775,14 +766,8 @@ class _SpillClusterCore:
         return p_np
 
     def _gather_source(self, ratings):
-        """Rerank gather operand (``predict.make_gather_source``: int8
-        when exact), cached per ratings tensor."""
-        cache = self._gather_cache
-        if cache is not None and cache[0] is ratings:
-            return cache[1]
-        src = pred_mod.make_gather_source(ratings)
-        self._gather_cache = (ratings, src)
-        return src
+        """The rerank gather operand's tensor, cached per ratings tensor."""
+        return self._gather_cache.get(ratings).src
 
     def _patch_row_caches(self, ratings, touched: np.ndarray,
                           version: Optional[int], means=None) -> int:
@@ -800,19 +785,12 @@ class _SpillClusterCore:
         self._ratings_version = (version if version is not None
                                  else self._ratings_version + 1)
         if not chain_ok:
-            self._gather_cache = None
+            self._gather_cache.clear()
             self._csr_cache = None
             self._drop_extra_row_caches()
             return 0
-        patched = 0
         rows = torch.as_tensor(touched, device=ratings.device)
-        cache = self._gather_cache
-        if cache is not None and cache[0] is old:
-            self._gather_cache = (ratings, pred_mod.patch_gather_source(
-                cache[1], ratings, rows))
-            patched += 1
-        else:
-            self._gather_cache = None
+        patched = int(self._gather_cache.advance(old, ratings, rows))
         csr_cache = self._csr_cache
         if csr_cache is not None and csr_cache[0] is old:
             csr = _patch_csr(csr_cache[1], touched,
@@ -1806,8 +1784,7 @@ class ClusteredIndex(_SpillClusterCore):
         dev = ratings.device
         use_kernel = self._use_kernel()
         m = min(max_rerank, n)
-        r_gather = self._gather_source(ratings)
-        max_value = _abs_bound(r_gather) if use_kernel else None
+        r_gather, max_value = self._gather_cache.get(ratings)
         norms, counts = _user_norms_counts(ratings)
         n_probed = 0
         n_reranked = 0
@@ -2057,8 +2034,7 @@ class ClusteredIndex(_SpillClusterCore):
         dev = ratings.device
         use_kernel = self._use_kernel()
         groups = np.argsort(self.assign[q_all], kind="stable")
-        r_gather = self._gather_source(ratings)
-        max_value = _abs_bound(r_gather) if use_kernel else None
+        r_gather, max_value = self._gather_cache.get(ratings)
         neg = np.float32(nb.NEG_INF)
         for glo in range(0, len(groups), self.cfg.rerank_batch):
             gs = groups[glo:glo + self.cfg.rerank_batch]

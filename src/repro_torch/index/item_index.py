@@ -281,16 +281,12 @@ class ItemClusteredIndex(_SpillClusterCore):
     """
 
     _reprolint_race_ok = {
-        "_gather_cache": "immutable (ratings, operand) tuple swapped "
-                         "atomically; readers read the reference once and "
-                         "validate by ratings identity, so the worst "
-                         "interleaving is one redundant rebuild",
-        "_support_dense_cache": "same contract as _gather_cache: the "
-                                "scorer tables are patched copy-on-write "
-                                "and published as one tuple",
-        "_support_cache": "same contract as _gather_cache: the support "
-                          "CSR is spliced into a new matrix and published "
-                          "as one tuple",
+        "_support_dense_cache": "immutable (ratings, tables) tuple swapped "
+                                "atomically, read once, validated by "
+                                "ratings identity; patched copy-on-write",
+        "_support_cache": "same contract as _support_dense_cache: the "
+                          "support CSR is spliced into a new matrix and "
+                          "published as one tuple",
         "centroids": "replaced by one reference swap in refold/fit; the "
                      "kernel-scorer path reads it only through fitted "
                      "(a None check)",

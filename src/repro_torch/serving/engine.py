@@ -67,9 +67,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.cf_model import as_model_tensor
-from repro_torch.core.predict import (make_gather_source,
-                                      predict_from_neighbors_blocked,
-                                      topn_unseen)
+from repro_torch.core.predict import make_gather_source, recommend_block
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import (RecoveryPolicy,
                                                      StragglerWatchdog,
@@ -174,18 +172,6 @@ class DegradationLadder:
         else:
             self.calm_windows = 0
         return level, ""
-
-
-def _predict_users(users, ratings, scores, idx, means, *, topn,
-                   gather_src=None, use_kernel=False):
-    """Top-n unseen items for a padded batch of user ids (a tensor on the
-    model's device) — the engine's exact recommend arithmetic."""
-    pred = predict_from_neighbors_blocked(
-        ratings, scores[users], idx[users], means=means,
-        query_means=means[users], item_block=_ITEM_BLOCK,
-        gather_src=gather_src, use_kernel=use_kernel)
-    return topn_unseen(pred, ratings[users] > 0, topn,
-                       use_kernel=use_kernel)
 
 
 class BatchingServer:
@@ -301,11 +287,11 @@ class BatchingServer:
             return self._approx_engine.recommend(users, n=self.topn,
                                                  **(budget or {}))
         ratings, scores, idx, means = self._snapshot()
-        users_t = torch.as_tensor(users, device=ratings.device)
-        return _predict_users(users_t, ratings, scores, idx, means,
-                              topn=self.topn,
-                              gather_src=self._gather(ratings),
-                              use_kernel=self._use_kernel)
+        u = torch.as_tensor(users, device=ratings.device)
+        return recommend_block(ratings, self._gather(ratings), scores[u],
+                               idx[u], means, means[u], u, n=self.topn,
+                               item_block=_ITEM_BLOCK,
+                               use_kernel=self._use_kernel)
 
     # -- public API --------------------------------------------------------
     @property

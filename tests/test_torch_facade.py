@@ -17,6 +17,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import metrics
 from repro_torch.core import facade as tfacade
 from repro_torch.core.facade import BACKENDS, CFEngine
+from repro_torch.core.predict import make_gather_operand
 from repro_torch.core.similarity import (SIMILARITY_MEASURES,
                                          pairwise_similarity)
 from repro_torch.index import IndexConfig
@@ -116,10 +117,11 @@ def test_similarity_operand_choice(top, width, want):
     the int8 route's exact domain (max_value² · D ≤ 2^24), else f32."""
     r = torch.zeros((3, width))
     r[1, 2] = float(top)
-    src = r.to(torch.int8)
-    op, max_value = tengine._similarity_operand(r, src)
+    gather = make_gather_operand(r)
+    assert gather.src.dtype == torch.int8 and gather.max_value == top
+    op, max_value = tengine._similarity_operand(r, gather)
     if want == "int8":
-        assert op is src and max_value == top
+        assert op is gather.src and max_value == top
     else:
         assert op is r and max_value is None
 

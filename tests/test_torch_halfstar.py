@@ -1,9 +1,12 @@
 """Half-star ratings on the port's exact recommend path.
 
-* ``core/predict.py::_int8_exact`` checks in row blocks and reads one
-  flag: its verdict equals the whole-matrix expression on integer, half
-  star, negative, past-127, NaN and meta matrices at block sizes that
-  split the rows unevenly, and the int8 copy is the same bits.
+* ``core/predict.py::make_gather_operand`` checks in row blocks and
+  reads its verdict and bound in one host read: the verdict equals the
+  whole-matrix expression on integer, half star, negative, past-127, NaN
+  and meta matrices at block sizes that split the rows unevenly, the
+  bound is the largest rating, and the int8 copy is the same bits.  A
+  kernel fit builds the operand once and an update patches it once, to a
+  cold rebuild's bound.
 * ``obs``: span ``gather_source.check`` inside ``gather_source.build``,
   counters ``gather_source.check.blocks``, ``gather_source.int8`` /
   ``.f32`` and ``recommend.topn.unstaged``.
@@ -27,6 +30,7 @@ import torch
 from cfbench import gen_halfstar
 from cfbench.reference import compare, recommend as reference
 from repro_torch import obs
+from repro_torch.core import facade
 from repro_torch.core import predict as pr
 from repro_torch.core.facade import CFEngine
 from repro_torch.kernels import select as sel
@@ -83,25 +87,53 @@ def test_blocked_check_equals_whole_matrix_expression(monkeypatch, kind,
                                                       block_cells):
     monkeypatch.setattr(pr, "CHECK_BLOCK_CELLS", block_cells)
     r = matrix(kind, seed=len(kind))
-    assert pr._int8_exact(r) == whole_matrix_exact(r)
+    op = pr.make_gather_operand(r)
+    exact = whole_matrix_exact(r)
+    assert (op.src.dtype == torch.int8) == exact
+    assert op.max_value == (int(r.max()) if exact else None)
+
+
+# the Tensor methods that read a value to the host
+HOST_READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+              "__float__", "__index__")
+
+
+def count_host_reads(monkeypatch):
+    """The names of the host reads made from here on, in order."""
+    reads = []
+    for name in HOST_READS:
+        def spy(self, *args, _real=getattr(torch.Tensor, name), _name=name,
+                **kwargs):
+            reads.append(_name)
+            return _real(self, *args, **kwargs)
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    return reads
 
 
 @pytest.mark.parametrize("block_cells,blocks", [
     (1, 37), (12, 37), (55, 8), (33, 13), (1 << 28, 1)])
 def test_blocked_check_counts_its_blocks(monkeypatch, block_cells, blocks):
+    """Whatever its block count, the build reads the device once."""
     monkeypatch.setattr(pr, "CHECK_BLOCK_CELLS", block_cells)
     r = matrix("integer")                       # 37 × 11
     c = obs.counter("gather_source.check.blocks")
     before = c.value
-    pr._int8_exact(r)
+    reads = count_host_reads(monkeypatch)
+    op = pr.make_gather_operand(r)
+    assert len(reads) == 1, reads
+    monkeypatch.undo()
     assert c.value - before == blocks == math.ceil(
         37 / max(1, block_cells // 11))
+    assert op.src.dtype == torch.int8 and op.max_value == 5
 
 
 def test_meta_and_empty_matrices_count_as_exact(monkeypatch):
-    assert pr._int8_exact(torch.empty((10, 4), device="meta"))
+    meta = pr.make_gather_operand(torch.empty((10, 4), device="meta"))
+    assert meta.src.is_meta and meta.src.dtype == torch.int8
+    assert meta.max_value is None               # no data to bound
     monkeypatch.setattr(pr, "CHECK_BLOCK_CELLS", 1)
-    assert pr._int8_exact(torch.empty((0, 4)))
+    empty = pr.make_gather_operand(torch.empty((0, 4)))
+    assert empty.src.dtype == torch.int8 and empty.max_value == 0
     assert whole_matrix_exact(torch.empty((0, 4)))
 
 
@@ -144,6 +176,45 @@ def test_build_counts_its_source_and_nests_the_check(kind, source):
     spans = {s.name: s for s in obs.get_spans()}
     assert spans["gather_source.check"].parent_id == \
         spans["gather_source.build"].span_id
+
+
+def test_kernel_fit_builds_the_operand_once_and_an_update_patches_it(
+        monkeypatch):
+    """A kernel-backend fit builds the gather operand once and scores with
+    its bound; an update that lowers the largest rating (the one 5 becomes
+    a 3) patches it once, to a cold rebuild's bound, and the refit scores
+    with that bound without building another."""
+    g = torch.Generator().manual_seed(7)
+    r = torch.randint(0, 5, (48, 20), generator=g).float()      # 0..4
+    r[9, 3] = 5.0
+    seen, patches = [], []
+    real_sim = facade.ksim.fused_similarity
+    real_patch = pr.patch_gather_operand
+
+    def sim_spy(ra, rb, **kw):
+        seen.append(kw.get("max_value"))
+        return real_sim(ra, rb, **kw)
+
+    def patch_spy(*args):
+        patches.append(args)
+        return real_patch(*args)
+
+    monkeypatch.setattr(facade.ksim, "fused_similarity", sim_spy)
+    monkeypatch.setattr(pr, "patch_gather_operand", patch_spy)
+    builds = obs.counter("gather_source.int8")
+    before = builds.value
+    eng = CFEngine(r, k=5, block_size=16, backend="kernel",
+                   device="cpu").fit()
+    assert builds.value - before == 1
+    assert seen and set(seen) == {5}
+    seen.clear()
+    eng.update_ratings([9], [3], [3.0], oracle_check=True)
+    assert builds.value - before == 1 and len(patches) == 1
+    key, op = eng._gather_cache.entry
+    cold = pr.make_gather_operand(eng.ratings)
+    assert key is eng.ratings and op.max_value == cold.max_value == 4
+    assert torch.equal(op.src, cold.src)
+    assert seen and set(seen) == {4}
 
 
 # -- kernel 5's staging limit --------------------------------------------

@@ -254,9 +254,9 @@ def test_update_stream_keeps_item_index_consistent(features):
         # cold build gives
         assert ix.last_refold.caches_patched == 1
         assert ix._support_dense_cache is None
-        cached = ix._gather_cache
-        assert cached[0] is eng.ratings
-        assert torch.equal(cached[1], eng.ratings.to(torch.int8))
+        key, op = ix._gather_cache.entry
+        assert key is eng.ratings
+        assert torch.equal(op.src, eng.ratings.to(torch.int8))
     assert ix.check_consistent(eng.ratings, eng.means)
     e_s, e_i = eng.recommend(n=5, mode="exact")
     s, i = eng.recommend(n=5)

@@ -19,7 +19,6 @@ FIT_TREE = {
     "fit.topk": "engine.fit",
     "gather_source.build": "fit.topk",
     "gather_source.check": "gather_source.build",
-    "topk.operand": "fit.topk",
     "topk.block": "fit.topk",
     "topk.score": "topk.block",
     "topk.merge": "topk.block",
@@ -77,7 +76,7 @@ def test_fit_and_recommend_span_trees_under_the_profiler(tmp_path,
     for name in ("recommend.ids", "recommend.predict", "recommend.topn"):
         assert names.count(name) == 5
     for name in ("engine.fit", "engine.recommend", "fit.publish",
-                 "topk.check_bad", "topk.operand", "gather_source.build",
+                 "topk.check_bad", "gather_source.build",
                  "gather_source.check"):
         assert names.count(name) == 1, name
     # the spans change no result

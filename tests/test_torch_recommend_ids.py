@@ -10,8 +10,11 @@ ids in numpy and copies them to the device.  ``USER_BLOCK`` is patched to
 oracle's bit for bit, and ``obs`` counter ``recommend.ids.staged`` rises
 by one an exact call whatever its block count.
 
-The ``cuda`` fixture's case profiles an exact call of three blocks on the
-card and skips, with a reason, without a CUDA card.  On the card:
+The ``cuda`` fixture's cases profile an exact call of three blocks and a
+kernel fit at ML-1M's 6,040 × 3,952 on the card (at most three host waits
+in ``engine.fit``: the gather operand's one read, the rows-past-bound
+count, the publish fence), and skip, with a reason, without a CUDA card.
+On the card:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_recommend_ids.py``.
 """
 
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import facade
+from repro_torch.core import predict as pr
 from repro_torch.core.facade import CFEngine
 
 BLOCK = 8
@@ -70,7 +74,7 @@ def per_block_copies(eng, uids, n):
         ids_pad[:len(ids)] = ids
         ids_t = torch.as_tensor(ids_pad, device=eng.device)
         safe = ids_t.clamp(0, eng.n_users - 1)
-        s, i = facade._recommend_block(
+        s, i = pr.recommend_block(
             ratings_, src, scores[safe], idx[safe], means, means[safe],
             ids_t, n=n, item_block=facade.ITEM_BLOCK,
             use_kernel=eng.use_kernel)
@@ -207,3 +211,21 @@ def test_card_exact_recommend_waits_at_most_once(cuda, tmp_path):
         waits = waits_inside(prof, tmp_path)
         assert len(waits) <= 1, waits
     assert_bitwise(got, per_block_copies(eng, uids, 10))
+
+
+def test_card_kernel_fit_waits_at_most_three_times(cuda, tmp_path):
+    """A kernel fit of a fresh engine over ML-1M's 6,040 × 3,952, as each
+    refit step makes one: at most three host waits in ``engine.fit``, where
+    reading the int8 copy's exactness and its bound apart made four."""
+    r = torch.as_tensor(ratings(6040, 3952, seed=5), device=cuda)
+    CFEngine(r, k=40, device=cuda).fit()         # warm: builds the kernels
+    torch.cuda.synchronize()
+    eng = CFEngine(r, k=40, device=cuda)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.fit()
+        torch.cuda.synchronize()
+    waits = waits_inside(prof, tmp_path, root="engine.fit")
+    assert len(waits) <= 3, waits
+    assert eng._gather_cache.entry[1].max_value == 5

@@ -225,13 +225,15 @@ def test_patched_caches_equal_cold_rebuild():
                            rng.integers(0, 6, 5).astype(np.float32))
         assert ix.last_refold.caches_patched >= 3
         assert ix._csr_cache[0] is eng.ratings
-        assert ix._gather_cache[0] is eng.ratings
+        key, op = ix._gather_cache.entry
+        assert key is eng.ratings
         cold = ClusteredIndex(IndexConfig(n_clusters=8))
         for got, want in zip(ix._csr_cache[1],
                              cold._ratings_csr(eng.ratings)):
             np.testing.assert_array_equal(got, want)
-        assert torch.equal(ix._gather_cache[1],
-                           pred_mod.make_gather_source(eng.ratings))
+        cold_op = pred_mod.make_gather_operand(eng.ratings)
+        assert torch.equal(op.src, cold_op.src)
+        assert op.max_value == cold_op.max_value
         b_got, l_got, t_got = ix._csr_cache[2]
         b_want, l_want, t_want = cold._item_tables(eng.ratings)
         np.testing.assert_array_equal(b_got, b_want)

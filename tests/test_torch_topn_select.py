@@ -185,8 +185,10 @@ def test_batching_server_scoring_route_follows_use_kernel(use_kernel,
     ratings, scores, idx, means = eng.snapshot()
     users = torch.tensor([3, 0, 17, 39])
     sel0, sort0 = counts()
-    got = serving_engine._predict_users(users, ratings, scores, idx, means,
-                                        topn=6, use_kernel=use_kernel)
+    got = pr.recommend_block(ratings, ratings, scores[users], idx[users],
+                             means, means[users], users, n=6,
+                             item_block=serving_engine._ITEM_BLOCK,
+                             use_kernel=use_kernel)
     sel1, sort1 = counts()
     assert (sel1 - sel0, sort1 - sort0) == \
         ((1, 0) if route == "select" else (0, 1))

@@ -258,10 +258,11 @@ def exact_kernels(dev) -> bool:
 
 def fit_loop(train, dev):
     """Wall time of the exact fit's candidate loop
-    (``CFEngine._kernel_topk``, six launches at ML-1M), median of 11
-    after a warm-up; where the tree counts rows past ``max_value`` into
-    the fit's one counter, also with the wrapper's own counter (a wait
-    after every launch), the two forms in alternating order."""
+    (``CFEngine._topk`` on the kernel backend, six launches at ML-1M),
+    median of 11 after a warm-up; where the tree counts rows past
+    ``max_value`` into the fit's one counter, also with the wrapper's own
+    counter (a wait after every launch), the two forms in alternating
+    order."""
     import statistics
     import time
     from repro_torch.core.facade import CFEngine
@@ -284,7 +285,7 @@ def fit_loop(train, dev):
             ksim.fused_similarity = fn
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            eng._kernel_topk(eng.ratings)
+            eng._topk(eng.ratings)
             torch.cuda.synchronize()
             if rep:
                 times[name].append((time.perf_counter() - t0) * 1e3)
